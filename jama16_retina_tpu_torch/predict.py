@@ -1,0 +1,133 @@
+"""Predict referable-DR probability for raw fundus photographs.
+
+The port's counterpart of the repository's ``predict.py`` (binary head):
+
+    python -m jama16_retina_tpu_torch.predict --checkpoint_dir=DIR \\
+        --images photos/ [--threshold=0.2327] [--device=cpu]
+
+Each image becomes one JSON line on stdout, in input order:
+``{"image", "prob", ["referable", "threshold"], "quality",
+["gradable"], "n_models"}``; an image that cannot be read or holds no
+fundus becomes ``{"image", "error"}``. Exit codes: 0 when at least one
+image scored, 1 when none did, 2 under ``--strict`` when any image was
+skipped. Member dirs hold ``params.npz`` (``utils/checkpoint.py``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import glob
+import json
+import os
+import sys
+
+_EXTS = (".jpg", ".jpeg", ".png", ".tif", ".tiff", ".bmp")
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m jama16_retina_tpu_torch.predict",
+        description=__doc__.split("\n\n")[0],
+    )
+    p.add_argument("--config", default="eyepacs_binary", help="preset name")
+    p.add_argument("--set", action="append", default=[],
+                   help="config override section.field=value (repeatable)")
+    p.add_argument("--checkpoint_dir", default="",
+                   help="member dir, or an ensemble root of member_NN dirs")
+    p.add_argument("--ensemble_dir", action="append", default=[],
+                   help="explicit member dir (repeatable)")
+    p.add_argument("--images", action="append", default=[],
+                   help="image file, directory, or glob (repeatable)")
+    p.add_argument("--threshold", type=float, default=-1.0,
+                   help="decision threshold from an operating point; <0 "
+                        "emits probabilities only")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--batch_size", type=int, default=8,
+                   help="prediction batch size (the one padded bucket)")
+    p.add_argument("--ben_graham", action="store_true",
+                   help="apply the ben-graham enhancement the training "
+                        "data was preprocessed with")
+    p.add_argument("--min_quality", type=float, default=0.0,
+                   help="rows with gradability below this gain "
+                        "\"gradable\": false (0 flags none)")
+    p.add_argument("--strict", action="store_true",
+                   help="exit 2 when any input image was skipped")
+    p.add_argument("--host_workers", type=int, default=0,
+                   help="fundus-normalization threads (0 = serve."
+                        "host_workers, whose 0 is auto)")
+    return p
+
+
+def _expand(patterns: "list[str]") -> "list[str]":
+    """Every pattern must match at least one image: a glob or directory
+    that matches nothing is an error, not a silent skip."""
+    paths: list = []
+    for pat in patterns:
+        if os.path.isdir(pat):
+            matched = [p for p in sorted(glob.glob(os.path.join(pat, "*")))
+                       if p.lower().endswith(_EXTS)]
+        elif any(ch in pat for ch in "*?["):
+            matched = sorted(glob.glob(pat))
+        elif os.path.exists(pat):
+            matched = [pat]
+        else:
+            matched = []
+        if not matched:
+            raise FileNotFoundError(f"--images pattern matched nothing: {pat}")
+        paths.extend(matched)
+    return paths
+
+
+def main(argv: "list[str] | None" = None) -> int:
+    args = _parser().parse_args(argv)
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.serve import host
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    cfg = configs.override(configs.get_config(args.config), args.set)
+    if cfg.model.head != "binary":
+        raise NotImplementedError(
+            "model.head=multi is not ported yet; see ROADMAP.md Queue A "
+            "item 10 (head=multi)")
+    dirs = list(args.ensemble_dir)
+    if not dirs:
+        if not args.checkpoint_dir:
+            raise SystemExit("--checkpoint_dir or --ensemble_dir required")
+        dirs = ckpt_lib.discover_member_dirs(args.checkpoint_dir)
+    paths = _expand(args.images)
+
+    pre = host.preprocess_paths(
+        paths, cfg.model.image_size, ben_graham=args.ben_graham,
+        workers=args.host_workers or cfg.serve.host_workers,
+    )
+    for p, why in pre.skipped:
+        print(json.dumps({"image": p, "error": why}))
+    if not pre.kept:
+        return 1
+
+    # One bucket at --batch_size: every row runs at the same padded shape.
+    cfg = cfg.replace(serve=dataclasses.replace(
+        cfg.serve, max_batch=args.batch_size,
+        bucket_sizes=(args.batch_size,)))
+    engine = ServingEngine(cfg, dirs, device=args.device)
+    probs = engine.probs(pre.images)
+
+    for p, pr, qual in zip(pre.kept, probs, pre.qualities):
+        score = float(pr)
+        row = {"image": p, "prob": round(score, 6)}
+        if args.threshold >= 0:
+            row["referable"] = bool(score >= args.threshold)
+            row["threshold"] = args.threshold
+        row["quality"] = round(float(qual), 4)
+        if args.min_quality > 0:
+            row["gradable"] = bool(qual >= args.min_quality)
+        row["n_models"] = len(dirs)
+        print(json.dumps(row))
+    return 2 if pre.skipped and args.strict else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

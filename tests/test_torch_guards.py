@@ -1,0 +1,112 @@
+"""Ground rules of the port: it imports neither JAX nor the JAX package,
+its entry points never run on the CPU unless asked, its kernel wrapper
+never falls back from the card to the plain version, and config knobs
+it cannot honour raise instead of being ignored."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from jama16_retina_tpu_torch import configs, models
+from jama16_retina_tpu_torch.ops import build, serve_preprocess
+from jama16_retina_tpu_torch.serve import host
+from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import jama16_retina_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
+             or m == "jama16_retina_tpu" or m.startswith("jama16_retina_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.split(" ", 1)
+    assert int(n_modules) >= 15
+    assert bad.strip() == "[]"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_engine_defaults_to_the_card_and_raises_without_one(no_card):
+    cfg = configs.get_config("smoke")
+    sds = [models.build(cfg.model).state_dict()]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, state_dicts=sds)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        host.prepare_images(np.zeros((1, 8, 8, 3), np.uint8), fused=True)
+    assert ServingEngine(cfg, state_dicts=sds, device="cpu").n_members == 1
+
+
+def test_kernel_wrapper_never_falls_back_from_the_card():
+    imgs = torch.zeros((2, 8, 8, 3), dtype=torch.uint8)
+    before = serve_preprocess.launches
+    with pytest.raises(ValueError, match="requested"):
+        serve_preprocess.fused_serve_preprocess(imgs, device="cuda")
+    with pytest.raises(TypeError, match="uint8"):
+        serve_preprocess.fused_serve_preprocess(imgs.float())
+    with pytest.raises(ValueError, match=r"\[B, H, W, 3\]"):
+        serve_preprocess.fused_serve_preprocess(imgs[..., :2])
+    assert serve_preprocess.launches == before
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    assert "serve_preprocess" in build.sources()
+    assert build.library_path("serve_preprocess").suffix == ".so"
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+
+
+@pytest.mark.parametrize("item,exc", [
+    ("serve.dtype=bf16", NotImplementedError),
+    ("serve.member_parallel=true", NotImplementedError),
+    ("serve.compile_cache_dir=/x", NotImplementedError),
+    ("model.stem_s2d=true", NotImplementedError),
+    ("model.remat_stem=true", NotImplementedError),
+    ("model.head=multi", NotImplementedError),
+    ("model.arch=resnet50", NotImplementedError),
+])
+def test_unported_knobs_raise(item, exc):
+    cfg = configs.override(configs.get_config("smoke"), [item])
+    with pytest.raises(exc, match="ROADMAP"):
+        configs.check_supported(cfg)
+
+
+@pytest.mark.parametrize("item", [
+    "train.steps=3", "serve.max_wait_ms=1", "model.aux_weight=0.1",
+    "serve", "serve.max_batch", "serve.max_batch.x=1",
+])
+def test_unknown_or_malformed_overrides_raise(item):
+    with pytest.raises(ValueError):
+        configs.override(configs.get_config("smoke"), [item])
+
+
+def test_overrides_parse_like_the_jax_package():
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "serve.bucket_sizes=8,16", "eval.tta=true", "model.image_size=139",
+        "serve.fused_preprocess=1"])
+    assert cfg.serve.bucket_sizes == (8, 16) and cfg.eval.tta is True
+    assert cfg.model.image_size == 139 and cfg.serve.fused_preprocess is True
+    assert configs.get_config("eyepacs_binary_quality").eval.tta is True
+    with pytest.raises(ValueError, match="unknown config preset"):
+        configs.get_config("icdr5")
