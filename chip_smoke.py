@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``jama16_retina_tpu_torch``) on one
-CUDA card: the quickest proof that the port still builds and serves.
+CUDA card: the quickest proof that the port still builds, serves and
+trains.
 
     python3 chip_smoke.py [--seed 0] [--profile DIR]
 
@@ -9,22 +10,46 @@ Phases, any failure exits nonzero before the result line:
 1. device   - a CUDA card is required; prints its name, count, power limit.
 2. build    - compiles every kernel from ``ops/csrc`` (``nvcc -Xptxas -v``).
 3. kernels  - each kernel against its plain PyTorch version on the card,
-              at the serve path's shapes: rows bitwise, sums exactly.
+              at the shapes its path gives it: B4 (serve preprocess) rows
+              bitwise and sums exactly; B1 (colour jitter) and B2
+              (normalize + colour jitter) bitwise at [32, 299, 299, 3] and
+              [3, 37, 53, 3]; B3 (AdamW) bitwise over the full
+              Inception-v3 leaf set (196 leaves) for 3 steps.
 4. serve    - k=2 random Inception-v3 members (299 px, aux head, random BN
               statistics) written as ``params.npz`` member dirs; a float32
               ``ServingEngine`` with ``serve.fused_preprocess=true`` answers
               requests of 1, 8 and 13 rendered fundus canvases. Launch
-              counts are reset just before and read just after; every
-              kernel must have launched once per chunk. Probabilities must
-              be finite in [0, 1] and match the same engine on the CPU to
-              atol 1e-4 (TF32 off). The bf16 preset's deviation from
-              float32 is reported.
-5. times    - kernel and plain-version device time (``torch.profiler``)
-              and per-call time (CUDA events), request latency (host clock
-              around a synchronize) with the device's idle share, peak
-              device memory; printed, not asserted. ``--profile DIR``
-              adds a table of device time by kernel for one request,
-              written into DIR.
+              counts are reset just before and read just after; B4 must
+              have launched once per chunk. Probabilities must be finite
+              in [0, 1] and match the same engine on the CPU to atol 1e-4
+              (TF32 off). The bf16 preset's deviation from float32 is
+              reported.
+5. train    - ``trainer.fit`` of ``eyepacs_binary`` (Inception-v3, 299 px,
+              aux head, bf16 compute, batch 32) on 64 rendered canvases for
+              8 steps in each step form from one seeded init: the preset (B1 + plain AdamW) and
+              ``train.use_pallas_fused=true`` (B2 + B3). Launch counts are
+              reset just before and read just after each run: B1 = steps,
+              B2 = B3 = 0 in the preset run; B2 = B3 = steps, B1 = 0 in the
+              fused run. Losses must be finite and the trained member's
+              parameters must differ from the init. Then one train forward
+              and backward (TF32 off, dropout 0) at batch 4 on the card
+              against the CPU, from one init and one augment draw. In
+              float32: loss within 1e-3, gradients within 8 % relative L2
+              and cosine >= 0.995 over all leaves (the float32 train
+              gradient is ill-conditioned; see tests/test_torch_train.py),
+              the worst leaf's relative L2 reported. In float64 (float32
+              heads): loss within 1e-6 and every leaf within 1e-6 relative
+              L2, so a fault in one small leaf cannot hide. The augmented
+              batch is made on both devices and compared (1e-6); the
+              CPU's feeds both networks.
+6. times    - kernel and plain-version device time (``torch.profiler``)
+              beside each kernel's bound, B3's library yardstick
+              (``torch.optim.AdamW(fused=True)``), request latency with the
+              device's idle share, and per step form the train step time
+              (median after warm-up), images/s, idle share and peak device
+              memory; printed, not asserted. ``--profile DIR`` adds tables
+              of device time by kernel for one request and one train step
+              of each form, written into DIR.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels'
@@ -35,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -48,6 +74,11 @@ FP32_FLOPS_PER_S = 67e12      # the same, float32 outside tensor cores
 REQUESTS = (1, 8, 13)
 KERNEL_SHAPES = ((8, 299, 299, 3), (16, 299, 299, 3), (64, 299, 299, 3),
                  (3, 37, 53, 3))
+JITTER_SHAPES = ((32, 299, 299, 3), (3, 37, 53, 3))
+TRAIN_BATCH = 32
+TRAIN_IMAGES = 64
+TRAIN_STEPS = 8
+TRAIN_FORMS = {"preset": [], "fused": ["train.use_pallas_fused=true"]}
 
 
 def log(msg: str) -> None:
@@ -149,6 +180,96 @@ def phase_kernels(torch, sp, dev, seed: int) -> float:
     return worst
 
 
+def jitter_inputs(torch, dev, shape, gen):
+    """Random uint8 images and colour params for B1 and B2 at ``shape``."""
+    from jama16_retina_tpu_torch.ops import color_jitter as cj
+
+    b = shape[0]
+    imgs = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                         generator=gen)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(b, generator=gen, device=dev)
+
+    sat, theta, contrast, bright = (u(0.8, 1.2), u(-0.3, 0.3),
+                                    u(0.75, 1.25), u(-0.25, 0.25))
+    m = cj.chroma_matrix(sat, theta)
+    affine, offset = cj.color_affine_from_params(
+        cj.channel_means_u8(imgs), bright, contrast, sat, theta)
+    return imgs, (affine, offset), (m, contrast, bright)
+
+
+def phase_jitter_kernels(torch, dev, seed: int) -> dict:
+    """B1 and B2 bitwise against their plain versions."""
+    from jama16_retina_tpu_torch.ops import color_jitter as cj
+
+    worst = {"fused_color_jitter": 0.0, "fused_normalize_color_jitter": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for shape in JITTER_SHAPES:
+        imgs, b1_args, b2_args = jitter_inputs(torch, dev, shape, gen)
+        for name, kernel, plain, args in (
+                ("fused_color_jitter", cj.fused_color_jitter,
+                 cj.color_jitter_reference, b1_args),
+                ("fused_normalize_color_jitter",
+                 cj.fused_normalize_color_jitter,
+                 cj.normalize_color_jitter_reference, b2_args)):
+            got = kernel(imgs, *args)
+            torch.cuda.synchronize()
+            want = plain(imgs, *args)
+            err = float((got - want).abs().max())
+            worst[name] = max(worst[name], err)
+            check(torch.equal(got, want),
+                  f"{name} differs from its plain version at {shape}: "
+                  f"max {err}")
+            log(f"kernels: {name} {list(shape)} bitwise")
+    return worst
+
+
+def inception_leaves(torch, dev, seed: int):
+    """The parameter leaves of Inception-v3 with aux head (299 px) as the
+    train state holds them (channels_last convs), with random grads and
+    zero moments, and their decay flags."""
+    from jama16_retina_tpu_torch import configs, models
+    from jama16_retina_tpu_torch.models import init
+
+    cfg = configs.get_config("eyepacs_binary")
+    model = init.init_flax_default(models.build(cfg.model), seed).to(
+        dev, memory_format=torch.channels_last)
+    params = [p.detach().clone() for p in model.parameters()]
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    grads = [torch.randn(p.shape, generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last if p.ndim == 4
+        else torch.contiguous_format) for p in params]
+    return params, grads, [p.ndim >= 2 for p in params]
+
+
+def phase_adamw_kernel(torch, dev, seed: int) -> float:
+    """B3 bitwise against the plain AdamW over every Inception-v3 leaf,
+    three steps from zero moments."""
+    from jama16_retina_tpu_torch.ops import adamw
+
+    pk, grads, decay = inception_leaves(torch, dev, seed)
+    pp = [p.clone() for p in pk]
+    mk, vk, mp, vp = ([torch.zeros_like(p) for p in pk] for _ in range(4))
+    n = sum(p.numel() for p in pk)
+    worst = 0.0
+    for step in range(3):
+        t = torch.tensor(float(step + 1), device=dev)
+        scalars = torch.stack([torch.tensor(1e-3, device=dev),
+                               1.0 / (1.0 - torch.pow(0.9, t)),
+                               1.0 / (1.0 - torch.pow(0.999, t))])
+        adamw.fused_adamw_update(pk, grads, mk, vk, decay, scalars, 4e-5)
+        torch.cuda.synchronize()
+        adamw.adamw_reference(pp, grads, mp, vp, decay, scalars, 4e-5)
+        for a, b in zip(pk + mk + vk, pp + mp + vp):
+            worst = max(worst, float((a - b).abs().max()))
+            check(torch.equal(a, b), "fused_adamw_update differs from its "
+                  f"plain version at step {step + 1}")
+    log(f"kernels: fused_adamw_update {len(pk)} leaves, {n} elements, 3 "
+        "steps bitwise")
+    return worst
+
+
 def kernel_times(torch, sp, dev, batch: int) -> dict:
     """Kernel and plain-version times at [batch, 299, 299, 3], cycling
     over input sets that together exceed twice the 50 MB L2, so each call
@@ -181,6 +302,75 @@ def kernel_times(torch, sp, dev, batch: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def jitter_times(torch, dev) -> dict:
+    """B1 and B2 device time (kernel and plain version) at the train
+    batch [32, 299, 299, 3], cycling over input sets that together exceed
+    the 50 MB L2, beside the bound: each input byte read once and each
+    output written once (B2's two passes read the bytes twice: 51.5 MB)."""
+    from jama16_retina_tpu_torch.ops import color_jitter as cj
+
+    shape = (TRAIN_BATCH, 299, 299, 3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sets = [jitter_inputs(torch, dev, shape, gen) for _ in range(3)]
+    pixels = TRAIN_BATCH * 299 * 299
+    bytes_ms = (pixels * 15 + TRAIN_BATCH * 12 * 4) / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for name, kernel, plain, which, ops in (
+            ("fused_color_jitter", cj.fused_color_jitter,
+             cj.color_jitter_reference, 1, 30),
+            ("fused_normalize_color_jitter", cj.fused_normalize_color_jitter,
+             cj.normalize_color_jitter_reference, 2, 33)):
+        def run(fn):
+            return lambda i: fn(sets[i % 3][0], *sets[i % 3][which])
+
+        ops_ms = ops * pixels / FP32_FLOPS_PER_S * 1e3
+        out[name] = {"shape": list(shape),
+                     "ms": device_ms(run(kernel), 50),
+                     "plain_ms": device_ms(run(plain), 20),
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations",
+                     "library_ms": None}
+    return out
+
+
+def adamw_times(torch, dev, seed: int) -> dict:
+    """B3 device time over the Inception-v3 leaf set against its bound
+    (28 bytes per element: p, g, mu, nu read, p, mu, nu written), the
+    plain version, and ``torch.optim.AdamW(fused=True)`` over the same
+    tensors in two param groups (decayed, undecayed): PyTorch's own
+    fused AdamW, timed as a yardstick and never called by the port."""
+    from jama16_retina_tpu_torch.ops import adamw
+
+    params, grads, decay = inception_leaves(torch, dev, seed)
+    mu, nu = ([torch.zeros_like(p) for p in params] for _ in range(2))
+    scalars = torch.tensor([1e-3, 10.0, 1000.0], device=dev)
+    n = sum(p.numel() for p in params)
+    bytes_ms = 28 * n / HBM_BYTES_PER_S * 1e3
+    ops_ms = 15 * n / FP32_FLOPS_PER_S * 1e3
+
+    def kernel(i):
+        adamw.fused_adamw_update(params, grads, mu, nu, decay, scalars, 4e-5)
+
+    def plain(i):
+        adamw.adamw_reference(params, grads, mu, nu, decay, scalars, 4e-5)
+
+    lib_params = [torch.nn.Parameter(p.clone()) for p in params]
+    for q, g in zip(lib_params, grads):
+        q.grad = g
+    opt = torch.optim.AdamW([
+        {"params": [q for q, d in zip(lib_params, decay) if d],
+         "weight_decay": 4e-5},
+        {"params": [q for q, d in zip(lib_params, decay) if not d],
+         "weight_decay": 0.0}], lr=1e-3, fused=True)
+    return {"leaves": len(params), "elements": n,
+            "ms": device_ms(kernel, 20),
+            "plain_ms": device_ms(plain, 5),
+            "library_ms": device_ms(lambda i: opt.step(), 20),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def phase_serve(torch, seed: int) -> dict:
     from jama16_retina_tpu_torch import configs, models
     from jama16_retina_tpu_torch.data import synthetic
@@ -190,8 +380,6 @@ def phase_serve(torch, seed: int) -> dict:
     from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
     import numpy as np
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     bf16_cfg = configs.override(configs.get_config("eyepacs_binary"),
                                 ["serve.fused_preprocess=true"])
     cfg = configs.override(bf16_cfg, ["model.compute_dtype=float32"])
@@ -289,6 +477,224 @@ def request_times(torch, serve: dict, card: str) -> None:
         del engine1
 
 
+def train_config(form: str, steps: int, seed: int):
+    from jama16_retina_tpu_torch import configs
+
+    return configs.override(configs.get_config("eyepacs_binary"), [
+        f"train.steps={steps}", "train.log_every=1", f"train.seed={seed}",
+        f"data.batch_size={TRAIN_BATCH}", *TRAIN_FORMS[form]])
+
+
+def phase_train(torch, seed: int, steps: int) -> dict:
+    """The train main path, once per step form, through ``trainer.fit``."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import models, trainer
+    from jama16_retina_tpu_torch.models import convert, init
+    from jama16_retina_tpu_torch.ops import adamw
+    from jama16_retina_tpu_torch.ops import color_jitter as cj
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    init_flat = convert.torch_to_flax(init.init_flax_default(
+        models.build(train_config("preset", steps, seed).model), seed))
+    n_leaves = sum(k.startswith("params/") for k in init_flat)
+    want = {"preset": {"fused_color_jitter": steps,
+                       "fused_normalize_color_jitter": 0,
+                       "fused_adamw_update": 0},
+            "fused": {"fused_color_jitter": 0,
+                      "fused_normalize_color_jitter": steps,
+                      "fused_adamw_update": steps}}
+    out = {}
+    for form in TRAIN_FORMS:
+        cfg = train_config(form, steps, seed)
+        workdir = SCRATCH / "train" / form
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # The main path: counts set to 0 just before, read just after.
+        cj.launches.update(dict.fromkeys(cj.launches, 0))
+        adamw.launches = 0
+        results = trainer.fit(cfg, str(workdir), TRAIN_IMAGES, device="cuda")
+        counts = {**cj.launches, "fused_adamw_update": adamw.launches}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"train: {form}: {steps} steps of batch {TRAIN_BATCH} at 299 px "
+            f"on {TRAIN_IMAGES} canvases in {results['train_sec']:.2f} s "
+            f"(first steps included); launches {counts}")
+        check(counts == want[form],
+              f"{form} run launched {counts}, want {want[form]}")
+        losses = list(results["logged_losses"].values())
+        check(len(losses) == steps and bool(np.all(np.isfinite(losses))),
+              f"{form} losses not finite: {losses}")
+        trained = ckpt_lib.load_member(str(workdir))
+        changed = sum(not np.array_equal(trained[k], init_flat[k])
+                      for k in init_flat if k.startswith("params/"))
+        log(f"train: {form}: losses {[round(x, 4) for x in losses]}; "
+            f"{changed} of {n_leaves} parameter leaves changed; peak device "
+            f"memory {peak} bytes")
+        check(changed == n_leaves,
+              f"{form}: only {changed} of {n_leaves} leaves changed")
+        out[form] = {"launches": counts, "losses": losses, "peak": peak}
+    return out
+
+
+def float64_twin(torch, model, cfg):
+    """``model`` (Inception-v3) in float64 with its float32 heads, as the
+    Flax module makes its heads whatever the compute dtype."""
+    from jama16_retina_tpu_torch.models import inception_v3
+
+    twin = inception_v3.InceptionV3(
+        num_classes=cfg.model.num_classes, aux_head=cfg.model.aux_head,
+        dropout_rate=cfg.model.dropout_rate, dtype=torch.float64,
+        image_size=cfg.model.image_size)
+    twin.load_state_dict(model.state_dict())
+    twin = twin.to(torch.float64)
+    twin.Logits.float()
+    twin.AuxLogits.Logits.float()
+    return twin
+
+
+def phase_train_agreement(torch, seed: int) -> dict:
+    """One train forward and backward (TF32 off, dropout 0) at batch 4 on
+    the card and on the CPU, from one init, in float32 and in float64:
+    loss and gradients compared over all leaves and leaf by leaf. The
+    preset augment route runs on both devices from one set of draws and
+    its outputs are compared (the card's cos/sin may round differently);
+    the CPU's batch then feeds both networks, as a 1-ulp input difference
+    alone moves the float64 gradient by about 1 % (BatchNorm over small
+    maps amplifies it)."""
+    import copy
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, models, train_lib
+    from jama16_retina_tpu_torch.data import augment, synthetic
+    from jama16_retina_tpu_torch.models import init
+
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "model.compute_dtype=float32", "model.dropout_rate=0.0"])
+    base = init.init_flax_default(models.build(cfg.model), seed)
+    images, grades = synthetic.make_dataset(
+        4, synthetic.SynthConfig(image_size=299), seed=seed + 9)
+    drawn = augment._draw_params(torch.Generator().manual_seed(seed), 4,
+                                 cfg.data, "cpu")
+    x = {dev: augment.augment_batch(
+        None, torch.from_numpy(images).to(dev), cfg.data,
+        params={k: v.to(dev) for k, v in drawn.items()}).cpu()
+        for dev in ("cpu", "cuda")}
+    aug_diff = float((x["cuda"] - x["cpu"]).abs().max())
+    log(f"train: augmented batch 4 card vs CPU max |diff| {aug_diff:.3e} "
+        "(limit 1e-6); the CPU's batch feeds both devices below")
+    check(aug_diff <= 1e-6, "card and CPU augment disagree")
+    out = {"augment_max_abs_diff": aug_diff}
+    for dtype, loss_tol in ((torch.float32, 1e-3), (torch.float64, 1e-6)):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            model = (copy.deepcopy(base) if dtype == torch.float32
+                     else float64_twin(torch, base, cfg))
+            model = model.to(dev, memory_format=torch.channels_last)
+            logits, aux = model(x["cpu"].to(dev).permute(0, 3, 1, 2).to(dtype),
+                                train=True)
+            loss = train_lib.loss_fn(logits, aux,
+                                     torch.from_numpy(grades).to(dev), cfg)
+            loss.backward()
+            res[dev] = (loss.item(), {
+                k: p.grad.detach().double().cpu().reshape(-1)
+                for k, p in model.named_parameters()})
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res["cuda"]
+        a, b = torch.cat(list(g_gpu.values())), torch.cat(list(g_cpu.values()))
+        rel = float((a - b).norm() / b.norm())
+        cos = float(a @ b / (a.norm() * b.norm()))
+        per_leaf = {k: float((g_gpu[k] - g_cpu[k]).norm() / g_cpu[k].norm())
+                    for k in g_cpu}
+        worst = max(per_leaf, key=per_leaf.get)
+        name = str(dtype).removeprefix("torch.")
+        log(f"train: {name} batch 4 card vs CPU: loss {l_gpu:.9f} vs "
+            f"{l_cpu:.9f} (|diff| {abs(l_gpu - l_cpu):.3e}, limit "
+            f"{loss_tol:g}); gradient relative L2 {rel:.3e}, cosine "
+            f"{cos:.9f}; worst of {len(per_leaf)} leaves {worst} "
+            f"{per_leaf[worst]:.3e}")
+        check(abs(l_gpu - l_cpu) <= loss_tol,
+              f"card and CPU {name} train losses disagree")
+        if dtype == torch.float32:
+            check(rel <= 0.08 and cos >= 0.995,
+                  "card and CPU float32 gradients disagree (limits: "
+                  "relative L2 0.08, cosine 0.995)")
+        else:
+            check(per_leaf[worst] <= 1e-6,
+                  f"card and CPU float64 gradients disagree in {worst}")
+        out[name] = {"loss_diff": abs(l_gpu - l_cpu), "grad_rel_l2": rel,
+                     "grad_cos": cos, "worst_leaf": worst,
+                     "worst_leaf_rel_l2": per_leaf[worst]}
+    return out
+
+
+def train_step_times(torch, seed: int, smi: str) -> dict:
+    """Per step form: train step time (host clock around a synchronized
+    step; median of 10 after 3 warm), images/s, and the device's busy
+    time per step (profiler, 3 steps), whose complement is its idle
+    share."""
+    from jama16_retina_tpu_torch import models, train_lib
+    from jama16_retina_tpu_torch.data import synthetic
+    from jama16_retina_tpu_torch.models import init
+
+    images, grades = synthetic.make_dataset(
+        TRAIN_BATCH, synthetic.SynthConfig(image_size=299), seed=seed + 7)
+    batch = {"image": torch.from_numpy(images).cuda(),
+             "grade": torch.from_numpy(grades).cuda()}
+    out = {}
+    for form in TRAIN_FORMS:
+        cfg = train_config(form, 1000, seed)
+        state = train_lib.create_state(
+            cfg, init.init_flax_default(models.build(cfg.model), seed), "cuda")
+
+        def step(i):
+            train_lib.train_step(state, batch, cfg)
+
+        times = []
+        for i in range(13):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(i)
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(times)
+        busy = device_ms(step, 3)
+        out[form] = {"step_ms": med, "min_ms": min(times),
+                     "max_ms": max(times), "busy_ms": busy,
+                     "images_per_s": TRAIN_BATCH / med * 1e3,
+                     "idle": 1 - busy / med, "state": state, "cfg": cfg,
+                     "batch": batch}
+        log(f"times: train step {form} batch {TRAIN_BATCH} bf16: median "
+            f"{med:.3f} ms (min {min(times):.3f}, max {max(times):.3f}), "
+            f"{TRAIN_BATCH / med * 1e3:.1f} images/s; device busy "
+            f"{busy:.3f} ms, idle {100 * (1 - busy / med):.1f} % ({smi})")
+    return out
+
+
+def profile_train(torch, steps: dict, out_dir: str) -> None:
+    """Device time by operator and kernel for one train step of each
+    form, written to ``<out_dir>/profile_train_<form>.txt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jama16_retina_tpu_torch import train_lib
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    for form, t in steps.items():
+        train_lib.train_step(t["state"], t["batch"], t["cfg"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            train_lib.train_step(t["state"], t["batch"], t["cfg"])
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=30)
+        (out / f"profile_train_{form}.txt").write_text(table)
+        log(f"profile: train step {form}, top kernels by device time:")
+        log("\n".join(table.splitlines()[:24]))
+
+
 def profile_request(torch, serve: dict, out_dir: str) -> None:
     """Device time by operator and kernel for one bf16 k=2 batch-64
     request, written to ``<out_dir>/profile_bf16_k2_b64.txt``."""
@@ -312,12 +718,21 @@ def profile_request(torch, serve: dict, out_dir: str) -> None:
     log("\n".join(table.splitlines()[:20]))
 
 
+def kernel_record(name, source, replaces, launches, err, t) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"jama16_retina_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also write a device-time table of one request "
-                         "into DIR")
+                    help="also write device-time tables of one request "
+                         "and one train step of each form into DIR")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -335,6 +750,8 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     log(f"device: {name} x{count}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
     for src, out in build.build_all(ptxas_verbose=True).items():
@@ -342,9 +759,13 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     max_err = phase_kernels(torch, sp, dev, args.seed)
+    jitter_err = phase_jitter_kernels(torch, dev, args.seed)
+    adamw_err = phase_adamw_kernel(torch, dev, args.seed)
     serve = phase_serve(torch, args.seed)
     log(f"serve: peak device memory {torch.cuda.max_memory_allocated()} "
         f"bytes ({smi})")
+    train = phase_train(torch, args.seed, TRAIN_STEPS)
+    phase_train_agreement(torch, args.seed)
 
     timing = {b: kernel_times(torch, sp, dev, b) for b in (8, 16, 64)}
     for t in timing.values():
@@ -353,27 +774,50 @@ def main(argv=None) -> int:
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}); per call "
             f"{t['call_ms']:.4f} ms, plain {t['plain_call_ms']:.4f} ms "
             f"({smi})")
+    jitter = jitter_times(torch, dev)
+    opt = adamw_times(torch, dev, args.seed)
+    for kname, t in (*jitter.items(), ("fused_adamw_update", opt)):
+        lib = ("" if t["library_ms"] is None
+               else f", library {t['library_ms']:.4f} ms")
+        log(f"times: {kname}: device {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}){lib} ({smi})")
     request_times(torch, serve, smi)
+    steps = train_step_times(torch, args.seed, smi)
+    for form, t in train.items():
+        log(f"times: train {form}: peak device memory {t['peak']} bytes "
+            f"({smi})")
     if args.profile:
         profile_request(torch, serve, args.profile)
+        profile_train(torch, steps, args.profile)
 
     main_row = timing[8]
-    log(json.dumps({"kernels": [{
-        "name": "fused_serve_preprocess",
-        "route": "cuda",
-        "source": "jama16_retina_tpu_torch/ops/csrc/serve_preprocess.cu",
-        "replaces": "jama16_retina_tpu/ops/pallas_serve.py:143",
-        "launches": serve["launches"],
-        "max_abs_err": max_err,
-        "max_abs_diff": max_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-        "timed_shape": main_row["shape"],
-        "by_batch": {str(b): t for b, t in timing.items()},
-    }]}))
+    b4 = kernel_record(
+        "fused_serve_preprocess", "serve_preprocess.cu",
+        "jama16_retina_tpu/ops/pallas_serve.py:143", serve["launches"],
+        max_err, {**main_row, "library_ms": None})
+    b4.update({"max_abs_diff": max_err, "timed_shape": main_row["shape"],
+               "by_batch": {str(b): t for b, t in timing.items()}})
+    launches = {"fused_color_jitter":
+                train["preset"]["launches"]["fused_color_jitter"],
+                **{k: train["fused"]["launches"][k] for k in (
+                    "fused_normalize_color_jitter", "fused_adamw_update")}}
+    log(json.dumps({"kernels": [
+        kernel_record("fused_color_jitter", "color_jitter.cu",
+                      "jama16_retina_tpu/ops/pallas_augment.py:61",
+                      launches["fused_color_jitter"],
+                      jitter_err["fused_color_jitter"],
+                      jitter["fused_color_jitter"]),
+        kernel_record("fused_normalize_color_jitter", "color_jitter.cu",
+                      "jama16_retina_tpu/ops/pallas_augment.py:200",
+                      launches["fused_normalize_color_jitter"],
+                      jitter_err["fused_normalize_color_jitter"],
+                      jitter["fused_normalize_color_jitter"]),
+        kernel_record("fused_adamw_update", "adamw.cu",
+                      "jama16_retina_tpu/ops/pallas_opt.py:105",
+                      launches["fused_adamw_update"], adamw_err, opt),
+        b4,
+    ]}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The slice of ``jama16_retina_tpu/configs.py`` that the serving port reads.
+"""The slice of ``jama16_retina_tpu/configs.py`` that the port reads
+(serving, and the train step of the ``eyepacs_binary`` path).
 
 Field names, defaults, preset names and the dotted ``--set`` syntax are
 those of the JAX package, so one override list configures both. Only the
@@ -23,12 +24,55 @@ class ModelConfig:
     dropout_rate: float = 0.2
     compute_dtype: str = "bfloat16"
     aux_head: bool = True
+    aux_weight: float = 0.4
     stem_s2d: bool = False
     remat_stem: bool = False
 
     @property
     def num_classes(self) -> int:
         return 5 if self.head == "multi" else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    batch_size: int = 32
+    # Augmentation (data/augment.py): flips and the square-only transpose,
+    # brightness, contrast about the per-image mean, YIQ saturation/hue.
+    augment: bool = True
+    flip: bool = True
+    brightness_delta: float = 0.25
+    contrast_range: tuple[float, float] = (0.75, 1.25)
+    saturation_range: tuple[float, float] = (0.8, 1.2)
+    hue_delta: float = 0.05
+    rotate: bool = True
+    # Colour half of the augment through kernel B1 (ops/color_jitter.py).
+    use_pallas: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 30000
+    log_every: int = 50
+    learning_rate: float = 1e-3
+    lr_schedule: str = "cosine"  # constant | cosine | warmup_cosine
+    warmup_steps: int = 500
+    weight_decay: float = 4e-5
+    optimizer: str = "adamw"
+    momentum: float = 0.9
+    dtype: str = "fp32"
+    # Kernels B2 (normalize + colour jitter, means in-kernel) and B3
+    # (AdamW, one multi-tensor launch) in place of B1 and the plain AdamW.
+    use_pallas_fused: bool = False
+    accum_steps: int = 1
+    gradient_clip_norm: float = 0.0
+    label_smoothing: float = 0.0
+    ema_decay: float = 0.0
+    seed: int = 0
+    ensemble_size: int = 1
+    init_from: str = ""
+    distill_from: str = ""
+    async_save: bool = False
+    eval_overlap: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +101,8 @@ class ServeConfig:
 class ExperimentConfig:
     name: str = "eyepacs_binary"
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
 
@@ -65,13 +111,18 @@ class ExperimentConfig:
 
 
 def _preset_eyepacs_binary() -> ExperimentConfig:
-    return ExperimentConfig(name="eyepacs_binary")
+    return ExperimentConfig(
+        name="eyepacs_binary", data=DataConfig(use_pallas=True))
 
 
 def _preset_eyepacs_binary_quality() -> ExperimentConfig:
-    # The serving-visible part of the JAX preset: flip-TTA at eval.
-    return ExperimentConfig(
-        name="eyepacs_binary_quality", eval=EvalConfig(tta=True)
+    base = _preset_eyepacs_binary()
+    return base.replace(
+        name="eyepacs_binary_quality",
+        train=dataclasses.replace(
+            base.train, lr_schedule="warmup_cosine", ema_decay=0.999,
+            label_smoothing=0.1),
+        eval=EvalConfig(tta=True),
     )
 
 
@@ -79,6 +130,9 @@ def _preset_smoke() -> ExperimentConfig:
     return ExperimentConfig(
         name="smoke",
         model=ModelConfig(arch="tiny_cnn", image_size=64, aux_head=False),
+        data=DataConfig(batch_size=8),
+        train=TrainConfig(steps=50, log_every=10, learning_rate=3e-3,
+                          warmup_steps=5),
     )
 
 
@@ -98,15 +152,47 @@ _UNIMPLEMENTED = {
         False, "Queue A item 9 (member-parallel serving)"),
     ("serve", "compile_cache_dir"): (
         "", "Queue A item 9 (compile cache / CUDA graphs)"),
+    ("train", "optimizer"): (
+        "adamw", "Queue A item 4 (sgdm, rmsprop, lamb)"),
+    ("train", "gradient_clip_norm"): (
+        0.0, "Queue A item 4 (gradient clipping)"),
+    ("train", "dtype"): ("fp32", "Queue A item 6 (train.dtype=bf16)"),
+    ("train", "accum_steps"): (1, "Queue A item 6 (accumulation)"),
+    ("train", "async_save"): (False, "Queue A item 6 (async_save)"),
+    ("train", "eval_overlap"): (False, "Queue A item 6 (eval_overlap)"),
+    ("train", "ensemble_size"): (
+        1, "Queue A item 8 (ensembles and DDP)"),
+    ("train", "init_from"): ("", "Queue A item 5 (warm start)"),
+    ("train", "distill_from"): ("", "Queue A item 9 (distillation)"),
+}
+# JAX-package fields this port has no copy of yet. Overriding one raises
+# NotImplementedError naming its item; any other unknown field is a typo
+# and raises ValueError.
+_NOT_PORTED = {
+    "train.eval_every": "Queue A item 5 (eval, AUC, early stopping)",
+    "train.early_stop_patience": "Queue A item 5 (eval, AUC, early stopping)",
+    "train.min_delta": "Queue A item 5 (eval, AUC, early stopping)",
+    "train.checkpoint_dir": "Queue A item 5 (checkpoints, resume)",
+    "train.resume": "Queue A item 5 (checkpoints, resume)",
+    "train.max_to_keep": "Queue A item 5 (checkpoints, resume)",
+    "train.save_every_evals": "Queue A item 5 (checkpoints, resume)",
+    "data.loader": "Queue A items 5 and 7 (TFRecord, rawshard, hbm, "
+                   "tiered loaders)",
+    "data.train_dir": "Queue A item 5 (TFRecord loader)",
 }
 _ARCHS = ("inception_v3", "tiny_cnn")
 _DTYPES = ("float32", "bfloat16")
+_SCHEDULES = ("constant", "cosine", "warmup_cosine")
 
 
-def check_supported(cfg: ExperimentConfig) -> None:
+def check_supported(cfg: ExperimentConfig, training: bool = False) -> None:
     """Raise on any knob this port cannot honour yet, instead of
-    silently serving something other than what was configured."""
+    silently serving or training something other than what was
+    configured. The ``train`` section's knobs are checked only when
+    ``training``: serving a member never reads them."""
     for (section, field), (default, item) in _UNIMPLEMENTED.items():
+        if section == "train" and not training:
+            continue
         value = getattr(getattr(cfg, section), field)
         if value != default:
             raise NotImplementedError(
@@ -123,6 +209,30 @@ def check_supported(cfg: ExperimentConfig) -> None:
             f"model.compute_dtype must be one of {_DTYPES}, got "
             f"{cfg.model.compute_dtype!r}"
         )
+    if training and cfg.train.lr_schedule not in _SCHEDULES:
+        raise ValueError(f"unknown lr_schedule {cfg.train.lr_schedule!r}")
+
+
+def validate_train_knobs(tc: TrainConfig) -> None:
+    """Copy of ``train_lib.validate_train_knobs``: the fused step path
+    implements unclipped adamw only, and refuses anything else at
+    construction instead of mistraining."""
+    if tc.dtype not in ("fp32", "bf16"):
+        raise ValueError(f"unknown train.dtype {tc.dtype!r} (want fp32|bf16)")
+    if tc.accum_steps < 1:
+        raise ValueError(f"train.accum_steps={tc.accum_steps} must be >= 1")
+    if tc.use_pallas_fused:
+        if tc.optimizer != "adamw":
+            raise ValueError(
+                "train.use_pallas_fused implements the fused optimizer "
+                f"update for adamw only (got {tc.optimizer!r}); unset the "
+                "flag or switch optimizers")
+        if tc.gradient_clip_norm > 0:
+            raise ValueError(
+                "train.use_pallas_fused cannot compose with "
+                "train.gradient_clip_norm (the fused kernel replaces the "
+                "whole optimizer chain; the clip would be silently "
+                "dropped); disable one of the two")
 
 
 def get_config(name: str) -> ExperimentConfig:
@@ -179,6 +289,9 @@ def override(cfg: ExperimentConfig, dotted: Sequence[str]) -> ExperimentConfig:
     """Apply ``section.field=value`` overrides (the CLI's ``--set``)."""
     for item in dotted:
         key, eq, raw = item.partition("=")
+        if key in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{key} is not ported yet; see ROADMAP.md {_NOT_PORTED[key]}")
         parts = key.split(".")
         if not eq or len(parts) < 2 or not all(parts):
             raise ValueError(

@@ -1,5 +1,6 @@
-"""Synthetic fundus images (copy of ``render_fundus`` from
-``jama16_retina_tpu/data/synthetic.py:52``), numpy only.
+"""Synthetic fundus images (copy of ``render_fundus``, ``make_dataset``
+and ``sample_grades`` from ``jama16_retina_tpu/data/synthetic.py``),
+numpy only.
 
 A bright circular retina disc on black, an optic-disc highlight,
 vessel-like arcs and grade-correlated lesions, drawn from a numpy
@@ -11,6 +12,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+# make_dataset's default grade marginals (EyePACS's skew toward grade 0).
+GRADE_MARGINALS = (0.55, 0.15, 0.15, 0.08, 0.07)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,3 +101,32 @@ def render_fundus(
     # Sensor noise.
     img += rng.normal(0.0, 4.0, size=img.shape).astype(np.float32)
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def make_dataset(n: int, cfg: "SynthConfig | None" = None,
+                 grades: "np.ndarray | None" = None, seed: int = 0,
+                 ) -> "tuple[np.ndarray, np.ndarray]":
+    """(images [n, s, s, 3] uint8, grades [n] int32): the grades are drawn
+    first on the seed's generator (unless given), then every image is
+    rendered from the same stream, so both packages make the same set
+    from one seed."""
+    cfg = cfg or SynthConfig()
+    rng = np.random.default_rng(seed)
+    if grades is None:
+        grades = sample_grades(n, rng)
+    grades = np.asarray(grades, dtype=np.int32)
+    images = np.stack([render_fundus(rng, int(g), cfg) for g in grades])
+    return images, grades
+
+
+def sample_grades(n: int, rng: np.random.Generator,
+                  marginals=None) -> np.ndarray:
+    """``n`` ICDR grades drawn with ``marginals`` (default
+    ``GRADE_MARGINALS``): five probabilities summing to 1."""
+    marg = np.asarray(GRADE_MARGINALS if marginals is None else marginals,
+                      np.float64)
+    if marg.shape != (5,) or np.any(marg < 0) or not np.isclose(
+            marg.sum(), 1.0):
+        raise ValueError(f"grade marginals must be 5 probabilities summing "
+                         f"to 1, got {marginals!r}")
+    return rng.choice(5, size=n, p=list(marg / marg.sum()))

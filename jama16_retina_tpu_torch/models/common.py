@@ -1,11 +1,12 @@
 """``ConvBN``, the unit cell of the backbones (counterpart of
-``jama16_retina_tpu/models/common.py:30``), in eval form.
+``jama16_retina_tpu/models/common.py:30``), in eval and train form.
 
 Numerics mirror the Flax cell: the conv has no bias and runs in the
 compute dtype; BatchNorm has no scale, eps 1e-3, and is computed in
-float32 as ``(x - mean) * rsqrt(var + eps) + bias`` from the running
-statistics; ReLU follows and the result is cast to the compute dtype.
-Parameters stay float32 and are cast at the conv, as Flax does.
+float32 as ``(x - mean) * rsqrt(var + eps) + bias``; ReLU follows and
+the result is cast to the compute dtype. Parameters stay float32 and are
+cast at the conv, as Flax does. Eval form normalizes with the running
+statistics; train form with the batch's own (see ``BatchNorm``).
 
 Module and buffer names follow the Flax tree (``conv.weight`` for
 ``conv/kernel``; ``bn.bias`` / ``bn.mean`` / ``bn.var``), so
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.9
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -30,16 +32,44 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in its own dtype when that is wider: where
+    Flax promotes a reduction to float32 (bf16 and float32 inputs give
+    float32, float64 stays float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def head_mean(x: torch.Tensor) -> torch.Tensor:
-    """Spatial mean for the float32 head: taken in float32, rounded to
-    the compute dtype, then float32 again. jnp's mean of a bf16 array
-    accumulates in float32 and returns bf16, and the Flax heads cast
+    """Spatial mean for the float32 head: taken in float32 (or wider),
+    rounded to the compute dtype, then float32. jnp's mean of a bf16
+    array accumulates in float32 and returns bf16, and the Flax heads cast
     that to float32."""
-    return x.float().mean(dim=(2, 3)).to(x.dtype).float()
+    return at_least_f32(x).mean(dim=(2, 3)).to(x.dtype).float()
 
 
-class EvalBatchNorm(nn.Module):
-    """Scale-free BatchNorm from stored statistics (eval mode only)."""
+def dropout(x: torch.Tensor, rate: float,
+            generator: "torch.Generator | None") -> torch.Tensor:
+    """Flax ``nn.Dropout`` in train mode: keep each value with
+    probability ``1 - rate`` (a uniform draw from ``generator`` on the
+    tensor's device) and scale it by ``1 / (1 - rate)``."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class BatchNorm(nn.Module):
+    """Scale-free BatchNorm (Flax ``nn.BatchNorm(use_scale=False)``).
+
+    Eval form normalizes with the running statistics. Train form takes
+    the batch's statistics in float32 (float64 for float64 input) over
+    N, H, W with Flax's fast
+    variance ``E[x^2] - E[x]^2`` clipped at 0, and gradients flow through
+    both. It also updates the running statistics in place as
+    ``ra = 0.9 * ra + 0.1 * batch`` for the mean and the *biased*
+    variance, which is Flax's rule; torch's own BatchNorm would update
+    with the unbiased variance."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -47,11 +77,22 @@ class EvalBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        inv = torch.rsqrt(self.var + BN_EPS)
-        return ((x.float() - self.mean.view(shape)) * inv.view(shape)
-                + self.bias.view(shape))
+        if not train:
+            inv = torch.rsqrt(self.var + BN_EPS)
+            return ((at_least_f32(x) - self.mean.view(shape)) * inv.view(shape)
+                    + self.bias.view(shape))
+        xf = at_least_f32(x)
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              0.0)
+        with torch.no_grad():
+            self.mean.copy_(BN_MOMENTUM * self.mean
+                            + (1 - BN_MOMENTUM) * mean)
+            self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        inv = torch.rsqrt(var + BN_EPS)
+        return (xf - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
 
 
 class ConvBN(nn.Module):
@@ -76,7 +117,7 @@ class ConvBN(nn.Module):
         self.dtype = dtype
         self.conv = nn.Conv2d(in_channels, features, self.kernel,
                               stride=self.strides, bias=False)
-        self.bn = EvalBatchNorm(features)
+        self.bn = BatchNorm(features)
 
     def _pad(self, x: torch.Tensor) -> "tuple[torch.Tensor, tuple]":
         if self.padding == "VALID":
@@ -89,8 +130,8 @@ class ConvBN(nn.Module):
             return x, (ht, wl)
         return F.pad(x, (wl, wr, ht, hb)), (0, 0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x, pad = self._pad(x)
         y = F.conv2d(x, self.conv.weight.to(self.dtype), None,
                      self.strides, pad)
-        return F.relu(self.bn(y)).to(self.dtype)
+        return F.relu(self.bn(y, train)).to(self.dtype)

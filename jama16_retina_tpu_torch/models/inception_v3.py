@@ -1,4 +1,4 @@
-"""Inception-v3 in eval form (counterpart of
+"""Inception-v3 in eval and train form (counterpart of
 ``jama16_retina_tpu/models/inception_v3.py``).
 
 Tensors are NCHW in ``channels_last`` memory, so every branch concat is
@@ -18,12 +18,47 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from jama16_retina_tpu_torch.models.common import ConvBN, head_mean
+from jama16_retina_tpu_torch.models.common import (ConvBN, at_least_f32,
+                                                   dropout, head_mean)
 
 
-def _avg_pool_same(x: torch.Tensor) -> torch.Tensor:
-    # TF/slim AvgPool averages over the valid (non-padded) cells only.
-    return F.avg_pool2d(x, 3, 1, 1, count_include_pad=False)
+def _valid_counts(h: int, w: int, dtype, device) -> torch.Tensor:
+    """[1, 1, h, w] number of in-bounds cells of each 3x3 window."""
+    def n(size):
+        return torch.tensor([min(i + 1, size - 1) - max(i - 1, 0) + 1
+                             for i in range(size)], dtype=dtype,
+                            device=device)
+    return (n(h)[:, None] * n(w)[None, :])[None, None]
+
+
+class _AvgPoolSame(torch.autograd.Function):
+    """3x3 stride-1 SAME average over the valid (non-padded) cells only,
+    as TF/slim AvgPool computes it. The forward is
+    ``F.avg_pool2d(count_include_pad=False)``; the backward is its adjoint
+    written out (each output gradient divided by its window's cell count,
+    summed back over the 3x3 window, in float32 or wider): PyTorch 2.11's CUDA
+    backward of that call on channels_last input returns wrong gradients
+    (``tests/test_torch_gpu.py`` pins the port's against the CPU's)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.hw = tuple(x.shape[2:])
+        return F.avg_pool2d(x, 3, 1, 1, count_include_pad=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.hw
+        gf = at_least_f32(g)
+        gd = F.pad(gf / _valid_counts(h, w, gf.dtype, g.device),
+                   (1, 1, 1, 1))
+        out = gd[:, :, 0:h, 0:w]
+        for i, j in ((0, 1), (0, 2), (1, 0), (1, 1), (1, 2), (2, 0), (2, 1),
+                     (2, 2)):
+            out = out + gd[:, :, i:i + h, j:j + w]
+        return out.to(g.dtype).contiguous(memory_format=torch.channels_last)
+
+
+_avg_pool_same = _AvgPoolSame.apply
 
 
 def _max_pool_valid(x: torch.Tensor) -> torch.Tensor:
@@ -32,7 +67,8 @@ def _max_pool_valid(x: torch.Tensor) -> torch.Tensor:
 
 class _Block(nn.Module):
     """A block whose ConvBN cells are registered under their Flax scope
-    names; ``chain`` runs one branch, given as module names and pools."""
+    names; ``chain`` runs one branch, given as module names and pools,
+    in eval or train form."""
 
     def __init__(self, dtype: torch.dtype):
         super().__init__()
@@ -44,9 +80,10 @@ class _Block(nn.Module):
                                      dtype=self._dtype))
         return name
 
-    def chain(self, x: torch.Tensor, *steps) -> torch.Tensor:
+    def chain(self, x: torch.Tensor, train: bool, *steps) -> torch.Tensor:
         for step in steps:
-            x = self._modules[step](x) if isinstance(step, str) else step(x)
+            x = (self._modules[step](x, train) if isinstance(step, str)
+                 else step(x))
         return x
 
 
@@ -68,8 +105,9 @@ class InceptionA(_Block):
              self.cbn("Branch_3_Conv2d_0b_1x1", c, pool_features, (1, 1))),
         )
 
-    def forward(self, x):
-        return torch.cat([self.chain(x, *b) for b in self.branches], dim=1)
+    def forward(self, x, train: bool = False):
+        return torch.cat([self.chain(x, train, *b) for b in self.branches],
+                         dim=1)
 
 
 class InceptionB(_Block):
@@ -88,8 +126,9 @@ class InceptionB(_Block):
             (_max_pool_valid,),
         )
 
-    def forward(self, x):
-        return torch.cat([self.chain(x, *b) for b in self.branches], dim=1)
+    def forward(self, x, train: bool = False):
+        return torch.cat([self.chain(x, train, *b) for b in self.branches],
+                         dim=1)
 
 
 class InceptionC(_Block):
@@ -113,8 +152,9 @@ class InceptionC(_Block):
              self.cbn("Branch_3_Conv2d_0b_1x1", c, 192, (1, 1))),
         )
 
-    def forward(self, x):
-        return torch.cat([self.chain(x, *b) for b in self.branches], dim=1)
+    def forward(self, x, train: bool = False):
+        return torch.cat([self.chain(x, train, *b) for b in self.branches],
+                         dim=1)
 
 
 class InceptionD(_Block):
@@ -135,8 +175,9 @@ class InceptionD(_Block):
             (_max_pool_valid,),
         )
 
-    def forward(self, x):
-        return torch.cat([self.chain(x, *b) for b in self.branches], dim=1)
+    def forward(self, x, train: bool = False):
+        return torch.cat([self.chain(x, train, *b) for b in self.branches],
+                         dim=1)
 
 
 class InceptionE(_Block):
@@ -160,14 +201,16 @@ class InceptionE(_Block):
         self.bp = (_avg_pool_same,
                    self.cbn("Branch_3_Conv2d_0b_1x1", c, 192, (1, 1)))
 
-    def forward(self, x):
-        b3 = self.chain(x, *self.b3)
-        bd = self.chain(x, *self.bd)
+    def forward(self, x, train: bool = False):
+        b3 = self.chain(x, train, *self.b3)
+        bd = self.chain(x, train, *self.bd)
         return torch.cat([
-            self.chain(x, *self.b1),
-            torch.cat([self.chain(b3, s) for s in self.b3_split], dim=1),
-            torch.cat([self.chain(bd, s) for s in self.bd_split], dim=1),
-            self.chain(x, *self.bp),
+            self.chain(x, train, *self.b1),
+            torch.cat([self.chain(b3, train, s) for s in self.b3_split],
+                      dim=1),
+            torch.cat([self.chain(bd, train, s) for s in self.bd_split],
+                      dim=1),
+            self.chain(x, train, *self.bp),
         ], dim=1)
 
 
@@ -191,9 +234,9 @@ class AuxHead(nn.Module):
                                     padding="VALID", dtype=dtype)
         self.Logits = nn.Linear(768, num_classes)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = F.avg_pool2d(x, 5, 3)
-        x = self.Conv2d_2a_5x5(self.Conv2d_1b_1x1(x))
+        x = self.Conv2d_2a_5x5(self.Conv2d_1b_1x1(x, train), train)
         return self.Logits(head_mean(x))
 
 
@@ -211,9 +254,9 @@ class InceptionV3(nn.Module):
     """The flagship backbone: ``forward(x) -> (logits, aux_logits)``.
 
     ``x`` is NCHW float in [-1, 1]. The aux head's logits are computed
-    only when ``with_aux=True`` (serving never reads them); otherwise
-    ``aux_logits`` is None, as XLA drops the unused branch on the JAX
-    side."""
+    only when ``with_aux=True`` or ``train=True`` (serving never reads
+    them); otherwise ``aux_logits`` is None, as XLA drops the unused
+    branch on the JAX side. ``generator`` drives train-mode dropout."""
 
     def __init__(self, num_classes: int = 1, aux_head: bool = True,
                  dropout_rate: float = 0.2,
@@ -242,18 +285,28 @@ class InceptionV3(nn.Module):
         self.Mixed_7a = InceptionD(768, **kw)
         self.Mixed_7b = InceptionE(1280, **kw)
         self.Mixed_7c = InceptionE(2048, **kw)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.Logits = nn.Linear(2048, num_classes)
 
-    def forward(self, x: torch.Tensor, with_aux: bool = False):
+    def forward(self, x: torch.Tensor, with_aux: bool = False,
+                train: bool = False,
+                generator: "torch.Generator | None" = None):
         x = x.to(self.dtype)
-        x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
+        for name in ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3"):
+            x = getattr(self, name)(x, train)
         x = _max_pool_valid(x)
-        x = _max_pool_valid(self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(x)))
+        for name in ("Conv2d_3b_1x1", "Conv2d_4a_3x3"):
+            x = getattr(self, name)(x, train)
+        x = _max_pool_valid(x)
         for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a",
                      "Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e"):
-            x = getattr(self, name)(x)
-        aux = (self.AuxLogits(x)
-               if with_aux and self.AuxLogits is not None else None)
-        x = self.Mixed_7c(self.Mixed_7b(self.Mixed_7a(x)))
-        return self.Logits(self.dropout(head_mean(x))), aux
+            x = getattr(self, name)(x, train)
+        aux = (self.AuxLogits(x, train)
+               if (with_aux or train) and self.AuxLogits is not None
+               else None)
+        for name in ("Mixed_7a", "Mixed_7b", "Mixed_7c"):
+            x = getattr(self, name)(x, train)
+        x = head_mean(x)
+        if train:
+            x = dropout(x, self.dropout_rate, generator)
+        return self.Logits(x), aux

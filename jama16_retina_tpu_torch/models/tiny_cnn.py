@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from jama16_retina_tpu_torch.models.common import ConvBN, head_mean
+from jama16_retina_tpu_torch.models.common import ConvBN, dropout, head_mean
 
 
 class TinyCNN(nn.Module):
@@ -21,11 +21,16 @@ class TinyCNN(nn.Module):
                                                dtype=dtype))
             cin = f
         self.n_convs = len(features)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.Logits = nn.Linear(cin, num_classes)
 
-    def forward(self, x: torch.Tensor, with_aux: bool = False):
+    def forward(self, x: torch.Tensor, with_aux: bool = False,
+                train: bool = False,
+                generator: "torch.Generator | None" = None):
         x = x.to(self.dtype)
         for i in range(self.n_convs):
-            x = self._modules[f"conv{i}"](x)
-        return self.Logits(self.dropout(head_mean(x))), None
+            x = self._modules[f"conv{i}"](x, train)
+        x = head_mean(x)
+        if train:
+            x = dropout(x, self.dropout_rate, generator)
+        return self.Logits(x), None

@@ -1,0 +1,201 @@
+"""The train step (counterpart of ``jama16_retina_tpu/train_lib.py``:
+``make_schedule``, the loss, ``_step_impl`` and ``_apply_update``).
+
+One step: draw the augment and dropout streams from (seed, step), augment
+the uint8 batch on its device, forward and backward in train mode (batch
+statistics, running statistics updated in place), then AdamW and the EMA
+shadow. The optimizer is the plain AdamW (``ops/adamw.adamw_reference``,
+optax's adamw with the rank >= 2 decay mask) or, with
+``train.use_pallas_fused``, kernel B3 (``ops/adamw.fused_adamw_update``);
+the augment goes through kernel B1 (``data.use_pallas``) or B2 (fused).
+
+The state mirrors the reference's ``TrainState`` and optax's adamw state:
+the step, the model (params and batch statistics), the Adam count and
+moments, the schedule's count and the EMA shadow. Counts and moments live
+on the model's device, so a step reads no host value.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from jama16_retina_tpu_torch.configs import ExperimentConfig, TrainConfig
+from jama16_retina_tpu_torch.data import augment
+from jama16_retina_tpu_torch.ops import adamw
+
+_log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    # optax ScaleByAdamState.count and ScaleByScheduleState.count: int32
+    # scalars on the model's device.
+    count: torch.Tensor
+    sched_count: torch.Tensor
+    # Adam moments, keyed like ``model.named_parameters()``.
+    mu: "dict[str, torch.Tensor]"
+    nu: "dict[str, torch.Tensor]"
+    # EMA shadow of the parameters (None when train.ema_decay == 0).
+    ema: "dict[str, torch.Tensor] | None" = None
+
+
+def create_state(cfg: ExperimentConfig, model: nn.Module,
+                 device: "str | torch.device") -> TrainState:
+    """A fresh state around ``model`` (weights already set), moved to
+    ``device`` with channels_last convolution weights: zero moments and
+    counts, and the EMA shadow starting at the params when carried."""
+    model = model.to(device, memory_format=torch.channels_last)
+    params = dict(model.named_parameters())
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    return TrainState(
+        step=0, model=model, count=zero.clone(), sched_count=zero.clone(),
+        mu={k: torch.zeros_like(p) for k, p in params.items()},
+        nu={k: torch.zeros_like(p) for k, p in params.items()},
+        ema=({k: p.detach().clone() for k, p in params.items()}
+             if cfg.train.ema_decay > 0 else None),
+    )
+
+
+def _cosine(init_value: float, decay_steps: int) -> Callable:
+    """optax.cosine_decay_schedule(init_value, decay_steps) in float32."""
+    if decay_steps <= 0:
+        raise ValueError(f"cosine decay needs positive steps, got "
+                         f"{decay_steps}")
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        c = torch.minimum(count.float(), torch.tensor(
+            float(decay_steps), device=count.device))
+        decayed = 0.5 * (1 + torch.cos(math.pi * c / decay_steps))
+        return init_value * decayed
+
+    return schedule
+
+
+def make_schedule(tc: TrainConfig) -> Callable:
+    """count (int tensor) -> float32 learning rate, with optax's
+    semantics for constant, cosine and warmup_cosine (warmup clamped into
+    the run, as ``train_lib.py:120-138``)."""
+    if tc.lr_schedule == "constant":
+        return lambda count: torch.full((), tc.learning_rate,
+                                        dtype=torch.float32,
+                                        device=count.device)
+    if tc.lr_schedule == "cosine":
+        return _cosine(tc.learning_rate, tc.steps)
+    if tc.lr_schedule == "warmup_cosine":
+        warmup = max(1, min(tc.warmup_steps, tc.steps - 1))
+        if warmup != tc.warmup_steps:
+            _log.warning("warmup_steps=%d does not fit in steps=%d; "
+                         "clamped to %d", tc.warmup_steps, tc.steps, warmup)
+        peak = tc.learning_rate
+        decay = _cosine(peak, tc.steps - warmup)
+
+        def schedule(count: torch.Tensor) -> torch.Tensor:
+            frac = 1 - torch.clamp(count, 0, warmup).float() / warmup
+            linear = (0.0 - peak) * frac + peak
+            return torch.where(count < warmup, linear, decay(count - warmup))
+
+        return schedule
+    raise ValueError(f"unknown lr_schedule {tc.lr_schedule!r}")
+
+
+def _labels_from_grades(grades: torch.Tensor) -> torch.Tensor:
+    """ICDR grade >= 2 -> referable DR (the binary head's label)."""
+    return (grades >= 2).float()
+
+
+def _head_loss(logits: torch.Tensor, labels: torch.Tensor,
+               smoothing: float) -> torch.Tensor:
+    """Mean sigmoid BCE against ``labels * (1 - s) + 0.5 * s``, written as
+    optax.sigmoid_binary_cross_entropy writes it."""
+    target = labels * (1.0 - smoothing) + 0.5 * smoothing
+    x = logits[:, 0]
+    per_ex = -target * F.logsigmoid(x) - (1.0 - target) * F.logsigmoid(-x)
+    return per_ex.mean()
+
+
+def loss_fn(logits: torch.Tensor, aux: "torch.Tensor | None",
+            grades: torch.Tensor, cfg: ExperimentConfig) -> torch.Tensor:
+    """Head loss plus ``model.aux_weight`` times the aux head's loss."""
+    labels = _labels_from_grades(grades)
+    smoothing = cfg.train.label_smoothing
+    loss = _head_loss(logits, labels, smoothing)
+    if aux is not None:
+        loss = loss + cfg.model.aux_weight * _head_loss(aux, labels,
+                                                        smoothing)
+    return loss
+
+
+def step_generators(seed: int, step: int, device) -> "tuple":
+    """(augment, dropout) generators on ``device`` for this step, seeded
+    from (seed, step): the same step draws the same numbers on any
+    resume, as ``fold_in(base_key, step)`` does in the reference."""
+    seeds = np.random.SeedSequence([int(seed), int(step)]).generate_state(
+        2, dtype=np.uint64)
+    return tuple(torch.Generator(device=device).manual_seed(int(s))
+                 for s in seeds)
+
+
+def decay_flags(model: nn.Module) -> "list[bool]":
+    """Decoupled weight decay on rank >= 2 leaves only (conv and Dense
+    kernels), as ``train_lib._decay_mask``."""
+    return [p.ndim >= 2 for p in model.parameters()]
+
+
+def train_step(state: TrainState, batch: dict, cfg: ExperimentConfig,
+               augment_params: "dict | None" = None) -> torch.Tensor:
+    """One optimizer step in place on ``state``; returns the loss as a
+    0-d tensor on the device (read it only when needed: reading waits for
+    the card). ``batch`` holds ``image`` (uint8 NHWC) and ``grade`` on the
+    model's device; ``augment_params`` replaces the augment draws."""
+    tc = cfg.train
+    model = state.model
+    dev = state.count.device
+    aug_gen, drop_gen = step_generators(tc.seed, state.step, dev)
+    images = augment.augment_batch(
+        aug_gen, batch["image"], cfg.data, fused=tc.use_pallas_fused,
+        params=augment_params)
+    # NHWC float32 seen as NCHW: a channels_last view, no copy.
+    logits, aux = model(images.permute(0, 3, 1, 2), train=True,
+                        generator=drop_gen)
+    loss = loss_fn(logits, aux, batch["grade"], cfg)
+    loss.backward()
+
+    names = [k for k, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    grads = [p.grad for p in params]
+    scalars = adamw.adamw_scalars(state.count, state.sched_count,
+                                  make_schedule(tc))
+    update = (adamw.fused_adamw_update if tc.use_pallas_fused
+              else adamw.adamw_reference)
+    with torch.no_grad():
+        update(params, grads, [state.mu[k] for k in names],
+               [state.nu[k] for k in names], decay_flags(model), scalars,
+               tc.weight_decay)
+        if state.ema is not None:
+            d = tc.ema_decay
+            for k, p in zip(names, params):
+                state.ema[k].mul_(d).add_(p * (1.0 - d))
+    model.zero_grad(set_to_none=True)
+    state.count += 1
+    state.sched_count += 1
+    state.step += 1
+    return loss.detach()
+
+
+def eval_params(state: TrainState) -> "dict[str, torch.Tensor]":
+    """The model's ``state_dict`` with the EMA shadow in place of the
+    params when carried: what eval and serving score with."""
+    sd = dict(state.model.state_dict())
+    if state.ema is not None:
+        sd.update(state.ema)
+    return sd

@@ -1,5 +1,5 @@
-"""Card-only tests of the port's CUDA kernels, each held against its
-plain PyTorch version on the card. Marked ``gpu``; they skip where no
+"""Card-only tests of the port's CUDA kernels (B1-B4), each held against
+its plain PyTorch version on the card. Marked ``gpu``; they skip where no
 card is visible. This file imports no JAX, so it also runs on a machine
 without JAX. ``tests/conftest.py`` sets ``CUDA_VISIBLE_DEVICES=-1`` when
 it is unset, so run them as
@@ -11,6 +11,8 @@ it is unset, so run them as
 import pytest
 import torch
 
+from jama16_retina_tpu_torch.ops import adamw as ad
+from jama16_retina_tpu_torch.ops import color_jitter as cj
 from jama16_retina_tpu_torch.ops import serve_preprocess as sp
 
 
@@ -44,3 +46,146 @@ def test_serve_preprocess_kernel_refuses_non_contiguous(cuda):
     imgs = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         sp.fused_serve_preprocess(imgs.transpose(1, 2))
+
+
+def _affine_inputs(b, g, dev):
+    eye = torch.eye(3, device=dev).expand(b, 3, 3)
+    a = (eye + 0.3 * torch.randn((b, 3, 3), generator=g, device=dev))
+    o = 0.3 * torch.rand((b, 3), generator=g, device=dev) - 0.15
+    return a.contiguous(), o
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 299, 299, 3), (3, 37, 53, 3)])
+def test_color_jitter_kernels_match_plain_versions(cuda, shape):
+    """B1 and B2 bitwise against their plain versions, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    imgs = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda,
+                         generator=g)
+    b = shape[0]
+    a, o = _affine_inputs(b, g, cuda)
+    before = dict(cj.launches)
+    got = cj.fused_color_jitter(imgs, a, o)
+    torch.cuda.synchronize()
+    assert cj.launches["fused_color_jitter"] == before["fused_color_jitter"] + 1
+    assert torch.equal(got, cj.color_jitter_reference(imgs, a, o))
+    sat = 0.8 + 0.4 * torch.rand(b, generator=g, device=cuda)
+    theta = 0.6 * torch.rand(b, generator=g, device=cuda) - 0.3
+    m = cj.chroma_matrix(sat, theta)
+    c = 0.75 + 0.5 * torch.rand(b, generator=g, device=cuda)
+    br = 0.5 * torch.rand(b, generator=g, device=cuda) - 0.25
+    got = cj.fused_normalize_color_jitter(imgs, m, c, br)
+    torch.cuda.synchronize()
+    assert (cj.launches["fused_normalize_color_jitter"]
+            == before["fused_normalize_color_jitter"] + 1)
+    assert torch.equal(got, cj.normalize_color_jitter_reference(imgs, m, c, br))
+
+
+@pytest.mark.gpu
+def test_color_jitter_kernels_refuse_non_contiguous(cuda):
+    imgs = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=cuda)
+    a, o = _affine_inputs(2, torch.Generator(device=cuda).manual_seed(0), cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        cj.fused_color_jitter(imgs.transpose(1, 2), a, o)
+    with pytest.raises(ValueError, match="contiguous"):
+        cj.fused_normalize_color_jitter(imgs, a.transpose(1, 2), o[:, 0],
+                                        o[:, 1])
+
+
+def _leaves(dev, g):
+    shapes = [(32, 3, 3, 3), (768, 128, 5, 5), (1, 2048), (1,), (192,),
+              (100_003,)]
+    p = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    p[0] = p[0].contiguous(memory_format=torch.channels_last)
+    p[1] = p[1].contiguous(memory_format=torch.channels_last)
+    return p
+
+
+@pytest.mark.gpu
+def test_adamw_kernel_matches_plain_version_over_three_steps(cuda):
+    """B3 bitwise against the plain AdamW, one launch per step, over
+    leaves of every kind (channels_last convs, Dense, biases, a size
+    that is not a multiple of the chunk)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    pk = _leaves(cuda, g)
+    pp = [t.clone() for t in pk]
+    mk = [torch.zeros_like(t) for t in pk]
+    vk = [torch.zeros_like(t) for t in pk]
+    mp = [torch.zeros_like(t) for t in pk]
+    vp = [torch.zeros_like(t) for t in pk]
+    decay = [t.ndim >= 2 for t in pk]
+    for step in range(3):
+        grads = [torch.randn(t.shape, generator=g, device=cuda).contiguous(
+            memory_format=torch.channels_last if t.ndim == 4 else
+            torch.contiguous_format) for t in pk]
+        t = float(step + 1)
+        scalars = torch.tensor([1e-3, 1 / (1 - 0.9**t), 1 / (1 - 0.999**t)],
+                               device=cuda)
+        before = ad.launches
+        ad.fused_adamw_update(pk, grads, mk, vk, decay, scalars, 0.01)
+        torch.cuda.synchronize()
+        assert ad.launches == before + 1
+        ad.adamw_reference(pp, grads, mp, vp, decay, scalars, 0.01)
+        for a, b in zip(pk + mk + vk, pp + mp + vp):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_adamw_kernel_splits_long_leaf_lists_into_launches(cuda):
+    """More leaves than one launch's parameter table holds: one launch
+    per full table, and still bitwise against the plain AdamW."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shapes = [(7, 3)] * 450 + [(3,)] * 10
+    pk = [torch.randn(s, generator=g, device=cuda) for s in shapes]
+    grads = [torch.randn(s, generator=g, device=cuda) for s in shapes]
+    pp = [t.clone() for t in pk]
+    mk, vk, mp, vp = ([torch.zeros_like(t) for t in pk] for _ in range(4))
+    decay = [t.ndim >= 2 for t in pk]
+    scalars = torch.tensor([1e-3, 10.0, 1000.0], device=cuda)
+    _, max_leaves = ad._library()
+    before = ad.launches
+    ad.fused_adamw_update(pk, grads, mk, vk, decay, scalars, 0.01)
+    torch.cuda.synchronize()
+    assert ad.launches == before + -(-len(shapes) // max_leaves) == before + 2
+    ad.adamw_reference(pp, grads, mp, vp, decay, scalars, 0.01)
+    for a, b in zip(pk + mk + vk, pp + mp + vp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_adamw_kernel_refuses_mismatched_layouts(cuda):
+    p = [torch.zeros((4, 3, 2, 2), device=cuda).contiguous(
+        memory_format=torch.channels_last)]
+    g = [torch.zeros((4, 3, 2, 2), device=cuda)]
+    with pytest.raises(ValueError, match="strides"):
+        ad.fused_adamw_update(p, g, [torch.zeros_like(p[0])],
+                              [torch.zeros_like(p[0])], [True],
+                              torch.zeros(3, device=cuda), 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_same_avg_pool_gradient_matches_the_cpu(cuda, dtype):
+    """The SAME 3x3 average pool of Inception's blocks, forward and
+    backward on channels_last input, against the CPU's
+    ``F.avg_pool2d(count_include_pad=False)`` (whose CUDA backward the
+    port does not use)."""
+    from jama16_retina_tpu_torch.models.inception_v3 import _avg_pool_same
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.relu(torch.randn((4, 64, 35, 35), generator=g)).to(dtype)
+    cot = torch.randn((4, 64, 35, 35), generator=g).to(dtype)
+    xc = x.clone().contiguous(memory_format=torch.channels_last).requires_grad_()
+    torch.nn.functional.avg_pool2d(xc, 3, 1, 1, count_include_pad=False
+                                   ).backward(cot)
+    xg = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    xg.requires_grad_()
+    y = _avg_pool_same(xg)
+    y.backward(cot.to(cuda))
+    # bfloat16: two ulps (2^-6 relative), the two sum in other orders.
+    tol = 1e-6 if dtype == torch.float32 else 2.0**-6
+    want = torch.nn.functional.avg_pool2d(x, 3, 1, 1, count_include_pad=False)
+    assert torch.allclose(y.detach().cpu().float(), want.float(), rtol=tol,
+                          atol=tol)
+    assert torch.allclose(xg.grad.cpu().float(), xc.grad.float(), rtol=tol,
+                          atol=tol)

@@ -1,6 +1,6 @@
 """Ground rules of the port: it imports neither JAX nor the JAX package,
-its entry points never run on the CPU unless asked, its kernel wrapper
-never falls back from the card to the plain version, and config knobs
+its entry points never run on the CPU unless asked, its kernel wrappers
+never fall back from the card to the plain version, and config knobs
 it cannot honour raise instead of being ignored."""
 
 import os
@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from jama16_retina_tpu_torch import configs, models
-from jama16_retina_tpu_torch.ops import build, serve_preprocess
+from jama16_retina_tpu_torch.ops import adamw, build, color_jitter
+from jama16_retina_tpu_torch.ops import serve_preprocess
 from jama16_retina_tpu_torch.serve import host
 from jama16_retina_tpu_torch.serve.engine import ServingEngine
 
@@ -37,7 +38,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 15
+    # Every module of the package, the train slice's included
+    # (train_lib, trainer, train, ops/color_jitter, ops/adamw,
+    # models/init).
+    assert int(n_modules) >= 21
     assert bad.strip() == "[]"
 
 
@@ -68,10 +72,28 @@ def test_kernel_wrapper_never_falls_back_from_the_card():
     assert serve_preprocess.launches == before
 
 
+def test_train_kernel_wrappers_never_fall_back_from_the_card():
+    imgs = torch.zeros((2, 8, 8, 3), dtype=torch.uint8)
+    a, o = torch.zeros((2, 3, 3)), torch.zeros((2, 3))
+    before = (dict(color_jitter.launches), adamw.launches)
+    with pytest.raises(ValueError, match="lie on"):
+        color_jitter.fused_color_jitter(imgs, a.to("meta"), o)
+    with pytest.raises(ValueError, match="unsupported device"):
+        color_jitter.fused_normalize_color_jitter(
+            imgs.to("meta"), a.to("meta"), o[:, 0].to("meta"),
+            o[:, 1].to("meta"))
+    p = [torch.zeros(3, device="meta")]
+    with pytest.raises(ValueError, match="unsupported device"):
+        adamw.fused_adamw_update(p, p, p, p, [False],
+                                 torch.zeros(3, device="meta"), 0.0)
+    assert (dict(color_jitter.launches), adamw.launches) == before
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
-    assert "serve_preprocess" in build.sources()
+    assert {"serve_preprocess", "color_jitter", "adamw"} <= set(
+        build.sources())
     assert build.library_path("serve_preprocess").suffix == ".so"
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build_all()
@@ -93,8 +115,8 @@ def test_unported_knobs_raise(item, exc):
 
 
 @pytest.mark.parametrize("item", [
-    "train.steps=3", "serve.max_wait_ms=1", "model.aux_weight=0.1",
-    "serve", "serve.max_batch", "serve.max_batch.x=1",
+    "train.steps=x", "serve.max_wait_ms=1", "model.aux_weight=x",
+    "train.stpes=3", "serve", "serve.max_batch", "serve.max_batch.x=1",
 ])
 def test_unknown_or_malformed_overrides_raise(item):
     with pytest.raises(ValueError):

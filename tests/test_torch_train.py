@@ -1,0 +1,395 @@
+"""The port's train path against the JAX package on the CPU: train-mode
+ConvBN, the Inception-v3 train forward and backward, three steps of the
+``smoke`` train step in both step forms, the knobs it refuses, and the
+``python -m jama16_retina_tpu_torch.train`` CLI.
+
+Both sides start from the same numpy weights (``torch_parity``) and see
+the same uint8 batches and augment draws (the JAX draws, injected through
+``augment_params``); dropout is 0 and everything is float32. Tolerances
+are stated at each test with what was measured.
+"""
+
+import dataclasses
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax.traverse_util import flatten_dict
+
+from jama16_retina_tpu import configs as jax_configs
+from jama16_retina_tpu import models as jax_models
+from jama16_retina_tpu import train_lib as jax_train_lib
+from jama16_retina_tpu.data import augment as jax_augment
+from jama16_retina_tpu.models import common as jax_common
+from jama16_retina_tpu.models import inception_v3 as jax_inception
+from jama16_retina_tpu_torch import configs, models, train_lib, trainer
+from jama16_retina_tpu_torch.data import synthetic
+from jama16_retina_tpu_torch.models import common, convert, inception_v3
+from jama16_retina_tpu_torch.serve.engine import ServingEngine
+from torch_parity import (flat_optax_adamw, random_flat, to_nchw, to_nhwc,
+                          variables)
+
+F32 = jnp.float32
+
+
+def _port(module, flat):
+    module.load_state_dict(convert.flax_to_torch(flat, module))
+    return module
+
+
+def _flax_grads(tree) -> dict:
+    """Flat ``params/...`` numpy dict of a Flax params-shaped tree."""
+    return {"params/" + k: np.asarray(v)
+            for k, v in flatten_dict(tree, sep="/").items()}
+
+
+def _port_grads(module) -> dict:
+    return convert.torch_to_flax(
+        {k: p.grad for k, p in module.named_parameters()})
+
+
+def _stats(mutated) -> dict:
+    return {"batch_stats/" + k: np.asarray(v) for k, v in
+            flatten_dict(mutated["batch_stats"], sep="/").items()}
+
+
+def _port_stats(module) -> dict:
+    return {k: v for k, v in convert.torch_to_flax(module).items()
+            if k.startswith("batch_stats/")}
+
+
+def _close(got: dict, want: dict, atol: float, rtol: float = 0.0):
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=rtol, atol=atol,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("kernel,strides,padding", [
+    ((3, 3), (1, 1), "SAME"), ((3, 3), (2, 2), "VALID"), ((1, 7), (1, 1),
+                                                          "SAME")])
+def test_train_convbn_matches_flax(kernel, strides, padding):
+    """Outputs, the input, kernel and bias grads, and the new running mean
+    and biased variance, float32. Bounds 2e-5 (outputs of unit scale
+    after normalization; the two sum the batch moments in different
+    orders) and 1e-6 on the running statistics."""
+    flax_mod = jax_common.ConvBN(16, kernel, strides, padding, dtype=F32)
+    shape = (4, 9, 9, 8)
+    flat = random_flat(flax_mod, shape, seed=1)
+    rng = np.random.default_rng(2)
+    x = rng.normal(0.5, 1.0, shape).astype(np.float32)
+    v = variables(flat)
+
+    def f(params, x):
+        return flax_mod.apply({"params": params,
+                               "batch_stats": v["batch_stats"]}, x,
+                              train=True, mutable=["batch_stats"])
+
+    y, vjp, mutated = jax.vjp(f, v["params"], jnp.asarray(x), has_aux=True)
+    cot = rng.normal(size=y.shape).astype(np.float32)
+    g_params, g_x = vjp(jnp.asarray(cot))
+
+    mod = _port(common.ConvBN(8, 16, kernel, strides, padding,
+                              dtype=torch.float32), flat)
+    xt = to_nchw(x).requires_grad_(True)
+    yt = mod(xt, train=True)
+    yt.backward(to_nchw(cot))
+    np.testing.assert_allclose(to_nhwc(yt), np.asarray(y), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(to_nhwc(xt.grad), np.asarray(g_x), rtol=0,
+                               atol=2e-5)
+    _close(_port_grads(mod), _flax_grads(g_params), atol=2e-5, rtol=1e-5)
+    _close(_port_stats(mod), _stats(mutated), atol=1e-6)
+
+
+def _grad_gap(got: dict, want: dict) -> "tuple[float, float, dict]":
+    """(||got - want|| / ||want|| over every gradient leaf, cosine, and
+    that relative L2 per leaf)."""
+    keys = sorted(want)
+    assert sorted(got) == keys
+    a = np.concatenate([got[k].ravel() for k in keys]).astype(np.float64)
+    b = np.concatenate([want[k].ravel() for k in keys]).astype(np.float64)
+    per_leaf = {k: float(np.linalg.norm(got[k].astype(np.float64) - want[k])
+                         / np.linalg.norm(want[k].astype(np.float64)))
+                for k in keys}
+    return (float(np.linalg.norm(a - b) / np.linalg.norm(b)),
+            float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))), per_leaf)
+
+
+def _flax_inception_train(flat, x, grades, dtype):
+    """The JAX package's Inception-v3 train forward and gradient (aux on,
+    dropout 0) in ``dtype``: (loss, logits, aux, flat new statistics,
+    flat gradient). The heads are float32 whatever ``dtype`` is, as the
+    Flax module makes them."""
+    flax_mod = jax_inception.InceptionV3(num_classes=1, aux_head=True,
+                                         dropout_rate=0.0, dtype=dtype)
+    v = variables({k: a.astype(dtype) for k, a in flat.items()})
+    aux_weight = jax_configs.get_config("eyepacs_binary").model.aux_weight
+
+    def f(params):
+        (logits, aux), mutated = flax_mod.apply(
+            {"params": params, "batch_stats": v["batch_stats"]},
+            jnp.asarray(x, dtype), train=True, mutable=["batch_stats"],
+            rngs={"dropout": jax.random.key(0)})
+        labels = jax_train_lib._labels_from_grades(jnp.asarray(grades),
+                                                   "binary")
+        loss = jax_train_lib._head_loss(logits, labels, "binary", 0.0, None)
+        loss = loss + aux_weight * jax_train_lib._head_loss(
+            aux, labels, "binary", 0.0, None)
+        return loss, (logits, aux, mutated)
+
+    (loss, (logits, aux, mutated)), g = jax.jit(
+        jax.value_and_grad(f, has_aux=True))(v["params"])
+    return (float(loss), np.asarray(logits), np.asarray(aux), _stats(mutated),
+            _flax_grads(g))
+
+
+@pytest.fixture(scope="module")
+def inception_139():
+    """Batch 2 at 139 px (the smallest size the aux head fits): weights,
+    images, grades, and the JAX train forward and gradient in float64,
+    the reference both of the port's dtypes are held to."""
+    flax_mod = jax_inception.InceptionV3(num_classes=1, aux_head=True,
+                                         dropout_rate=0.0, dtype=F32)
+    flat = random_flat(flax_mod, (2, 139, 139, 3), seed=8)
+    x = np.random.default_rng(9).uniform(-1, 1, (2, 139, 139, 3)).astype(
+        np.float32)
+    grades = np.array([1, 3], np.int32)
+    with jax.enable_x64(True):
+        f64 = _flax_inception_train(flat, x, grades, jnp.float64)
+    return {"flat": flat, "x": x, "grades": grades, "f64": f64}
+
+
+def _port_inception_train(case, dtype):
+    """The port's Inception-v3 train forward and backward on the case, in
+    ``dtype`` with float32 heads: (loss, logits, aux, model)."""
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "model.image_size=139", "model.compute_dtype=float32",
+        "model.dropout_rate=0.0"])
+    model = inception_v3.InceptionV3(num_classes=1, aux_head=True,
+                                     dropout_rate=0.0, dtype=dtype,
+                                     image_size=139)
+    model = _port(model, case["flat"]).to(dtype)
+    model.Logits.float()
+    model.AuxLogits.Logits.float()
+    logits, aux = model(to_nchw(case["x"]).to(dtype), train=True)
+    loss = train_lib.loss_fn(logits, aux, torch.from_numpy(case["grades"]),
+                             cfg)
+    loss.backward()
+    return loss.item(), logits.detach().numpy(), aux.detach().numpy(), model
+
+
+def test_inception_v3_139px_train_forward_and_grads_match_flax(inception_139):
+    """Batch 2 at 139 px, aux on, dropout 0, the port in float32 against
+    the JAX package in float64 (its heads float32): loss, logits, aux
+    logits, every updated running statistic and the gradient.
+
+    The float32 train gradient of the whole network is ill-conditioned
+    at this size: BatchNorm's fast variance ``E[x^2] - E[x]^2`` cancels
+    over maps of 3x3 (and 1x1 in the aux head), so a float32 gradient
+    (the port's here) lies a few per cent from the float64 one, where the
+    same port in float64 lies within 3e-8 (the next test). So the float32
+    gradient is held by relative L2 <= 8 % and cosine >= 0.995 over all
+    leaves (measured 3.2 %, 0.9995) and relative L2 <= 20 % in every leaf
+    (worst measured 5.1 %, ``Mixed_6c/Branch_1_Conv2d_0a_1x1/bn/bias``).
+    Forward values: loss 1e-3 (measured 4.3e-5), logits 1e-3 (4.0e-5),
+    aux logits 5e-3 (4.1e-4: its BatchNorms see 2 values per channel),
+    running statistics atol 1e-4 and rtol 1e-3."""
+    loss, logits, aux, stats, grads = inception_139["f64"]
+    got_loss, got_logits, got_aux, model = _port_inception_train(
+        inception_139, torch.float32)
+    np.testing.assert_allclose(got_loss, loss, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got_logits, logits, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got_aux, aux, rtol=0, atol=5e-3)
+    _close(_port_stats(model), stats, atol=1e-4, rtol=1e-3)
+    rel, cos, per_leaf = _grad_gap(_port_grads(model), grads)
+    assert rel <= 0.08 and cos >= 0.995, (rel, cos)
+    worst = max(per_leaf, key=per_leaf.get)
+    assert per_leaf[worst] <= 0.2, (worst, per_leaf[worst])
+
+
+def test_inception_v3_139px_train_grads_match_flax_per_leaf_in_float64(
+        inception_139):
+    """The same case with the port in float64 too (the heads stay float32
+    on both sides, as the Flax module makes them), where the BatchNorm
+    cancellation of the float32 test costs nothing:
+    every gradient leaf within 1e-6 relative L2 of the JAX one (worst
+    measured 3.1e-8, the float32 rounding of the port's gradient on its
+    way to numpy), so a fault confined to one small leaf (an aux head
+    conv, one branch of a block, a pool's backward) cannot hide in the
+    global norm. Loss and logits 1e-6, running statistics rtol 1e-6."""
+    loss, logits, aux, stats, grads = inception_139["f64"]
+    got_loss, got_logits, got_aux, model = _port_inception_train(
+        inception_139, torch.float64)
+    np.testing.assert_allclose(got_loss, loss, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got_logits, logits, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got_aux, aux, rtol=0, atol=1e-6)
+    _close(_port_stats(model), stats, atol=1e-7, rtol=1e-6)
+    _, _, per_leaf = _grad_gap(_port_grads(model), grads)
+    assert len(per_leaf) == 196
+    worst = max(per_leaf, key=per_leaf.get)
+    assert per_leaf[worst] <= 1e-6, (worst, per_leaf[worst])
+
+
+def _smoke_pair(form: str):
+    """(JAX cfg, port cfg) of the smoke preset in float32 with dropout 0,
+    in one step form: ``preset`` (B1 + plain AdamW) or ``fused`` (B2 +
+    B3)."""
+    sets = ["model.compute_dtype=float32", "model.dropout_rate=0.0",
+            "train.steps=10", "train.lr_schedule=warmup_cosine",
+            "train.weight_decay=0.01", "train.ema_decay=0.9"]
+    sets += (["data.use_pallas=true"] if form == "preset"
+             else ["train.use_pallas_fused=true"])
+    return (jax_configs.override(jax_configs.get_config("smoke"), sets),
+            configs.override(configs.get_config("smoke"), sets))
+
+
+@pytest.mark.parametrize("form", ["preset", "fused"])
+def test_smoke_train_step_matches_jax_for_three_steps(form):
+    """Three steps of ``train_lib.train_step`` against
+    ``make_train_step``: the loss per step, the schedule value, and after
+    the third step the params and batch statistics, Adam moments and
+    counts, and the EMA shadow. Measured gaps: loss 1.3e-6, params and
+    statistics 4.8e-6, moments 3.0e-6, EMA 4.1e-7. At step 1 Adam's
+    update is ``lr * sign(g)``, so a gradient near 0 whose sign differs
+    between the frameworks would move a parameter by 2 lr (6e-3 here);
+    none did at these seeds, so no entry is excluded."""
+    jcfg, cfg = _smoke_pair(form)
+    jmodel = jax_models.build(jcfg.model)
+    flat = random_flat(jmodel, (2, 64, 64, 3), seed=12)
+    v = variables(flat)
+    tx = jax_train_lib.make_optimizer(jcfg.train)
+    jstate = jax_train_lib.TrainState(
+        step=jnp.zeros((), jnp.int32), params=v["params"],
+        batch_stats=v["batch_stats"], opt_state=tx.init(v["params"]),
+        ema_params=jax.tree.map(jnp.copy, v["params"]))
+    jstep = jax_train_lib.make_train_step(jcfg, jmodel, tx, donate=False)
+    base_key = jax.random.key(0)
+
+    state = train_lib.create_state(cfg, _port(models.build(cfg.model), flat),
+                                   "cpu")
+    images, grades = synthetic.make_dataset(
+        8, synthetic.SynthConfig(image_size=64), seed=3)
+    jbatch = {"image": jnp.asarray(images), "grade": jnp.asarray(grades)}
+    batch = {"image": torch.from_numpy(images),
+             "grade": torch.from_numpy(grades)}
+    schedule = train_lib.make_schedule(cfg.train)
+    for s in range(3):
+        # The draws the JAX step makes inside (train_lib.py:440-447).
+        aug_key, _ = jax.random.split(jax.random.fold_in(base_key, s))
+        drawn = jax_augment._draw_params(aug_key, 8, jcfg.data)
+        lr = float(schedule(state.sched_count))
+        want_lr = float(jax_train_lib.make_schedule(jcfg.train)(s))
+        assert abs(lr - want_lr) <= 2.0**-22 * jcfg.train.learning_rate
+        jstate, m = jstep(jstate, jbatch, base_key)
+        loss = train_lib.train_step(
+            state, batch, cfg,
+            augment_params={k: torch.from_numpy(np.array(a))
+                            for k, a in drawn.items()})
+        assert abs(float(loss) - float(m["loss"])) <= 1e-5, s
+
+    assert state.step == int(jstate.step) == 3
+    want = {**_flax_grads(jstate.params),
+            **_stats({"batch_stats": jstate.batch_stats})}
+    _close(convert.torch_to_flax(state.model), want, atol=2e-5)
+    opt = convert.port_to_optax_adamw(state.mu, state.nu, int(state.count),
+                                      int(state.sched_count))
+    want_opt = flat_optax_adamw(jstate.opt_state)
+    assert int(opt["adam/count"]) == int(want_opt["adam/count"]) == 3
+    assert int(opt["schedule/count"]) == int(want_opt["schedule/count"]) == 3
+    _close(opt, want_opt, atol=1e-5)
+    ema = {k: v for k, v in
+           convert.torch_to_flax(train_lib.eval_params(state)).items()
+           if k.startswith("params/")}
+    _close(ema, _flax_grads(jstate.ema_params), atol=2e-6)
+
+
+@pytest.mark.parametrize("item,exc", [
+    ("train.use_pallas_fused=true,train.optimizer=sgdm", ValueError),
+    ("train.use_pallas_fused=true,train.gradient_clip_norm=1.0", ValueError),
+    ("train.optimizer=sgdm", NotImplementedError),
+    ("train.optimizer=lamb", NotImplementedError),
+    ("train.gradient_clip_norm=1.0", NotImplementedError),
+    ("train.dtype=bf16", NotImplementedError),
+    ("train.accum_steps=2", NotImplementedError),
+    ("train.async_save=true", NotImplementedError),
+    ("train.eval_overlap=true", NotImplementedError),
+    ("train.ensemble_size=2", NotImplementedError),
+    ("train.init_from=/x", NotImplementedError),
+    ("train.distill_from=/x", NotImplementedError),
+    ("model.stem_s2d=true", NotImplementedError),
+    ("model.remat_stem=true", NotImplementedError),
+    ("model.head=multi", NotImplementedError),
+    ("train.dtype=fp16", ValueError),
+    ("train.lr_schedule=step", ValueError),
+])
+def test_train_refuses_knobs_it_cannot_honour(item, exc, tmp_path):
+    cfg = configs.override(configs.get_config("smoke"), item.split(","))
+    with pytest.raises(exc):
+        trainer.fit(cfg, str(tmp_path), 8, device="cpu")
+    assert not os.path.exists(tmp_path / trainer.METRICS_FILE)
+
+
+@pytest.mark.parametrize("item", [
+    "train.eval_every=5", "train.resume=true", "data.loader=hbm",
+    "train.checkpoint_dir=/x"])
+def test_unported_reference_fields_name_their_roadmap_item(item):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        configs.override(configs.get_config("smoke"), [item])
+
+
+def test_serving_ignores_train_knobs():
+    cfg = configs.override(configs.get_config("smoke"),
+                           ["train.optimizer=sgdm", "train.dtype=bf16"])
+    configs.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        configs.check_supported(cfg, training=True)
+
+
+def test_presets_take_the_jax_values():
+    for name in configs.PRESETS:
+        jcfg, cfg = jax_configs.get_config(name), configs.get_config(name)
+        for section in ("model", "data", "train", "eval"):
+            ours = getattr(cfg, section)
+            for f in dataclasses.fields(ours):
+                assert getattr(ours, f.name) == getattr(
+                    getattr(jcfg, section), f.name), (name, section, f.name)
+
+
+def test_train_cli_on_cpu_writes_metrics_and_a_servable_member(
+        tmp_path, capsys):
+    from jama16_retina_tpu_torch import train
+
+    wd = tmp_path / "run"
+    assert train.main(["--config=smoke", "--synthetic=16", "--device=cpu",
+                       f"--workdir={wd}", "--set", "train.steps=3",
+                       "--set", "train.log_every=1"]) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["config"] == "smoke" and last["results"]["steps"] == 3
+    recs = [json.loads(line) for line in
+            (wd / trainer.METRICS_FILE).read_text().splitlines()]
+    assert [r["step"] for r in recs] == [1, 2, 3]
+    assert all(set(r) == {"kind", "t", "step", "loss"}
+               and r["kind"] == "train" and np.isfinite(r["loss"])
+               for r in recs)
+    engine = ServingEngine(configs.get_config("smoke"), [str(wd)],
+                           device="cpu")
+    images, _ = synthetic.make_dataset(3, synthetic.SynthConfig(
+        image_size=64), seed=5)
+    probs = engine.probs(images)
+    assert probs.shape == (3,) and np.all((probs >= 0) & (probs <= 1))
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        train.main(["--synthetic=4", f"--workdir={wd}", "--data_dir=/d"])
+
+
+def test_train_cli_defaults_to_the_card_and_raises_without_one(
+        tmp_path, monkeypatch):
+    from jama16_retina_tpu_torch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--config=smoke", "--synthetic=4",
+                    f"--workdir={tmp_path}"])

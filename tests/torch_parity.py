@@ -66,3 +66,16 @@ def to_nchw(x_nhwc: np.ndarray) -> torch.Tensor:
 
 def to_nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).float().numpy()
+
+
+def flat_optax_adamw(opt_state) -> "dict[str, np.ndarray]":
+    """The flat numpy form of an optax adamw state that
+    ``models.convert.optax_adamw_to_port`` reads: ``adam/count``,
+    ``adam/mu/<path>``, ``adam/nu/<path>``, ``schedule/count``."""
+    adam, _, sched = opt_state
+    flat = {"adam/count": np.asarray(adam.count),
+            "schedule/count": np.asarray(sched.count)}
+    for moment in ("mu", "nu"):
+        for k, v in flatten_dict(getattr(adam, moment), sep="/").items():
+            flat[f"adam/{moment}/{k}"] = np.asarray(v)
+    return flat
