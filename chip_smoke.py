@@ -8,13 +8,20 @@ trains.
 Phases, any failure exits nonzero before the result line:
 
 1. device   - a CUDA card is required; prints its name, count, power limit.
-2. build    - compiles every kernel from ``ops/csrc`` (``nvcc -Xptxas -v``).
+2. build    - compiles every kernel from ``ops/csrc`` (``nvcc -Xptxas -v``);
+              prints how many of B2's single-pass clusters (8 and 16
+              blocks, 299 px) the card holds at once.
 3. kernels  - each kernel against its plain PyTorch version on the card,
               at the shapes its path gives it: B4 (serve preprocess) rows
-              bitwise and sums exactly; B1 (colour jitter) and B2
-              (normalize + colour jitter) bitwise at [32, 299, 299, 3] and
-              [3, 37, 53, 3]; B3 (AdamW) bitwise over the full
-              Inception-v3 leaf set (196 leaves) for 3 steps.
+              bitwise and sums exactly; B1 (colour jitter) bitwise at
+              [32, 299, 299, 3] and [3, 37, 53, 3]; B2 (normalize + colour
+              jitter) bitwise on its single-pass route (one cluster per
+              image) at [32, 299, 299, 3], [3, 37, 53, 3], [1, 1, 1, 3] and
+              [5, 17, 23, 3] and on its two-pass route at
+              [1, 1536, 1536, 3], each shape's route asserted, and one
+              single-pass call traced to be one device kernel; B3 (AdamW)
+              bitwise over the full Inception-v3 leaf set (196 leaves) for
+              3 steps.
 4. serve    - k=2 random Inception-v3 members (299 px, aux head, random BN
               statistics) written as ``params.npz`` member dirs; a float32
               ``ServingEngine`` with ``serve.fused_preprocess=true`` answers
@@ -44,7 +51,10 @@ Phases, any failure exits nonzero before the result line:
               CPU's feeds both networks.
 6. times    - kernel and plain-version device time (``torch.profiler``)
               beside each kernel's bound, B3's library yardstick
-              (``torch.optim.AdamW(fused=True)``), request latency with the
+              (``torch.optim.AdamW(fused=True)``); B2's routes in turns
+              (two pass, cluster 8, cluster 16, cluster 16, cluster 8, two
+              pass) beside ``images.to(torch.float32)``, a PyTorch kernel
+              that moves the same bytes; request latency with the
               device's idle share, and per step form the train step time
               (median after warm-up), images/s, idle share and peak device
               memory; printed, not asserted. ``--profile DIR`` adds tables
@@ -52,8 +62,11 @@ Phases, any failure exits nonzero before the result line:
               of each form, written into DIR.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
-``{"ok": true, "device": {...}}``; the line before them is the kernels'
-JSON record. Scratch files go under ``build/chip_smoke`` (git-ignored).
+``{"ok": true, "device": {...}}``; before them come the kernels' JSON
+record and the run's seconds. Scratch files go under ``build/chip_smoke``
+(git-ignored). Without a CUDA card, or run outside a checkout of the
+repository (no ``jama16_retina_tpu_torch`` to import), it exits 1 before
+printing any result.
 """
 
 from __future__ import annotations
@@ -75,6 +88,10 @@ REQUESTS = (1, 8, 13)
 KERNEL_SHAPES = ((8, 299, 299, 3), (16, 299, 299, 3), (64, 299, 299, 3),
                  (3, 37, 53, 3))
 JITTER_SHAPES = ((32, 299, 299, 3), (3, 37, 53, 3))
+B2_SHAPES = {(32, 299, 299, 3): "single_pass", (3, 37, 53, 3): "single_pass",
+             (1, 1, 1, 3): "single_pass", (5, 17, 23, 3): "single_pass",
+             (1, 1536, 1536, 3): "two_pass"}
+B2_TURNS = ("two_pass", 8, 16, 16, 8, "two_pass")
 TRAIN_BATCH = 32
 TRAIN_IMAGES = 64
 TRAIN_STEPS = 8
@@ -199,29 +216,58 @@ def jitter_inputs(torch, dev, shape, gen):
     return imgs, (affine, offset), (m, contrast, bright)
 
 
+def device_ops(torch, fn) -> list:
+    """(name, count) of every device operation (kernel, memset, copy) that
+    one ``fn()`` call issues, from a CUDA-only ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+
+
 def phase_jitter_kernels(torch, dev, seed: int) -> dict:
-    """B1 and B2 bitwise against their plain versions."""
+    """B1 and B2 bitwise against their plain versions, B2 on both routes,
+    and one single-pass B2 call traced to one device kernel."""
     from jama16_retina_tpu_torch.ops import color_jitter as cj
 
     worst = {"fused_color_jitter": 0.0, "fused_normalize_color_jitter": 0.0}
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def held(name, got, want, what):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst[name] = max(worst[name], err)
+        check(torch.equal(got, want),
+              f"{name} differs from its plain version at {what}: max {err}")
+        log(f"kernels: {name} {what} bitwise")
+
     for shape in JITTER_SHAPES:
-        imgs, b1_args, b2_args = jitter_inputs(torch, dev, shape, gen)
-        for name, kernel, plain, args in (
-                ("fused_color_jitter", cj.fused_color_jitter,
-                 cj.color_jitter_reference, b1_args),
-                ("fused_normalize_color_jitter",
-                 cj.fused_normalize_color_jitter,
-                 cj.normalize_color_jitter_reference, b2_args)):
-            got = kernel(imgs, *args)
-            torch.cuda.synchronize()
-            want = plain(imgs, *args)
-            err = float((got - want).abs().max())
-            worst[name] = max(worst[name], err)
-            check(torch.equal(got, want),
-                  f"{name} differs from its plain version at {shape}: "
-                  f"max {err}")
-            log(f"kernels: {name} {list(shape)} bitwise")
+        imgs, b1_args, _ = jitter_inputs(torch, dev, shape, gen)
+        held("fused_color_jitter", cj.fused_color_jitter(imgs, *b1_args),
+             cj.color_jitter_reference(imgs, *b1_args), list(shape))
+    for shape, route in B2_SHAPES.items():
+        plan = cj._b2_plan(*shape[1:3])
+        check(plan.route == route,
+              f"B2 at {shape} planned {plan}, want the {route} route")
+        imgs, _, b2_args = jitter_inputs(torch, dev, shape, gen)
+        held("fused_normalize_color_jitter",
+             cj.fused_normalize_color_jitter(imgs, *b2_args),
+             cj.normalize_color_jitter_reference(imgs, *b2_args),
+             f"{list(shape)} ({route}, cluster {plan.cluster})")
+    imgs, _, b2_args = jitter_inputs(torch, dev, (TRAIN_BATCH, 299, 299, 3),
+                                     gen)
+    ops = device_ops(torch, lambda: cj.fused_normalize_color_jitter(
+        imgs, *b2_args))
+    log(f"kernels: one single-pass fused_normalize_color_jitter call at "
+        f"[{TRAIN_BATCH}, 299, 299, 3] issues {ops}")
+    check(len(ops) == 1 and ops[0][1] == 1
+          and "normalize_color_jitter_cluster_kernel" in ops[0][0],
+          f"a single-pass B2 call issued {ops}, want one cluster kernel")
     return worst
 
 
@@ -306,7 +352,12 @@ def jitter_times(torch, dev) -> dict:
     """B1 and B2 device time (kernel and plain version) at the train
     batch [32, 299, 299, 3], cycling over input sets that together exceed
     the 50 MB L2, beside the bound: each input byte read once and each
-    output written once (B2's two passes read the bytes twice: 51.5 MB)."""
+    output written once. B2's routes run in the turns of ``B2_TURNS`` on
+    the same inputs: its two-pass route, and its single-pass route at
+    clusters of 8 and 16 blocks (the kept size, ``B2_CLUSTER``, is B2's
+    ``ms``). ``yardstick_ms`` is ``images.to(torch.float32)``: it moves the
+    same bytes (a PyTorch elementwise kernel's reach on this traffic) but
+    does not compute B2's function, so it is not ``library_ms``."""
     from jama16_retina_tpu_torch.ops import color_jitter as cj
 
     shape = (TRAIN_BATCH, 299, 299, 3)
@@ -314,23 +365,40 @@ def jitter_times(torch, dev) -> dict:
     sets = [jitter_inputs(torch, dev, shape, gen) for _ in range(3)]
     pixels = TRAIN_BATCH * 299 * 299
     bytes_ms = (pixels * 15 + TRAIN_BATCH * 12 * 4) / HBM_BYTES_PER_S * 1e3
-    out = {}
-    for name, kernel, plain, which, ops in (
-            ("fused_color_jitter", cj.fused_color_jitter,
-             cj.color_jitter_reference, 1, 30),
-            ("fused_normalize_color_jitter", cj.fused_normalize_color_jitter,
-             cj.normalize_color_jitter_reference, 2, 33)):
-        def run(fn):
-            return lambda i: fn(sets[i % 3][0], *sets[i % 3][which])
 
+    def run(fn, which):
+        return lambda i: fn(sets[i % 3][0], *sets[i % 3][which])
+
+    def bound(ops):
         ops_ms = ops * pixels / FP32_FLOPS_PER_S * 1e3
-        out[name] = {"shape": list(shape),
-                     "ms": device_ms(run(kernel), 50),
-                     "plain_ms": device_ms(run(plain), 20),
-                     "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_by": "bytes" if bytes_ms >= ops_ms
-                     else "operations",
-                     "library_ms": None}
+        return {"bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+    out = {"fused_color_jitter": {
+        "shape": list(shape),
+        "ms": device_ms(run(cj.fused_color_jitter, 1), 50),
+        "plain_ms": device_ms(run(cj.color_jitter_reference, 1), 20),
+        **bound(30), "library_ms": None}}
+    plans = {t: cj._TWO_PASS if t == "two_pass" else cj._b2_plan(
+        299, 299, cluster=t) for t in B2_TURNS}
+    turns = {t: [] for t in plans}
+    for t in B2_TURNS:
+        plan = plans[t]
+        turns[t].append(device_ms(
+            lambda i, plan=plan: cj._launch_b2(sets[i % 3][0],
+                                               *sets[i % 3][2], plan), 50))
+    kept = plans[cj.B2_CLUSTER]
+    out["fused_normalize_color_jitter"] = {
+        "shape": list(shape),
+        "ms": statistics.mean(turns[cj.B2_CLUSTER]),
+        "plain_ms": device_ms(run(cj.normalize_color_jitter_reference, 2),
+                              20),
+        **bound(33), "library_ms": None,
+        "plan_route": kept.route, "cluster": kept.cluster,
+        "two_pass_ms": statistics.mean(turns["two_pass"]),
+        "turns_ms": {str(t): v for t, v in turns.items()},
+        "yardstick_ms": device_ms(
+            lambda i: sets[i % 3][0].to(torch.float32), 50)}
     return out
 
 
@@ -742,8 +810,15 @@ def main(argv=None) -> int:
         print("chip_smoke: FAIL: no CUDA device is available",
               file=sys.stderr, flush=True)
         return 1
-    from jama16_retina_tpu_torch.ops import build
-    from jama16_retina_tpu_torch.ops import serve_preprocess as sp
+    try:
+        from jama16_retina_tpu_torch.ops import build
+        from jama16_retina_tpu_torch.ops import color_jitter as cj
+        from jama16_retina_tpu_torch.ops import serve_preprocess as sp
+    except ModuleNotFoundError as e:
+        # Run by itself, outside a checkout of the repository.
+        print(f"chip_smoke: FAIL: {e}; run it from the root of a checkout",
+              file=sys.stderr, flush=True)
+        return 1
 
     dev = torch.device("cuda", 0)
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -757,6 +832,12 @@ def main(argv=None) -> int:
     for src, out in build.build_all(ptxas_verbose=True).items():
         log(f"build: {src}.cu\n{out.strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    for c in (8, 16):
+        plan = cj._b2_plan(299, 299, cluster=c)
+        log(f"build: B2 single pass at 299 px, cluster {c}: "
+            f"{plan.shared_bytes} bytes of shared memory a block, at most "
+            f"{cj.b2_max_active_clusters(plan)} clusters resident "
+            "(cudaOccupancyMaxActiveClusters)")
 
     max_err = phase_kernels(torch, sp, dev, args.seed)
     jitter_err = phase_jitter_kernels(torch, dev, args.seed)
@@ -782,6 +863,12 @@ def main(argv=None) -> int:
         log(f"times: {kname}: device {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}){lib} ({smi})")
+    b2 = jitter["fused_normalize_color_jitter"]
+    log(f"times: fused_normalize_color_jitter {b2['shape']} by route, in "
+        f"turns {list(B2_TURNS)}: {b2['turns_ms']} ms; kept cluster "
+        f"{b2['cluster']}: {b2['ms']:.5f} ms, {100 * b2['bound_ms'] / b2['ms']:.1f} "
+        f"% of the bound; two pass {b2['two_pass_ms']:.5f} ms; yardstick "
+        f"images.to(float32) {b2['yardstick_ms']:.5f} ms ({smi})")
     request_times(torch, serve, smi)
     steps = train_step_times(torch, args.seed, smi)
     for form, t in train.items():
@@ -808,11 +895,12 @@ def main(argv=None) -> int:
                       launches["fused_color_jitter"],
                       jitter_err["fused_color_jitter"],
                       jitter["fused_color_jitter"]),
-        kernel_record("fused_normalize_color_jitter", "color_jitter.cu",
-                      "jama16_retina_tpu/ops/pallas_augment.py:200",
-                      launches["fused_normalize_color_jitter"],
-                      jitter_err["fused_normalize_color_jitter"],
-                      jitter["fused_normalize_color_jitter"]),
+        {**kernel_record("fused_normalize_color_jitter", "color_jitter.cu",
+                         "jama16_retina_tpu/ops/pallas_augment.py:200",
+                         launches["fused_normalize_color_jitter"],
+                         jitter_err["fused_normalize_color_jitter"], b2),
+         **{k: b2[k] for k in ("plan_route", "cluster", "two_pass_ms",
+                               "yardstick_ms", "turns_ms")}},
         kernel_record("fused_adamw_update", "adamw.cu",
                       "jama16_retina_tpu/ops/pallas_opt.py:105",
                       launches["fused_adamw_update"], adamw_err, opt),

@@ -17,6 +17,10 @@ brightness)``, ``M = I + YIQ2RGB @ (R - I) @ RGB2YIQ`` (``chroma_matrix``).
 Both read uint8 NHWC and write float32 NHWC. On a CUDA tensor each wrapper
 launches its kernel (``csrc/color_jitter.cu``) and counts the launch; on a
 CPU tensor it runs its plain version. It never falls back from the card.
+B2 takes one of two routes by image size (``_b2_plan``): one launch with
+one thread block cluster per image, or, for an image larger than a
+cluster's shared memory, a sum kernel then an apply kernel. Either counts
+as one launch.
 
 Each plain version computes the kernel's arithmetic in the kernel's order,
 one rounding per operation, so the two agree bit for bit on the card. The
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,6 +57,44 @@ YIQ2RGB = torch.from_numpy(np.linalg.inv(_RGB2YIQ_F64).astype(np.float32))
 
 # Times each CUDA kernel was launched in this process.
 launches = {"fused_color_jitter": 0, "fused_normalize_color_jitter": 0}
+
+# B2's single-pass route: blocks per cluster (one cluster per image). 8 is
+# the portable cluster size; PERF.md gives the times of 8 and 16.
+B2_CLUSTER = 8
+# Shared memory a block may use on the H100 (the opt-in maximum), and the
+# header the kernel keeps before a slice's bytes (csrc/color_jitter.cu).
+_MAX_SHARED_BYTES = 232_448
+_HEADER_BYTES = 256
+
+
+class B2Plan(NamedTuple):
+    """How B2 runs for one image size: ``route`` "single_pass" (one
+    cluster of ``cluster`` blocks per image, each taking ``slice_bytes`` of
+    it with ``shared_bytes`` of shared memory) or "two_pass" (the other
+    fields 0)."""
+    route: str
+    cluster: int
+    slice_bytes: int
+    shared_bytes: int
+
+
+_TWO_PASS = B2Plan("two_pass", 0, 0, 0)
+
+
+def _b2_plan(h: int, w: int, cluster: int = B2_CLUSTER) -> B2Plan:
+    """B2's route for [*, h, w, 3] images: single pass when an image's
+    3*h*w bytes fit ``cluster`` blocks' shared memory, else two pass.
+
+    Block ``r`` of an image takes its bytes ``[r*S, (r+1)*S)`` clipped to
+    the image, ``S = slice_bytes`` a multiple of 12 (4 pixels), and needs
+    the header plus the slice rounded out for alignment (up to 15 bytes
+    before it, up to 11 after it to a 12-byte step), rounded up to 16:
+    the kernel's ``cluster_shared_bytes``, which checks the two agree."""
+    slice_bytes = 12 * -(-3 * h * w // (12 * cluster))
+    shared = _HEADER_BYTES + (slice_bytes + 26 + 15) // 16 * 16
+    if shared > _MAX_SHARED_BYTES:
+        return _TWO_PASS
+    return B2Plan("single_pass", cluster, slice_bytes, shared)
 
 
 def _bmm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -186,9 +229,12 @@ def _lib():
                      ctypes.c_float)
     lib.color_jitter_launch.argtypes = [ptr, ptr, ptr, ptr, i, ll, f, ptr]
     lib.normalize_color_jitter_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, i, ll, f, f, ptr]
-    lib.color_jitter_launch.restype = i
-    lib.normalize_color_jitter_launch.restype = i
+        ptr, ptr, ptr, ptr, ptr, ptr, i, ll, f, f, i, i, i, ptr]
+    lib.normalize_color_jitter_max_clusters.argtypes = [
+        i, i, ctypes.POINTER(i)]
+    for fn in (lib.color_jitter_launch, lib.normalize_color_jitter_launch,
+               lib.normalize_color_jitter_max_clusters):
+        fn.restype = i
     return lib
 
 
@@ -242,16 +288,39 @@ def fused_normalize_color_jitter(
     if not _on_card(images_u8, m_chroma, contrast, brightness):
         return normalize_color_jitter_reference(
             images_u8, m_chroma, contrast, brightness)
+    return _launch_b2(images_u8, m_chroma, contrast, brightness,
+                      _b2_plan(*images_u8.shape[1:3]))
+
+
+def _launch_b2(images_u8: torch.Tensor, m_chroma: torch.Tensor,
+               contrast: torch.Tensor, brightness: torch.Tensor,
+               plan: B2Plan) -> torch.Tensor:
+    """B2 on checked CUDA tensors along ``plan``'s route."""
     b, h, w, _ = images_u8.shape
     out = torch.empty(images_u8.shape, dtype=torch.float32,
                       device=images_u8.device)
-    sums = torch.zeros((b, 3), dtype=torch.int64, device=images_u8.device)
+    # Only the two-pass route sums through device memory (atomics).
+    sums = (torch.zeros((b, 3), dtype=torch.int64, device=images_u8.device)
+            if plan.route == "two_pass" else None)
     inv = float(np.float32(1.0 / (h * w * 127.5)))
     stream = torch.cuda.current_stream(images_u8.device).cuda_stream
     err = _lib().normalize_color_jitter_launch(
         images_u8.data_ptr(), m_chroma.data_ptr(), contrast.data_ptr(),
-        brightness.data_ptr(), sums.data_ptr(), out.data_ptr(), b, h * w,
-        inv, SCALE, stream)
-    _raise_on(err, "normalize_color_jitter", images_u8)
+        brightness.data_ptr(), None if sums is None else sums.data_ptr(),
+        out.data_ptr(), b, h * w, inv, SCALE, plan.cluster, plan.slice_bytes,
+        plan.shared_bytes, stream)
+    _raise_on(err, f"normalize_color_jitter ({plan.route})", images_u8)
     launches["fused_normalize_color_jitter"] += 1
     return out
+
+
+def b2_max_active_clusters(plan: B2Plan) -> int:
+    """How many of ``plan``'s clusters the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    count = ctypes.c_int(0)
+    err = _lib().normalize_color_jitter_max_clusters(
+        plan.cluster, plan.shared_bytes, ctypes.byref(count))
+    if err:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                           f"cudaError {err} for {plan}")
+    return count.value

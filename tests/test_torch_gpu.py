@@ -92,6 +92,64 @@ def test_color_jitter_kernels_refuse_non_contiguous(cuda):
                                         o[:, 1])
 
 
+# B2 at odd byte counts and unaligned images on the single-pass route,
+# and an image past a cluster's shared memory on the two-pass route.
+B2_SHAPES = [((32, 299, 299, 3), "single_pass"), ((3, 37, 53, 3), "single_pass"),
+             ((1, 1, 1, 3), "single_pass"), ((5, 17, 23, 3), "single_pass"),
+             ((2, 64, 64, 3), "single_pass"), ((1, 1536, 1536, 3), "two_pass")]
+
+
+def _b2_inputs(shape, g, dev):
+    """Images one past the start of a larger batch (so with an odd H*W
+    the first image starts unaligned too) and random colour params."""
+    b = shape[0]
+    imgs = torch.randint(0, 256, (b + 1, *shape[1:]), dtype=torch.uint8,
+                         device=dev, generator=g)[1:]
+    sat = 0.8 + 0.4 * torch.rand(b, generator=g, device=dev)
+    theta = 0.6 * torch.rand(b, generator=g, device=dev) - 0.3
+    c = 0.75 + 0.5 * torch.rand(b, generator=g, device=dev)
+    br = 0.5 * torch.rand(b, generator=g, device=dev) - 0.25
+    return imgs, (cj.chroma_matrix(sat, theta), c, br)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,route", B2_SHAPES)
+def test_b2_routes_match_plain_version(cuda, shape, route):
+    """B2 bitwise on the route its shape takes, one launch per call; the
+    single-pass shapes also at a cluster of 16 blocks."""
+    assert cj._b2_plan(*shape[1:3]).route == route
+    imgs, args = _b2_inputs(shape, torch.Generator(device=cuda).manual_seed(4),
+                            cuda)
+    want = cj.normalize_color_jitter_reference(imgs, *args)
+    before = cj.launches["fused_normalize_color_jitter"]
+    got = cj.fused_normalize_color_jitter(imgs, *args)
+    torch.cuda.synchronize()
+    assert cj.launches["fused_normalize_color_jitter"] == before + 1
+    assert torch.equal(got, want)
+    if route == "single_pass":
+        got16 = cj._launch_b2(imgs, *args, cj._b2_plan(*shape[1:3], cluster=16))
+        torch.cuda.synchronize()
+        assert torch.equal(got16, want)
+
+
+@pytest.mark.gpu
+def test_b2_single_pass_is_one_device_kernel(cuda):
+    """One single-pass call is one kernel on the card: no fill, no memset."""
+    from torch.profiler import ProfilerActivity, profile
+
+    imgs, args = _b2_inputs((32, 299, 299, 3),
+                            torch.Generator(device=cuda).manual_seed(5), cuda)
+    cj.fused_normalize_color_jitter(imgs, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cj.fused_normalize_color_jitter(imgs, *args)
+        torch.cuda.synchronize()
+    ops = [(e.key, e.count) for e in prof.key_averages()
+           if e.self_device_time_total > 0]
+    assert len(ops) == 1 and ops[0][1] == 1, ops
+    assert "normalize_color_jitter_cluster_kernel" in ops[0][0], ops
+
+
 def _leaves(dev, g):
     shapes = [(32, 3, 3, 3), (768, 128, 5, 5), (1, 2048), (1,), (192,),
               (100_003,)]
