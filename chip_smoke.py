@@ -31,9 +31,10 @@ Phases, any failure exits nonzero before the result line:
               in [0, 1] and match the same engine on the CPU to atol 1e-4
               (TF32 off). The bf16 preset's deviation from float32 is
               reported.
-5. train    - ``trainer.fit`` of ``eyepacs_binary`` (Inception-v3, 299 px,
-              aux head, bf16 compute, batch 32) on 64 rendered canvases for
-              8 steps in each step form from one seeded init: the preset (B1 + plain AdamW) and
+5. train    - ``trainer.fit_synthetic`` of ``eyepacs_binary`` (Inception-v3,
+              299 px, aux head, bf16 compute, batch 32) on 64 rendered
+              canvases held on the device for 8 steps in each step form
+              from one seeded init: the preset (B1 + plain AdamW) and
               ``train.use_pallas_fused=true`` (B2 + B3). Launch counts are
               reset just before and read just after each run: B1 = steps,
               B2 = B3 = 0 in the preset run; B2 = B3 = steps, B1 = 0 in the
@@ -49,7 +50,35 @@ Phases, any failure exits nonzero before the result line:
               L2, so a fault in one small leaf cannot hide. The augmented
               batch is made on both devices and compared (1e-6); the
               CPU's feeds both networks.
-6. times    - kernel and plain-version device time (``torch.profiler``)
+6. fit      - the train -> validate -> checkpoint -> resume -> evaluate
+              path at full width (``eyepacs_binary``: Inception-v3, 299 px,
+              batch 32, the preset step with B1). The port's writer makes
+              raw TFRecord splits (train 64 / val 32 / test 32 images in
+              4 / 2 / 2 shards) and the val split is read back, timed
+              (MB/s, and the CRC-32C alone). Run A: ``trainer.fit`` for 8
+              steps with evals at 4 and 8; B1 must launch 8 times (counts
+              reset just before, read just after), the eval records must
+              hold finite val AUCs in [0, 1], ``best/`` and ``latest/``
+              must exist with the latest step 8, and the result must have
+              the reference's keys. Run B: 4 steps into a fresh workdir,
+              then ``train.resume=true`` to 8: B1 launched 4 times in each
+              call, a ``resume`` record at 4, and the state saved
+              at step 4 restored onto the card and flattened again must
+              equal it bitwise. The largest loss difference between runs
+              A and B at steps 5-8 is printed, not asserted (the schedules
+              differ: run B's first call decays over 4 steps; cuDNN's
+              backward is not deterministic either). Then
+              ``evaluate_checkpoints`` of run A's best step on ``test``
+              with thresholds from ``val``, float32 with TF32 off, on the
+              card and on the CPU, each writing its ``save_probs`` CSV:
+              the card's probabilities within 1e-4 of the CPU's, and the
+              two reports' AUC and operating points equal up to what
+              images that close together can change (``reports_gap``).
+              Printed, not
+              asserted: step time over the stream beside the in-memory
+              step time, one val eval's time, one checkpoint save's time
+              and bytes, the phase's wall time. Its files are deleted.
+7. times    - kernel and plain-version device time (``torch.profiler``)
               beside each kernel's bound, B3's library yardstick
               (``torch.optim.AdamW(fused=True)``); B2's routes in turns
               (two pass, cluster 8, cluster 16, cluster 16, cluster 8, two
@@ -96,6 +125,10 @@ TRAIN_BATCH = 32
 TRAIN_IMAGES = 64
 TRAIN_STEPS = 8
 TRAIN_FORMS = {"preset": [], "fused": ["train.use_pallas_fused=true"]}
+# (split, images, shards, seed) of the fit phase's TFRecord splits.
+FIT_SPLITS = (("train", 64, 4, 1), ("val", 32, 2, 2), ("test", 32, 2, 3))
+FIT_STEPS = 8
+FIT_EVAL_EVERY = 4
 
 
 def log(msg: str) -> None:
@@ -439,6 +472,25 @@ def adamw_times(torch, dev, seed: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def launch_counts() -> dict:
+    from jama16_retina_tpu_torch.ops import adamw
+    from jama16_retina_tpu_torch.ops import color_jitter as cj
+    from jama16_retina_tpu_torch.ops import serve_preprocess as sp
+
+    return {**cj.launches, "fused_adamw_update": adamw.launches,
+            "fused_serve_preprocess": sp.launches}
+
+
+def reset_launch_counts() -> None:
+    from jama16_retina_tpu_torch.ops import adamw
+    from jama16_retina_tpu_torch.ops import color_jitter as cj
+    from jama16_retina_tpu_torch.ops import serve_preprocess as sp
+
+    cj.launches.update(dict.fromkeys(cj.launches, 0))
+    adamw.launches = 0
+    sp.launches = 0
+
+
 def phase_serve(torch, seed: int) -> dict:
     from jama16_retina_tpu_torch import configs, models
     from jama16_retina_tpu_torch.data import synthetic
@@ -472,16 +524,19 @@ def phase_serve(torch, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     engine = ServingEngine(cfg, dirs, device="cuda")
     # The main path: counts set to 0 just before, read just after.
-    sp.launches = 0
+    reset_launch_counts()
     engine.chunks_dispatched = 0
     gpu = [engine.probs(r) for r in requests]
-    launches = sp.launches
+    counts = launch_counts()
+    launches = counts["fused_serve_preprocess"]
     chunks = engine.chunks_dispatched
     log(f"serve: {len(requests)} requests of {list(REQUESTS)} rows -> "
-        f"{chunks} chunks, fused_serve_preprocess launches {launches}")
+        f"{chunks} chunks; launches {counts}")
     check(launches > 0, "the serve path launched no fused_serve_preprocess")
     check(launches == chunks,
           f"{launches} kernel launches for {chunks} dispatched chunks")
+    check(sum(counts.values()) == launches,
+          f"the serve path launched a train kernel: {counts}")
     for r, p in zip(requests, gpu):
         check(p.shape == (r.shape[0],), f"probs shape {p.shape}")
         check(bool(np.all(np.isfinite(p)) and np.all((p >= 0) & (p <= 1))),
@@ -509,7 +564,7 @@ def phase_serve(torch, seed: int) -> dict:
     log(f"serve: bf16 preset vs float32 max |prob diff| {dev_bf16:.3e} "
         "(reported, not asserted)")
     engines = {"float32": (cfg, engine), "bfloat16": (bf16_cfg, bf16)}
-    return {"launches": launches, "chunks": chunks, "dirs": dirs,
+    return {"launches": counts, "chunks": chunks, "dirs": dirs,
             "canvases": canvases, "engines": engines,
             "max_dev_cpu": dev_cpu, "max_dev_bf16": dev_bf16}
 
@@ -554,13 +609,12 @@ def train_config(form: str, steps: int, seed: int):
 
 
 def phase_train(torch, seed: int, steps: int) -> dict:
-    """The train main path, once per step form, through ``trainer.fit``."""
+    """The train step's main path, once per step form, through
+    ``trainer.fit_synthetic`` (images held on the device)."""
     import numpy as np
 
     from jama16_retina_tpu_torch import models, trainer
     from jama16_retina_tpu_torch.models import convert, init
-    from jama16_retina_tpu_torch.ops import adamw
-    from jama16_retina_tpu_torch.ops import color_jitter as cj
     from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
     init_flat = convert.torch_to_flax(init.init_flax_default(
@@ -568,10 +622,11 @@ def phase_train(torch, seed: int, steps: int) -> dict:
     n_leaves = sum(k.startswith("params/") for k in init_flat)
     want = {"preset": {"fused_color_jitter": steps,
                        "fused_normalize_color_jitter": 0,
-                       "fused_adamw_update": 0},
+                       "fused_adamw_update": 0, "fused_serve_preprocess": 0},
             "fused": {"fused_color_jitter": 0,
                       "fused_normalize_color_jitter": steps,
-                      "fused_adamw_update": steps}}
+                      "fused_adamw_update": steps,
+                      "fused_serve_preprocess": 0}}
     out = {}
     for form in TRAIN_FORMS:
         cfg = train_config(form, steps, seed)
@@ -580,10 +635,10 @@ def phase_train(torch, seed: int, steps: int) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # The main path: counts set to 0 just before, read just after.
-        cj.launches.update(dict.fromkeys(cj.launches, 0))
-        adamw.launches = 0
-        results = trainer.fit(cfg, str(workdir), TRAIN_IMAGES, device="cuda")
-        counts = {**cj.launches, "fused_adamw_update": adamw.launches}
+        reset_launch_counts()
+        results = trainer.fit_synthetic(cfg, str(workdir), TRAIN_IMAGES,
+                                        device="cuda")
+        counts = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         log(f"train: {form}: {steps} steps of batch {TRAIN_BATCH} at 299 px "
             f"on {TRAIN_IMAGES} canvases in {results['train_sec']:.2f} s "
@@ -786,6 +841,229 @@ def profile_request(torch, serve: dict, out_dir: str) -> None:
     log("\n".join(table.splitlines()[:20]))
 
 
+def fit_config(steps: int, workdir: Path, seed: int, *extra):
+    from jama16_retina_tpu_torch import configs
+
+    return configs.override(configs.get_config("eyepacs_binary"), [
+        f"train.steps={steps}", f"train.eval_every={FIT_EVAL_EVERY}",
+        "train.log_every=1", f"train.seed={seed}",
+        f"train.checkpoint_dir={workdir}", f"data.batch_size={TRAIN_BATCH}",
+        *extra])
+
+
+def fit_run(torch, cfg, data: Path) -> "tuple[dict, dict, list]":
+    """One ``trainer.fit`` on the card, launch counts set to 0 just before
+    and read just after -> (result, counts, metrics records)."""
+    from jama16_retina_tpu_torch import trainer
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    workdir = cfg.train.checkpoint_dir
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    result = trainer.fit(cfg, str(data), workdir, device="cuda")
+    counts = launch_counts()
+    return result, counts, read_jsonl(f"{workdir}/{trainer.METRICS_FILE}")
+
+
+def read_back(paths) -> "tuple[int, float, float]":
+    """(bytes, seconds to read and decode every record, seconds of the
+    CRC-32C over the same bytes alone)."""
+    from jama16_retina_tpu_torch.data import tfrecord
+
+    t0 = time.perf_counter()
+    records = [d for p in paths for d in tfrecord.read_records(p)]
+    for d in records:
+        tfrecord.parse_record(d)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for d in records:
+        tfrecord.crc32c(d)
+    return sum(len(d) for d in records), read_s, time.perf_counter() - t0
+
+
+def read_probs_csv(path: Path) -> "tuple[list, np.ndarray, np.ndarray]":
+    """(names, grades, probabilities) of a ``save_probs`` CSV."""
+    import csv
+
+    import numpy as np
+
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    return ([r["name"] for r in rows],
+            np.array([int(r["grade"]) for r in rows]),
+            np.array([float(r["prob_referable"]) for r in rows]))
+
+
+def reports_gap(a: dict, b: dict, p, y, dev: float) -> "str | None":
+    """None when two evaluation reports of one split agree as far as
+    probabilities that differ by ``dev`` (read at 6 decimals) allow, else
+    what differs. ``p``, ``y``: one device's probabilities and labels.
+    Two images can change order only where they lie within ``tie`` of each
+    other, and an image can change side of a threshold only within ``tie``
+    (plus the threshold's own shift) of it: the AUC may differ by the
+    share of positive/negative pairs that can change order (so not at all
+    where none can), a sensitivity (specificity) by the share of positives
+    (negatives) that can move. Thresholds agree within 1e-4."""
+    import numpy as np
+
+    tie = 2 * dev + 3e-6  # both devices' shift and the CSV's rounding
+    pos, neg = p[y == 1], p[y == 0]
+    near_pairs = int(np.sum(np.abs(pos[:, None] - neg[None, :]) <= tie))
+    if abs(a["auc"] - b["auc"]) > near_pairs / max(pos.size * neg.size, 1):
+        return (f"AUC {a['auc']} vs {b['auc']} with {near_pairs} "
+                "positive/negative pairs within reach of each other")
+    near = np.sum(np.abs(p[:, None] - p[None, :]) <= tie, axis=1) > 1
+    for key in ("operating_points", "operating_points_transferred"):
+        for ra, rb in zip(a[key], b[key], strict=True):
+            # A threshold above every probability is inf on both.
+            shift = (0.0 if ra["threshold"] == rb["threshold"]
+                     else abs(ra["threshold"] - rb["threshold"]))
+            moved = near | (np.abs(p - rb["threshold"]) <= shift + tie)
+            if (shift > 1e-4 or abs(ra["sensitivity"] - rb["sensitivity"])
+                    > np.sum(moved & (y == 1)) / max(pos.size, 1)
+                    or abs(ra["specificity"] - rb["specificity"])
+                    > np.sum(moved & (y == 0)) / max(neg.size, 1)):
+                return f"{key}: {ra} vs {rb}"
+    return None
+
+
+def phase_fit(torch, seed: int, smi: str, step_ms: float) -> dict:
+    """Train from TFRecord splits, validate, checkpoint, resume and
+    evaluate, at full width on the card (phase 6 of the docstring)."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, models, train_lib, trainer
+    from jama16_retina_tpu_torch.data import tfrecord
+    from jama16_retina_tpu_torch.models import init
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    root = SCRATCH / "fit"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    t0 = time.perf_counter()
+    for split, n, shards, split_seed in FIT_SPLITS:
+        tfrecord.write_synthetic_split(str(data), split, n, 299,
+                                       num_shards=shards, seed=split_seed)
+    log(f"fit: wrote raw splits {[(s, n, k) for s, n, k, _ in FIT_SPLITS]} "
+        f"(split, images, shards) at 299 px in "
+        f"{time.perf_counter() - t0:.2f} s")
+    val_paths = tfrecord.list_split(str(data), "val")
+    n_bytes, read_s, crc_s = read_back(val_paths)
+    log(f"fit: read val back: {n_bytes} bytes of records in {read_s:.4f} s "
+        f"= {n_bytes / read_s / 1e6:.1f} MB/s (CRC-32C alone "
+        f"{n_bytes / crc_s / 1e6:.1f} MB/s, host CPU; {smi})")
+
+    # Run A: 8 steps, evals at 4 and 8.
+    cfg_a = fit_config(FIT_STEPS, root / "a", seed)
+    res_a, counts_a, recs_a = fit_run(torch, cfg_a, data)
+    log(f"fit: run A: {res_a}; launches {counts_a}")
+    check(counts_a["fused_color_jitter"] == FIT_STEPS
+          and counts_a["fused_normalize_color_jitter"] == 0
+          and counts_a["fused_adamw_update"] == 0,
+          f"run A launched {counts_a}, want B1 = {FIT_STEPS}, B2 = B3 = 0")
+    check(set(res_a) == {"best_auc", "best_step", "stopped_early"},
+          f"fit returned keys {sorted(res_a)}")
+    evals_a = [r for r in recs_a if r["kind"] == "eval"]
+    check([r["step"] for r in evals_a] == [4, 8],
+          f"run A evals at {[r['step'] for r in evals_a]}, want [4, 8]")
+    check(all(np.isfinite(r["val_auc"]) and 0 <= r["val_auc"] <= 1
+              for r in evals_a), f"run A val AUCs {evals_a}")
+    ck_a = ckpt_lib.Checkpointer(str(root / "a"))
+    check((root / "a" / "best").is_dir() and (root / "a" / "latest").is_dir()
+          and ck_a.latest_step == FIT_STEPS,
+          f"run A: best/ latest/ and latest step {ck_a.latest_step}")
+    train_a = {r["step"]: r for r in recs_a if r["kind"] == "train"}
+    losses_a = {s: r["loss"] for s, r in train_a.items()}
+    check(all(np.isfinite(list(losses_a.values()))),
+          f"run A losses {losses_a}")
+    stream_ms = statistics.median(
+        1e3 * r["window_sec"] for s, r in train_a.items()
+        if s > 1 and r["pause_sec"] == 0 and r["save_sec"] == 0)
+    input_ms = statistics.median(
+        1e3 * r["input_wait_sec"] for s, r in train_a.items() if s > 1)
+    after_eval = train_a[FIT_EVAL_EVERY + 1]
+    save_bytes = (root / "a" / "latest" / str(FIT_STEPS) /
+                  ckpt_lib.STATE_FILE).stat().st_size
+    log(f"times: fit run A: step over the TFRecord stream median "
+        f"{stream_ms:.3f} ms (input wait {input_ms:.3f} ms) vs "
+        f"{step_ms:.3f} ms in memory (preset); val eval of "
+        f"{FIT_SPLITS[1][1]} images "
+        f"{1e3 * after_eval['pause_sec']:.1f} ms; checkpoint save "
+        f"{1e3 * after_eval['save_sec']:.1f} ms, {save_bytes} bytes "
+        f"written to latest/ and linked into best/ ({smi})")
+
+    # Run B: 4 steps, then resume to 8.
+    cfg_b = fit_config(4, root / "b", seed)
+    _, counts_b1, _ = fit_run(torch, cfg_b, data)
+    check(counts_b1["fused_color_jitter"] == 4,
+          f"run B's first call launched {counts_b1}, want B1 = 4")
+    saved = ckpt_lib.Checkpointer(str(root / "b")).restore(4)
+    cfg_b2 = fit_config(FIT_STEPS, root / "b", seed, "train.resume=true")
+    state = train_lib.create_state(cfg_b2, init.init_flax_default(
+        models.build(cfg_b2.model), seed + 1), "cuda")
+    again = train_lib.state_to_flat(train_lib.load_state_flat(state, saved))
+    check(set(again) == set(saved) and all(
+        np.array_equal(again[k], saved[k]) for k in saved),
+        "the state restored on the card differs from the one saved at 4")
+    del state
+    res_b, counts_b, recs_b = fit_run(torch, cfg_b2, data)
+    log(f"fit: run B resumed: {res_b}; launches {counts_b}; the state "
+        f"saved at step 4 restored bitwise ({len(saved)} arrays)")
+    check([r["step"] for r in recs_b if r["kind"] == "resume"] == [4],
+          "run B has no resume record at step 4")
+    check(counts_b["fused_color_jitter"] == FIT_STEPS - 4,
+          f"run B's resume launched {counts_b}, want B1 = 4")
+    losses_b = {r["step"]: r["loss"] for r in recs_b if r["kind"] == "train"}
+    diff = max(abs(losses_a[s] - losses_b[s]) for s in range(5, 9))
+    log(f"fit: run B vs run A losses at steps 5-8: max |diff| {diff:.3e} "
+        "(not asserted: run B's first call ran a 4-step schedule)")
+
+    # Evaluate run A's best step on test, thresholds from val, float32,
+    # on each device; the probabilities it wrote and its reports compared.
+    cfg_eval = configs.override(cfg_a, ["model.compute_dtype=float32"])
+    reports, probs = {}, {}
+    for dev in ("cuda", "cpu"):
+        csv_path = root / f"probs_{dev}.csv"
+        t0 = time.perf_counter()
+        reports[dev] = report = trainer.evaluate_checkpoints(
+            cfg_eval, str(data), [str(root / "a")], split="test",
+            threshold_split="val", save_probs=str(csv_path), device=dev)
+        ops = [(round(r["threshold"], 6), r["sensitivity"], r["specificity"])
+               for r in report["operating_points"]]
+        moved = [(r["sensitivity"], r["specificity"])
+                 for r in report["operating_points_transferred"]]
+        log(f"fit: evaluate {dev}: AUC {report['auc']:.6f}, operating "
+            f"points (threshold, sensitivity, specificity) {ops}, "
+            f"transferred from val (sensitivity, specificity) {moved} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        probs[dev] = read_probs_csv(csv_path)
+    (names, grades, p_cpu), (names_c, grades_c, p_card) = (
+        probs["cpu"], probs["cuda"])
+    dev_cpu = float(np.max(np.abs(p_card - p_cpu)))
+    log(f"fit: evaluate float32 card vs CPU max |prob diff| {dev_cpu:.3e} "
+        f"over {p_cpu.size} test images in the save_probs CSVs (6 "
+        "decimals; atol 1e-4, TF32 off)")
+    check(names == names_c and np.array_equal(grades, grades_c)
+          and p_cpu.size == FIT_SPLITS[2][1] and dev_cpu <= 1e-4,
+          f"card and CPU evaluations disagree by {dev_cpu}")
+    gap = reports_gap(reports["cuda"], reports["cpu"], p_cpu,
+                      (grades >= 2).astype(int), dev_cpu)
+    check(gap is None, f"card and CPU evaluation reports disagree: {gap}")
+    shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"times: fit phase wall {wall:.1f} s ({smi})")
+    return {"launches": {"run_a": counts_a, "run_b_first": counts_b1,
+                         "run_b_resume": counts_b},
+            "stream_step_ms": stream_ms, "memory_step_ms": step_ms,
+            "val_read_mb_s": n_bytes / read_s / 1e6,
+            "crc_mb_s": n_bytes / crc_s / 1e6,
+            "eval_ms": 1e3 * after_eval["pause_sec"],
+            "save_ms": 1e3 * after_eval["save_sec"],
+            "save_bytes": save_bytes, "resume_loss_diff": diff,
+            "eval_card_vs_cpu": dev_cpu, "wall_s": wall}
+
+
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"jama16_retina_tpu_torch/ops/csrc/{source}",
@@ -871,6 +1149,7 @@ def main(argv=None) -> int:
         f"images.to(float32) {b2['yardstick_ms']:.5f} ms ({smi})")
     request_times(torch, serve, smi)
     steps = train_step_times(torch, args.seed, smi)
+    fit = phase_fit(torch, args.seed, smi, steps["preset"]["step_ms"])
     for form, t in train.items():
         log(f"times: train {form}: peak device memory {t['peak']} bytes "
             f"({smi})")
@@ -881,7 +1160,8 @@ def main(argv=None) -> int:
     main_row = timing[8]
     b4 = kernel_record(
         "fused_serve_preprocess", "serve_preprocess.cu",
-        "jama16_retina_tpu/ops/pallas_serve.py:143", serve["launches"],
+        "jama16_retina_tpu/ops/pallas_serve.py:143",
+        serve["launches"]["fused_serve_preprocess"],
         max_err, {**main_row, "library_ms": None})
     b4.update({"max_abs_diff": max_err, "timed_shape": main_row["shape"],
                "by_batch": {str(b): t for b, t in timing.items()}})
@@ -889,7 +1169,14 @@ def main(argv=None) -> int:
                 train["preset"]["launches"]["fused_color_jitter"],
                 **{k: train["fused"]["launches"][k] for k in (
                     "fused_normalize_color_jitter", "fused_adamw_update")}}
-    log(json.dumps({"kernels": [
+    # Each path's counts, all four set to 0 just before it ran and read
+    # just after.
+    runs = {"serve": serve["launches"],
+            **{f"train_{form}": t["launches"] for form, t in train.items()},
+            **{f"fit_{run}": n for run, n in fit["launches"].items()}}
+    by_phase = {k: {run: counts[k] for run, counts in runs.items()}
+                for k in launch_counts()}
+    records = [
         kernel_record("fused_color_jitter", "color_jitter.cu",
                       "jama16_retina_tpu/ops/pallas_augment.py:61",
                       launches["fused_color_jitter"],
@@ -905,7 +1192,10 @@ def main(argv=None) -> int:
                       "jama16_retina_tpu/ops/pallas_opt.py:105",
                       launches["fused_adamw_update"], adamw_err, opt),
         b4,
-    ]}))
+    ]
+    for r in records:
+        r["launches_by_phase"] = by_phase[r["name"]]
+    log(json.dumps({"kernels": records}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """The slice of ``jama16_retina_tpu/configs.py`` that the port reads
-(serving, and the train step of the ``eyepacs_binary`` path).
+(serving; training, eval, checkpoints and resume of the
+``eyepacs_binary`` path).
 
 Field names, defaults, preset names and the dotted ``--set`` syntax are
 those of the JAX package, so one override list configures both. Only the
@@ -35,7 +36,14 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    # Split roots: the train CLI defaults --data_dir to train_dir, the
+    # evaluate CLI to test_dir.
+    train_dir: str = ""
+    test_dir: str = ""
     batch_size: int = 32
+    # Train-stream loader: "tfdata" names the TFRecord stream
+    # (data/pipeline.py); the reference's other loaders are not ported.
+    loader: str = "tfdata"
     # Augmentation (data/augment.py): flips and the square-only transpose,
     # brightness, contrast about the per-image mean, YIQ saturation/hue.
     augment: bool = True
@@ -52,6 +60,7 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     steps: int = 30000
+    eval_every: int = 500
     log_every: int = 50
     learning_rate: float = 1e-3
     lr_schedule: str = "cosine"  # constant | cosine | warmup_cosine
@@ -67,6 +76,19 @@ class TrainConfig:
     gradient_clip_norm: float = 0.0
     label_smoothing: float = 0.0
     ema_decay: float = 0.0
+    # Early stopping on val AUC: stop after this many evals without an
+    # improvement above min_delta.
+    early_stop_patience: int = 10
+    min_delta: float = 1e-4
+    # The train CLI's default workdir; best/ keeps the top max_to_keep
+    # steps by val AUC, latest/ the newest.
+    checkpoint_dir: str = "/tmp/retina_ckpt"
+    max_to_keep: int = 3
+    resume: bool = False
+    # Save a checkpoint every N-th eval (the last step, a stopping eval
+    # and, with save_first_eval, the first eval always save).
+    save_every_evals: int = 1
+    save_first_eval: bool = True
     seed: int = 0
     ensemble_size: int = 1
     init_from: str = ""
@@ -77,6 +99,13 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
+    batch_size: int = 64
+    # Operating points: thresholds chosen on the ROC curve at these
+    # specificities.
+    operating_specificities: tuple[float, float] = (0.87, 0.98)
+    # Member dirs whose probabilities the evaluate CLI averages when it
+    # is given none.
+    ensemble_dirs: tuple[str, ...] = ()
     # Average probabilities over the 4 flip views (identity/h/v/hv).
     tta: bool = False
 
@@ -131,8 +160,10 @@ def _preset_smoke() -> ExperimentConfig:
         name="smoke",
         model=ModelConfig(arch="tiny_cnn", image_size=64, aux_head=False),
         data=DataConfig(batch_size=8),
-        train=TrainConfig(steps=50, log_every=10, learning_rate=3e-3,
-                          warmup_steps=5),
+        train=TrainConfig(steps=50, eval_every=25, log_every=10,
+                          learning_rate=3e-3, warmup_steps=5,
+                          early_stop_patience=100),
+        eval=EvalConfig(batch_size=8),
     )
 
 
@@ -160,26 +191,25 @@ _UNIMPLEMENTED = {
     ("train", "accum_steps"): (1, "Queue A item 6 (accumulation)"),
     ("train", "async_save"): (False, "Queue A item 6 (async_save)"),
     ("train", "eval_overlap"): (False, "Queue A item 6 (eval_overlap)"),
-    ("train", "ensemble_size"): (
-        1, "Queue A item 8 (ensembles and DDP)"),
-    ("train", "init_from"): ("", "Queue A item 5 (warm start)"),
+    ("train", "init_from"): ("", "Queue A item 5 (warm start, "
+                                 "train.init_from)"),
     ("train", "distill_from"): ("", "Queue A item 9 (distillation)"),
 }
 # JAX-package fields this port has no copy of yet. Overriding one raises
 # NotImplementedError naming its item; any other unknown field is a typo
 # and raises ValueError.
 _NOT_PORTED = {
-    "train.eval_every": "Queue A item 5 (eval, AUC, early stopping)",
-    "train.early_stop_patience": "Queue A item 5 (eval, AUC, early stopping)",
-    "train.min_delta": "Queue A item 5 (eval, AUC, early stopping)",
-    "train.checkpoint_dir": "Queue A item 5 (checkpoints, resume)",
-    "train.resume": "Queue A item 5 (checkpoints, resume)",
-    "train.max_to_keep": "Queue A item 5 (checkpoints, resume)",
-    "train.save_every_evals": "Queue A item 5 (checkpoints, resume)",
-    "data.loader": "Queue A items 5 and 7 (TFRecord, rawshard, hbm, "
-                   "tiered loaders)",
-    "data.train_dir": "Queue A item 5 (TFRecord loader)",
+    "train.tensorboard": "Queue A item 11 (planes: TensorBoard mirror)",
+    "train.debug": "Queue A item 11 (planes: NaN debugging)",
+    "data.shuffle_buffer": "Queue C (the port's train stream shuffles "
+                           "the whole split; no buffer)",
+    "eval.sharded": "Queue A item 8 (multi-host eval)",
+    "train.ensemble_parallel": "Queue A item 8 (member-parallel ensembles)",
 }
+# data.loader values: the TFRecord stream is ported, the others are not.
+_LOADERS = ("tfdata",)
+_LOADER_ITEM = ("Queue A item 7 (rawshard, hbm, tiered, grain and served "
+                "loaders)")
 _ARCHS = ("inception_v3", "tiny_cnn")
 _DTYPES = ("float32", "bfloat16")
 _SCHEDULES = ("constant", "cosine", "warmup_cosine")
@@ -209,8 +239,19 @@ def check_supported(cfg: ExperimentConfig, training: bool = False) -> None:
             f"model.compute_dtype must be one of {_DTYPES}, got "
             f"{cfg.model.compute_dtype!r}"
         )
+    if training and cfg.train.ensemble_size != 1:
+        raise NotImplementedError(
+            f"train.ensemble_size={cfg.train.ensemble_size!r}: one fit "
+            "trains one model here; trainer.fit_ensemble (the train CLI's "
+            "route) trains the members one after another. Members trained "
+            "in parallel in one program are not ported yet; see ROADMAP.md "
+            "Queue A item 8")
     if training and cfg.train.lr_schedule not in _SCHEDULES:
         raise ValueError(f"unknown lr_schedule {cfg.train.lr_schedule!r}")
+    if training and cfg.data.loader not in _LOADERS:
+        raise NotImplementedError(
+            f"data.loader={cfg.data.loader!r} is not ported yet (have "
+            f"{_LOADERS}); see ROADMAP.md {_LOADER_ITEM}")
 
 
 def validate_train_knobs(tc: TrainConfig) -> None:

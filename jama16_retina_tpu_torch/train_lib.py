@@ -1,5 +1,6 @@
-"""The train step (counterpart of ``jama16_retina_tpu/train_lib.py``:
-``make_schedule``, the loss, ``_step_impl`` and ``_apply_update``).
+"""The train and eval steps (counterpart of
+``jama16_retina_tpu/train_lib.py``: ``make_schedule``, the loss,
+``_step_impl``, ``_apply_update``, ``eval_params`` and ``make_eval_step``).
 
 One step: draw the augment and dropout streams from (seed, step), augment
 the uint8 batch on its device, forward and backward in train mode (batch
@@ -12,7 +13,9 @@ the augment goes through kernel B1 (``data.use_pallas``) or B2 (fused).
 The state mirrors the reference's ``TrainState`` and optax's adamw state:
 the step, the model (params and batch statistics), the Adam count and
 moments, the schedule's count and the EMA shadow. Counts and moments live
-on the model's device, so a step reads no host value.
+on the model's device, so a step reads no host value. ``state_to_flat``
+and ``load_state_flat`` carry the whole state to and from the flat numpy
+dict a checkpoint stores.
 """
 
 from __future__ import annotations
@@ -29,7 +32,10 @@ from torch import nn
 
 from jama16_retina_tpu_torch.configs import ExperimentConfig, TrainConfig
 from jama16_retina_tpu_torch.data import augment
+from jama16_retina_tpu_torch.models import convert
 from jama16_retina_tpu_torch.ops import adamw
+from jama16_retina_tpu_torch.serve.engine import ServingEngine
+from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
 _log = logging.getLogger(__name__)
 
@@ -199,3 +205,67 @@ def eval_params(state: TrainState) -> "dict[str, torch.Tensor]":
     if state.ema is not None:
         sd.update(state.ema)
     return sd
+
+
+def make_eval_step(cfg: ExperimentConfig, state: TrainState,
+                   device: "str | torch.device | None" = None) -> Callable:
+    """uint8 images [B, S, S, 3] (numpy) -> float32 probabilities [B] of
+    the state's eval params (``eval_params``) with its batch statistics:
+    normalize, the eval forward (flip-averaged when ``eval.tta``), then
+    sigmoid. It is the serving engine's forward over one member, made
+    from a snapshot of the state; padding rows are scored and left for
+    the caller to trim, as in the reference."""
+    engine = ServingEngine(cfg, state_dicts=[eval_params(state)],
+                           device=device)
+    return lambda images: engine.member_probs(images)[0]
+
+
+# The flat form of a TrainState, as a checkpoint stores it: the model's
+# ``params/...`` and ``batch_stats/...`` (the flat Flax tree,
+# ``models/convert.torch_to_flax``), the optax-shaped AdamW state
+# (``adam/count``, ``adam/mu/...``, ``adam/nu/...``, ``schedule/count``,
+# ``convert.port_to_optax_adamw``), the EMA shadow under
+# ``utils.checkpoint.EMA_PREFIX`` + <params path> when carried, and
+# ``step``.
+
+
+def state_to_flat(state: TrainState) -> "dict[str, np.ndarray]":
+    flat = convert.torch_to_flax(state.model)
+    flat.update(convert.port_to_optax_adamw(
+        state.mu, state.nu, int(state.count), int(state.sched_count)))
+    if state.ema is not None:
+        for k, v in convert.torch_to_flax(state.ema).items():
+            flat[ckpt_lib.EMA_PREFIX + k.split("/", 1)[1]] = v
+    flat["step"] = np.asarray(state.step, np.int64)
+    return flat
+
+
+def load_state_flat(state: TrainState,
+                    flat: "dict[str, np.ndarray]") -> TrainState:
+    """Fill ``state`` (made by ``create_state`` for the same config) in
+    place from ``flat``; every value is copied exactly. The EMA shadow
+    must be carried on both sides or on neither."""
+    model = state.model
+    has_ema = ckpt_lib.has_ema(flat)
+    if has_ema != (state.ema is not None):
+        raise ValueError(
+            f"the saved state {'carries' if has_ema else 'lacks'} an EMA "
+            f"shadow but this state {'does not' if has_ema else 'does'}")
+    with torch.no_grad():
+        model.load_state_dict(convert.flax_to_torch(
+            {k: v for k, v in flat.items()
+             if k.startswith(("params/", "batch_stats/"))}, model))
+        opt = convert.optax_adamw_to_port(
+            {k: v for k, v in flat.items()
+             if k.startswith(("adam/", "schedule/"))}, model)
+        for k in state.mu:
+            state.mu[k].copy_(opt["mu"][k])
+            state.nu[k].copy_(opt["nu"][k])
+        state.count.fill_(opt["count"])
+        state.sched_count.fill_(opt["sched_count"])
+        if has_ema:
+            ema = convert.flax_to_torch(ckpt_lib.eval_tree(flat), model)
+            for k in state.ema:
+                state.ema[k].copy_(ema[k])
+    state.step = int(flat["step"])
+    return state

@@ -1,24 +1,31 @@
-"""Train loop of the port (the part of ``jama16_retina_tpu/trainer.fit``
-this slice carries).
+"""Train and evaluate entry functions of the port (counterpart of
+``jama16_retina_tpu/trainer.py``).
 
-``fit`` trains ``train.steps`` steps of ``train_lib.train_step`` on an
-in-memory synthetic fundus set (``data/synthetic.make_dataset``) kept on
-the device, in batches of ``data.batch_size`` drawn from a seeded shuffle,
-one permutation per epoch. Every ``train.log_every`` steps it appends a
-``train`` record ``{"kind", "t", "step", "loss"}`` to
-``<workdir>/metrics.jsonl`` (the reference's keys), and at the end it
-writes the eval params (the EMA shadow when carried) and batch statistics
-as a member dir (``<workdir>/params.npz``, ``utils/checkpoint``), which
-``ServingEngine`` and ``python -m jama16_retina_tpu_torch.predict`` serve.
+``fit`` is the reference's single-model loop: the train stream of a
+TFRecord ``train`` split (``data/pipeline.train_batches``) through
+``train_lib.train_step``; every ``train.eval_every`` steps and at the last
+step, the val AUC of the eval params, best/``min_delta``/patience
+tracking and early stopping, and a checkpoint (``utils/checkpoint``:
+``best/`` by val AUC, ``latest/`` for resume); ``train.resume`` continues
+exactly where the run stopped. ``<workdir>/metrics.jsonl`` carries the
+reference's records (``config``, ``train``, ``eval``, ``early_stop``,
+``resume``) with its keys, and ``run_meta.json`` pins the seed.
+``fit_ensemble`` trains k seeded members one after another;
+``evaluate_checkpoints`` scores member checkpoints (averaged in float64)
+on a split and reports AUC and the operating points, as the reference's
+evaluate does.
 
-Not here yet (each raises where it is asked for, naming its ROADMAP
-item): eval, AUC and early stopping; checkpoints and resume; the TFRecord
-and other loaders; ensembles.
+``fit_synthetic`` is the in-memory form: ``train.steps`` steps on rendered
+fundus images held on the device, the eval params written as a member dir
+(``<workdir>/params.npz``). It times the step without the input stream.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import logging
 import os
 import time
 
@@ -28,9 +35,14 @@ import torch
 from jama16_retina_tpu_torch import configs, models
 from jama16_retina_tpu_torch import device as device_lib
 from jama16_retina_tpu_torch import train_lib
-from jama16_retina_tpu_torch.data import synthetic
+from jama16_retina_tpu_torch.data import pipeline, synthetic, tfrecord
+from jama16_retina_tpu_torch.eval import metrics
 from jama16_retina_tpu_torch.models import convert, init
+from jama16_retina_tpu_torch.serve.engine import ServingEngine
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+from jama16_retina_tpu_torch.utils.logging import RunLog, read_jsonl
+
+_log = logging.getLogger(__name__)
 
 METRICS_FILE = "metrics.jsonl"
 # make_dataset seed of the train split (train.py --synthetic writes its
@@ -50,11 +62,12 @@ def batch_indices(n: int, batch_size: int, steps: int,
     return order[:need].reshape(steps, batch_size)
 
 
-def fit(cfg: configs.ExperimentConfig, workdir: str, n_synthetic: int,
-        device: "str | torch.device | None" = None) -> dict:
-    """Train on ``n_synthetic`` rendered fundus images; returns the run's
-    results (steps, last loss, member dir, wall time, images per second,
-    device)."""
+def fit_synthetic(cfg: configs.ExperimentConfig, workdir: str,
+                  n_synthetic: int,
+                  device: "str | torch.device | None" = None) -> dict:
+    """Train on ``n_synthetic`` rendered fundus images held on the device;
+    returns the run's results (steps, last loss, member dir, wall time,
+    images per second, device)."""
     dev = device_lib.resolve(device)
     configs.validate_train_knobs(cfg.train)
     configs.check_supported(cfg, training=True)
@@ -103,3 +116,493 @@ def fit(cfg: configs.ExperimentConfig, workdir: str, n_synthetic: int,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
     }
+
+
+# ---------------------------------------------------------------------------
+# Eval
+# ---------------------------------------------------------------------------
+
+def _binary_eval_labels(grades: np.ndarray) -> np.ndarray:
+    """evaluation_report's labels for the binary head: grade >= 2."""
+    return (grades >= 2).astype(np.float64)
+
+
+def predict_split(cfg: configs.ExperimentConfig, member_probs_fn,
+                  data_dir: str, split: str
+                  ) -> "tuple[np.ndarray, np.ndarray, np.ndarray]":
+    """The eval stream of ``split`` (no augmentation) through
+    ``member_probs_fn(images) -> [k, B]`` probabilities, padding rows
+    trimmed by the batches' mask -> (grades [n], probs [k, n], names [n];
+    names are the records' ``image/name`` bytes)."""
+    grades_all, probs_all, names_all = [], [], []
+    for batch in pipeline.eval_batches(data_dir, split, cfg.eval.batch_size,
+                                       cfg.model.image_size):
+        probs = np.asarray(member_probs_fn(batch["image"]))
+        keep = batch["mask"] > 0
+        grades_all.append(batch["grade"][keep])
+        probs_all.append(probs[:, keep])
+        names_all.append(batch["name"][keep])
+    return (np.concatenate(grades_all), np.concatenate(probs_all, axis=1),
+            np.concatenate(names_all))
+
+
+def _best_tracking_update(aucs, best_auc, best_step, since_best, step: int,
+                          min_delta: float):
+    """The best/min_delta/patience rule, vectorized over any number of
+    models: an AUC above the best by more than ``min_delta`` becomes the
+    best and resets patience; any other AUC adds one to it."""
+    improved = np.asarray(aucs) > np.asarray(best_auc) + min_delta
+    return (
+        np.where(improved, aucs, best_auc),
+        np.where(improved, step, best_step),
+        np.where(improved, 0, np.asarray(since_best) + 1),
+    )
+
+
+def _check_ema_compat(ckpt: ckpt_lib.Checkpointer,
+                      cfg: configs.ExperimentConfig, where: str,
+                      step: "int | None" = None) -> None:
+    """Resume must continue the same optimization: a checkpoint trained
+    with the EMA shadow on (off) under a config with it off (on) raises
+    (None = metadata unreadable: the guard is skipped)."""
+    has_ema = ckpt.saved_with_ema(step)
+    if has_ema is not None and has_ema != (cfg.train.ema_decay > 0):
+        raise ValueError(
+            f"checkpoint in {where} was trained with ema "
+            f"{'on' if has_ema else 'off'} but this run sets "
+            f"train.ema_decay={cfg.train.ema_decay} — resume with a "
+            "matching config")
+
+
+def _reconstruct_best_tracking(workdir: str, start_step: int,
+                               cfg: configs.ExperimentConfig,
+                               ckpt: ckpt_lib.Checkpointer):
+    """(best_auc, best_step, since_best) as of ``start_step``, for resume:
+    the run's own eval history (``metrics.jsonl``, the first eval record
+    per step at step <= start_step) replayed through
+    ``_best_tracking_update``, so a resumed run stops exactly when an
+    uninterrupted one would. Without a history, the best checkpoint's
+    (step, val AUC), with patience from the eval cadence."""
+    path = os.path.join(workdir, METRICS_FILE)
+    kept: dict = {}
+    if os.path.exists(path):
+        for r in read_jsonl(path):
+            if (r.get("kind") != "eval" or r.get("step", 0) > start_step
+                    or "val_auc" not in r):
+                continue
+            s, auc = r["step"], r["val_auc"]
+            if s not in kept:
+                kept[s] = auc
+            elif not np.allclose(kept[s], auc, atol=1e-9, equal_nan=True):
+                _log.warning(
+                    "metrics.jsonl holds disagreeing duplicate eval records "
+                    "at step %d (%s vs %s); replaying the first — best/"
+                    "patience reconstruction may not match the restored "
+                    "state", s, kept[s], auc)
+    best_auc, best_step, since_best = -np.inf, 0, 0
+    if kept:
+        for step, auc in kept.items():
+            best_auc, best_step, since_best = _best_tracking_update(
+                auc, best_auc, best_step, since_best, step,
+                cfg.train.min_delta)
+        return float(best_auc), int(best_step), int(since_best)
+    info = ckpt.best_info()
+    if info is not None:
+        best_step, best_auc = info
+        since_best = max(0, (start_step - best_step) // cfg.train.eval_every)
+    return float(best_auc), int(best_step), int(since_best)
+
+
+def _save_due(cfg: configs.ExperimentConfig, step: int) -> bool:
+    """Is this eval's checkpoint due under ``train.save_every_evals``? The
+    phase comes from the step ordinal (step // eval_every), so resume
+    keeps the cadence. The last step is always due, and so is the first
+    eval (ordinal 1) under ``train.save_first_eval``."""
+    if step >= cfg.train.steps:
+        return True
+    n = max(1, cfg.train.save_every_evals)
+    ordinal = step // cfg.train.eval_every
+    if cfg.train.save_first_eval and ordinal == 1:
+        return True
+    return ordinal % n == 0
+
+
+def _eval_and_track(cfg: configs.ExperimentConfig, log: RunLog, step: int,
+                    predict_fn, save_fn, best_auc: float, best_step: int,
+                    since_best: int, save_due: bool):
+    """One eval interval: val predict -> referable-DR AUC -> best and
+    ``min_delta`` tracking -> early-stop decision -> checkpoint through
+    ``save_fn(step, val_auc)`` when ``save_due``. The eval record is
+    written before the save; a stopping eval always saves.
+    Returns (best_auc, best_step, since_best, stop)."""
+    grades, probs = predict_fn()
+    auc = metrics.roc_auc(_binary_eval_labels(grades), probs)
+    b_auc, b_step, since = _best_tracking_update(
+        auc, best_auc, best_step, since_best, step, cfg.train.min_delta)
+    best_auc, best_step, since_best = float(b_auc), int(b_step), int(since)
+    # val_auc at full precision: resume replays it (best_auc is display).
+    log.write("eval", step=step, val_auc=float(auc),
+              best_auc=round(best_auc, 5), since_best=since_best)
+    stop = since_best >= cfg.train.early_stop_patience
+    if save_due or stop:
+        save_fn(step, float(auc))
+    if stop:
+        log.write("early_stop", step=step, best_step=best_step)
+    return best_auc, best_step, since_best, stop
+
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+
+class _ThroughputClock:
+    """Images/s per log window (``images_per_sec_window``) and over all
+    train time so far (``images_per_sec_avg``). The clocks restart after
+    the first step (the warm-up: kernel builds, cuDNN plans) and after
+    every eval pause, so neither folds them in."""
+
+    def __init__(self, batch_size: int):
+        now = time.time()
+        self._batch = batch_size
+        self._first_done = False
+        self._t_window = now
+        self._imgs_window = 0
+        self._t_resume = now
+        self._train_time = 0.0
+        self._imgs_avg = 0
+
+    def after_step(self) -> None:
+        if not self._first_done:
+            self._first_done = True
+            now = time.time()
+            self._t_window = now
+            self._t_resume = now
+            return
+        self._imgs_window += self._batch
+        self._imgs_avg += self._batch
+
+    def pause(self) -> None:
+        self._train_time += time.time() - self._t_resume
+
+    def resume(self) -> None:
+        now = time.time()
+        self._t_resume = now
+        self._t_window = now
+        self._imgs_window = 0
+
+    def fields(self) -> dict:
+        now = time.time()
+        out = {"images_per_sec_window": round(
+            self._imgs_window / max(now - self._t_window, 1e-9), 2)}
+        train_time = self._train_time + (now - self._t_resume)
+        if self._imgs_avg > 0:
+            out["images_per_sec_avg"] = round(
+                self._imgs_avg / max(train_time, 1e-9), 2)
+        self._t_window = now
+        self._imgs_window = 0
+        return out
+
+
+class _StallClock:
+    """Where a log window's wall time went: ``input`` (waiting for the
+    next batch), ``dispatch`` (the step's host time), ``pause`` (eval),
+    ``save`` (checkpoint writes) and the rest, summing to ``window_sec``."""
+
+    KINDS = ("input", "dispatch", "pause", "save")
+
+    def __init__(self):
+        self._window_start = time.perf_counter()
+        self._acc = dict.fromkeys(self.KINDS, 0.0)
+
+    @contextlib.contextmanager
+    def measure(self, kind: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._acc[kind] += time.perf_counter() - t0
+
+    def add(self, kind: str, seconds: float) -> None:
+        self._acc[kind] += seconds
+
+    def fields(self) -> dict:
+        now = time.perf_counter()
+        wall = now - self._window_start
+        other = max(0.0, wall - sum(self._acc.values()))
+        out = {
+            "window_sec": round(wall, 4),
+            "input_wait_sec": round(self._acc["input"], 4),
+            "dispatch_sec": round(self._acc["dispatch"], 4),
+            "pause_sec": round(self._acc["pause"], 4),
+            "save_sec": round(self._acc["save"], 4),
+            "other_sec": round(other, 4),
+        }
+        self._window_start = now
+        self._acc = dict.fromkeys(self.KINDS, 0.0)
+        return out
+
+
+def _load_or_write_run_meta(workdir: str, seed: int, cfg_name: str,
+                            resume: bool) -> int:
+    """The seed of the run: on resume the one ``run_meta.json`` pinned
+    (the stream and every step's draws are functions of it); otherwise the
+    requested one, written to ``run_meta.json``."""
+    path = os.path.join(workdir, "run_meta.json")
+    if resume and os.path.exists(path):
+        with open(path) as f:
+            meta = json.load(f)
+        if int(meta.get("seed", seed)) != seed:
+            _log.warning("resuming with run_meta seed %s (seed %s ignored "
+                         "for stream continuity)", meta["seed"], seed)
+        return int(meta.get("seed", seed))
+    os.makedirs(workdir, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"seed": seed, "config": cfg_name}, f)
+    os.replace(tmp, path)
+    return seed
+
+
+def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
+        seed: "int | None" = None,
+        device: "str | torch.device | None" = None) -> dict:
+    """Train one model on ``<data_dir>/train-*.tfrecord`` with evals on
+    ``val``; returns ``{'best_auc', 'best_step', 'stopped_early'}``
+    (``best_auc`` None when no eval ran)."""
+    dev = device_lib.resolve(device)
+    configs.validate_train_knobs(cfg.train)
+    configs.check_supported(cfg, training=True)
+    tc = cfg.train
+    seed = tc.seed if seed is None else seed
+    seed = _load_or_write_run_meta(workdir, seed, cfg.name, tc.resume)
+    # The step's augment and dropout draws are seeded by train.seed.
+    cfg = cfg.replace(train=dataclasses.replace(tc, seed=seed))
+    tc = cfg.train
+    log = RunLog(workdir, METRICS_FILE, fresh=not tc.resume)
+    log.write("config", name=cfg.name, seed=seed, n_devices=1)
+
+    state = train_lib.create_state(
+        cfg, init.init_flax_default(models.build(cfg.model), seed), dev)
+    ckpt = ckpt_lib.Checkpointer(os.path.abspath(workdir),
+                                 max_to_keep=tc.max_to_keep)
+    start_step = 0
+    best_auc, best_step, since_best = -np.inf, 0, 0
+    if tc.resume and ckpt.latest_step is not None:
+        _check_ema_compat(ckpt, cfg, workdir, ckpt.latest_step)
+        train_lib.load_state_flat(state, ckpt.restore(ckpt.latest_step))
+        start_step = state.step
+        best_auc, best_step, since_best = _reconstruct_best_tracking(
+            workdir, start_step, cfg, ckpt)
+        log.write("resume", step=start_step,
+                  best_auc=(round(best_auc, 5) if np.isfinite(best_auc)
+                            else None),
+                  since_best=since_best)
+
+    # One batch per completed step: a resumed stream continues exactly
+    # where the interrupted one stopped.
+    stream = pipeline.train_batches(
+        data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
+        skip_batches=start_step, pin_memory=dev.type == "cuda")
+    clock = _ThroughputClock(cfg.data.batch_size)
+    stalls = _StallClock()
+    stopped_early = False
+    save_stall = [0.0]
+
+    def save_fn(step_now: int, auc: float) -> None:
+        t0 = time.perf_counter()
+        ckpt.save(step_now, train_lib.state_to_flat(state),
+                  {"val_auc": auc})
+        dt = time.perf_counter() - t0
+        stalls.add("save", dt)
+        save_stall[0] += dt
+
+    def predict_val():
+        eval_step = train_lib.make_eval_step(cfg, state, dev)
+        grades, probs, _ = predict_split(
+            cfg, lambda images: eval_step(images)[None], data_dir, "val")
+        return grades, probs[0]
+
+    try:
+        for step_i in range(start_step, tc.steps):
+            with stalls.measure("input"):
+                batch = {k: v.to(dev, non_blocking=True)
+                         for k, v in next(stream).items()}
+            with stalls.measure("dispatch"):
+                loss = train_lib.train_step(state, batch, cfg)
+            clock.after_step()
+            if (step_i + 1) % tc.log_every == 0:
+                log.write("train", step=step_i + 1, loss=float(loss),
+                          **clock.fields(), **stalls.fields())
+            if (step_i + 1) % tc.eval_every == 0 or step_i + 1 == tc.steps:
+                clock.pause()
+                t_pause = time.perf_counter()
+                save_stall[0] = 0.0
+                best_auc, best_step, since_best, stop = _eval_and_track(
+                    cfg, log, step_i + 1, predict_val, save_fn,
+                    best_auc, best_step, since_best,
+                    save_due=_save_due(cfg, step_i + 1))
+                stalls.add("pause", max(
+                    0.0, time.perf_counter() - t_pause - save_stall[0]))
+                clock.resume()
+                if stop:
+                    stopped_early = True
+                    break
+    finally:
+        stream.close()
+        log.close()
+    return {
+        "best_auc": float(best_auc) if np.isfinite(best_auc) else None,
+        "best_step": int(best_step),
+        "stopped_early": stopped_early,
+    }
+
+
+def fit_ensemble(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
+                 device: "str | torch.device | None" = None) -> "list[dict]":
+    """Train ``train.ensemble_size`` members one after another, member m
+    with seed ``train.seed + m`` in ``<workdir>/member_NN``."""
+    member_cfg = cfg.replace(
+        train=dataclasses.replace(cfg.train, ensemble_size=1))
+    results = []
+    for member in range(cfg.train.ensemble_size):
+        mdir = ckpt_lib.member_dir(workdir, member)
+        res = fit(member_cfg, data_dir, mdir, seed=cfg.train.seed + member,
+                  device=device)
+        results.append({"member": member, "workdir": mdir, **res})
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Evaluate
+# ---------------------------------------------------------------------------
+
+def restore_for_eval(cfg: configs.ExperimentConfig,
+                     ckpt_dir: str) -> "dict[str, torch.Tensor]":
+    """The eval ``state_dict`` of a member: its checkpoint dir's best step
+    (the EMA shadow in place of the params when the run carried one), or
+    a ``params.npz`` member dir."""
+    return convert.flax_to_torch(ckpt_lib.load_member(ckpt_dir),
+                                 models.build(cfg.model))
+
+
+def evaluate_checkpoints(
+    cfg: configs.ExperimentConfig,
+    data_dir: str,
+    ckpt_dirs: "list[str]",
+    split: str = "test",
+    backend: str = "torch",
+    threshold_split: "str | None" = None,
+    threshold_data_dir: "str | None" = None,
+    bootstrap: int = 0,
+    save_probs: "str | None" = None,
+    calibrate: bool = False,
+    profile_out: "str | None" = None,
+    device: "str | torch.device | None" = None,
+) -> dict:
+    """Score ``split`` with one member or the float64 average of k, and
+    report AUC and the operating points at ``eval.operating_specificities``
+    (``metrics.evaluation_report``).
+
+    ``threshold_split`` (e.g. "val") adds the paper's protocol: thresholds
+    chosen at the fixed specificities on that split (of
+    ``threshold_data_dir`` when given) and applied unchanged to ``split``,
+    as ``operating_points_transferred``; tuning on the evaluated split
+    itself raises. ``bootstrap`` > 0 adds 95 % intervals. ``save_probs``
+    writes per-image probabilities as CSV. ``calibrate`` (needs
+    ``threshold_split``) fits a temperature on the tuning split and
+    reports the calibrated Brier score and ECE."""
+    dev = device_lib.resolve(device)
+    if backend == "tf":
+        raise NotImplementedError(
+            "backend='tf' (the keras legacy graph) is not ported: the card "
+            "machine has no TensorFlow; see ROADMAP.md Queue A item 5")
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r} (want 'torch')")
+    if profile_out:
+        raise NotImplementedError(
+            "profile_out (the quality-observability reference profile) is "
+            "not ported yet; see ROADMAP.md Queue A item 9 (quality "
+            "monitor)")
+    if not ckpt_dirs:
+        raise ValueError("need at least one checkpoint dir")
+    if calibrate and not threshold_split:
+        raise ValueError(
+            "calibrate=True needs threshold_split: temperature must be "
+            "fit on a tuning split, never on the split being reported")
+    tune_dir = threshold_data_dir or data_dir
+    if threshold_split == split and (
+            os.path.realpath(tune_dir) == os.path.realpath(data_dir)):
+        raise ValueError(
+            f"threshold_split={split!r} on the same data dir is the eval "
+            "set itself — self-tuned thresholds are exactly the bias this "
+            "protocol avoids (the plain operating_points rows already "
+            "report them)")
+    engine = ServingEngine(
+        cfg, state_dicts=[restore_for_eval(cfg, d) for d in ckpt_dirs],
+        device=dev)
+
+    passes = [("eval", data_dir, split)]
+    if threshold_split:
+        passes.append(("tune", tune_dir, threshold_split))
+    member_probs, grades_by = {}, {}
+    eval_names = None
+    for key, from_dir, s in passes:
+        grades_by[key], member_probs[key], names = predict_split(
+            cfg, engine.member_probs, from_dir, s)
+        if key == "eval":
+            eval_names = names
+
+    probs = metrics.ensemble_average(list(member_probs["eval"]))
+    labels = _binary_eval_labels(grades_by["eval"])
+    report = metrics.evaluation_report(
+        labels, probs, cfg.eval.operating_specificities,
+        bootstrap_samples=bootstrap)
+    if threshold_split:
+        tune_bin = _binary_eval_labels(grades_by["tune"])
+        tune_p = metrics.ensemble_average(list(member_probs["tune"]))
+        report["operating_points_transferred"] = (
+            metrics.transferred_operating_points(
+                tune_bin, tune_p, labels, probs,
+                cfg.eval.operating_specificities,
+                bootstrap_samples=bootstrap))
+        report["threshold_split"] = threshold_split
+        if threshold_data_dir:
+            report["threshold_data_dir"] = threshold_data_dir
+        if calibrate:
+            temp = metrics.fit_temperature(tune_bin, tune_p)
+            cal = metrics.apply_temperature(probs, temp)
+            report["calibration"] = {
+                "temperature": round(temp, 4),
+                "brier": metrics.brier_score(labels, cal),
+                "ece": metrics.expected_calibration_error(labels, cal),
+            }
+    if save_probs:
+        quality_by_name = tfrecord.read_quality_by_name(
+            tfrecord.list_split(data_dir, split))
+        _write_probs_csv(save_probs, eval_names, grades_by["eval"], probs,
+                         quality_by_name)
+        report["probs_file"] = save_probs
+    report["split"] = split
+    report["n_models"] = len(ckpt_dirs)
+    return report
+
+
+def _write_probs_csv(path: str, names: np.ndarray, grades: np.ndarray,
+                     probs: np.ndarray,
+                     quality_by_name: "dict[bytes, float] | None" = None,
+                     ) -> None:
+    """Per-image ensemble-averaged probabilities as CSV, one row per eval
+    example; ``quality`` is the preprocessing gradability score (-1 when
+    the record has none)."""
+    import csv
+
+    def qual(nm) -> str:
+        if quality_by_name is None:
+            return "-1"
+        return f"{quality_by_name.get(nm, -1.0):.4f}"
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["name", "grade", "quality", "prob_referable"])
+        for nm, g, p in zip(names, grades, probs):
+            w.writerow([nm.decode(), int(g), qual(nm), f"{float(p):.6f}"])

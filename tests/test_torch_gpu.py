@@ -247,3 +247,46 @@ def test_same_avg_pool_gradient_matches_the_cpu(cuda, dtype):
                           atol=tol)
     assert torch.allclose(xg.grad.cpu().float(), xc.grad.float(), rtol=tol,
                           atol=tol)
+
+
+@pytest.mark.gpu
+def test_fit_and_resume_on_the_card(cuda, tmp_path):
+    """The smoke preset with kernel B1 on, at 64 px: 4 steps with evals at
+    2 and 4, then a resume to 6 steps. B1 launches once a step in each
+    call, the resume starts at 4 from a bitwise copy of what was saved,
+    and every val AUC is finite in [0, 1]."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, train_lib, trainer
+    from jama16_retina_tpu_torch.data import tfrecord
+    from jama16_retina_tpu_torch.models import init
+    from jama16_retina_tpu_torch import models
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    data, wd = str(tmp_path / "data"), str(tmp_path / "wd")
+    for split, n, seed in (("train", 24, 1), ("val", 12, 2)):
+        tfrecord.write_synthetic_split(data, split, n, 64, num_shards=2,
+                                       seed=seed)
+    base = ["data.use_pallas=true", "train.eval_every=2", "train.log_every=1"]
+    cfg = configs.override(configs.get_config("smoke"),
+                           base + ["train.steps=4"])
+    cj.launches["fused_color_jitter"] = 0
+    trainer.fit(cfg, data, wd, device=cuda)
+    assert cj.launches["fused_color_jitter"] == 4
+    saved = ckpt_lib.Checkpointer(wd).restore(4)
+    cfg6 = configs.override(cfg, ["train.steps=6", "train.resume=true"])
+    state = train_lib.create_state(
+        cfg6, init.init_flax_default(models.build(cfg6.model), 1), cuda)
+    train_lib.load_state_flat(state, saved)
+    again = train_lib.state_to_flat(state)
+    assert all(np.array_equal(again[k], saved[k]) for k in saved)
+    cj.launches["fused_color_jitter"] = 0
+    trainer.fit(cfg6, data, wd, device=cuda)
+    assert cj.launches["fused_color_jitter"] == 2
+    recs = read_jsonl(f"{wd}/metrics.jsonl")
+    assert [r["step"] for r in recs if r["kind"] == "resume"] == [4]
+    aucs = [r["val_auc"] for r in recs if r["kind"] == "eval"]
+    assert [r["step"] for r in recs if r["kind"] == "eval"] == [2, 4, 6]
+    assert all(0.0 <= a <= 1.0 for a in aucs)
+    assert ckpt_lib.Checkpointer(wd).latest_step == 6

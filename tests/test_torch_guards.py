@@ -27,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "tensorflow", "absl")
              or m == "jama16_retina_tpu" or m.startswith("jama16_retina_tpu."))
 print(len(names), bad)
 """
@@ -38,11 +39,41 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    # Every module of the package, the train slice's included
-    # (train_lib, trainer, train, ops/color_jitter, ops/adamw,
-    # models/init).
-    assert int(n_modules) >= 21
+    # Every module of the package: the train slice's (train_lib, trainer,
+    # train, ops/color_jitter, ops/adamw, models/init) and the fit and
+    # evaluate slice's (data/tfrecord, data/pipeline, utils/logging,
+    # evaluate) included.
+    assert int(n_modules) >= 25
     assert bad.strip() == "[]"
+
+
+_RUN_FIT_AND_EVALUATE = r"""
+import sys
+from jama16_retina_tpu_torch import evaluate, train
+d, wd = sys.argv[1], sys.argv[2]
+train.main(["--config=smoke", "--synthetic=8", "--device=cpu",
+            f"--data_dir={d}", f"--workdir={wd}", "--set", "train.steps=2",
+            "--set", "train.eval_every=1", "--set", "model.image_size=32"])
+evaluate.main(["--config=smoke", "--device=cpu", f"--data_dir={d}",
+               f"--checkpoint_dir={wd}", "--set", "model.image_size=32"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "tensorflow", "absl", "cv2", "PIL")
+             or m == "jama16_retina_tpu" or m.startswith("jama16_retina_tpu."))
+print("BAD", bad)
+"""
+
+
+def test_fit_and_evaluate_run_without_jax_or_tensorflow(tmp_path):
+    """Run, not just import: the train CLI writes its splits, trains,
+    evaluates and checkpoints, and the evaluate CLI scores the run, with
+    none of JAX, TensorFlow, absl, OpenCV or PIL loaded."""
+    out = subprocess.run(
+        [sys.executable, "-c", _RUN_FIT_AND_EVALUATE, str(tmp_path / "d"),
+         str(tmp_path / "wd")], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"
 
 
 @pytest.fixture
@@ -58,6 +89,19 @@ def test_engine_defaults_to_the_card_and_raises_without_one(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         host.prepare_images(np.zeros((1, 8, 8, 3), np.uint8), fused=True)
     assert ServingEngine(cfg, state_dicts=sds, device="cpu").n_members == 1
+
+
+def test_fit_and_evaluate_default_to_the_card_and_raise_without_one(
+        no_card, tmp_path):
+    from jama16_retina_tpu_torch import evaluate, trainer
+
+    cfg = configs.get_config("smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.fit(cfg, str(tmp_path), str(tmp_path / "wd"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.main([f"--data_dir={tmp_path}",
+                       f"--checkpoint_dir={tmp_path}"])
+    assert not os.path.exists(tmp_path / "wd")
 
 
 def test_kernel_wrapper_never_falls_back_from_the_card():

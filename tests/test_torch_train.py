@@ -329,16 +329,18 @@ def test_smoke_train_step_matches_jax_for_three_steps(form):
 def test_train_refuses_knobs_it_cannot_honour(item, exc, tmp_path):
     cfg = configs.override(configs.get_config("smoke"), item.split(","))
     with pytest.raises(exc):
-        trainer.fit(cfg, str(tmp_path), 8, device="cpu")
+        trainer.fit_synthetic(cfg, str(tmp_path), 8, device="cpu")
     assert not os.path.exists(tmp_path / trainer.METRICS_FILE)
 
 
 @pytest.mark.parametrize("item", [
-    "train.eval_every=5", "train.resume=true", "data.loader=hbm",
-    "train.checkpoint_dir=/x"])
+    "train.tensorboard=true", "train.debug=true", "data.loader=hbm",
+    "eval.sharded=true"])
 def test_unported_reference_fields_name_their_roadmap_item(item):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.override(configs.get_config("smoke"), [item])
+        configs.check_supported(
+            configs.override(configs.get_config("smoke"), [item]),
+            training=True)
 
 
 def test_serving_ignores_train_knobs():
@@ -381,8 +383,25 @@ def test_train_cli_on_cpu_writes_metrics_and_a_servable_member(
         image_size=64), seed=5)
     probs = engine.probs(images)
     assert probs.shape == (3,) and np.all((probs >= 0) & (probs <= 1))
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        train.main(["--synthetic=4", f"--workdir={wd}", "--data_dir=/d"])
+    # --data_dir with --synthetic writes raw splits there, trains on them
+    # with evals on val, and writes best/ and latest/.
+    data, ck = tmp_path / "data", tmp_path / "ck"
+    assert train.main(["--config=smoke", "--synthetic=12", "--device=cpu",
+                       f"--data_dir={data}", f"--workdir={ck}", "--set",
+                       "train.steps=4", "--set", "train.eval_every=2"]) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["results"]["best_step"] in (2, 4)
+    assert 0.0 <= last["results"]["best_auc"] <= 1.0
+    assert sorted(os.listdir(data)) == sorted(
+        f"{s}-0000{i}-of-00004.tfrecord" for s in ("test", "train", "val")
+        for i in range(4))
+    evals = [json.loads(line) for line in
+             (ck / trainer.METRICS_FILE).read_text().splitlines()
+             if json.loads(line)["kind"] == "eval"]
+    assert [r["step"] for r in evals] == [2, 4]
+    assert os.listdir(ck / "latest") == ["4"] and os.listdir(ck / "best")
+    assert ServingEngine(configs.get_config("smoke"), [str(ck)],
+                         device="cpu").probs(images).shape == (3,)
 
 
 def test_train_cli_defaults_to_the_card_and_raises_without_one(
