@@ -20,8 +20,11 @@ Phases, any failure exits nonzero before the result line:
               [5, 17, 23, 3] and on its two-pass route at
               [1, 1536, 1536, 3], each shape's route asserted, and one
               single-pass call traced to be one device kernel; B3 (AdamW)
-              bitwise over the full Inception-v3 leaf set (196 leaves) for
-              3 steps.
+              bitwise for 3 steps over the full leaf sets of Inception-v3
+              (196 leaves; with the 5-class head too), ResNet-50 (161) and
+              EfficientNet-B4 (418),
+              each call's launches counted: one per 400 leaves, so two
+              for EfficientNet-B4.
 4. serve    - k=2 random Inception-v3 members (299 px, aux head, random BN
               statistics) written as ``params.npz`` member dirs; a float32
               ``ServingEngine`` with ``serve.fused_preprocess=true`` answers
@@ -77,7 +80,16 @@ Phases, any failure exits nonzero before the result line:
               Printed, not
               asserted: step time over the stream beside the in-memory
               step time, one val eval's time, one checkpoint save's time
-              and bytes, the phase's wall time. Its files are deleted.
+              and bytes, the phase's wall time. Then the 5-class head on
+              the same splits (``icdr5``: Inception-v3, label smoothing
+              0.1, its preset step, which runs no kernel): 4 steps of
+              ``trainer.fit`` with one eval (finite val AUC of P(grade >=
+              2)), and ``evaluate_checkpoints`` on ``test`` with
+              thresholds from ``val`` on the card and on the CPU: every
+              ``save_probs`` column (``prob_referable``,
+              ``prob_grade_0..4``) within 1e-4, and both reports with
+              ``accuracy`` and ``quadratic_weighted_kappa``. Its files
+              are deleted.
 7. times    - kernel and plain-version device time (``torch.profiler``)
               beside each kernel's bound, B3's library yardstick
               (``torch.optim.AdamW(fused=True)``); B2's routes in turns
@@ -88,11 +100,31 @@ Phases, any failure exits nonzero before the result line:
               (median after warm-up), images/s, idle share and peak device
               memory; printed, not asserted. ``--profile DIR`` adds tables
               of device time by kernel for one request and one train step
-              of each form, written into DIR.
+              of each form, written into DIR. B3's times also over the
+              ResNet-50 and EfficientNet-B4 leaf sets.
+8. models   - for each of ``resnet50``, ``efficientnet_b4`` and ``icdr5``
+              (Inception-v3 with the 5-class head): phase 4 with k=2
+              random members (the scale of a residual branch's last BN
+              drawn small; ResNet-50's and EfficientNet-B4's BN statistics
+              calibrated on 16 rendered canvases), B4 once per chunk, the
+              5-class rows summing to 1 within 1e-6, card vs CPU 1e-4;
+              bf16 request latency at k=2, batch 8 and 64; phase 5's
+              ``fit_synthetic`` for 4 steps per form (the preset forms
+              launch no kernel; fused: B2 = steps, B3 = steps x
+              ceil(leaves / 400)), finite losses and every parameter leaf
+              moved (but EfficientNet's ``project_bn`` biases, whose true
+              gradient is 0); step time, images/s, idle share and peak
+              memory per form; and the float64 card-vs-CPU forward and
+              backward of phase 5 on the same augmented batch (dropout
+              and stochastic depth 0): loss within 1e-6 and every leaf
+              within 1e-6 relative L2 (a leaf whose CPU gradient is below
+              1e-9 of the whole gradient's norm is held against that
+              floor: its true gradient is 0).
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
-record and the run's seconds. Scratch files go under ``build/chip_smoke``
+record (with each kernel's launches on every path, ``launches_by_phase``)
+and the run's seconds. Scratch files go under ``build/chip_smoke``
 (git-ignored). Without a CUDA card, or run outside a checkout of the
 repository (no ``jama16_retina_tpu_torch`` to import), it exits 1 before
 printing any result.
@@ -129,6 +161,14 @@ TRAIN_FORMS = {"preset": [], "fused": ["train.use_pallas_fused=true"]}
 FIT_SPLITS = (("train", 64, 4, 1), ("val", 32, 2, 2), ("test", 32, 2, 3))
 FIT_STEPS = 8
 FIT_EVAL_EVERY = 4
+# Presets of phase 8, and the presets whose leaf sets B3 is held over.
+MODEL_PRESETS = ("resnet50", "efficientnet_b4", "icdr5")
+MODEL_STEPS = 4
+B3_PRESETS = ("eyepacs_binary", "resnet50", "efficientnet_b4", "icdr5")
+ICDR5_STEPS = 4
+# The last BatchNorm of a residual branch (ResNet-50's bn3, EfficientNet's
+# project_bn): random members draw its scale in [0.05, 0.15].
+RESIDUAL_LAST_BN = (".bn3.scale", ".project_bn.scale")
 
 
 def log(msg: str) -> None:
@@ -151,14 +191,22 @@ def nvidia_smi() -> str:
 
 def random_member(model, gen):
     """Seeded random weights and BN statistics for a port model: He-normal
-    convs, 1/sqrt(fan_in) Dense, small biases, BN var in [0.5, 1.5]."""
+    convs, 1/sqrt(fan_in) Dense, small biases, BN var and scale in
+    [0.5, 1.5], but the scale of a residual branch's last BN in
+    [0.05, 0.15] (the small-scale residual init of Goyal et al. 2017: a
+    random residual stack with scales near 1 amplifies a rounding
+    difference about 1.3x a block)."""
     import torch
 
     with torch.no_grad():
         for name, t in model.state_dict().items():
-            if name.endswith(".bn.var"):
+            if name.endswith(".var"):
                 t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
-            elif name.endswith((".bn.mean", ".bias")):
+            elif name.endswith(RESIDUAL_LAST_BN):
+                t.copy_(0.05 + 0.1 * torch.rand(t.shape, generator=gen))
+            elif name.endswith(".scale"):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+            elif name.endswith((".mean", ".bias")):
                 t.copy_(0.1 * torch.randn(t.shape, generator=gen))
             elif t.ndim == 4:
                 fan_in = t.shape[1] * t.shape[2] * t.shape[3]
@@ -193,21 +241,25 @@ def device_ms(fn, reps: int, kernel: "str | None" = None) -> float:
     """Mean device-busy ms per ``fn(i)`` call: the summed durations of the
     kernels (and device memsets/copies) it launched, from a CUDA-only
     ``torch.profiler`` trace; only those whose name contains ``kernel``
-    when given. Host time between launches is not counted."""
+    when given. Host time between launches is not counted. A trace that
+    holds no device event at all is taken again, up to three times: one
+    of the many traces of a run now and then comes back empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(i)
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if kernel is None or kernel in e.key)
-    check(us > 0, f"the profiler saw no device time (kernel={kernel})")
-    return us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if kernel is None or kernel in e.key)
+        if us > 0:
+            return us / reps / 1e3
+    check(False, f"the profiler saw no device time (kernel={kernel})")
 
 
 def phase_kernels(torch, sp, dev, seed: int) -> float:
@@ -304,14 +356,14 @@ def phase_jitter_kernels(torch, dev, seed: int) -> dict:
     return worst
 
 
-def inception_leaves(torch, dev, seed: int):
-    """The parameter leaves of Inception-v3 with aux head (299 px) as the
-    train state holds them (channels_last convs), with random grads and
-    zero moments, and their decay flags."""
+def model_leaves(torch, dev, seed: int, preset: str = "eyepacs_binary"):
+    """The parameter leaves of the preset's model (299 px) as the train
+    state holds them (channels_last convs), with random grads, and their
+    decay flags."""
     from jama16_retina_tpu_torch import configs, models
     from jama16_retina_tpu_torch.models import init
 
-    cfg = configs.get_config("eyepacs_binary")
+    cfg = configs.get_config(preset)
     model = init.init_flax_default(models.build(cfg.model), seed).to(
         dev, memory_format=torch.channels_last)
     params = [p.detach().clone() for p in model.parameters()]
@@ -322,30 +374,44 @@ def inception_leaves(torch, dev, seed: int):
     return params, grads, [p.ndim >= 2 for p in params]
 
 
-def phase_adamw_kernel(torch, dev, seed: int) -> float:
-    """B3 bitwise against the plain AdamW over every Inception-v3 leaf,
-    three steps from zero moments."""
+def b3_launches_per_call(n_leaves: int) -> int:
     from jama16_retina_tpu_torch.ops import adamw
 
-    pk, grads, decay = inception_leaves(torch, dev, seed)
-    pp = [p.clone() for p in pk]
-    mk, vk, mp, vp = ([torch.zeros_like(p) for p in pk] for _ in range(4))
-    n = sum(p.numel() for p in pk)
+    return -(-n_leaves // adamw._library()[1])
+
+
+def phase_adamw_kernel(torch, dev, seed: int) -> float:
+    """B3 bitwise against the plain AdamW over every leaf of each model of
+    ``B3_PRESETS``, three steps from zero moments, with the launches of
+    each call counted (one per 400 leaves: EfficientNet-B4's 418 take
+    two)."""
+    from jama16_retina_tpu_torch.ops import adamw
+
     worst = 0.0
-    for step in range(3):
-        t = torch.tensor(float(step + 1), device=dev)
-        scalars = torch.stack([torch.tensor(1e-3, device=dev),
-                               1.0 / (1.0 - torch.pow(0.9, t)),
-                               1.0 / (1.0 - torch.pow(0.999, t))])
-        adamw.fused_adamw_update(pk, grads, mk, vk, decay, scalars, 4e-5)
-        torch.cuda.synchronize()
-        adamw.adamw_reference(pp, grads, mp, vp, decay, scalars, 4e-5)
-        for a, b in zip(pk + mk + vk, pp + mp + vp):
-            worst = max(worst, float((a - b).abs().max()))
-            check(torch.equal(a, b), "fused_adamw_update differs from its "
-                  f"plain version at step {step + 1}")
-    log(f"kernels: fused_adamw_update {len(pk)} leaves, {n} elements, 3 "
-        "steps bitwise")
+    for preset in B3_PRESETS:
+        pk, grads, decay = model_leaves(torch, dev, seed, preset)
+        pp = [p.clone() for p in pk]
+        mk, vk, mp, vp = ([torch.zeros_like(p) for p in pk] for _ in range(4))
+        n = sum(p.numel() for p in pk)
+        want = b3_launches_per_call(len(pk))
+        for step in range(3):
+            t = torch.tensor(float(step + 1), device=dev)
+            scalars = torch.stack([torch.tensor(1e-3, device=dev),
+                                   1.0 / (1.0 - torch.pow(0.9, t)),
+                                   1.0 / (1.0 - torch.pow(0.999, t))])
+            before = adamw.launches
+            adamw.fused_adamw_update(pk, grads, mk, vk, decay, scalars, 4e-5)
+            torch.cuda.synchronize()
+            check(adamw.launches - before == want,
+                  f"B3 over {len(pk)} leaves launched "
+                  f"{adamw.launches - before} times, want {want}")
+            adamw.adamw_reference(pp, grads, mp, vp, decay, scalars, 4e-5)
+            for a, b in zip(pk + mk + vk, pp + mp + vp):
+                worst = max(worst, float((a - b).abs().max()))
+                check(torch.equal(a, b), "fused_adamw_update differs from "
+                      f"its plain version at step {step + 1} ({preset})")
+        log(f"kernels: fused_adamw_update {preset}: {len(pk)} leaves, {n} "
+            f"elements, {want} launch(es) a call, 3 steps bitwise")
     return worst
 
 
@@ -435,15 +501,16 @@ def jitter_times(torch, dev) -> dict:
     return out
 
 
-def adamw_times(torch, dev, seed: int) -> dict:
-    """B3 device time over the Inception-v3 leaf set against its bound
+def adamw_times(torch, dev, seed: int, preset: str = "eyepacs_binary"
+                ) -> dict:
+    """B3 device time over the preset model's leaf set against its bound
     (28 bytes per element: p, g, mu, nu read, p, mu, nu written), the
     plain version, and ``torch.optim.AdamW(fused=True)`` over the same
     tensors in two param groups (decayed, undecayed): PyTorch's own
     fused AdamW, timed as a yardstick and never called by the port."""
     from jama16_retina_tpu_torch.ops import adamw
 
-    params, grads, decay = inception_leaves(torch, dev, seed)
+    params, grads, decay = model_leaves(torch, dev, seed, preset)
     mu, nu = ([torch.zeros_like(p) for p in params] for _ in range(2))
     scalars = torch.tensor([1e-3, 10.0, 1000.0], device=dev)
     n = sum(p.numel() for p in params)
@@ -464,7 +531,8 @@ def adamw_times(torch, dev, seed: int) -> dict:
          "weight_decay": 4e-5},
         {"params": [q for q, d in zip(lib_params, decay) if not d],
          "weight_decay": 0.0}], lr=1e-3, fused=True)
-    return {"leaves": len(params), "elements": n,
+    return {"preset": preset, "leaves": len(params), "elements": n,
+            "launches_per_call": b3_launches_per_call(len(params)),
             "ms": device_ms(kernel, 20),
             "plain_ms": device_ms(plain, 5),
             "library_ms": device_ms(lambda i: opt.step(), 20),
@@ -491,33 +559,75 @@ def reset_launch_counts() -> None:
     sp.launches = 0
 
 
-def phase_serve(torch, seed: int) -> dict:
-    from jama16_retina_tpu_torch import configs, models
+def calibrate(torch, model, canvases) -> None:
+    """Set every BatchNorm's running statistics of ``model`` (float32)
+    to the batch statistics of the uint8 ``canvases``: one train-mode
+    forward on the card at momentum 0, with no stochastic depth, as a
+    trained network's statistics describe its own activations. Random
+    statistics do not normalize, so the eval logits of a deep residual
+    stack reach hundreds, where probabilities saturate and a card-vs-CPU
+    comparison says nothing. The model is written out and dropped
+    after."""
+    from jama16_retina_tpu_torch.data import augment
+    from jama16_retina_tpu_torch.models.common import BatchNorm
+
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.momentum = 0.0
+        if hasattr(m, "drop_rate"):
+            m.drop_rate = 0.0
+    model.cuda()
+    with torch.no_grad():
+        x = augment.normalize(torch.from_numpy(canvases).cuda())
+        model(x.permute(0, 3, 1, 2), train=True)
+    model.cpu()
+
+
+def render(seed: int, n: int):
+    """n rendered fundus canvases at 299 px, grades cycling 0-4."""
+    import numpy as np
+
     from jama16_retina_tpu_torch.data import synthetic
+
+    synth = synthetic.SynthConfig(image_size=299)
+    return np.stack([synthetic.render_fundus(np.random.default_rng(seed + i),
+                                             i % 5, synth)
+                     for i in range(n)])
+
+
+def phase_serve(torch, seed: int, preset: str = "eyepacs_binary") -> dict:
+    """k=2 random members of the preset's model as member dirs; a float32
+    engine with the fused preprocess answers requests of ``REQUESTS``
+    canvases on the card (launch counts set to 0 just before, read just
+    after), held against the same engine on the CPU; the preset's bf16
+    engine is compared with it (reported)."""
+    from jama16_retina_tpu_torch import configs, models
     from jama16_retina_tpu_torch.models import convert
     from jama16_retina_tpu_torch.ops import serve_preprocess as sp
     from jama16_retina_tpu_torch.serve.engine import ServingEngine
     from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
     import numpy as np
 
-    bf16_cfg = configs.override(configs.get_config("eyepacs_binary"),
+    bf16_cfg = configs.override(configs.get_config(preset),
                                 ["serve.fused_preprocess=true"])
     cfg = configs.override(bf16_cfg, ["model.compute_dtype=float32"])
+    multi = cfg.model.head == "multi"
+    calibrated = cfg.model.arch in ("resnet50", "efficientnet_b4")
     dirs = []
     for m in range(2):
         model = random_member(models.build(cfg.model),
                               torch.Generator().manual_seed(seed + m))
-        d = SCRATCH / "members" / f"member_{m:02d}"
+        if calibrated:
+            calibrate(torch, model, render(seed + 200 + 16 * m, 16))
+        d = SCRATCH / "members" / preset / f"member_{m:02d}"
         ckpt_lib.save_member(str(d), convert.torch_to_flax(model))
         dirs.append(str(d))
-    log(f"serve: wrote {len(dirs)} member dirs of "
-        f"{sum(p.numel() for p in model.parameters())} parameters")
+    how = ", BN statistics calibrated on 16 canvases" if calibrated else ""
+    log(f"serve {preset}: wrote {len(dirs)} member dirs of "
+        f"{sum(p.numel() for p in model.parameters())} parameters "
+        f"({cfg.model.arch}, head {cfg.model.head}{how})")
 
-    synth = synthetic.SynthConfig(image_size=299)
-    canvases = np.stack([
-        synthetic.render_fundus(np.random.default_rng(seed + 100 + i), i % 5,
-                                synth)
-        for i in range(sum(REQUESTS))])
+    canvases = render(seed + 100, sum(REQUESTS))
     offsets = np.cumsum((0,) + REQUESTS)
     requests = [canvases[a:b] for a, b in zip(offsets[:-1], offsets[1:])]
 
@@ -530,17 +640,23 @@ def phase_serve(torch, seed: int) -> dict:
     counts = launch_counts()
     launches = counts["fused_serve_preprocess"]
     chunks = engine.chunks_dispatched
-    log(f"serve: {len(requests)} requests of {list(REQUESTS)} rows -> "
-        f"{chunks} chunks; launches {counts}")
+    log(f"serve {preset}: {len(requests)} requests of {list(REQUESTS)} rows "
+        f"-> {chunks} chunks; launches {counts}")
     check(launches > 0, "the serve path launched no fused_serve_preprocess")
     check(launches == chunks,
           f"{launches} kernel launches for {chunks} dispatched chunks")
     check(sum(counts.values()) == launches,
           f"the serve path launched a train kernel: {counts}")
     for r, p in zip(requests, gpu):
-        check(p.shape == (r.shape[0],), f"probs shape {p.shape}")
+        want_shape = (r.shape[0], 5) if multi else (r.shape[0],)
+        check(p.shape == want_shape, f"probs shape {p.shape}")
         check(bool(np.all(np.isfinite(p)) and np.all((p >= 0) & (p <= 1))),
               f"probabilities not finite in [0, 1]: {p}")
+        if multi:
+            rows = float(np.max(np.abs(p.sum(axis=1) - 1.0)))
+            check(rows <= 1e-6, f"5-class rows sum to 1 within {rows}")
+    if multi:
+        log(f"serve {preset}: every [n, 5] row sums to 1 within 1e-6")
     want_stats = sp.input_stats_dict(sp.stats_from_sums(
         sp.serve_preprocess_reference(torch.from_numpy(requests[-1]))[1],
         299 * 299))
@@ -552,24 +668,26 @@ def phase_serve(torch, seed: int) -> dict:
     dev_cpu = max(float(np.max(np.abs(cpu.member_probs(r)
                                       - engine.member_probs(r))))
                   for r in requests)
-    log(f"serve: float32 card vs CPU max |member prob diff| {dev_cpu:.3e} "
-        "(atol 1e-4, TF32 off)")
+    log(f"serve {preset}: float32 card vs CPU max |member prob diff| "
+        f"{dev_cpu:.3e} (atol 1e-4, TF32 off)")
     check(dev_cpu <= 1e-4, f"card and CPU disagree by {dev_cpu}")
+    del cpu
 
     bf16 = ServingEngine(bf16_cfg, dirs, device="cuda")
     bf16_probs = [bf16.probs(r) for r in requests]
     dev_bf16 = max(float(np.max(np.abs(a - b)))
                    for a, b in zip(bf16_probs, gpu))
     check(all(np.all(np.isfinite(p)) for p in bf16_probs), "bf16 not finite")
-    log(f"serve: bf16 preset vs float32 max |prob diff| {dev_bf16:.3e} "
-        "(reported, not asserted)")
+    log(f"serve {preset}: bf16 preset vs float32 max |prob diff| "
+        f"{dev_bf16:.3e} (reported, not asserted)")
     engines = {"float32": (cfg, engine), "bfloat16": (bf16_cfg, bf16)}
     return {"launches": counts, "chunks": chunks, "dirs": dirs,
             "canvases": canvases, "engines": engines,
             "max_dev_cpu": dev_cpu, "max_dev_bf16": dev_bf16}
 
 
-def request_times(torch, serve: dict, card: str) -> None:
+def request_times(torch, serve: dict, card: str, name: str = "",
+                  dtypes=("float32", "bfloat16"), ks=(1, 2)) -> None:
     """Host-clock request latency around a synchronizing ``probs`` call,
     per dtype, batch 8 and 64, k = 1 and 2 (medians of 10 after 2 warm),
     and the device's busy time per request (profiler, 3 requests), whose
@@ -578,9 +696,13 @@ def request_times(torch, serve: dict, card: str) -> None:
     import numpy as np
 
     canvases = serve["canvases"]
-    for dtype, (cfg, engine2) in serve["engines"].items():
-        engine1 = ServingEngine(cfg, serve["dirs"][:1], device="cuda")
-        for k, engine in ((1, engine1), (2, engine2)):
+    for dtype in dtypes:
+        cfg, engine2 = serve["engines"][dtype]
+        engines = {2: engine2}
+        if 1 in ks:
+            engines[1] = ServingEngine(cfg, serve["dirs"][:1], device="cuda")
+        for k in sorted(engines):
+            engine = engines[k]
             for batch in (8, 64):
                 imgs = np.resize(canvases, (batch,) + canvases.shape[1:])
                 times = []
@@ -593,22 +715,24 @@ def request_times(torch, serve: dict, card: str) -> None:
                         times.append((time.perf_counter() - t0) * 1e3)
                 med = statistics.median(times)
                 busy = device_ms(lambda i: engine.probs(imgs), 3)
-                log(f"times: request {dtype} k={k} batch={batch}: median "
-                    f"{med:.3f} ms, min {min(times):.3f}, max "
+                log(f"times: request {name}{dtype} k={k} batch={batch}: "
+                    f"median {med:.3f} ms, min {min(times):.3f}, max "
                     f"{max(times):.3f}; device busy {busy:.3f} ms, idle "
                     f"{100 * (1 - busy / med):.1f} % ({card})")
-        del engine1
+        del engines
 
 
-def train_config(form: str, steps: int, seed: int):
+def train_config(form: str, steps: int, seed: int,
+                 preset: str = "eyepacs_binary"):
     from jama16_retina_tpu_torch import configs
 
-    return configs.override(configs.get_config("eyepacs_binary"), [
+    return configs.override(configs.get_config(preset), [
         f"train.steps={steps}", "train.log_every=1", f"train.seed={seed}",
         f"data.batch_size={TRAIN_BATCH}", *TRAIN_FORMS[form]])
 
 
-def phase_train(torch, seed: int, steps: int) -> dict:
+def phase_train(torch, seed: int, steps: int,
+                preset: str = "eyepacs_binary") -> dict:
     """The train step's main path, once per step form, through
     ``trainer.fit_synthetic`` (images held on the device)."""
     import numpy as np
@@ -617,20 +741,23 @@ def phase_train(torch, seed: int, steps: int) -> dict:
     from jama16_retina_tpu_torch.models import convert, init
     from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
+    cfg = train_config("preset", steps, seed, preset)
     init_flat = convert.torch_to_flax(init.init_flax_default(
-        models.build(train_config("preset", steps, seed).model), seed))
+        models.build(cfg.model), seed))
     n_leaves = sum(k.startswith("params/") for k in init_flat)
-    want = {"preset": {"fused_color_jitter": steps,
+    b3 = steps * b3_launches_per_call(n_leaves)
+    want = {"preset": {"fused_color_jitter":
+                       steps if cfg.data.use_pallas else 0,
                        "fused_normalize_color_jitter": 0,
                        "fused_adamw_update": 0, "fused_serve_preprocess": 0},
             "fused": {"fused_color_jitter": 0,
                       "fused_normalize_color_jitter": steps,
-                      "fused_adamw_update": steps,
+                      "fused_adamw_update": b3,
                       "fused_serve_preprocess": 0}}
     out = {}
     for form in TRAIN_FORMS:
-        cfg = train_config(form, steps, seed)
-        workdir = SCRATCH / "train" / form
+        cfg = train_config(form, steps, seed, preset)
+        workdir = SCRATCH / "train" / preset / form
         shutil.rmtree(workdir, ignore_errors=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -640,62 +767,68 @@ def phase_train(torch, seed: int, steps: int) -> dict:
                                         device="cuda")
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        log(f"train: {form}: {steps} steps of batch {TRAIN_BATCH} at 299 px "
-            f"on {TRAIN_IMAGES} canvases in {results['train_sec']:.2f} s "
-            f"(first steps included); launches {counts}")
+        log(f"train {preset}: {form}: {steps} steps of batch {TRAIN_BATCH} "
+            f"at 299 px on {TRAIN_IMAGES} canvases in "
+            f"{results['train_sec']:.2f} s (first steps included); "
+            f"launches {counts}")
         check(counts == want[form],
-              f"{form} run launched {counts}, want {want[form]}")
+              f"{preset} {form} run launched {counts}, want {want[form]}")
         losses = list(results["logged_losses"].values())
         check(len(losses) == steps and bool(np.all(np.isfinite(losses))),
-              f"{form} losses not finite: {losses}")
+              f"{preset} {form} losses not finite: {losses}")
         trained = ckpt_lib.load_member(str(workdir))
-        changed = sum(not np.array_equal(trained[k], init_flat[k])
-                      for k in init_flat if k.startswith("params/"))
-        log(f"train: {form}: losses {[round(x, 4) for x in losses]}; "
-            f"{changed} of {n_leaves} parameter leaves changed; peak device "
-            f"memory {peak} bytes")
-        check(changed == n_leaves,
-              f"{form}: only {changed} of {n_leaves} leaves changed")
+        same = {k for k in init_flat if k.startswith("params/")
+                and np.array_equal(trained[k], init_flat[k])}
+        log(f"train {preset}: {form}: losses "
+            f"{[round(x, 4) for x in losses]}; {n_leaves - len(same)} of "
+            f"{n_leaves} parameter leaves changed; peak device memory "
+            f"{peak} bytes")
+        # EfficientNet's project_bn biases have a true gradient of 0 (only
+        # train-mode BatchNorms read their output): rounding may leave
+        # them exactly 0, and then AdamW does not move them.
+        check(all(k.endswith("/project_bn/bias") for k in same),
+              f"{preset} {form}: leaves unchanged: {sorted(same)[:5]}")
         out[form] = {"launches": counts, "losses": losses, "peak": peak}
+        shutil.rmtree(workdir, ignore_errors=True)
     return out
 
 
 def float64_twin(torch, model, cfg):
-    """``model`` (Inception-v3) in float64 with its float32 heads, as the
-    Flax module makes its heads whatever the compute dtype."""
-    from jama16_retina_tpu_torch.models import inception_v3
+    """``model`` in float64 with its float32 heads, as the Flax modules
+    make their heads whatever the compute dtype; dropout and stochastic
+    depth 0."""
+    from jama16_retina_tpu_torch.models import (efficientnet, inception_v3,
+                                                resnet)
 
-    twin = inception_v3.InceptionV3(
-        num_classes=cfg.model.num_classes, aux_head=cfg.model.aux_head,
-        dropout_rate=cfg.model.dropout_rate, dtype=torch.float64,
-        image_size=cfg.model.image_size)
+    m = cfg.model
+    kw = dict(num_classes=m.num_classes, dropout_rate=0.0,
+              dtype=torch.float64)
+    if m.arch == "inception_v3":
+        twin = inception_v3.InceptionV3(aux_head=m.aux_head,
+                                        image_size=m.image_size, **kw)
+    elif m.arch == "resnet50":
+        twin = resnet.ResNet50(**kw)
+    else:
+        twin = efficientnet.EfficientNet.b4(drop_connect_rate=0.0, **kw)
     twin.load_state_dict(model.state_dict())
     twin = twin.to(torch.float64)
-    twin.Logits.float()
-    twin.AuxLogits.Logits.float()
+    for mod in twin.modules():
+        if isinstance(mod, torch.nn.Linear):
+            mod.float()
     return twin
 
 
-def phase_train_agreement(torch, seed: int) -> dict:
-    """One train forward and backward (TF32 off, dropout 0) at batch 4 on
-    the card and on the CPU, from one init, in float32 and in float64:
-    loss and gradients compared over all leaves and leaf by leaf. The
-    preset augment route runs on both devices from one set of draws and
-    its outputs are compared (the card's cos/sin may round differently);
-    the CPU's batch then feeds both networks, as a 1-ulp input difference
+def augmented_batch(torch, seed: int) -> dict:
+    """One preset-augmented batch of 4 rendered canvases at 299 px, made
+    on the card and on the CPU from one set of draws and compared (the
+    card's cos/sin may round differently); the CPU's batch then feeds
+    both devices in the agreement checks, as a 1-ulp input difference
     alone moves the float64 gradient by about 1 % (BatchNorm over small
     maps amplifies it)."""
-    import copy
-
-    import numpy as np
-
-    from jama16_retina_tpu_torch import configs, models, train_lib
+    from jama16_retina_tpu_torch import configs
     from jama16_retina_tpu_torch.data import augment, synthetic
-    from jama16_retina_tpu_torch.models import init
 
-    cfg = configs.override(configs.get_config("eyepacs_binary"), [
-        "model.compute_dtype=float32", "model.dropout_rate=0.0"])
-    base = init.init_flax_default(models.build(cfg.model), seed)
+    cfg = configs.get_config("eyepacs_binary")
     images, grades = synthetic.make_dataset(
         4, synthetic.SynthConfig(image_size=299), seed=seed + 9)
     drawn = augment._draw_params(torch.Generator().manual_seed(seed), 4,
@@ -708,50 +841,79 @@ def phase_train_agreement(torch, seed: int) -> dict:
     log(f"train: augmented batch 4 card vs CPU max |diff| {aug_diff:.3e} "
         "(limit 1e-6); the CPU's batch feeds both devices below")
     check(aug_diff <= 1e-6, "card and CPU augment disagree")
-    out = {"augment_max_abs_diff": aug_diff}
-    for dtype, loss_tol in ((torch.float32, 1e-3), (torch.float64, 1e-6)):
+    return {"x": x["cpu"], "grades": torch.from_numpy(grades),
+            "augment_max_abs_diff": aug_diff}
+
+
+def phase_train_agreement(torch, seed: int, batch: dict,
+                          preset: str = "eyepacs_binary",
+                          dtypes: tuple = ("float32", "float64")) -> dict:
+    """One train forward and backward (TF32 off, dropout and stochastic
+    depth 0) of the preset's model on ``batch`` (batch 4, 299 px) on the
+    card and on the CPU, from one init: loss and gradients compared over
+    all leaves and leaf by leaf. A leaf whose CPU gradient is below 1e-9
+    of the whole gradient's norm (a true gradient of 0: EfficientNet's
+    ``project_bn`` biases, read only by train-mode BatchNorms) is held
+    against that floor instead of its own norm."""
+    import copy
+
+    from jama16_retina_tpu_torch import configs, models, train_lib
+    from jama16_retina_tpu_torch.models import init
+
+    cfg = configs.override(configs.get_config(preset), [
+        "model.compute_dtype=float32", "model.dropout_rate=0.0"])
+    base = init.init_flax_default(models.build(cfg.model), seed)
+    out = {}
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        loss_tol = 1e-3 if dtype == torch.float32 else 1e-6
         res = {}
         for dev in ("cpu", "cuda"):
             model = (copy.deepcopy(base) if dtype == torch.float32
                      else float64_twin(torch, base, cfg))
             model = model.to(dev, memory_format=torch.channels_last)
-            logits, aux = model(x["cpu"].to(dev).permute(0, 3, 1, 2).to(dtype),
-                                train=True)
-            loss = train_lib.loss_fn(logits, aux,
-                                     torch.from_numpy(grades).to(dev), cfg)
+            logits, aux = model(
+                batch["x"].to(dev).permute(0, 3, 1, 2).to(dtype), train=True)
+            loss = train_lib.loss_fn(logits, aux, batch["grades"].to(dev),
+                                     cfg)
             loss.backward()
             res[dev] = (loss.item(), {
                 k: p.grad.detach().double().cpu().reshape(-1)
                 for k, p in model.named_parameters()})
+            del model
         (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res["cuda"]
         a, b = torch.cat(list(g_gpu.values())), torch.cat(list(g_cpu.values()))
         rel = float((a - b).norm() / b.norm())
         cos = float(a @ b / (a.norm() * b.norm()))
-        per_leaf = {k: float((g_gpu[k] - g_cpu[k]).norm() / g_cpu[k].norm())
+        floor = 1e-9 * float(b.norm())
+        per_leaf = {k: float((g_gpu[k] - g_cpu[k]).norm()
+                             / max(float(g_cpu[k].norm()), floor))
                     for k in g_cpu}
         worst = max(per_leaf, key=per_leaf.get)
-        name = str(dtype).removeprefix("torch.")
-        log(f"train: {name} batch 4 card vs CPU: loss {l_gpu:.9f} vs "
-            f"{l_cpu:.9f} (|diff| {abs(l_gpu - l_cpu):.3e}, limit "
-            f"{loss_tol:g}); gradient relative L2 {rel:.3e}, cosine "
+        n_floor = sum(float(g.norm()) < floor for g in g_cpu.values())
+        log(f"train {preset}: {name} batch 4 card vs CPU: loss "
+            f"{l_gpu:.9f} vs {l_cpu:.9f} (|diff| {abs(l_gpu - l_cpu):.3e}, "
+            f"limit {loss_tol:g}); gradient relative L2 {rel:.3e}, cosine "
             f"{cos:.9f}; worst of {len(per_leaf)} leaves {worst} "
-            f"{per_leaf[worst]:.3e}")
+            f"{per_leaf[worst]:.3e} ({n_floor} held against the floor)")
         check(abs(l_gpu - l_cpu) <= loss_tol,
-              f"card and CPU {name} train losses disagree")
+              f"card and CPU {name} train losses disagree ({preset})")
         if dtype == torch.float32:
             check(rel <= 0.08 and cos >= 0.995,
                   "card and CPU float32 gradients disagree (limits: "
                   "relative L2 0.08, cosine 0.995)")
         else:
             check(per_leaf[worst] <= 1e-6,
-                  f"card and CPU float64 gradients disagree in {worst}")
+                  f"card and CPU float64 gradients disagree in {worst} "
+                  f"({preset})")
         out[name] = {"loss_diff": abs(l_gpu - l_cpu), "grad_rel_l2": rel,
                      "grad_cos": cos, "worst_leaf": worst,
                      "worst_leaf_rel_l2": per_leaf[worst]}
     return out
 
 
-def train_step_times(torch, seed: int, smi: str) -> dict:
+def train_step_times(torch, seed: int, smi: str,
+                     preset: str = "eyepacs_binary") -> dict:
     """Per step form: train step time (host clock around a synchronized
     step; median of 10 after 3 warm), images/s, and the device's busy
     time per step (profiler, 3 steps), whose complement is its idle
@@ -766,7 +928,9 @@ def train_step_times(torch, seed: int, smi: str) -> dict:
              "grade": torch.from_numpy(grades).cuda()}
     out = {}
     for form in TRAIN_FORMS:
-        cfg = train_config(form, 1000, seed)
+        cfg = train_config(form, 1000, seed, preset)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         state = train_lib.create_state(
             cfg, init.init_flax_default(models.build(cfg.model), seed), "cuda")
 
@@ -783,15 +947,22 @@ def train_step_times(torch, seed: int, smi: str) -> dict:
                 times.append((time.perf_counter() - t0) * 1e3)
         med = statistics.median(times)
         busy = device_ms(step, 3)
+        peak = torch.cuda.max_memory_allocated()
         out[form] = {"step_ms": med, "min_ms": min(times),
                      "max_ms": max(times), "busy_ms": busy,
                      "images_per_s": TRAIN_BATCH / med * 1e3,
-                     "idle": 1 - busy / med, "state": state, "cfg": cfg,
-                     "batch": batch}
-        log(f"times: train step {form} batch {TRAIN_BATCH} bf16: median "
-            f"{med:.3f} ms (min {min(times):.3f}, max {max(times):.3f}), "
-            f"{TRAIN_BATCH / med * 1e3:.1f} images/s; device busy "
-            f"{busy:.3f} ms, idle {100 * (1 - busy / med):.1f} % ({smi})")
+                     "idle": 1 - busy / med, "peak": peak, "state": state,
+                     "cfg": cfg, "batch": batch}
+        log(f"times: train step {preset} {form} batch {TRAIN_BATCH} bf16: "
+            f"median {med:.3f} ms (min {min(times):.3f}, max "
+            f"{max(times):.3f}), {TRAIN_BATCH / med * 1e3:.1f} images/s; "
+            f"device busy {busy:.3f} ms, idle "
+            f"{100 * (1 - busy / med):.1f} %; peak device memory {peak} "
+            f"bytes ({smi})")
+        if preset != "eyepacs_binary":
+            # Only eyepacs_binary's states are profiled (``--profile``).
+            del out[form]["state"], state, step
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1050,11 +1221,13 @@ def phase_fit(torch, seed: int, smi: str, step_ms: float) -> dict:
     gap = reports_gap(reports["cuda"], reports["cpu"], p_cpu,
                       (grades >= 2).astype(int), dev_cpu)
     check(gap is None, f"card and CPU evaluation reports disagree: {gap}")
+    icdr5 = phase_fit_icdr5(torch, seed, data, root, smi)
     shutil.rmtree(root, ignore_errors=True)
     wall = time.perf_counter() - t_phase
     log(f"times: fit phase wall {wall:.1f} s ({smi})")
     return {"launches": {"run_a": counts_a, "run_b_first": counts_b1,
-                         "run_b_resume": counts_b},
+                         "run_b_resume": counts_b,
+                         "icdr5": icdr5["launches"]},
             "stream_step_ms": stream_ms, "memory_step_ms": step_ms,
             "val_read_mb_s": n_bytes / read_s / 1e6,
             "crc_mb_s": n_bytes / crc_s / 1e6,
@@ -1062,6 +1235,74 @@ def phase_fit(torch, seed: int, smi: str, step_ms: float) -> dict:
             "save_ms": 1e3 * after_eval["save_sec"],
             "save_bytes": save_bytes, "resume_loss_diff": diff,
             "eval_card_vs_cpu": dev_cpu, "wall_s": wall}
+
+
+def phase_fit_icdr5(torch, seed: int, data: Path, root: Path,
+                    smi: str) -> dict:
+    """The 5-class head's fit and evaluate path on the fit phase's splits
+    (``icdr5``: Inception-v3, 299 px, batch 32, bf16, label smoothing
+    0.1, its preset step with no kernel): ``ICDR5_STEPS`` steps of
+    ``trainer.fit`` with one eval, then ``evaluate_checkpoints`` of the
+    best step on ``test`` with thresholds from ``val``, float32 with TF32
+    off, on the card and on the CPU, each writing its ``save_probs``
+    CSV. The card's probabilities (every CSV column) within 1e-4 of the
+    CPU's; the report has ``accuracy`` and ``quadratic_weighted_kappa``;
+    the CSV has the ``prob_grade_*`` columns."""
+    import csv
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, trainer
+
+    t0 = time.perf_counter()
+    workdir = root / "icdr5"
+    cfg = configs.override(configs.get_config("icdr5"), [
+        f"train.steps={ICDR5_STEPS}", f"train.eval_every={ICDR5_STEPS}",
+        "train.log_every=1", f"train.seed={seed}",
+        f"train.checkpoint_dir={workdir}", f"data.batch_size={TRAIN_BATCH}"])
+    res, counts, recs = fit_run(torch, cfg, data)
+    evals = [r for r in recs if r["kind"] == "eval"]
+    log(f"fit icdr5: {res}; launches {counts}; eval records {evals}")
+    check(sum(counts.values()) == 0,
+          f"the icdr5 preset step launched {counts}, want no kernel")
+    check([r["step"] for r in evals] == [ICDR5_STEPS]
+          and all(np.isfinite(r["val_auc"]) and 0 <= r["val_auc"] <= 1
+                  for r in evals), f"icdr5 evals {evals}")
+    losses = [r["loss"] for r in recs if r["kind"] == "train"]
+    check(len(losses) == ICDR5_STEPS and bool(np.all(np.isfinite(losses))),
+          f"icdr5 losses {losses}")
+    cfg_eval = configs.override(cfg, ["model.compute_dtype=float32"])
+    reports, cols = {}, {}
+    for dev in ("cuda", "cpu"):
+        path = root / f"icdr5_probs_{dev}.csv"
+        reports[dev] = trainer.evaluate_checkpoints(
+            cfg_eval, str(data), [str(workdir)], split="test",
+            threshold_split="val", save_probs=str(path), device=dev)
+        with open(path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        cols[dev] = {k: [r[k] for r in rows] for k in rows[0]}
+    report = reports["cuda"]
+    log(f"fit icdr5: evaluate cuda: accuracy {report['accuracy']}, "
+        f"quadratic weighted kappa {report['quadratic_weighted_kappa']}, "
+        f"AUC of P(grade >= 2) {report['auc']:.6f}")
+    want_cols = ["name", "grade", "quality", "prob_referable",
+                 *[f"prob_grade_{c}" for c in range(5)]]
+    check(list(cols["cuda"]) == list(cols["cpu"]) == want_cols,
+          f"icdr5 save_probs columns {list(cols['cuda'])}")
+    check(all({"accuracy", "quadratic_weighted_kappa"} <= set(r)
+              for r in reports.values()), "icdr5 report lacks its metrics")
+    check(cols["cuda"]["name"] == cols["cpu"]["name"]
+          and cols["cuda"]["grade"] == cols["cpu"]["grade"],
+          "icdr5 evaluations saw other images")
+    dev_cpu = max(float(np.max(np.abs(np.array(cols["cuda"][k], float)
+                                      - np.array(cols["cpu"][k], float))))
+                  for k in want_cols[3:])
+    log(f"fit icdr5: evaluate float32 card vs CPU max |prob diff| "
+        f"{dev_cpu:.3e} over {len(cols['cpu']['name'])} test images and "
+        f"{len(want_cols) - 3} CSV columns (6 decimals; atol 1e-4, TF32 "
+        f"off); {time.perf_counter() - t0:.1f} s ({smi})")
+    check(dev_cpu <= 1e-4, f"icdr5 card and CPU disagree by {dev_cpu}")
+    return {"launches": counts, "eval_card_vs_cpu": dev_cpu}
 
 
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
@@ -1124,7 +1365,8 @@ def main(argv=None) -> int:
     log(f"serve: peak device memory {torch.cuda.max_memory_allocated()} "
         f"bytes ({smi})")
     train = phase_train(torch, args.seed, TRAIN_STEPS)
-    phase_train_agreement(torch, args.seed)
+    batch = augmented_batch(torch, args.seed)
+    phase_train_agreement(torch, args.seed, batch)
 
     timing = {b: kernel_times(torch, sp, dev, b) for b in (8, 16, 64)}
     for t in timing.values():
@@ -1134,7 +1376,15 @@ def main(argv=None) -> int:
             f"{t['call_ms']:.4f} ms, plain {t['plain_call_ms']:.4f} ms "
             f"({smi})")
     jitter = jitter_times(torch, dev)
-    opt = adamw_times(torch, dev, args.seed)
+    opt_by_set = {p: adamw_times(torch, dev, args.seed, p)
+                  for p in B3_PRESETS}
+    opt = opt_by_set["eyepacs_binary"]
+    for p, t in opt_by_set.items():
+        log(f"times: fused_adamw_update {p} ({t['leaves']} leaves, "
+            f"{t['elements']} elements, {t['launches_per_call']} launch(es)"
+            f"): device {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+            f"{t['library_ms']:.4f} ms ({smi})")
     for kname, t in (*jitter.items(), ("fused_adamw_update", opt)):
         lib = ("" if t["library_ms"] is None
                else f", library {t['library_ms']:.4f} ms")
@@ -1153,6 +1403,23 @@ def main(argv=None) -> int:
     for form, t in train.items():
         log(f"times: train {form}: peak device memory {t['peak']} bytes "
             f"({smi})")
+    model_runs = {}
+    for preset in MODEL_PRESETS:
+        t_model = time.perf_counter()
+        srv = phase_serve(torch, args.seed, preset)
+        request_times(torch, srv, smi, f"{preset} ", dtypes=("bfloat16",),
+                      ks=(2,))
+        model_runs[f"serve_{preset}"] = srv["launches"]
+        del srv
+        torch.cuda.empty_cache()
+        for form, t in phase_train(torch, args.seed, MODEL_STEPS,
+                                   preset).items():
+            model_runs[f"train_{preset}_{form}"] = t["launches"]
+        train_step_times(torch, args.seed, smi, preset)
+        phase_train_agreement(torch, args.seed, batch, preset, ("float64",))
+        torch.cuda.empty_cache()
+        log(f"times: {preset} serve, train and agreement wall "
+            f"{time.perf_counter() - t_model:.1f} s ({smi})")
     if args.profile:
         profile_request(torch, serve, args.profile)
         profile_train(torch, steps, args.profile)
@@ -1173,7 +1440,8 @@ def main(argv=None) -> int:
     # just after.
     runs = {"serve": serve["launches"],
             **{f"train_{form}": t["launches"] for form, t in train.items()},
-            **{f"fit_{run}": n for run, n in fit["launches"].items()}}
+            **{f"fit_{run}": n for run, n in fit["launches"].items()},
+            **model_runs}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [
@@ -1188,9 +1456,10 @@ def main(argv=None) -> int:
                          jitter_err["fused_normalize_color_jitter"], b2),
          **{k: b2[k] for k in ("plan_route", "cluster", "two_pass_ms",
                                "yardstick_ms", "turns_ms")}},
-        kernel_record("fused_adamw_update", "adamw.cu",
-                      "jama16_retina_tpu/ops/pallas_opt.py:105",
-                      launches["fused_adamw_update"], adamw_err, opt),
+        {**kernel_record("fused_adamw_update", "adamw.cu",
+                         "jama16_retina_tpu/ops/pallas_opt.py:105",
+                         launches["fused_adamw_update"], adamw_err, opt),
+         "by_leaf_set": opt_by_set},
         b4,
     ]
     for r in records:

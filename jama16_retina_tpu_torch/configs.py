@@ -1,6 +1,7 @@
 """The slice of ``jama16_retina_tpu/configs.py`` that the port reads
-(serving; training, eval, checkpoints and resume of the
-``eyepacs_binary`` path).
+(serving, training, eval, checkpoints and resume of every preset of the
+JAX package: the binary and 5-class heads, Inception-v3, ResNet-50,
+EfficientNet-B4 and the smoke ``tiny_cnn``).
 
 Field names, defaults, preset names and the dotted ``--set`` syntax are
 those of the JAX package, so one override list configures both. Only the
@@ -19,8 +20,9 @@ from typing import Sequence
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    arch: str = "inception_v3"  # inception_v3 | tiny_cnn in this port
-    head: str = "binary"
+    # inception_v3 | resnet50 | efficientnet_b4 | tiny_cnn
+    arch: str = "inception_v3"
+    head: str = "binary"  # binary (referable DR) | multi (5 ICDR grades)
     image_size: int = 299
     dropout_rate: float = 0.2
     compute_dtype: str = "bfloat16"
@@ -155,6 +157,39 @@ def _preset_eyepacs_binary_quality() -> ExperimentConfig:
     )
 
 
+def _preset_messidor2_eval() -> ExperimentConfig:
+    return ExperimentConfig(
+        name="messidor2_eval",
+        eval=EvalConfig(operating_specificities=(0.87, 0.98)),
+    )
+
+
+def _preset_icdr5() -> ExperimentConfig:
+    return ExperimentConfig(
+        name="icdr5",
+        model=ModelConfig(head="multi"),
+        train=TrainConfig(label_smoothing=0.1),
+    )
+
+
+def _preset_ensemble10() -> ExperimentConfig:
+    return ExperimentConfig(name="ensemble10",
+                            train=TrainConfig(ensemble_size=10))
+
+
+def _preset_resnet50() -> ExperimentConfig:
+    return ExperimentConfig(name="resnet50",
+                            model=ModelConfig(arch="resnet50"))
+
+
+def _preset_efficientnet_b4() -> ExperimentConfig:
+    return ExperimentConfig(
+        name="efficientnet_b4",
+        # B4 compound scaling specifies dropout 0.4 (vs the generic 0.2).
+        model=ModelConfig(arch="efficientnet_b4", dropout_rate=0.4),
+    )
+
+
 def _preset_smoke() -> ExperimentConfig:
     return ExperimentConfig(
         name="smoke",
@@ -170,12 +205,16 @@ def _preset_smoke() -> ExperimentConfig:
 PRESETS = {
     "eyepacs_binary": _preset_eyepacs_binary,
     "eyepacs_binary_quality": _preset_eyepacs_binary_quality,
+    "messidor2_eval": _preset_messidor2_eval,
+    "icdr5": _preset_icdr5,
+    "ensemble10": _preset_ensemble10,
+    "resnet50": _preset_resnet50,
+    "efficientnet_b4": _preset_efficientnet_b4,
     "smoke": _preset_smoke,
 }
 
 # Knob -> (its default, the ROADMAP item that will implement it).
 _UNIMPLEMENTED = {
-    ("model", "head"): ("binary", "Queue A item 10 (head=multi)"),
     ("model", "stem_s2d"): (False, "Queue A item 2 (stem_s2d)"),
     ("model", "remat_stem"): (False, "Queue A item 2 (remat_stem)"),
     ("serve", "dtype"): ("fp32", "Queue A item 9 (serve/quantize.py)"),
@@ -210,7 +249,8 @@ _NOT_PORTED = {
 _LOADERS = ("tfdata",)
 _LOADER_ITEM = ("Queue A item 7 (rawshard, hbm, tiered, grain and served "
                 "loaders)")
-_ARCHS = ("inception_v3", "tiny_cnn")
+_ARCHS = ("inception_v3", "resnet50", "efficientnet_b4", "tiny_cnn")
+_HEADS = ("binary", "multi")
 _DTYPES = ("float32", "bfloat16")
 _SCHEDULES = ("constant", "cosine", "warmup_cosine")
 
@@ -230,10 +270,11 @@ def check_supported(cfg: ExperimentConfig, training: bool = False) -> None:
                 f"ROADMAP.md {item}"
             )
     if cfg.model.arch not in _ARCHS:
-        raise NotImplementedError(
-            f"model.arch={cfg.model.arch!r} is not ported yet (have "
-            f"{_ARCHS}); see ROADMAP.md Queue A item 10"
-        )
+        raise ValueError(f"unknown model.arch {cfg.model.arch!r} (want one "
+                         f"of {_ARCHS})")
+    if cfg.model.head not in _HEADS:
+        raise ValueError(f"unknown model.head {cfg.model.head!r} (want one "
+                         f"of {_HEADS})")
     if cfg.model.compute_dtype not in _DTYPES:
         raise ValueError(
             f"model.compute_dtype must be one of {_DTYPES}, got "

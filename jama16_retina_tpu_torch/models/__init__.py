@@ -2,39 +2,48 @@
 ``jama16_retina_tpu/models/__init__.py``).
 
 Every model has the call contract ``model(x) -> (logits, aux_logits)``
-on NCHW float input; ``aux_logits`` is None unless asked for.
+on NCHW float input; ``aux_logits`` is None unless asked for, and always
+for the archs without an aux head (``model.aux_head`` is read by
+Inception-v3 only). ``model.head`` sets the width of the logits: 1 for
+``binary``, 5 for ``multi``.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from jama16_retina_tpu_torch.configs import ModelConfig
 from jama16_retina_tpu_torch.models.common import DTYPES
+from jama16_retina_tpu_torch.models.efficientnet import EfficientNet
 from jama16_retina_tpu_torch.models.inception_v3 import InceptionV3
+from jama16_retina_tpu_torch.models.resnet import ResNet50
 from jama16_retina_tpu_torch.models.tiny_cnn import TinyCNN
 
 
 def build(cfg: ModelConfig) -> nn.Module:
     """The model named by ``cfg.arch``, in eval mode, on the CPU."""
-    if cfg.head != "binary":
-        raise NotImplementedError(
-            f"model.head={cfg.head!r} is not ported yet; see ROADMAP.md "
-            "Queue A item 10 (head=multi)"
-        )
-    dtype = DTYPES[cfg.compute_dtype]
+    common = dict(num_classes=cfg.num_classes,
+                  dropout_rate=cfg.dropout_rate,
+                  dtype=DTYPES[cfg.compute_dtype])
     if cfg.arch == "inception_v3":
-        model = InceptionV3(
-            num_classes=cfg.num_classes, aux_head=cfg.aux_head,
-            dropout_rate=cfg.dropout_rate, dtype=dtype,
-            image_size=cfg.image_size,
-        )
+        model = InceptionV3(aux_head=cfg.aux_head,
+                            image_size=cfg.image_size, **common)
+    elif cfg.arch == "resnet50":
+        model = ResNet50(**common)
+    elif cfg.arch == "efficientnet_b4":
+        model = EfficientNet.b4(**common)
     elif cfg.arch == "tiny_cnn":
-        model = TinyCNN(num_classes=cfg.num_classes,
-                        dropout_rate=cfg.dropout_rate, dtype=dtype)
+        model = TinyCNN(**common)
     else:
-        raise NotImplementedError(
-            f"model.arch={cfg.arch!r} is not ported yet; see ROADMAP.md "
-            "Queue A item 10"
-        )
+        raise ValueError(f"unknown arch {cfg.arch!r}")
     return model.eval()
+
+
+def head_probs(logits: torch.Tensor, head: str) -> torch.Tensor:
+    """Probabilities of one head (``train_lib._probs`` of the JAX
+    package): sigmoid of column 0 ([B]) for ``binary``, softmax over the
+    classes ([B, C]) for ``multi``."""
+    if head == "binary":
+        return torch.sigmoid(logits[:, 0])
+    return torch.softmax(logits, dim=-1)

@@ -4,9 +4,12 @@
 Numerics mirror the Flax cell: the conv has no bias and runs in the
 compute dtype; BatchNorm has no scale, eps 1e-3, and is computed in
 float32 as ``(x - mean) * rsqrt(var + eps) + bias``; ReLU follows and
-the result is cast to the compute dtype. Parameters stay float32 and are
-cast at the conv, as Flax does. Eval form normalizes with the running
-statistics; train form with the batch's own (see ``BatchNorm``).
+the result is cast to the compute dtype. Parameters stay float32 and
+are cast at the conv, as Flax does. Eval form normalizes with the
+running statistics; train form with the batch's own (see
+``BatchNorm``, which also takes the learned scale and momentum of the
+ResNet and EfficientNet BatchNorms). ``max_pool_same`` is the SAME max
+pool of the ResNet stem.
 
 Module and buffer names follow the Flax tree (``conv.weight`` for
 ``conv/kernel``; ``bn.bias`` / ``bn.mean`` / ``bn.var``), so
@@ -59,40 +62,90 @@ def dropout(x: torch.Tensor, rate: float,
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def same_pad(x: torch.Tensor, kernel, strides,
+             value: float = 0.0) -> "tuple[torch.Tensor, tuple]":
+    """XLA's SAME padding of NCHW ``x`` for a window of ``kernel`` at
+    ``strides``, resolved against its size: ``(x, (ph, pw))`` for the
+    symmetric padding a conv or pool applies itself, or ``x`` padded
+    with ``value`` at its lower and upper edges and ``(0, 0)`` where XLA
+    pads one more row or column at the end."""
+    (ht, hb), (wl, wr) = (same_padding(x.shape[2], kernel[0], strides[0]),
+                          same_padding(x.shape[3], kernel[1], strides[1]))
+    if ht == hb and wl == wr:
+        return x, (ht, wl)
+    return F.pad(x, (wl, wr, ht, hb), value=value), (0, 0)
+
+
+def conv(x: torch.Tensor, module: nn.Conv2d, dtype: torch.dtype,
+         padding=None) -> torch.Tensor:
+    """``module``'s conv in ``dtype`` (weights cast there, as Flax casts
+    its float32 params) with XLA's SAME padding, or the explicit
+    symmetric ``padding`` when given. A bias is added after the conv's
+    result is rounded to ``dtype``, as ``nn.Conv`` adds it."""
+    if padding is None:
+        x, padding = same_pad(x, module.kernel_size, module.stride)
+    y = F.conv2d(x, module.weight.to(dtype), None, module.stride, padding,
+                 groups=module.groups)
+    if module.bias is None:
+        return y
+    return y + module.bias.to(dtype).view(1, -1, 1, 1)
+
+
+def max_pool_same(x: torch.Tensor, window: int = 3,
+                  stride: int = 2) -> torch.Tensor:
+    """``nn.max_pool(x, (w, w), (s, s), padding="SAME")``: padded with
+    -inf, then a VALID pool (XLA pads (0, 1) on a 150-cell axis, which
+    ``F.max_pool2d``'s symmetric ``padding`` cannot express)."""
+    x, pad = same_pad(x, (window, window), (stride, stride), float("-inf"))
+    return F.max_pool2d(x, window, stride, pad)
+
+
 class BatchNorm(nn.Module):
-    """Scale-free BatchNorm (Flax ``nn.BatchNorm(use_scale=False)``).
+    """Flax ``nn.BatchNorm`` with a bias, and with a learned scale when
+    ``use_scale`` (Inception-v3's has none; ResNet's and EfficientNet's
+    have one). The scale multiplies the inverse deviation first, in
+    Flax's order: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
 
     Eval form normalizes with the running statistics. Train form takes
     the batch's statistics in float32 (float64 for float64 input) over
     N, H, W with Flax's fast
     variance ``E[x^2] - E[x]^2`` clipped at 0, and gradients flow through
     both. It also updates the running statistics in place as
-    ``ra = 0.9 * ra + 0.1 * batch`` for the mean and the *biased*
-    variance, which is Flax's rule; torch's own BatchNorm would update
-    with the unbiased variance."""
+    ``ra = m * ra + (1 - m) * batch`` at ``momentum`` m (0.9 by default;
+    EfficientNet's is 0.99) for the mean and the *biased* variance,
+    which is Flax's rule; torch's own BatchNorm would update with the
+    unbiased variance."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_scale: bool = False,
+                 momentum: float = BN_MOMENTUM):
         super().__init__()
+        self.momentum = momentum
+        self.register_parameter(
+            "scale", nn.Parameter(torch.ones(channels)) if use_scale else None)
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def _normalize(self, xf, mean, var) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        if not train:
-            inv = torch.rsqrt(self.var + BN_EPS)
-            return ((at_least_f32(x) - self.mean.view(shape)) * inv.view(shape)
-                    + self.bias.view(shape))
+        mul = torch.rsqrt(var + BN_EPS)
+        if self.scale is not None:
+            mul = mul * self.scale
+        return ((xf - mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = at_least_f32(x)
+        if not train:
+            return self._normalize(xf, self.mean, self.var)
         mean = xf.mean(dim=(0, 2, 3))
         var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
                               0.0)
         with torch.no_grad():
-            self.mean.copy_(BN_MOMENTUM * self.mean
-                            + (1 - BN_MOMENTUM) * mean)
-            self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
-        inv = torch.rsqrt(var + BN_EPS)
-        return (xf - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        return self._normalize(xf, mean, var)
 
 
 class ConvBN(nn.Module):
@@ -111,27 +164,13 @@ class ConvBN(nn.Module):
         super().__init__()
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding must be SAME or VALID, got {padding}")
-        self.kernel = tuple(kernel)
-        self.strides = tuple(strides)
         self.padding = padding
         self.dtype = dtype
-        self.conv = nn.Conv2d(in_channels, features, self.kernel,
-                              stride=self.strides, bias=False)
+        self.conv = nn.Conv2d(in_channels, features, tuple(kernel),
+                              stride=tuple(strides), bias=False)
         self.bn = BatchNorm(features)
 
-    def _pad(self, x: torch.Tensor) -> "tuple[torch.Tensor, tuple]":
-        if self.padding == "VALID":
-            return x, (0, 0)
-        (ht, hb), (wl, wr) = (
-            same_padding(x.shape[2], self.kernel[0], self.strides[0]),
-            same_padding(x.shape[3], self.kernel[1], self.strides[1]),
-        )
-        if ht == hb and wl == wr:
-            return x, (ht, wl)
-        return F.pad(x, (wl, wr, ht, hb)), (0, 0)
-
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x, pad = self._pad(x)
-        y = F.conv2d(x, self.conv.weight.to(self.dtype), None,
-                     self.strides, pad)
+        y = conv(x, self.conv, self.dtype,
+                 (0, 0) if self.padding == "VALID" else None)
         return F.relu(self.bn(y, train)).to(self.dtype)

@@ -5,9 +5,13 @@ variables, sep="/")`` gives, as numpy arrays:
 
     params/<scope>/conv/kernel       HWIO   -> <scope>.conv.weight  OIHW
     params/<scope>/bn/bias                  -> <scope>.bn.bias
+    params/<scope>/bn/scale                 -> <scope>.bn.scale
     batch_stats/<scope>/bn/mean|var         -> <scope>.bn.mean|var
     params/<scope>/kernel (Dense)    [in,out] -> <scope>.weight  [out,in]
-    params/<scope>/bias (Dense)             -> <scope>.bias
+    params/<scope>/bias (Dense, conv)       -> <scope>.bias
+
+Depthwise kernels ``(k, k, 1, C)`` take the same transpose as any conv
+kernel, to torch's ``(C, 1, k, k)``.
 
 The port's modules carry the Flax scope names, so the mapping is a
 rename plus a transpose. Every key on either side must be matched:
@@ -30,8 +34,8 @@ def _torch_key(flax_key: str, ndim: int) -> "tuple[str, tuple | None]":
         return ".".join(path + [leaf]), None
     if coll != "params":
         raise KeyError(f"unexpected Flax collection in {flax_key!r}")
-    if leaf == "bias":
-        return ".".join(path + ["bias"]), None
+    if leaf in ("bias", "scale"):
+        return ".".join(path + [leaf]), None
     if leaf == "kernel" and ndim == 4:
         return ".".join(path + ["weight"]), (3, 2, 0, 1)
     if leaf == "kernel" and ndim == 2:
@@ -72,8 +76,8 @@ def _flax_key(tkey: str, ndim: int) -> "tuple[str, tuple | None]":
     *path, leaf = tkey.split(".")
     if leaf in ("mean", "var"):
         return "/".join(["batch_stats", *path, leaf]), None
-    if leaf == "bias":
-        return "/".join(["params", *path, "bias"]), None
+    if leaf in ("bias", "scale"):
+        return "/".join(["params", *path, leaf]), None
     if leaf == "weight" and ndim == 4:
         return "/".join(["params", *path, "kernel"]), (2, 3, 1, 0)
     if leaf == "weight" and ndim == 2:

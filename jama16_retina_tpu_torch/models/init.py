@@ -4,7 +4,9 @@
 standard deviation ``sqrt(1 / fan_in) / 0.87962566103423978`` truncated
 at two standard deviations (the divisor restores unit variance after the
 truncation), with ``fan_in`` the receptive field times input channels.
-Biases are zeros; BatchNorm running mean 0 and variance 1. The draws
+Biases are zeros, BatchNorm scales ones; running mean 0 and variance
+1. A depthwise kernel ``(C, 1, k, k)`` has ``fan_in = k * k``, as
+Flax's lecun-normal gives for its ``(k, k, 1, C)`` kernel. The draws
 come from a ``torch.Generator``, so they do not repeat Flax's bits: the
 parity tests start both frameworks from converted weights instead.
 """
@@ -27,7 +29,7 @@ def init_flax_default(model: nn.Module, seed: int) -> nn.Module:
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, t in model.state_dict().items():
-            if name.endswith(".var"):
+            if name.endswith((".var", ".scale")):
                 t.fill_(1.0)
             elif name.endswith((".mean", ".bias")):
                 t.zero_()

@@ -1,16 +1,21 @@
 """Predict referable-DR probability for raw fundus photographs.
 
-The port's counterpart of the repository's ``predict.py`` (binary head):
+The port's counterpart of the repository's ``predict.py``:
 
     python -m jama16_retina_tpu_torch.predict --checkpoint_dir=DIR \\
         --images photos/ [--threshold=0.2327] [--device=cpu]
+    python -m jama16_retina_tpu_torch.predict --config=icdr5 \\
+        --checkpoint_dir=DIR --images photos/
 
 Each image becomes one JSON line on stdout, in input order:
 ``{"image", "prob", ["referable", "threshold"], "quality",
-["gradable"], "n_models"}``; an image that cannot be read or holds no
-fundus becomes ``{"image", "error"}``. Exit codes: 0 when at least one
-image scored, 1 when none did, 2 under ``--strict`` when any image was
-skipped. Member dirs hold ``params.npz`` (``utils/checkpoint.py``).
+["gradable"], "n_models"}``; for the 5-class head (``icdr5``), ``prob``
+is P(grade >= 2) and the row adds ``grade_probs`` (5, rounded to 6
+places) and ``predicted_grade`` after it. An image that cannot be read
+or holds no fundus becomes ``{"image", "error"}``. Exit codes: 0 when
+at least one image scored, 1 when none did, 2 under ``--strict`` when
+any image was skipped. Member dirs hold ``params.npz``
+(``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -82,16 +87,15 @@ def _expand(patterns: "list[str]") -> "list[str]":
 def main(argv: "list[str] | None" = None) -> int:
     args = _parser().parse_args(argv)
 
+    import numpy as np
+
     from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.eval import metrics
     from jama16_retina_tpu_torch.serve import host
     from jama16_retina_tpu_torch.serve.engine import ServingEngine
     from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
     cfg = configs.override(configs.get_config(args.config), args.set)
-    if cfg.model.head != "binary":
-        raise NotImplementedError(
-            "model.head=multi is not ported yet; see ROADMAP.md Queue A "
-            "item 10 (head=multi)")
     dirs = list(args.ensemble_dir)
     if not dirs:
         if not args.checkpoint_dir:
@@ -116,8 +120,14 @@ def main(argv: "list[str] | None" = None) -> int:
     probs = engine.probs(pre.images)
 
     for p, pr, qual in zip(pre.kept, probs, pre.qualities):
-        score = float(pr)
-        row = {"image": p, "prob": round(score, 6)}
+        if cfg.model.head != "binary":
+            score = float(metrics.referable_probs_from_multiclass(pr))
+            row = {"image": p, "prob": score,
+                   "grade_probs": [round(float(x), 6) for x in pr],
+                   "predicted_grade": int(np.argmax(pr))}
+        else:
+            score = float(pr)
+            row = {"image": p, "prob": round(score, 6)}
         if args.threshold >= 0:
             row["referable"] = bool(score >= args.threshold)
             row["threshold"] = args.threshold

@@ -109,11 +109,12 @@ class ServingEngine:
         raise ValueError(f"no bucket covers a chunk of {n} rows")
 
     def _probs(self, model, x: torch.Tensor) -> torch.Tensor:
-        """Normalized NCHW batch -> probabilities [B] for one member,
-        flip-TTA averaged over 4 views when ``eval.tta``."""
+        """Normalized NCHW batch -> probabilities for one member ([B], or
+        [B, C] for the ``multi`` head), flip-TTA averaged over 4 views
+        when ``eval.tta``."""
         def forward(v):
             logits, _ = model(v)
-            return torch.sigmoid(logits[:, 0])
+            return models.head_probs(logits, self.cfg.model.head)
 
         if not self.cfg.eval.tta:
             return forward(x)
@@ -124,7 +125,8 @@ class ServingEngine:
         ]).mean(dim=0)
 
     def member_probs(self, images: np.ndarray) -> np.ndarray:
-        """uint8 images [n, S, S, 3] -> per-member probabilities [k, n]."""
+        """uint8 images [n, S, S, 3] -> per-member probabilities [k, n]
+        (binary head) or [k, n, C] (``multi``)."""
         images = np.asarray(images)
         size = self.cfg.model.image_size
         if images.ndim != 4 or images.shape[1:] != (size, size, 3):
@@ -162,5 +164,5 @@ class ServingEngine:
         return probs
 
     def probs(self, images: np.ndarray) -> np.ndarray:
-        """Ensemble-averaged probabilities [n], float64."""
+        """Ensemble-averaged probabilities [n] (or [n, C]), float64."""
         return metrics.ensemble_average(list(self.member_probs(images)))

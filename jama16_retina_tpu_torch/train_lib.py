@@ -114,29 +114,42 @@ def make_schedule(tc: TrainConfig) -> Callable:
     raise ValueError(f"unknown lr_schedule {tc.lr_schedule!r}")
 
 
-def _labels_from_grades(grades: torch.Tensor) -> torch.Tensor:
-    """ICDR grade >= 2 -> referable DR (the binary head's label)."""
-    return (grades >= 2).float()
+def _labels_from_grades(grades: torch.Tensor, head: str) -> torch.Tensor:
+    """The head's labels: ICDR grade >= 2 (referable DR) as float for the
+    binary head, the grade itself (int64 class index) for ``multi``."""
+    if head == "binary":
+        return (grades >= 2).float()
+    return grades.long()
 
 
-def _head_loss(logits: torch.Tensor, labels: torch.Tensor,
+def _head_loss(logits: torch.Tensor, labels: torch.Tensor, head: str,
                smoothing: float) -> torch.Tensor:
-    """Mean sigmoid BCE against ``labels * (1 - s) + 0.5 * s``, written as
-    optax.sigmoid_binary_cross_entropy writes it."""
-    target = labels * (1.0 - smoothing) + 0.5 * smoothing
-    x = logits[:, 0]
-    per_ex = -target * F.logsigmoid(x) - (1.0 - target) * F.logsigmoid(-x)
-    return per_ex.mean()
+    """Mean loss of one head, written as optax writes it. Binary: sigmoid
+    BCE against ``labels * (1 - s) + 0.5 * s``. Multi: softmax cross
+    entropy against the one-hot labels smoothed as ``optax.smooth_labels``
+    does, ``onehot * (1 - s) + s / C``."""
+    if head == "binary":
+        target = labels * (1.0 - smoothing) + 0.5 * smoothing
+        x = logits[:, 0]
+        per_ex = (-target * F.logsigmoid(x)
+                  - (1.0 - target) * F.logsigmoid(-x))
+        return per_ex.mean()
+    target = F.one_hot(labels, logits.shape[-1]).to(logits.dtype)
+    if smoothing > 0:
+        target = target * (1.0 - smoothing) + smoothing / logits.shape[-1]
+    return -(target * F.log_softmax(logits, dim=-1)).sum(dim=-1).mean()
 
 
 def loss_fn(logits: torch.Tensor, aux: "torch.Tensor | None",
             grades: torch.Tensor, cfg: ExperimentConfig) -> torch.Tensor:
-    """Head loss plus ``model.aux_weight`` times the aux head's loss."""
-    labels = _labels_from_grades(grades)
+    """Head loss plus ``model.aux_weight`` times the aux head's loss, both
+    under ``model.head``."""
+    head = cfg.model.head
+    labels = _labels_from_grades(grades, head)
     smoothing = cfg.train.label_smoothing
-    loss = _head_loss(logits, labels, smoothing)
+    loss = _head_loss(logits, labels, head, smoothing)
     if aux is not None:
-        loss = loss + cfg.model.aux_weight * _head_loss(aux, labels,
+        loss = loss + cfg.model.aux_weight * _head_loss(aux, labels, head,
                                                         smoothing)
     return loss
 
@@ -209,12 +222,13 @@ def eval_params(state: TrainState) -> "dict[str, torch.Tensor]":
 
 def make_eval_step(cfg: ExperimentConfig, state: TrainState,
                    device: "str | torch.device | None" = None) -> Callable:
-    """uint8 images [B, S, S, 3] (numpy) -> float32 probabilities [B] of
-    the state's eval params (``eval_params``) with its batch statistics:
-    normalize, the eval forward (flip-averaged when ``eval.tta``), then
-    sigmoid. It is the serving engine's forward over one member, made
-    from a snapshot of the state; padding rows are scored and left for
-    the caller to trim, as in the reference."""
+    """uint8 images [B, S, S, 3] (numpy) -> float32 probabilities ([B],
+    or [B, C] for ``multi``) of the state's eval params
+    (``eval_params``) with its batch statistics: normalize, the eval
+    forward (flip-averaged when ``eval.tta``), then
+    ``models.head_probs``. It is the serving engine's forward over one
+    member, made from a snapshot of the state; padding rows are scored
+    and left for the caller to trim, as in the reference."""
     engine = ServingEngine(cfg, state_dicts=[eval_params(state)],
                            device=device)
     return lambda images: engine.member_probs(images)[0]

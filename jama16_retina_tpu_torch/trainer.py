@@ -122,18 +122,27 @@ def fit_synthetic(cfg: configs.ExperimentConfig, workdir: str,
 # Eval
 # ---------------------------------------------------------------------------
 
-def _binary_eval_labels(grades: np.ndarray) -> np.ndarray:
-    """evaluation_report's labels for the binary head: grade >= 2."""
-    return (grades >= 2).astype(np.float64)
+def _binary_eval_labels(grades: np.ndarray, head: str) -> np.ndarray:
+    """evaluation_report's labels: grade >= 2 for the binary head, the raw
+    grades for the 5-class head."""
+    return (grades >= 2).astype(np.float64) if head == "binary" else grades
+
+
+def _referable(probs: np.ndarray, head: str) -> np.ndarray:
+    """P(referable DR) of a head's probabilities: themselves for the
+    binary head, P(grade >= 2) for the 5-class head."""
+    return (probs if head == "binary"
+            else metrics.referable_probs_from_multiclass(probs))
 
 
 def predict_split(cfg: configs.ExperimentConfig, member_probs_fn,
                   data_dir: str, split: str
                   ) -> "tuple[np.ndarray, np.ndarray, np.ndarray]":
     """The eval stream of ``split`` (no augmentation) through
-    ``member_probs_fn(images) -> [k, B]`` probabilities, padding rows
-    trimmed by the batches' mask -> (grades [n], probs [k, n], names [n];
-    names are the records' ``image/name`` bytes)."""
+    ``member_probs_fn(images) -> [k, B]`` (or [k, B, C]) probabilities,
+    padding rows trimmed by the batches' mask -> (grades [n], probs [k, n]
+    or [k, n, C], names [n]; names are the records' ``image/name``
+    bytes)."""
     grades_all, probs_all, names_all = [], [], []
     for batch in pipeline.eval_batches(data_dir, split, cfg.eval.batch_size,
                                        cfg.model.image_size):
@@ -236,7 +245,8 @@ def _eval_and_track(cfg: configs.ExperimentConfig, log: RunLog, step: int,
     written before the save; a stopping eval always saves.
     Returns (best_auc, best_step, since_best, stop)."""
     grades, probs = predict_fn()
-    auc = metrics.roc_auc(_binary_eval_labels(grades), probs)
+    auc = metrics.roc_auc((grades >= 2).astype(np.float64),
+                          _referable(probs, cfg.model.head))
     b_auc, b_step, since = _best_tracking_update(
         auc, best_auc, best_step, since_best, step, cfg.train.min_delta)
     best_auc, best_step, since_best = float(b_auc), int(b_step), int(since)
@@ -552,17 +562,20 @@ def evaluate_checkpoints(
         if key == "eval":
             eval_names = names
 
+    head = cfg.model.head
     probs = metrics.ensemble_average(list(member_probs["eval"]))
-    labels = _binary_eval_labels(grades_by["eval"])
     report = metrics.evaluation_report(
-        labels, probs, cfg.eval.operating_specificities,
-        bootstrap_samples=bootstrap)
+        _binary_eval_labels(grades_by["eval"], head), probs,
+        cfg.eval.operating_specificities, bootstrap_samples=bootstrap)
     if threshold_split:
-        tune_bin = _binary_eval_labels(grades_by["tune"])
-        tune_p = metrics.ensemble_average(list(member_probs["tune"]))
+        tune_bin = (grades_by["tune"] >= 2).astype(np.float64)
+        tune_p = _referable(
+            metrics.ensemble_average(list(member_probs["tune"])), head)
+        labels = (grades_by["eval"] >= 2).astype(np.float64)
+        eval_p = _referable(probs, head)
         report["operating_points_transferred"] = (
             metrics.transferred_operating_points(
-                tune_bin, tune_p, labels, probs,
+                tune_bin, tune_p, labels, eval_p,
                 cfg.eval.operating_specificities,
                 bootstrap_samples=bootstrap))
         report["threshold_split"] = threshold_split
@@ -570,7 +583,7 @@ def evaluate_checkpoints(
             report["threshold_data_dir"] = threshold_data_dir
         if calibrate:
             temp = metrics.fit_temperature(tune_bin, tune_p)
-            cal = metrics.apply_temperature(probs, temp)
+            cal = metrics.apply_temperature(eval_p, temp)
             report["calibration"] = {
                 "temperature": round(temp, 4),
                 "brier": metrics.brier_score(labels, cal),
@@ -580,7 +593,7 @@ def evaluate_checkpoints(
         quality_by_name = tfrecord.read_quality_by_name(
             tfrecord.list_split(data_dir, split))
         _write_probs_csv(save_probs, eval_names, grades_by["eval"], probs,
-                         quality_by_name)
+                         head, quality_by_name)
         report["probs_file"] = save_probs
     report["split"] = split
     report["n_models"] = len(ckpt_dirs)
@@ -588,12 +601,13 @@ def evaluate_checkpoints(
 
 
 def _write_probs_csv(path: str, names: np.ndarray, grades: np.ndarray,
-                     probs: np.ndarray,
+                     probs: np.ndarray, head: str,
                      quality_by_name: "dict[bytes, float] | None" = None,
                      ) -> None:
     """Per-image ensemble-averaged probabilities as CSV, one row per eval
     example; ``quality`` is the preprocessing gradability score (-1 when
-    the record has none)."""
+    the record has none). The 5-class head adds ``prob_grade_0..4``
+    after ``prob_referable`` (P(grade >= 2))."""
     import csv
 
     def qual(nm) -> str:
@@ -601,8 +615,14 @@ def _write_probs_csv(path: str, names: np.ndarray, grades: np.ndarray,
             return "-1"
         return f"{quality_by_name.get(nm, -1.0):.4f}"
 
+    grade_cols = ([] if head == "binary"
+                  else [f"prob_grade_{c}" for c in range(probs.shape[-1])])
     with open(path, "w", newline="") as f:
         w = csv.writer(f)
-        w.writerow(["name", "grade", "quality", "prob_referable"])
-        for nm, g, p in zip(names, grades, probs):
-            w.writerow([nm.decode(), int(g), qual(nm), f"{float(p):.6f}"])
+        w.writerow(["name", "grade", "quality", "prob_referable"]
+                   + grade_cols)
+        for nm, g, p, r in zip(names, grades, probs,
+                               _referable(probs, head)):
+            w.writerow([nm.decode(), int(g), qual(nm), f"{float(r):.6f}"]
+                       + ([] if head == "binary"
+                          else [f"{float(x):.6f}" for x in p]))

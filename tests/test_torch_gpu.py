@@ -211,6 +211,38 @@ def test_adamw_kernel_splits_long_leaf_lists_into_launches(cuda):
 
 
 @pytest.mark.gpu
+def test_adamw_kernel_over_efficientnet_b4_leaves_in_two_launches(cuda):
+    """EfficientNet-B4's 418 parameter leaves (channels_last convs,
+    depthwise kernels, SE biases, BN scales) as the train state holds
+    them: two launches a call, bitwise against the plain AdamW over three
+    steps."""
+    from jama16_retina_tpu_torch import configs, models
+
+    model = models.build(configs.get_config("efficientnet_b4").model).to(
+        cuda, memory_format=torch.channels_last)
+    pk = [p.detach().clone() for p in model.parameters()]
+    assert len(pk) == 418
+    g = torch.Generator(device=cuda).manual_seed(4)
+    pp = [t.clone() for t in pk]
+    mk, vk, mp, vp = ([torch.zeros_like(t) for t in pk] for _ in range(4))
+    decay = [t.ndim >= 2 for t in pk]
+    for step in range(3):
+        grads = [torch.randn(t.shape, generator=g, device=cuda).contiguous(
+            memory_format=torch.channels_last if t.ndim == 4 else
+            torch.contiguous_format) for t in pk]
+        t = float(step + 1)
+        scalars = torch.tensor([1e-3, 1 / (1 - 0.9**t), 1 / (1 - 0.999**t)],
+                               device=cuda)
+        before = ad.launches
+        ad.fused_adamw_update(pk, grads, mk, vk, decay, scalars, 4e-5)
+        torch.cuda.synchronize()
+        assert ad.launches == before + 2
+        ad.adamw_reference(pp, grads, mp, vp, decay, scalars, 4e-5)
+        for a, b in zip(pk + mk + vk, pp + mp + vp):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_adamw_kernel_refuses_mismatched_layouts(cuda):
     p = [torch.zeros((4, 3, 2, 2), device=cuda).contiguous(
         memory_format=torch.channels_last)]

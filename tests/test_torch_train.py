@@ -31,7 +31,7 @@ from jama16_retina_tpu_torch.data import synthetic
 from jama16_retina_tpu_torch.models import common, convert, inception_v3
 from jama16_retina_tpu_torch.serve.engine import ServingEngine
 from torch_parity import (flat_optax_adamw, random_flat, to_nchw, to_nhwc,
-                          variables)
+                          torch_threads, variables)
 
 F32 = jnp.float32
 
@@ -322,7 +322,6 @@ def test_smoke_train_step_matches_jax_for_three_steps(form):
     ("train.distill_from=/x", NotImplementedError),
     ("model.stem_s2d=true", NotImplementedError),
     ("model.remat_stem=true", NotImplementedError),
-    ("model.head=multi", NotImplementedError),
     ("train.dtype=fp16", ValueError),
     ("train.lr_schedule=step", ValueError),
 ])
@@ -331,6 +330,23 @@ def test_train_refuses_knobs_it_cannot_honour(item, exc, tmp_path):
     with pytest.raises(exc):
         trainer.fit_synthetic(cfg, str(tmp_path), 8, device="cpu")
     assert not os.path.exists(tmp_path / trainer.METRICS_FILE)
+
+
+@pytest.mark.parametrize("item", ["model.head=multi"])
+def test_train_runs_knobs_it_once_refused(item, tmp_path):
+    """``model.head=multi`` was refused until the 5-class head was
+    ported: the model builds with five outputs and a ``fit_synthetic``
+    step on the CPU writes its train record and a servable member."""
+    cfg = configs.override(configs.get_config("smoke"), [
+        item, "train.steps=1", "train.log_every=1"])
+    assert models.build(cfg.model).Logits.out_features == 5
+    with torch_threads(1):
+        res = trainer.fit_synthetic(cfg, str(tmp_path), 8, device="cpu")
+    assert res["steps"] == 1 and np.isfinite(res["final_loss"])
+    assert os.path.exists(tmp_path / trainer.METRICS_FILE)
+    probs = ServingEngine(cfg, [str(tmp_path)], device="cpu").probs(
+        np.zeros((2, 64, 64, 3), np.uint8))
+    assert probs.shape == (2, 5)
 
 
 @pytest.mark.parametrize("item", [
@@ -352,6 +368,17 @@ def test_serving_ignores_train_knobs():
 
 
 def test_presets_take_the_jax_values():
+    """Every preset of the JAX package, field for field (the ``serve``
+    section's port fields aside); the trainable ones pass
+    ``check_supported``, and ``ensemble10`` is refused by one ``fit``
+    (``fit_ensemble`` trains its members in turn)."""
+    assert set(configs.PRESETS) == set(jax_configs.PRESETS)
+    for name in ("icdr5", "resnet50", "efficientnet_b4", "messidor2_eval",
+                 "eyepacs_binary", "eyepacs_binary_quality", "smoke"):
+        configs.check_supported(configs.get_config(name), training=True)
+    with pytest.raises(NotImplementedError, match="fit_ensemble"):
+        configs.check_supported(configs.get_config("ensemble10"),
+                                training=True)
     for name in configs.PRESETS:
         jcfg, cfg = jax_configs.get_config(name), configs.get_config(name)
         for section in ("model", "data", "train", "eval"):
@@ -402,6 +429,36 @@ def test_train_cli_on_cpu_writes_metrics_and_a_servable_member(
     assert os.listdir(ck / "latest") == ["4"] and os.listdir(ck / "best")
     assert ServingEngine(configs.get_config("smoke"), [str(ck)],
                          device="cpu").probs(images).shape == (3,)
+
+
+def test_ensemble10_trains_its_members_in_turn_through_the_cli(
+        tmp_path, capsys):
+    """``--config=ensemble10`` (cut to ``tiny_cnn`` at 64 px and one step
+    a member): ``trainer.fit_ensemble`` trains the 10 members one after
+    another into ``member_00``..``member_09`` with seeds 0..9; one
+    ``fit`` of the preset raises."""
+    from jama16_retina_tpu_torch import train
+
+    data, ck = tmp_path / "data", tmp_path / "ck"
+    sets = ["model.arch=tiny_cnn", "model.image_size=64",
+            "model.aux_head=false", "train.steps=1", "train.eval_every=1",
+            "data.batch_size=4", "eval.batch_size=8"]
+    args = ["--config=ensemble10", "--synthetic=8", "--device=cpu",
+            f"--data_dir={data}", f"--workdir={ck}"]
+    for item in sets:
+        args += ["--set", item]
+    with torch_threads(1):
+        assert train.main(args) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["config"] == "ensemble10"
+    assert [r["member"] for r in last["results"]] == list(range(10))
+    assert sorted(os.listdir(ck)) == [f"member_{m:02d}" for m in range(10)]
+    for m in range(10):
+        with open(ck / f"member_{m:02d}" / "run_meta.json") as f:
+            assert json.load(f)["seed"] == m
+    cfg = configs.override(configs.get_config("ensemble10"), sets)
+    with pytest.raises(NotImplementedError, match="fit_ensemble"):
+        trainer.fit(cfg, str(data), str(tmp_path / "one"), device="cpu")
 
 
 def test_train_cli_defaults_to_the_card_and_raises_without_one(
