@@ -57,6 +57,14 @@ class DataConfig:
     rotate: bool = True
     # Colour half of the augment through kernel B1 (ops/color_jitter.py).
     use_pallas: bool = False
+    # Train batches staged on the device ahead of the step
+    # (data/pipeline.DevicePrefetch); 0 reads each batch on the step's
+    # thread.
+    prefetch_batches: int = 2
+    # Port-only: reader processes decoding train batches in parallel
+    # (the counterpart of tf.data's parallel parse; at least 1). Batches
+    # keep their order at any count.
+    readers: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +78,14 @@ class TrainConfig:
     weight_decay: float = 4e-5
     optimizer: str = "adamw"
     momentum: float = 0.9
+    # fp32 | bf16: bf16 runs forward and backward on a bfloat16 view of
+    # float32 master weights (train_lib.compute_grads).
     dtype: str = "fp32"
+    # A pinned fp32 run's metrics.jsonl: a bf16 run whose val AUC drifts
+    # beyond dtype_curve_tol of it at a matching step is refused
+    # (train_lib.DtypeCurveRejected). Empty = ungated (logged).
+    dtype_curve_ref: str = ""
+    dtype_curve_tol: float = 0.02
     # Kernels B2 (normalize + colour jitter, means in-kernel) and B3
     # (AdamW, one multi-tensor launch) in place of B1 and the plain AdamW.
     use_pallas_fused: bool = False
@@ -226,12 +241,6 @@ _UNIMPLEMENTED = {
         "adamw", "Queue A item 4 (sgdm, rmsprop, lamb)"),
     ("train", "gradient_clip_norm"): (
         0.0, "Queue A item 4 (gradient clipping)"),
-    ("train", "dtype"): ("fp32", "Queue A item 6 (train.dtype=bf16)"),
-    ("train", "accum_steps"): (1, "Queue A item 6 (accumulation)"),
-    ("train", "async_save"): (False, "Queue A item 6 (async_save)"),
-    ("train", "eval_overlap"): (False, "Queue A item 6 (eval_overlap)"),
-    ("train", "init_from"): ("", "Queue A item 5 (warm start, "
-                                 "train.init_from)"),
     ("train", "distill_from"): ("", "Queue A item 9 (distillation)"),
 }
 # JAX-package fields this port has no copy of yet. Overriding one raises
@@ -244,7 +253,15 @@ _NOT_PORTED = {
                            "the whole split; no buffer)",
     "eval.sharded": "Queue A item 8 (multi-host eval)",
     "train.ensemble_parallel": "Queue A item 8 (member-parallel ensembles)",
+    "train.recipe_curve_ref": "Queue A items 4 and 8 (the large-batch "
+                              "recipe and its curve gate)",
+    "train.recipe_curve_tol": "Queue A items 4 and 8 (the large-batch "
+                              "recipe and its curve gate)",
+    "train.lr_scale_ref_batch": "Queue A items 4 and 8 (the large-batch "
+                                "recipe and its curve gate)",
 }
+# Fields of this port that the JAX package's configs.py does not have.
+PORT_FIELDS = {("data", "readers")}
 # data.loader values: the TFRecord stream is ported, the others are not.
 _LOADERS = ("tfdata",)
 _LOADER_ITEM = ("Queue A item 7 (rawshard, hbm, tiered, grain and served "
@@ -289,6 +306,11 @@ def check_supported(cfg: ExperimentConfig, training: bool = False) -> None:
             "Queue A item 8")
     if training and cfg.train.lr_schedule not in _SCHEDULES:
         raise ValueError(f"unknown lr_schedule {cfg.train.lr_schedule!r}")
+    if training and cfg.data.prefetch_batches < 0:
+        raise ValueError(f"data.prefetch_batches="
+                         f"{cfg.data.prefetch_batches} must be >= 0")
+    if training and cfg.data.readers < 1:
+        raise ValueError(f"data.readers={cfg.data.readers} must be >= 1")
     if training and cfg.data.loader not in _LOADERS:
         raise NotImplementedError(
             f"data.loader={cfg.data.loader!r} is not ported yet (have "

@@ -20,7 +20,14 @@ as ``shuffle().repeat().batch(drop_remainder=True)`` does). The stream is
 a pure function of (files, seed), so ``skip_batches=k`` starts exactly
 where an uninterrupted run stood after k batches, without reading the
 skipped records. Same records as the reference, in a different order
-(ROADMAP Queue C).
+(ROADMAP Queue C). ``readers`` reader processes read and decode whole
+batches in parallel (tf.data's parallel parse; ``data/readers.py``), and
+the batches still come out in the stream's order.
+
+``DevicePrefetch`` (the reference's ``device_prefetch``) stages any
+stream of host batches on the device ahead of the step: a thread copies
+each batch into one of ``size + 1`` pinned host buffers and from there to
+the card on a side stream, ``size`` batches ahead of the consumer.
 
 Records must be raw-encoded at ``model.image_size``: JPEG records raise
 ``NotImplementedError`` (ROADMAP Queue A item 7), and records of another
@@ -30,12 +37,18 @@ TensorFlow; the port has no counterpart).
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+import collections
+import concurrent.futures
+import multiprocessing
+import threading
+from multiprocessing import shared_memory
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
 
 from jama16_retina_tpu_torch.configs import DataConfig
+from jama16_retina_tpu_torch.data import readers as readers_lib
 from jama16_retina_tpu_torch.data import tfrecord
 
 
@@ -74,17 +87,6 @@ def interleave_records(paths: Sequence[str],
                 s.close()
 
 
-def _decode(data, image_size: int) -> tfrecord.Record:
-    rec = tfrecord.parse_record(data)
-    if rec.image.shape != (image_size, image_size, 3):
-        raise ValueError(
-            f"record {rec.name!r} is {list(rec.image.shape)}, not "
-            f"[{image_size}, {image_size}, 3]: the port does not resize "
-            "records (the reference resizes them bilinearly in TensorFlow); "
-            "write the split at model.image_size")
-    return rec
-
-
 def eval_batches(data_dir: str, split: str, batch_size: int,
                  image_size: int) -> Iterator[dict]:
     """One epoch of padded batches ``{'image', 'grade', 'name', 'mask'}``:
@@ -95,7 +97,7 @@ def eval_batches(data_dir: str, split: str, batch_size: int,
     while True:
         rows = []
         for data in records:
-            rows.append(_decode(data, image_size))
+            rows.append(readers_lib.decode(data, image_size))
             if len(rows) == batch_size:
                 break
         if not rows:
@@ -114,41 +116,234 @@ def eval_batches(data_dir: str, split: str, batch_size: int,
             return
 
 
+def _reader_context():
+    """The reader processes' start method: a forkserver that preloads
+    ``readers`` (and, as the default does, the main module), so each
+    reader is forked from a clean single-threaded interpreter."""
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["__main__", readers_lib.__name__])
+    return ctx
+
+
 def train_batches(data_dir: str, split: str, cfg: DataConfig,
                   image_size: int, seed: int = 0, skip_batches: int = 0,
-                  pin_memory: bool = False) -> Iterator[dict]:
+                  pin_memory: bool = False,
+                  readers: int = 1) -> Iterator[dict]:
     """Endless shuffled batches ``{'image': uint8 [B, S, S, 3], 'grade':
     int32 [B]}`` as CPU tensors, in pinned memory when ``pin_memory``, so
     ``.to(device, non_blocking=True)`` copies them without blocking the
-    host."""
-    paths = tfrecord.list_split(data_dir, split)
-    spans = [(f, i, s) for f, p in enumerate(paths)
-             for i, s in enumerate(tfrecord.index_records(p))]
-    n, b = len(spans), cfg.batch_size
-    if n == 0:
-        raise ValueError(f"split {split!r} in {data_dir!r} has no records")
-    files = [open(p, "rb") for p in paths]
+    host.
+
+    ``readers`` reader processes read and decode whole batches ahead, in
+    parallel, into a shared buffer of ``2 * readers`` batch slots; the
+    batches still come out in the stream's order, and a reader's
+    exception is raised where its batch would have been. Processes, not
+    threads: the record checks and the decode are Python, and a thread
+    doing them would take the interpreter lock from the step's thread
+    thousands of times a batch. They start from a forkserver
+    (``readers_lib``), so a script that trains needs the usual
+    ``if __name__ == "__main__":`` guard. Closing the generator stops the
+    readers and frees the buffer."""
+    if readers < 1:
+        raise ValueError(f"readers={readers} must be >= 1")
+    order = readers_lib.TrainOrder(data_dir, split, cfg.batch_size,
+                                   image_size, seed)
+    shape, b = order.shape(), cfg.batch_size
+    slots = 2 * readers
+    shared = shared_memory.SharedMemory(
+        create=True, size=readers_lib.slot_bytes(slots, shape))
+    images, grades = (torch.from_numpy(a) for a in
+                      readers_lib.slot_views(shared.buf, slots, shape))
     try:
-        pos = skip_batches * b
-        epoch, order = -1, None
-        while True:
-            image = torch.empty((b, image_size, image_size, 3),
-                                dtype=torch.uint8, pin_memory=pin_memory)
-            grade = torch.empty((b,), dtype=torch.int32,
-                                pin_memory=pin_memory)
-            rows, grades = image.numpy(), grade.numpy()
-            for j in range(b):
-                if pos // n != epoch:
-                    epoch = pos // n
-                    order = np.random.default_rng([seed, epoch]).permutation(n)
-                f, i, span = spans[order[pos % n]]
-                rec = _decode(tfrecord.read_record_at(
-                    files[f], span, paths[f], i), image_size)
-                rows[j] = rec.image
-                grades[j] = rec.grade
-                pos += 1
-            yield {"image": image, "grade": grade}
+        pool = concurrent.futures.ProcessPoolExecutor(
+            readers, mp_context=_reader_context(),
+            initializer=readers_lib.init,
+            initargs=(order, shared.name, slots))
+        try:
+            pending = collections.deque(
+                pool.submit(readers_lib.read_into, skip_batches + k, k)
+                for k in range(slots))
+            index = skip_batches + slots
+            while True:
+                slot = pending.popleft().result()
+                out = {"image": torch.empty(shape, dtype=torch.uint8,
+                                            pin_memory=pin_memory),
+                       "grade": torch.empty((b,), dtype=torch.int32,
+                                            pin_memory=pin_memory)}
+                out["image"].copy_(images[slot])
+                out["grade"].copy_(grades[slot])
+                # The slot is copied out: the batch ``slots`` ahead reuses
+                # it.
+                pending.append(pool.submit(readers_lib.read_into, index,
+                                           slot))
+                index += 1
+                yield out
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
     finally:
-        for f in files:
-            f.close()
+        # The views hold the buffer's memory: it closes only without them.
+        del images, grades
+        shared.close()
+        shared.unlink()
+
+
+class DevicePrefetch:
+    """Host batches -> device batches, ``size`` ahead of the consumer.
+
+    A thread takes each batch from ``batches``, copies it into one of a
+    ring of ``size + 1`` pinned host buffers and issues the non-blocking
+    copy to the card on a side stream, recording an event there;
+    ``next()`` makes the consumer's current stream wait on that event,
+    so the step never reads a batch before its copy is done. A buffer is
+    refilled only after the event of the copy that last read it has
+    completed: with ``size`` batches queued and one being filled, the
+    buffer of the batch the consumer took ``size + 1`` batches ago is the
+    one reused. On the CPU the "copy" is a clone and no buffer is kept.
+
+    Batches come out in the stream's order. An exception raised by the
+    stream (or in staging) is re-raised by the ``next()`` that reaches
+    its place in the order, and by every later one; the end of the
+    stream is a ``StopIteration`` there. ``close()`` stops the thread and
+    closes the stream. ``size == 0`` runs no thread: ``next()`` reads the
+    batch and copies it itself.
+    """
+
+    def __init__(self, batches: Iterable[dict],
+                 device: "str | torch.device", size: int = 2):
+        if size < 0:
+            raise ValueError(f"prefetch size {size} must be >= 0")
+        self._it = iter(batches)
+        self._dev = torch.device(device)
+        self._size = int(size)
+        self._closed = False
+        self._error: "BaseException | None" = None
+        self._thread: "threading.Thread | None" = None
+        if self._size == 0:
+            return
+        self._cond = threading.Condition()
+        self._ready: collections.deque = collections.deque()
+        self._stop = False
+        # (pinned host buffers, event of the copy that read them).
+        self._slots: list = [None] * (self._size + 1)
+        self._side: "torch.cuda.Stream | None" = None
+        self._thread = threading.Thread(target=self._run,
+                                        name="train-prefetch", daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _stage(self, batch: dict, slot: int) -> tuple:
+        """(device batch, its copy's event or None)."""
+        if self._dev.type != "cuda":
+            return ({k: torch.as_tensor(v).to(self._dev, copy=True)
+                     for k, v in batch.items()}, None)
+        held = self._slots[slot]
+        host = held[0] if held is not None else {}
+        if held is not None:
+            held[1].synchronize()
+        for k, v in batch.items():
+            v = torch.as_tensor(v)
+            if k not in host or host[k].shape != v.shape or (
+                    host[k].dtype != v.dtype):
+                host[k] = torch.empty(v.shape, dtype=v.dtype,
+                                      pin_memory=True)
+            host[k].copy_(v)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self._dev)
+        with torch.cuda.stream(self._side):
+            out = {k: t.to(self._dev, non_blocking=True)
+                   for k, t in host.items()}
+            event = torch.cuda.Event()
+            event.record(self._side)
+        self._slots[slot] = (host, event)
+        return out, event
+
+    def _put(self, item: tuple) -> None:
+        with self._cond:
+            self._ready.append(item)
+            self._cond.notify_all()
+
+    def _run(self) -> None:
+        count = 0
+        try:
+            while True:
+                with self._cond:
+                    while len(self._ready) >= self._size and not self._stop:
+                        self._cond.wait()
+                    if self._stop:
+                        return
+                try:
+                    batch = next(self._it)
+                except StopIteration:
+                    self._put(("end", None))
+                    return
+                staged = self._stage(batch, count % (self._size + 1))
+                count += 1
+                self._put(("batch", staged))
+        except BaseException as e:  # noqa: BLE001 - re-raised in next()
+            self._put(("error", e))
+        finally:
+            close = getattr(self._it, "close", None)
+            if close is not None:
+                close()
+
+    def __next__(self) -> dict:
+        if self._closed:
+            raise RuntimeError("the train stream is closed")
+        if self._thread is None:
+            if self._error is not None:
+                raise self._error
+            try:
+                batch = next(self._it)
+            except StopIteration:
+                raise
+            except BaseException as e:
+                self._error = e
+                raise
+            return {k: torch.as_tensor(v).to(self._dev, non_blocking=True)
+                    for k, v in batch.items()}
+        with self._cond:
+            while not self._ready:
+                if not self._thread.is_alive():
+                    raise RuntimeError(
+                        "the train prefetch thread stopped without a batch")
+                self._cond.wait(timeout=1.0)
+            kind, item = self._ready[0]
+            if kind == "batch":
+                self._ready.popleft()
+                self._cond.notify_all()
+        if kind == "error":
+            raise item
+        if kind == "end":
+            raise StopIteration
+        out, event = item
+        if event is not None:
+            current = torch.cuda.current_stream(self._dev)
+            current.wait_event(event)
+            for t in out.values():
+                t.record_stream(current)
+        return out
+
+    def close(self) -> None:
+        """Stop the thread (after the batch it is reading, if any) and
+        close the stream; idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._thread is None:
+            close = getattr(self._it, "close", None)
+            if close is not None:
+                close()
+            return
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        self._thread.join()
 

@@ -100,6 +100,17 @@ def max_pool_same(x: torch.Tensor, window: int = 3,
     return F.max_pool2d(x, window, stride, pad)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype, with the weight and
+    bias cast there as Flax's ``nn.Dense(dtype=...)`` casts its params:
+    the float32 heads of the backbones, which under a bfloat16 view of
+    the params (``train.dtype=bf16``) compute from bf16-rounded weights
+    in float32, as the Flax heads do."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm`` with a bias, and with a learned scale when
     ``use_scale`` (Inception-v3's has none; ResNet's and EfficientNet's

@@ -29,8 +29,9 @@ import math
 import torch
 from torch import nn
 
-from jama16_retina_tpu_torch.models.common import (BatchNorm, at_least_f32,
-                                                   conv, dropout, head_mean)
+from jama16_retina_tpu_torch.models.common import (BatchNorm, Dense,
+                                                   at_least_f32, conv,
+                                                   dropout, head_mean)
 
 # (expand_ratio, kernel, stride, out_filters_b0, repeats_b0)
 B0_BLOCKS = (
@@ -170,7 +171,7 @@ class EfficientNet(nn.Module):
         self.head_conv = nn.Conv2d(in_filters, head, 1, bias=False)
         self.head_bn = _bn(head)
         self.dropout_rate = dropout_rate
-        self.Logits = nn.Linear(head, num_classes)
+        self.Logits = Dense(head, num_classes)
 
     @classmethod
     def b4(cls, **kw) -> "EfficientNet":

@@ -18,8 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from jama16_retina_tpu_torch.models.common import (ConvBN, at_least_f32,
-                                                   dropout, head_mean)
+from jama16_retina_tpu_torch.models.common import (ConvBN, Dense,
+                                                   at_least_f32, dropout,
+                                                   head_mean)
 
 
 def _valid_counts(h: int, w: int, dtype, device) -> torch.Tensor:
@@ -232,7 +233,7 @@ class AuxHead(nn.Module):
         self.Conv2d_1b_1x1 = ConvBN(in_channels, 128, (1, 1), dtype=dtype)
         self.Conv2d_2a_5x5 = ConvBN(128, 768, (pooled, pooled),
                                     padding="VALID", dtype=dtype)
-        self.Logits = nn.Linear(768, num_classes)
+        self.Logits = Dense(768, num_classes)
 
     def forward(self, x, train: bool = False):
         x = F.avg_pool2d(x, 5, 3)
@@ -286,7 +287,7 @@ class InceptionV3(nn.Module):
         self.Mixed_7b = InceptionE(1280, **kw)
         self.Mixed_7c = InceptionE(2048, **kw)
         self.dropout_rate = dropout_rate
-        self.Logits = nn.Linear(2048, num_classes)
+        self.Logits = Dense(2048, num_classes)
 
     def forward(self, x: torch.Tensor, with_aux: bool = False,
                 train: bool = False,

@@ -17,8 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from jama16_retina_tpu_torch.models.common import (BatchNorm, conv, dropout,
-                                                   head_mean, max_pool_same)
+from jama16_retina_tpu_torch.models.common import (BatchNorm, Dense, conv,
+                                                   dropout, head_mean,
+                                                   max_pool_same)
 
 
 class Bottleneck(nn.Module):
@@ -78,7 +79,7 @@ class ResNet50(nn.Module):
                 self.block_names.append(name)
                 cin = 4 * 64 * 2**i
         self.dropout_rate = dropout_rate
-        self.Logits = nn.Linear(cin, num_classes)
+        self.Logits = Dense(cin, num_classes)
 
     def forward(self, x: torch.Tensor, with_aux: bool = False,
                 train: bool = False,

@@ -6,7 +6,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from jama16_retina_tpu_torch.models.common import ConvBN, dropout, head_mean
+from jama16_retina_tpu_torch.models.common import (ConvBN, Dense, dropout,
+                                                   head_mean)
 
 
 class TinyCNN(nn.Module):
@@ -22,7 +23,7 @@ class TinyCNN(nn.Module):
             cin = f
         self.n_convs = len(features)
         self.dropout_rate = dropout_rate
-        self.Logits = nn.Linear(cin, num_classes)
+        self.Logits = Dense(cin, num_classes)
 
     def forward(self, x: torch.Tensor, with_aux: bool = False,
                 train: bool = False,

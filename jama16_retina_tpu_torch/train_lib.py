@@ -5,7 +5,15 @@
 One step: draw the augment and dropout streams from (seed, step), augment
 the uint8 batch on its device, forward and backward in train mode (batch
 statistics, running statistics updated in place), then AdamW and the EMA
-shadow. The optimizer is the plain AdamW (``ops/adamw.adamw_reference``,
+shadow (``compute_grads``, then the update). ``train.dtype=bf16`` runs
+the forward and backward on a bfloat16 view of every parameter (the
+reference's ``_bf16_params``); the float32 parameters stay the masters,
+and the view's backward hands them float32 gradients (``_f32_grads``).
+``train.accum_steps`` splits the augmented batch into that many
+micro-batches run in order (ghost BatchNorm: each normalizes by its own
+moments and updates the running statistics once), with the gradients
+accumulated in float32 as ``acc + g * (1 / accum)``, micro by micro.
+The optimizer is the plain AdamW (``ops/adamw.adamw_reference``,
 optax's adamw with the rank >= 2 decay mask) or, with
 ``train.use_pallas_fused``, kernel B3 (``ops/adamw.fused_adamw_update``);
 the augment goes through kernel B1 (``data.use_pallas``) or B2 (fused).
@@ -20,6 +28,7 @@ dict a checkpoint stores.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import math
@@ -38,6 +47,13 @@ from jama16_retina_tpu_torch.serve.engine import ServingEngine
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
 _log = logging.getLogger(__name__)
+
+
+class DtypeCurveRejected(RuntimeError):
+    """A ``train.dtype=bf16`` run drifted beyond ``train.dtype_curve_tol``
+    of the pinned fp32 curve (``train.dtype_curve_ref``) at an eval step:
+    the run stops with the step and both AUCs named (the reference's
+    ``train_lib.DtypeCurveRejected``)."""
 
 
 @dataclasses.dataclass
@@ -170,6 +186,80 @@ def decay_flags(model: nn.Module) -> "list[bool]":
     return [p.ndim >= 2 for p in model.parameters()]
 
 
+def micro_generator(seed: int, step: int, micro: int, device
+                    ) -> torch.Generator:
+    """Dropout generator of micro-batch ``micro`` of a step under
+    ``train.accum_steps`` > 1, seeded from (seed, step, micro)."""
+    s = np.random.SeedSequence([int(seed), int(step), int(micro)])
+    return torch.Generator(device=device).manual_seed(
+        int(s.generate_state(1, dtype=np.uint64)[0]))
+
+
+def _forward(model: nn.Module, images: torch.Tensor, generator,
+             tc: TrainConfig):
+    """Train forward of NHWC ``images``; under ``train.dtype=bf16`` on a
+    bfloat16 cast of every floating parameter, made under autograd so
+    the cast's backward returns float32 gradients to the masters. The
+    BatchNorm running statistics are buffers and stay float32."""
+    # NHWC float32 seen as NCHW: a channels_last view, no copy.
+    x = images.permute(0, 3, 1, 2)
+    kwargs = {"train": True, "generator": generator}
+    if tc.dtype != "bf16":
+        return model(x, **kwargs)
+    view = {k: p.to(torch.bfloat16) for k, p in model.named_parameters()
+            if p.is_floating_point()}
+    return torch.func.functional_call(model, view, (x,), kwargs)
+
+
+def compute_grads(state: TrainState, batch: dict, cfg: ExperimentConfig,
+                  augment_params: "dict | None" = None
+                  ) -> "tuple[torch.Tensor, list[torch.Tensor]]":
+    """The loss (0-d, on the device) and one float32 gradient per
+    parameter (``model.parameters()`` order, each in its parameter's
+    layout) of one step on ``batch``, without the update. The augment
+    runs once on the whole batch; under ``train.accum_steps`` > 1 the
+    micro-batches then run in order, each with its own dropout
+    generator, and the loss is the mean of theirs. The BatchNorm running
+    statistics are updated in place, once per micro-batch."""
+    tc = cfg.train
+    model = state.model
+    dev = state.count.device
+    accum = tc.accum_steps
+    n = batch["image"].shape[0]
+    if n % accum != 0:
+        raise ValueError(f"train.accum_steps={accum} must divide the batch "
+                         f"size {n} evenly")
+    aug_gen, drop_gen = step_generators(tc.seed, state.step, dev)
+    images = augment.augment_batch(
+        aug_gen, batch["image"], cfg.data, fused=tc.use_pallas_fused,
+        params=augment_params)
+    grades = batch["grade"]
+    params = list(model.parameters())
+    if accum == 1:
+        logits, aux = _forward(model, images, drop_gen, tc)
+        loss = loss_fn(logits, aux, grades, cfg)
+        loss.backward()
+        grads = [p.grad for p in params]
+        model.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+    micro = n // accum
+    grads = [torch.zeros_like(p) for p in params]
+    losses = []
+    for i in range(accum):
+        rows = slice(i * micro, (i + 1) * micro)
+        logits, aux = _forward(model, images[rows],
+                               micro_generator(tc.seed, state.step, i, dev),
+                               tc)
+        loss = loss_fn(logits, aux, grades[rows], cfg)
+        loss.backward()
+        with torch.no_grad():
+            for acc, p in zip(grads, params):
+                acc.add_(p.grad * (1.0 / accum))
+        model.zero_grad(set_to_none=True)
+        losses.append(loss.detach())
+    return torch.stack(losses).mean(), grads
+
+
 def train_step(state: TrainState, batch: dict, cfg: ExperimentConfig,
                augment_params: "dict | None" = None) -> torch.Tensor:
     """One optimizer step in place on ``state``; returns the loss as a
@@ -178,20 +268,9 @@ def train_step(state: TrainState, batch: dict, cfg: ExperimentConfig,
     model's device; ``augment_params`` replaces the augment draws."""
     tc = cfg.train
     model = state.model
-    dev = state.count.device
-    aug_gen, drop_gen = step_generators(tc.seed, state.step, dev)
-    images = augment.augment_batch(
-        aug_gen, batch["image"], cfg.data, fused=tc.use_pallas_fused,
-        params=augment_params)
-    # NHWC float32 seen as NCHW: a channels_last view, no copy.
-    logits, aux = model(images.permute(0, 3, 1, 2), train=True,
-                        generator=drop_gen)
-    loss = loss_fn(logits, aux, batch["grade"], cfg)
-    loss.backward()
-
+    loss, grads = compute_grads(state, batch, cfg, augment_params)
     names = [k for k, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
-    grads = [p.grad for p in params]
     scalars = adamw.adamw_scalars(state.count, state.sched_count,
                                   make_schedule(tc))
     update = (adamw.fused_adamw_update if tc.use_pallas_fused
@@ -204,11 +283,46 @@ def train_step(state: TrainState, batch: dict, cfg: ExperimentConfig,
             d = tc.ema_decay
             for k, p in zip(names, params):
                 state.ema[k].mul_(d).add_(p * (1.0 - d))
-    model.zero_grad(set_to_none=True)
     state.count += 1
     state.sched_count += 1
     state.step += 1
-    return loss.detach()
+    return loss
+
+
+@dataclasses.dataclass
+class Snapshot:
+    """A copy of a train state on its device (``snapshot``) and the event
+    recorded after the copies on the stream that made them (None on the
+    CPU)."""
+    state: TrainState
+    event: "torch.cuda.Event | None"
+
+    def wait(self) -> None:
+        """Block until the copies are done: a thread that reads the
+        snapshot calls this first, whatever stream it runs on."""
+        if self.event is not None:
+            self.event.synchronize()
+
+
+def snapshot(state: TrainState) -> Snapshot:
+    """A ``clone()`` of every tensor of ``state`` on its device (params,
+    batch statistics, moments, both counts and the EMA shadow), taken on
+    the current stream before the next step is issued, so a background
+    save or eval reads this step's values while training updates the
+    live state in place (the reference's ``_state_snapshot``)."""
+    with torch.no_grad():
+        copied = TrainState(
+            step=state.step, model=copy.deepcopy(state.model),
+            count=state.count.clone(), sched_count=state.sched_count.clone(),
+            mu={k: v.clone() for k, v in state.mu.items()},
+            nu={k: v.clone() for k, v in state.nu.items()},
+            ema=(None if state.ema is None
+                 else {k: v.clone() for k, v in state.ema.items()}))
+    event = None
+    if state.count.device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(state.count.device))
+    return Snapshot(copied, event)
 
 
 def eval_params(state: TrainState) -> "dict[str, torch.Tensor]":

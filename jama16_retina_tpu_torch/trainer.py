@@ -27,6 +27,7 @@ import dataclasses
 import json
 import logging
 import os
+import threading
 import time
 
 import numpy as np
@@ -84,6 +85,8 @@ def fit_synthetic(cfg: configs.ExperimentConfig, workdir: str,
         n_synthetic, cfg.data.batch_size, tc.steps, tc.seed)).to(dev)
     model = init.init_flax_default(models.build(cfg.model), tc.seed)
     state = train_lib.create_state(cfg, model, dev)
+    if tc.init_from:
+        _warm_start_state(cfg, state, tc.init_from)
 
     os.makedirs(workdir, exist_ok=True)
     losses = {}
@@ -238,12 +241,15 @@ def _save_due(cfg: configs.ExperimentConfig, step: int) -> bool:
 
 def _eval_and_track(cfg: configs.ExperimentConfig, log: RunLog, step: int,
                     predict_fn, save_fn, best_auc: float, best_step: int,
-                    since_best: int, save_due: bool):
+                    since_best: int, save_due: bool,
+                    curve_gate: "_DtypeCurveGate | None" = None):
     """One eval interval: val predict -> referable-DR AUC -> best and
     ``min_delta`` tracking -> early-stop decision -> checkpoint through
     ``save_fn(step, val_auc)`` when ``save_due``. The eval record is
-    written before the save; a stopping eval always saves.
-    Returns (best_auc, best_step, since_best, stop)."""
+    written before the save; a stopping eval always saves. ``curve_gate``
+    is checked after the eval record (the refused trajectory stays in the
+    log) and before any save (a drifted state never becomes a resume
+    point). Returns (best_auc, best_step, since_best, stop)."""
     grades, probs = predict_fn()
     auc = metrics.roc_auc((grades >= 2).astype(np.float64),
                           _referable(probs, cfg.model.head))
@@ -253,12 +259,146 @@ def _eval_and_track(cfg: configs.ExperimentConfig, log: RunLog, step: int,
     # val_auc at full precision: resume replays it (best_auc is display).
     log.write("eval", step=step, val_auc=float(auc),
               best_auc=round(best_auc, 5), since_best=since_best)
+    if curve_gate is not None:
+        curve_gate.check(step, float(auc))
     stop = since_best >= cfg.train.early_stop_patience
     if save_due or stop:
         save_fn(step, float(auc))
     if stop:
         log.write("early_stop", step=step, best_step=best_step)
     return best_auc, best_step, since_best, stop
+
+
+def _load_curve_ref(path: str, knob: str) -> dict:
+    """step -> pinned val AUC of a ``metrics.jsonl`` curve (the first
+    eval record per step); missing or empty files raise, naming the
+    knob."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{knob} {path!r} does not exist: pin a reference run's "
+            "metrics.jsonl (or unset the knob to run ungated)")
+    ref: dict = {}
+    for r in read_jsonl(path):
+        if r.get("kind") != "eval" or r.get("step") is None:
+            continue
+        auc = r.get("ensemble_val_auc", r.get("val_auc"))
+        if auc is not None and int(r["step"]) not in ref:
+            ref[int(r["step"])] = float(auc)
+    if not ref:
+        raise ValueError(f"{knob} {path!r} holds no eval records: point it "
+                         "at the reference run's metrics.jsonl")
+    return ref
+
+
+class _DtypeCurveGate:
+    """The dtype arm of the reference's golden-curve gate: a
+    ``train.dtype=bf16`` run with ``train.dtype_curve_ref`` set must keep
+    each eval's val AUC within ``train.dtype_curve_tol`` of the pinned
+    fp32 curve at the same step, or ``check`` raises
+    ``train_lib.DtypeCurveRejected``. fp32 runs never gate; a bf16 run
+    without a ref logs that it runs ungated."""
+
+    def __init__(self, cfg: configs.ExperimentConfig):
+        tc = cfg.train
+        self._ref: "dict | None" = None
+        self._tol = tc.dtype_curve_tol
+        self._dtype = tc.dtype
+        if tc.dtype == "fp32":
+            return
+        if tc.dtype_curve_ref:
+            self._ref = _load_curve_ref(tc.dtype_curve_ref,
+                                        "train.dtype_curve_ref")
+        else:
+            _log.warning(
+                "train.dtype=%s runs UNGATED: no train.dtype_curve_ref "
+                "golden curve is pinned; eval-AUC parity with fp32 is not "
+                "being checked", tc.dtype)
+
+    def check(self, step: int, auc: float) -> None:
+        ref = None if self._ref is None else self._ref.get(int(step))
+        if ref is None or abs(float(auc) - ref) <= self._tol:
+            return
+        raise train_lib.DtypeCurveRejected(
+            f"train.dtype={self._dtype} drifted from the pinned fp32 golden "
+            f"curve at step {step}: val AUC {float(auc):.5f} vs pinned "
+            f"{ref:.5f} (|delta|={abs(float(auc) - ref):.5f} > "
+            f"tol={self._tol}); the cheap numerics mode is refused: retrain "
+            "in fp32 or widen train.dtype_curve_tol deliberately")
+
+
+class _BgJob:
+    """One background eval job (``train.eval_overlap``): ``fn`` runs on a
+    daemon thread; ``result()`` joins it and re-raises its exception in
+    the caller, so an early stop or a ``DtypeCurveRejected`` still stops
+    the run, at the next collection point."""
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._result = None
+        self._err: "BaseException | None" = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="eval-overlap")
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            self._result = self._fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised in result()
+            self._err = e
+
+    def done(self) -> bool:
+        return not self._thread.is_alive()
+
+    def result(self):
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+        return self._result
+
+
+def _preempt_save(log: RunLog, step: int, save_fn) -> None:
+    """The preemption save: ``save_fn(step)`` writes ``latest/`` at the
+    last completed step (returning whether it wrote), then a
+    ``preempt_save`` record. A failing save is logged and does not mask
+    the exit that is already under way."""
+    try:
+        saved = save_fn(step)
+        log.write("preempt_save", step=step, saved=bool(saved))
+        _log.warning("preemption: saved resume checkpoint at step %d "
+                     "(train.resume=true continues here)", step)
+    except Exception as e:  # noqa: BLE001 - the exit path must proceed
+        _log.error("preemption save at step %d failed: %s: %s; resume will "
+                   "fall back to the last eval-time checkpoint", step,
+                   type(e).__name__, e)
+
+
+def _warm_start_state(cfg: configs.ExperimentConfig,
+                      state: train_lib.TrainState,
+                      init_from: str) -> train_lib.TrainState:
+    """Seed a fresh step-0 ``state`` in place from the donor under
+    ``init_from`` (a fit workdir's best step, or a member dir): its params
+    and batch statistics, and, when this run carries an EMA shadow, the
+    donor's shadow (its params when it carried none). Moments, counts
+    and schedule stay fresh. An architecture mismatch raises."""
+    donor, donor_ema = ckpt_lib.load_donor(init_from)
+    model = state.model
+    with torch.no_grad():
+        model.load_state_dict(convert.flax_to_torch(donor, model))
+        if state.ema is not None:
+            ema = convert.flax_to_torch({**donor, **(donor_ema or {})},
+                                        model)
+            for k in state.ema:
+                state.ema[k].copy_(ema[k])
+    return state
+
+
+def _stream_context(dev: torch.device):
+    """A side stream for a background job on the card (its kernels then
+    interleave with the step's instead of queueing behind them); nothing
+    on the CPU."""
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.stream(torch.cuda.Stream(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +518,20 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
         device: "str | torch.device | None" = None) -> dict:
     """Train one model on ``<data_dir>/train-*.tfrecord`` with evals on
     ``val``; returns ``{'best_auc', 'best_step', 'stopped_early'}``
-    (``best_auc`` None when no eval ran)."""
+    (``best_auc`` None when no eval ran).
+
+    The train stream is staged ``data.prefetch_batches`` ahead on the
+    device (``pipeline.DevicePrefetch``), read by ``data.readers``
+    processes. ``train.init_from`` warm-starts a fresh run from a donor
+    (a resume that finds a checkpoint wins). ``train.async_save`` hands
+    each save, from a device snapshot of the state, to one background
+    writer; ``train.eval_overlap`` (which implies it) runs the whole eval
+    block on a background thread from such a snapshot while training
+    goes on, one eval in flight at a time, collected at the next step.
+    A ``SystemExit``/``KeyboardInterrupt`` after at least one step saves
+    ``latest/`` at the last completed step (``preempt_save``) and
+    re-raises; one that lands inside a step, which updates the state in
+    place, saves nothing (``saved=false``)."""
     dev = device_lib.resolve(device)
     configs.validate_train_knobs(cfg.train)
     configs.check_supported(cfg, training=True)
@@ -390,6 +543,7 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
     tc = cfg.train
     log = RunLog(workdir, METRICS_FILE, fresh=not tc.resume)
     log.write("config", name=cfg.name, seed=seed, n_devices=1)
+    curve_gate = _DtypeCurveGate(cfg)
 
     state = train_lib.create_state(
         cfg, init.init_flax_default(models.build(cfg.model), seed), dev)
@@ -407,58 +561,201 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                   best_auc=(round(best_auc, 5) if np.isfinite(best_auc)
                             else None),
                   since_best=since_best)
+    elif tc.init_from:
+        # A resumed run continues itself; the donor only seeds step 0.
+        _warm_start_state(cfg, state, tc.init_from)
+        log.write("warm_start", init_from=tc.init_from)
 
+    overlap = tc.eval_overlap
+    saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
     # One batch per completed step: a resumed stream continues exactly
     # where the interrupted one stopped.
-    stream = pipeline.train_batches(
+    depth = cfg.data.prefetch_batches
+    stream = pipeline.DevicePrefetch(pipeline.train_batches(
         data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
-        skip_batches=start_step, pin_memory=dev.type == "cuda")
+        skip_batches=start_step, pin_memory=dev.type == "cuda" and depth == 0,
+        readers=cfg.data.readers), dev, depth)
     clock = _ThroughputClock(cfg.data.batch_size)
     stalls = _StallClock()
     stopped_early = False
     save_stall = [0.0]
+    last_step = start_step
+    in_step = False
+    eval_job: "_BgJob | None" = None
+    # Set on preemption: a late eval-time save must not roll latest/
+    # back behind the emergency save.
+    preempted = threading.Event()
 
     def save_fn(step_now: int, auc: float) -> None:
+        """The eval-time save of the live state: written here, or (with
+        a saver) a device snapshot handed to the writer."""
         t0 = time.perf_counter()
-        ckpt.save(step_now, train_lib.state_to_flat(state),
-                  {"val_auc": auc})
+        if saver is not None:
+            snap = train_lib.snapshot(state)
+
+            def job():
+                snap.wait()
+                ckpt.save(step_now, train_lib.state_to_flat(snap.state),
+                          {"val_auc": auc})
+
+            saver.submit(job)
+        else:
+            ckpt.save(step_now, train_lib.state_to_flat(state),
+                      {"val_auc": auc})
         dt = time.perf_counter() - t0
         stalls.add("save", dt)
         save_stall[0] += dt
 
-    def predict_val():
-        eval_step = train_lib.make_eval_step(cfg, state, dev)
+    def predict_val(eval_state: train_lib.TrainState):
+        eval_step = train_lib.make_eval_step(cfg, eval_state, dev)
         grades, probs, _ = predict_split(
             cfg, lambda images: eval_step(images)[None], data_dir, "val")
         return grades, probs[0]
 
+    def submit_eval(step_now: int) -> _BgJob:
+        """The whole eval block on a background thread, over a snapshot
+        of the state taken now; its save goes to the saver."""
+        snap = train_lib.snapshot(state)
+        tracked = (best_auc, best_step, since_best)
+
+        def overlap_save(step_at: int, auc: float) -> None:
+            def job():
+                # Checked on the writer too: the latch is always set
+                # before the emergency save is queued.
+                if not preempted.is_set():
+                    ckpt.save(step_at, train_lib.state_to_flat(snap.state),
+                              {"val_auc": auc})
+
+            if not preempted.is_set():
+                saver.submit(job)
+
+        def job():
+            snap.wait()
+            # Grad mode is per thread: this one records no graph either.
+            with _stream_context(dev), torch.no_grad():
+                return _eval_and_track(
+                    cfg, log, step_now, lambda: predict_val(snap.state),
+                    overlap_save, *tracked,
+                    save_due=_save_due(cfg, step_now),
+                    curve_gate=curve_gate)
+
+        return _BgJob(job)
+
+    def preempt_save_latest(step_now: int) -> bool:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if saver is None:
+            return ckpt.save_latest(step_now,
+                                    train_lib.state_to_flat(state))
+        out = {}
+
+        def job():
+            out["saved"] = ckpt.save_latest(
+                step_now, train_lib.state_to_flat(state))
+
+        saver.submit(job)
+        saver.drain()
+        return out["saved"]
+
     try:
-        for step_i in range(start_step, tc.steps):
-            with stalls.measure("input"):
-                batch = {k: v.to(dev, non_blocking=True)
-                         for k, v in next(stream).items()}
-            with stalls.measure("dispatch"):
-                loss = train_lib.train_step(state, batch, cfg)
-            clock.after_step()
-            if (step_i + 1) % tc.log_every == 0:
-                log.write("train", step=step_i + 1, loss=float(loss),
-                          **clock.fields(), **stalls.fields())
-            if (step_i + 1) % tc.eval_every == 0 or step_i + 1 == tc.steps:
+        try:
+            for step_i in range(start_step, tc.steps):
+                with stalls.measure("input"):
+                    batch = next(stream)
+                # The step updates the state in place, leaf by leaf: an
+                # interrupt inside it leaves no step's state to save.
+                in_step = True
+                with stalls.measure("dispatch"):
+                    loss = train_lib.train_step(state, batch, cfg)
+                last_step = step_i + 1
+                in_step = False
+                clock.after_step()
+                if (step_i + 1) % tc.log_every == 0:
+                    log.write("train", step=step_i + 1, loss=float(loss),
+                              **clock.fields(), **stalls.fields())
+                # A finished overlapped eval is collected the step after
+                # it lands: its early stop or curve refusal fires at most
+                # one step late.
+                if eval_job is not None and eval_job.done():
+                    best_auc, best_step, since_best, stop = eval_job.result()
+                    eval_job = None
+                    if stop:
+                        stopped_early = True
+                        break
+                if not ((step_i + 1) % tc.eval_every == 0
+                        or step_i + 1 == tc.steps):
+                    continue
+                if overlap:
+                    if eval_job is not None:
+                        # One eval in flight: the previous one's best
+                        # tracking chains into this one.
+                        clock.pause()
+                        with stalls.measure("pause"):
+                            best_auc, best_step, since_best, stop = (
+                                eval_job.result())
+                        eval_job = None
+                        clock.resume()
+                        if stop:
+                            stopped_early = True
+                            break
+                    with stalls.measure("pause"):
+                        eval_job = submit_eval(step_i + 1)
+                    continue
                 clock.pause()
                 t_pause = time.perf_counter()
                 save_stall[0] = 0.0
                 best_auc, best_step, since_best, stop = _eval_and_track(
-                    cfg, log, step_i + 1, predict_val, save_fn,
-                    best_auc, best_step, since_best,
-                    save_due=_save_due(cfg, step_i + 1))
+                    cfg, log, step_i + 1, lambda: predict_val(state),
+                    save_fn, best_auc, best_step, since_best,
+                    save_due=_save_due(cfg, step_i + 1),
+                    curve_gate=curve_gate)
                 stalls.add("pause", max(
                     0.0, time.perf_counter() - t_pause - save_stall[0]))
                 clock.resume()
                 if stop:
                     stopped_early = True
                     break
+        except BaseException as e:
+            # SIGINT (and the flight recorder's SIGTERM, not ported)
+            # arrive as KeyboardInterrupt/SystemExit: the host is wanted
+            # back, and a last resume point is worth a save.
+            if (isinstance(e, (SystemExit, KeyboardInterrupt))
+                    and last_step > start_step):
+                # Do not wait for an overlapped eval; settle the queued
+                # saves, then save latest/ behind them.
+                preempted.set()
+                if saver is not None:
+                    try:
+                        saver.drain()
+                    except Exception as err:  # noqa: BLE001 - exit path
+                        _log.error("a queued save failed before the "
+                                   "preemption save: %s", err)
+                if in_step:
+                    # Part of step last_step + 1 is in the state: latest/
+                    # keeps its last clean save.
+                    log.write("preempt_save", step=last_step, saved=False)
+                    _log.warning("preemption inside step %d: the state is "
+                                 "part-updated, latest/ is left as it was",
+                                 last_step + 1)
+                else:
+                    _preempt_save(log, last_step, preempt_save_latest)
+            raise
+        # The tail: an overlapped last eval and the queued saves land
+        # before the run returns; their failures surface here.
+        if eval_job is not None:
+            best_auc, best_step, since_best, stop = eval_job.result()
+            eval_job = None
+            stopped_early = stopped_early or stop
+        if saver is not None:
+            saver.close()
     finally:
         stream.close()
+        if saver is not None:
+            try:
+                saver.close()
+            except Exception as err:  # noqa: BLE001 - another is raising
+                _log.error("a queued save failed while the run was "
+                           "stopping: %s", err)
         log.close()
     return {
         "best_auc": float(best_auc) if np.isfinite(best_auc) else None,
@@ -470,7 +767,10 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
 def fit_ensemble(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                  device: "str | torch.device | None" = None) -> "list[dict]":
     """Train ``train.ensemble_size`` members one after another, member m
-    with seed ``train.seed + m`` in ``<workdir>/member_NN``."""
+    with seed ``train.seed + m`` in ``<workdir>/member_NN``, each through
+    ``fit`` with the run knobs as set (every member warm-starts from
+    ``train.init_from``, and each is held to ``train.dtype_curve_ref``),
+    as the reference's sequential ``fit_ensemble`` does."""
     member_cfg = cfg.replace(
         train=dataclasses.replace(cfg.train, ensemble_size=1))
     results = []

@@ -17,7 +17,10 @@ Two formats live here:
 Every write goes to a temporary directory first and is renamed into
 place, so a step dir is whole or absent; a leftover temporary directory
 (a crash mid-write) is ignored on read. ``load_member`` reads either
-format: a checkpoint dir gives the eval tree of its best step.
+format: a checkpoint dir gives the eval tree of its best step;
+``load_donor`` gives a warm start its params, batch statistics and EMA
+shadow apart. ``AsyncSaver`` runs save jobs on one background thread
+(``train.async_save``).
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ from __future__ import annotations
 import glob
 import json
 import os
+import queue
 import shutil
 import tempfile
+import threading
 
 import numpy as np
 
@@ -104,6 +109,82 @@ def load_member(directory: str) -> "dict[str, np.ndarray]":
         f"no {PARAMS_FILE} and no checkpoints in {directory!r}; the port "
         "reads member dirs written by utils.checkpoint.save_member and "
         "checkpoint dirs written by trainer.fit")
+
+
+def load_donor(directory: str
+               ) -> "tuple[dict[str, np.ndarray], dict[str, np.ndarray] | None]":
+    """A warm start's donor: (``params/...`` and ``batch_stats/...`` of
+    its best step, the EMA shadow as ``params/...`` or None when the
+    donor carried none). A member dir's ``params.npz`` has no shadow."""
+    if os.path.isfile(os.path.join(directory, PARAMS_FILE)):
+        return load_member(directory), None
+    flat = Checkpointer(directory).restore()
+    model = {k: v for k, v in flat.items()
+             if k.startswith(("params/", "batch_stats/"))}
+    ema = ({"params/" + k[len(EMA_PREFIX):]: v for k, v in flat.items()
+            if k.startswith(EMA_PREFIX)} if has_ema(flat) else None)
+    return model, ema
+
+
+class AsyncSaver:
+    """Background checkpoint writer (``train.async_save``; the
+    reference's ``utils/checkpoint.AsyncSaver``).
+
+    One worker thread runs the submitted jobs (zero-argument callables)
+    strictly in submission order. A job's exception is latched and
+    re-raised at the next ``submit()``, ``drain()`` or ``close()``, so a
+    failed write stops the run one boundary late instead of vanishing
+    with the thread. Once a run has a saver, every save goes through it
+    (eval-time saves, their ``best/`` links, ``latest/`` and the
+    emergency save), so no two writes to one checkpoint dir overlap."""
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue()
+        self._err: "BaseException | None" = None
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="ckpt-async-saver")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            job = self._q.get()
+            try:
+                if job is None:
+                    return
+                job()
+            except BaseException as e:  # noqa: BLE001 - latched, re-raised
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self) -> None:
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def submit(self, job) -> None:
+        """Enqueue one job, after every job submitted before it; re-raise
+        a prior job's latched failure first."""
+        if self._closed:
+            raise RuntimeError("AsyncSaver is closed")
+        self._raise_pending()
+        self._q.put(job)
+
+    def drain(self) -> None:
+        """Block until every submitted job has finished; re-raise any
+        latched failure."""
+        self._q.join()
+        self._raise_pending()
+
+    def close(self) -> None:
+        """Drain, stop the worker and re-raise any latched failure."""
+        if self._closed:
+            return
+        self._closed = True
+        self._q.put(None)
+        self._thread.join()
+        self._raise_pending()
 
 
 class _StepDirs:

@@ -41,6 +41,9 @@ class RunLog:
             return
         if self._fresh and os.path.exists(self.path):
             os.replace(self.path, self.path + ".prev")
+        # Rotated once: a write after close() (a background eval that
+        # lands late) appends to this run's file.
+        self._fresh = False
         self._fh = open(self.path, "a")
 
     def write(self, kind: str, **fields) -> dict:

@@ -36,7 +36,8 @@ def _images(shape, seed=0):
 def _port_cfg(jcfg: JaxDataConfig) -> configs.DataConfig:
     return configs.DataConfig(**{
         f.name: getattr(jcfg, f.name)
-        for f in dataclasses.fields(configs.DataConfig)})
+        for f in dataclasses.fields(configs.DataConfig)
+        if ("data", f.name) not in configs.PORT_FIELDS})
 
 
 def _t(x):

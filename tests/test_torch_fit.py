@@ -165,10 +165,15 @@ def test_resume_reproduces_the_uninterrupted_run(data_dir, tmp_path,
     cfg = _cfg(f"train.ema_decay={ema}")
     full = trainer.fit(cfg, data_dir, str(tmp_path / "full"), device="cpu")
     with monkeypatch.context() as m:
-        _interrupt_after(m, 5)  # dies in step 5, after the eval at 4
+        # Dies fetching step 6's batch, after the eval at 4 and step 5;
+        # the preemption save writes latest/ at step 5.
+        _interrupt_after(m, 5)
         with pytest.raises(KeyboardInterrupt):
             trainer.fit(cfg, data_dir, str(tmp_path / "cut"), device="cpu")
-    assert ckpt_lib.Checkpointer(str(tmp_path / "cut")).latest_step == 4
+    assert ckpt_lib.Checkpointer(str(tmp_path / "cut")).latest_step == 5
+    assert [(r["step"], r["saved"]) for r in read_jsonl(
+        os.path.join(tmp_path / "cut", "metrics.jsonl"))
+        if r["kind"] == "preempt_save"] == [(5, True)]
     resumed = trainer.fit(configs.override(cfg, ["train.resume=true"]),
                           data_dir, str(tmp_path / "cut"), device="cpu")
     assert resumed == full
@@ -176,7 +181,7 @@ def test_resume_reproduces_the_uninterrupted_run(data_dir, tmp_path,
     at4 = [r for r in _records(str(tmp_path / "full"), ("eval",))
            if r["step"] == 4][0]
     assert (res["step"], res["best_auc"], res["since_best"]) == (
-        4, at4["best_auc"], at4["since_best"])
+        5, at4["best_auc"], at4["since_best"])
 
     def evals(wd):
         return [{k: r[k] for k in ("step", "val_auc", "best_auc",

@@ -322,3 +322,111 @@ def test_fit_and_resume_on_the_card(cuda, tmp_path):
     assert [r["step"] for r in recs if r["kind"] == "eval"] == [2, 4, 6]
     assert all(0.0 <= a <= 1.0 for a in aucs)
     assert ckpt_lib.Checkpointer(wd).latest_step == 6
+
+
+def _smoke_split(root, n=12, size=64):
+    from jama16_retina_tpu_torch.data import tfrecord
+
+    tfrecord.write_synthetic_split(str(root), "train", n, size, num_shards=3,
+                                   seed=4)
+    return str(root)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth,readers", [(1, 1), (2, 3), (4, 2)])
+def test_prefetched_batches_on_the_card_are_the_stream(cuda, tmp_path,
+                                                       depth, readers):
+    """Batches staged through pinned buffers and a side stream come out
+    in order and bitwise those of the unprefetched host stream, while the
+    consumer's stream is kept busy so that a buffer reused before its
+    copy finished would show."""
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.data import pipeline
+
+    root = _smoke_split(tmp_path)
+    cfg = configs.DataConfig(batch_size=4)
+
+    def stream(r):
+        return pipeline.train_batches(root, "train", cfg, 64, seed=2,
+                                      readers=r)
+
+    want = [next(s) for s in [stream(1)] for _ in range(10)]
+    busy = torch.randn((2048, 2048), device=cuda)
+    with pipeline.DevicePrefetch(stream(readers), cuda, depth) as s:
+        for w in want:
+            got = next(s)
+            for _ in range(4):
+                busy = busy @ busy / busy.norm()
+            assert got["image"].device.type == "cuda"
+            assert all(torch.equal(got[k].cpu(), w[k]) for k in w)
+
+
+@pytest.mark.gpu
+def test_snapshot_is_ordered_before_a_reader_on_another_thread(cuda):
+    """A snapshot taken right after a step, read at once on another
+    thread (after its event), holds that step's values, however long the
+    step's kernels ran and whatever the next step does to the state."""
+    import threading
+
+    from jama16_retina_tpu_torch import configs, models, train_lib
+    from jama16_retina_tpu_torch.models import init
+
+    cfg = configs.override(configs.get_config("smoke"),
+                           ["train.use_pallas_fused=true"])
+    state = train_lib.create_state(
+        cfg, init.init_flax_default(models.build(cfg.model), 0), cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"image": torch.randint(0, 256, (8, 64, 64, 3), device=cuda,
+                                    dtype=torch.uint8, generator=g),
+             "grade": torch.arange(8, device=cuda, dtype=torch.int32) % 5}
+    train_lib.train_step(state, batch, cfg)
+    busy = torch.randn((4096, 4096), device=cuda)
+    for _ in range(8):
+        busy = busy @ busy / busy.norm()
+    snap = train_lib.snapshot(state)
+    got = {}
+
+    def read():
+        snap.wait()
+        got.update(train_lib.state_to_flat(snap.state))
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    reader.join()
+    torch.cuda.synchronize()
+    want = train_lib.state_to_flat(state)
+    assert set(got) == set(want)
+    assert all((got[k] == want[k]).all() for k in want)
+    train_lib.train_step(state, batch, cfg)
+    torch.cuda.synchronize()
+    again = train_lib.state_to_flat(snap.state)
+    assert all((again[k] == got[k]).all() for k in got)
+
+
+@pytest.mark.gpu
+def test_bf16_fused_step_on_the_card(cuda):
+    """``train.dtype=bf16`` with B2 and B3: one launch of each a step,
+    float32 masters and moments, and a loss within 0.05 of the step with
+    float32 params from the same init and batch."""
+    from jama16_retina_tpu_torch import configs, models, train_lib
+    from jama16_retina_tpu_torch.models import init
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"image": torch.randint(0, 256, (8, 64, 64, 3), device=cuda,
+                                    dtype=torch.uint8, generator=g),
+             "grade": torch.arange(8, device=cuda, dtype=torch.int32) % 5}
+    losses = {}
+    for dtype in ("fp32", "bf16"):
+        cfg = configs.override(configs.get_config("smoke"), [
+            "train.use_pallas_fused=true", f"train.dtype={dtype}"])
+        state = train_lib.create_state(
+            cfg, init.init_flax_default(models.build(cfg.model), 0), cuda)
+        before = (dict(cj.launches), ad.launches)
+        losses[dtype] = float(train_lib.train_step(state, batch, cfg))
+        assert (cj.launches["fused_normalize_color_jitter"]
+                == before[0]["fused_normalize_color_jitter"] + 1)
+        assert ad.launches == before[1] + 1
+        assert all(t.dtype == torch.float32 for t in (
+            *state.model.parameters(), *state.mu.values(),
+            *state.nu.values()))
+    assert abs(losses["bf16"] - losses["fp32"]) < 0.05

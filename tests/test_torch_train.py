@@ -1,6 +1,7 @@
 """The port's train path against the JAX package on the CPU: train-mode
 ConvBN, the Inception-v3 train forward and backward, three steps of the
-``smoke`` train step in both step forms, the knobs it refuses, and the
+``smoke`` train step in both step forms, the knobs it refuses, a short
+``fit`` with each run knob it once refused, and the
 ``python -m jama16_retina_tpu_torch.train`` CLI.
 
 Both sides start from the same numpy weights (``torch_parity``) and see
@@ -30,6 +31,7 @@ from jama16_retina_tpu_torch import configs, models, train_lib, trainer
 from jama16_retina_tpu_torch.data import synthetic
 from jama16_retina_tpu_torch.models import common, convert, inception_v3
 from jama16_retina_tpu_torch.serve.engine import ServingEngine
+from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 from torch_parity import (flat_optax_adamw, random_flat, to_nchw, to_nhwc,
                           torch_threads, variables)
 
@@ -313,12 +315,7 @@ def test_smoke_train_step_matches_jax_for_three_steps(form):
     ("train.optimizer=sgdm", NotImplementedError),
     ("train.optimizer=lamb", NotImplementedError),
     ("train.gradient_clip_norm=1.0", NotImplementedError),
-    ("train.dtype=bf16", NotImplementedError),
-    ("train.accum_steps=2", NotImplementedError),
-    ("train.async_save=true", NotImplementedError),
-    ("train.eval_overlap=true", NotImplementedError),
     ("train.ensemble_size=2", NotImplementedError),
-    ("train.init_from=/x", NotImplementedError),
     ("train.distill_from=/x", NotImplementedError),
     ("model.stem_s2d=true", NotImplementedError),
     ("model.remat_stem=true", NotImplementedError),
@@ -349,6 +346,53 @@ def test_train_runs_knobs_it_once_refused(item, tmp_path):
     assert probs.shape == (2, 5)
 
 
+@pytest.fixture(scope="module")
+def knob_data(tmp_path_factory):
+    """Raw 64 px train/val splits for the run-knob fits, and a donor fit
+    for ``train.init_from``."""
+    from jama16_retina_tpu_torch.data import tfrecord
+
+    root = tmp_path_factory.mktemp("knobs")
+    data = str(root / "data")
+    for split, n, seed in (("train", 16, 1), ("val", 8, 2)):
+        tfrecord.write_synthetic_split(data, split, n, 64, num_shards=2,
+                                       seed=seed)
+    donor = str(root / "donor")
+    with torch_threads(1):
+        trainer.fit(configs.override(configs.get_config("smoke"), [
+            "train.steps=2", "train.eval_every=2"]), data, donor,
+            device="cpu")
+    return data, donor
+
+
+@pytest.mark.parametrize("item", [
+    "train.dtype=bf16", "train.accum_steps=2", "train.async_save=true",
+    "train.eval_overlap=true", "train.init_from=DONOR"])
+def test_fit_trains_with_each_run_knob(item, knob_data, tmp_path):
+    """The five knobs refused until they were ported (item 6, and the
+    warm start of item 5): a 4-step ``fit`` on the CPU with each one
+    writes its eval records and checkpoints, with float32 masters and
+    moments in the saved state. Their parity with the reference is held
+    in ``tests/test_torch_trainknobs.py``."""
+    data, donor = knob_data
+    cfg = configs.override(configs.get_config("smoke"), [
+        item.replace("DONOR", donor), "train.steps=4", "train.eval_every=2",
+        "train.log_every=2"])
+    with torch_threads(1):
+        res = trainer.fit(cfg, data, str(tmp_path), device="cpu")
+    recs = [json.loads(line) for line in
+            (tmp_path / trainer.METRICS_FILE).read_text().splitlines()]
+    assert sorted(r["step"] for r in recs if r["kind"] == "eval") == [2, 4]
+    assert res["best_auc"] is not None and res["best_step"] in (2, 4)
+    warm = [r for r in recs if r["kind"] == "warm_start"]
+    assert warm == ([] if "DONOR" not in item else [
+        {"kind": "warm_start", "t": warm[0]["t"], "init_from": donor}])
+    saved = ckpt_lib.Checkpointer(str(tmp_path)).restore(4)
+    assert int(saved["step"]) == 4
+    assert all(v.dtype == np.float32 for k, v in saved.items()
+               if k.startswith(("params/", "adam/mu/", "adam/nu/")))
+
+
 @pytest.mark.parametrize("item", [
     "train.tensorboard=true", "train.debug=true", "data.loader=hbm",
     "eval.sharded=true"])
@@ -369,7 +413,8 @@ def test_serving_ignores_train_knobs():
 
 def test_presets_take_the_jax_values():
     """Every preset of the JAX package, field for field (the ``serve``
-    section's port fields aside); the trainable ones pass
+    section and the port's own fields, ``configs.PORT_FIELDS``, aside);
+    the trainable ones pass
     ``check_supported``, and ``ensemble10`` is refused by one ``fit``
     (``fit_ensemble`` trains its members in turn)."""
     assert set(configs.PRESETS) == set(jax_configs.PRESETS)
@@ -384,6 +429,8 @@ def test_presets_take_the_jax_values():
         for section in ("model", "data", "train", "eval"):
             ours = getattr(cfg, section)
             for f in dataclasses.fields(ours):
+                if (section, f.name) in configs.PORT_FIELDS:
+                    continue
                 assert getattr(ours, f.name) == getattr(
                     getattr(jcfg, section), f.name), (name, section, f.name)
 
