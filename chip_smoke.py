@@ -159,6 +159,36 @@ Phases, any failure exits nonzero before the result line:
               start: a fresh state seeded from run A's ``best/`` equals the
               donor's best step at step 0, and a 2-step fit from it writes
               its ``warm_start`` record.
+10. serve knobs - the serving knobs at full width on phase 4's k=2
+              ``eyepacs_binary`` members (299 px, bf16 compute, B4 on every
+              chunk; launch counts set to 0 just before the phase's path
+              and read just after: B4 once a chunk, no train kernel). Per
+              ``serve.dtype`` fp32, bf16 and int8: the members' resident
+              device bytes (int8 under 0.55x bf16, bf16 under 0.55x fp32),
+              max |score - fp32| over 64 canvases, and request latency at
+              batch 8 and 64 (median and range of 10 after 2 warm). The
+              fp32 engine against one ``nn.Module`` per member driven by
+              the request path the engine had before these knobs: scores
+              within 1e-6, and each form's median request latency at batch
+              8 and 64 in 10 alternating pairs. The construction gate on
+              a canary of 8 canvases pinned from the fp32 scores: bf16
+              and int8 pass at the default
+              ``serve.dtype_canary_max_dev`` 0.05 and raise
+              ``DtypeRejected`` at 0; fp32 skips it. ``serve.member_parallel``
+              (one vmap over the stacked members) against the members in
+              turn: member probabilities within 1e-4 in float32 (TF32 off),
+              and both forms' latency at batch 8 and 64. The micro-batcher
+              over one bucket of 32: 200 requests of 1-8 rows from 4
+              closed-loop client threads, every row equal to the engine's
+              score of that canvas at the same bucket, p50 and p99 of
+              request latency; then the same 200 as a burst with
+              ``serve.shed_queue_depth=8`` and a 5 ms deadline: the
+              requests shed, expired and served must add up, match the
+              ``serve.shed.*`` counters, and both be nonzero. The quality
+              monitor fed by B4's statistics over 64 canvases: one window,
+              the statistics within 1e-9 of a float64 numpy pass, and
+              their distance and the histograms' count differences from
+              the host pass (``input_stat_values``, float32 sums) printed.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
@@ -1711,6 +1741,387 @@ def phase_knobs(torch, seed: int, smi: str, fit: dict) -> dict:
     return out
 
 
+def request_ms(torch, fn, warm: int = 2,
+               timed: int = 10) -> "tuple[float, float, float]":
+    """(median, min, max) ms of ``timed`` synchronized ``fn()`` calls after
+    ``warm``, host clock."""
+    times = []
+    for i in range(warm + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
+def fmt_ms(t) -> str:
+    return f"median {t[0]:.3f} ms, range {t[1]:.3f}-{t[2]:.3f}"
+
+
+def batcher_storm(b, table, picks, threads: int, burst: bool = False
+                  ) -> dict:
+    """``len(picks)`` requests (rows = canvas indices) from ``threads``
+    client threads through the micro-batcher ``b``, each client
+    submitting its next request when its last resolved (closed loop), or
+    all at once with ``burst``; ``b`` is closed after. Returns the
+    per-request latencies (ms) of the served ones, the outcome counts and
+    the rows that disagree with ``table`` (the engine's score of each
+    canvas at the one bucket)."""
+    import threading
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch.serve import batcher as batcher_lib
+
+    canvases = table["canvases"]
+    lat, outcome, wrong = [], {"served": 0, "shed": 0, "deadline": 0}, []
+    t_start = time.perf_counter()
+    lock = threading.Lock()
+
+    def settle(idx, fut, t0):
+        try:
+            got = fut.result(timeout=120)
+        except batcher_lib.DeadlineExceeded:
+            with lock:
+                outcome["deadline"] += 1
+            return
+        ms = (time.perf_counter() - t0) * 1e3
+        bad = np.flatnonzero(got != table["probs"][idx])
+        with lock:
+            lat.append((ms, (t0 - t_start) * 1e3))
+            outcome["served"] += 1
+            wrong.extend(idx[bad].tolist())
+
+    def client(mine):
+        pending = []
+        for idx in mine:
+            t0 = time.perf_counter()
+            try:
+                fut = b.submit(canvases[idx])
+            except batcher_lib.Overloaded:
+                with lock:
+                    outcome["shed"] += 1
+                continue
+            if burst:
+                pending.append((idx, fut, t0))
+            else:
+                settle(idx, fut, t0)
+        for item in pending:
+            settle(*item)
+
+    workers = [threading.Thread(target=client, args=(picks[t::threads],))
+               for t in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(300)
+    check(not any(w.is_alive() for w in workers), "a batcher client hung")
+    b.close()
+    return {"lat": sorted(lat), "outcome": outcome, "wrong": wrong}
+
+
+def default_path_turns(torch, base, sds, batches, eng, out: dict,
+                       smi: str) -> int:
+    """The fp32 engine ``eng`` against one ``nn.Module`` per member built
+    from the same state_dicts, driving the request path the engine had
+    before its serving knobs (pad, B4, members in turn, stats): scores
+    within 1e-6, then each form's request latency at batch 8 and 64 in
+    alternating turns. Returns the B4 launches made."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import models
+    from jama16_retina_tpu_torch.eval import metrics
+    from jama16_retina_tpu_torch.ops import serve_preprocess as sp
+
+    modules = []
+    for sd in sds:
+        m = models.build(base.model)
+        m.load_state_dict(sd)
+        modules.append(m.to(eng.device, memory_format=torch.channels_last))
+    size, head = base.model.image_size, base.model.head
+    launched = [0]
+
+    def module_probs(images):
+        outs, sums = [], []
+        with torch.inference_mode():
+            for lo in range(0, images.shape[0], eng.max_batch):
+                chunk = images[lo:lo + eng.max_batch]
+                n = chunk.shape[0]
+                padded = torch.zeros((eng._bucket_for(n), size, size, 3),
+                                     dtype=torch.uint8, device=eng.device)
+                padded[:n].copy_(torch.from_numpy(np.ascontiguousarray(chunk)))
+                norm, chunk_sums = sp.fused_serve_preprocess(padded)
+                launched[0] += 1
+                sums.append(chunk_sums[:n])
+                x = norm.permute(0, 3, 1, 2)
+                outs.append(torch.stack([
+                    models.head_probs(m(x)[0], head)[:n] for m in modules]))
+            probs = torch.cat(outs, dim=1).cpu().numpy()
+            sp.input_stats_dict(sp.stats_from_sums(torch.cat(sums).cpu(),
+                                                   size * size))
+        return metrics.ensemble_average(list(probs))
+
+    dev = float(np.max(np.abs(module_probs(batches[64])
+                              - eng.probs(batches[64]))))
+    check(dev <= 1e-6, f"the fp32 engine is {dev} from one module per "
+          "member")
+    forms = {"modules": module_probs, "engine": eng.probs}
+    turns = {f"{form}_batch{b}_ms": [] for form in forms for b in batches}
+    for order in (("modules", "engine"), ("engine", "modules")) * 5:
+        for form in order:
+            for b, imgs in batches.items():
+                turns[f"{form}_batch{b}_ms"].append(
+                    request_ms(torch, lambda: forms[form](imgs))[0])
+    launched[0] += eng.chunks_dispatched
+    wins = {b: sum(e < m for e, m in zip(turns[f"engine_batch{b}_ms"],
+                                         turns[f"modules_batch{b}_ms"]))
+            for b in batches}
+    out["default_path"] = {"max_dev": dev, "engine_wins": wins, **turns}
+    log(f"serve knobs: default path (fp32, members in turn): engine vs one "
+        f"module per member, max |score diff| {dev:.3e}; request median ms "
+        f"in 10 alternating pairs, batch 8: engine "
+        f"{turns['engine_batch8_ms']}, modules {turns['modules_batch8_ms']}, "
+        f"engine faster in {wins[8]} of 10; batch 64: engine "
+        f"{turns['engine_batch64_ms']}, modules "
+        f"{turns['modules_batch64_ms']}, engine faster in {wins[64]} of 10 "
+        f"({smi})")
+    return launched[0]
+
+
+def phase_serve_knobs(torch, seed: int, smi: str, serve: dict) -> dict:
+    """The serving knobs at full width (phase 10 of the docstring) on
+    phase 4's k=2 ``eyepacs_binary`` members."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, models
+    from jama16_retina_tpu_torch.models import convert
+    from jama16_retina_tpu_torch.obs import quality
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.ops import serve_preprocess as sp
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+    from jama16_retina_tpu_torch.serve.quantize import DtypeRejected
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    base = configs.override(configs.get_config("eyepacs_binary"),
+                            ["serve.fused_preprocess=true"])
+    sds = [convert.flax_to_torch(ckpt_lib.load_member(d),
+                                 models.build(base.model))
+           for d in serve["dirs"]]
+    canvases = render(seed + 500, 64)
+    batches = {b: canvases[:b] for b in (8, 64)}
+
+    def engine(*sets, **kw):
+        return ServingEngine(configs.override(base, list(sets)),
+                             state_dicts=sds, device="cuda",
+                             registry=kw.get("registry", Registry()))
+
+    # The main path of the phase: counts set to 0 just before, read just
+    # after; every request below goes through B4 once a chunk.
+    reset_launch_counts()
+    chunks = 0
+    out = {"dtypes": {}}
+    scores = {}
+    for dtype in ("fp32", "bf16", "int8"):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        eng = engine(f"serve.dtype={dtype}")
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated() - mem0
+        scores[dtype] = eng.probs(batches[64])
+        check(bool(np.all(np.isfinite(scores[dtype]))),
+              f"serve.dtype={dtype} probabilities not finite")
+        rec = {"resident_bytes": eng.resident_bytes(),
+               "allocated_bytes": allocated,
+               "max_dev_fp32": float(np.max(np.abs(scores[dtype]
+                                                   - scores["fp32"])))}
+        for b, imgs in batches.items():
+            rec[f"batch{b}_ms"] = request_ms(torch, lambda: eng.probs(imgs))
+        chunks += eng.chunks_dispatched
+        out["dtypes"][dtype] = rec
+        log(f"serve knobs: serve.dtype={dtype}: members resident "
+            f"{rec['resident_bytes']} bytes (allocated "
+            f"{rec['allocated_bytes']}); max |score - fp32| "
+            f"{rec['max_dev_fp32']:.3e} over 64 canvases; request batch 8 "
+            f"{fmt_ms(rec['batch8_ms'])}; batch 64 "
+            f"{fmt_ms(rec['batch64_ms'])} ({smi})")
+        del eng
+    res = {d: r["resident_bytes"] for d, r in out["dtypes"].items()}
+    check(res["bf16"] < 0.55 * res["fp32"] and res["int8"] < 0.55 * res["bf16"],
+          f"resident bytes do not shrink with the dtype: {res}")
+
+    # The default path (fp32, members in turn) against the form it had
+    # before the serving knobs: one nn.Module per member on the card, the
+    # same request path by hand. Turns alternate, batch 8 and 64.
+    chunks += default_path_turns(torch, base, sds, batches, engine(), out,
+                                 smi)
+
+    # The construction gate, on a canary pinned from the fp32 scores.
+    canary = quality.save_canary(str(SCRATCH / "canary"), canvases[:8],
+                                 scores["fp32"][:8])
+    gate = ("obs.quality.enabled=true", f"obs.quality.canary_path={canary}")
+    for dtype in ("bf16", "int8"):
+        passed = engine(f"serve.dtype={dtype}", *gate)
+        check(passed.quality.canary.reference is not None,
+              "the canary was not pinned")
+        chunks += passed.chunks_dispatched
+        del passed
+        try:
+            refused = engine(f"serve.dtype={dtype}", *gate,
+                             "serve.dtype_canary_max_dev=0")
+            chunks += refused.chunks_dispatched
+            check(False, f"serve.dtype={dtype} passed the gate at max_dev 0")
+        except DtypeRejected as e:
+            chunks += 1  # the refused gate scored the canary, one chunk
+            log(f"serve knobs: gate {dtype}: passes at the default 0.05, "
+                f"refused at 0 ({str(e).split(';')[0]})")
+    chunks += engine("serve.dtype=fp32", *gate,
+                     "serve.dtype_canary_max_dev=0").chunks_dispatched
+
+    # member_parallel: agreement in float32 (TF32 off), latency at the
+    # preset's bf16 compute.
+    f32 = "model.compute_dtype=float32"
+    pair = {form: engine(f32, f"serve.member_parallel={form == 'vmap'}")
+            for form in ("in_turn", "vmap")}
+    mp = {form: e.member_probs(batches[64]) for form, e in pair.items()}
+    chunks += sum(e.chunks_dispatched for e in pair.values())
+    del pair
+    mp_dev = float(np.max(np.abs(mp["vmap"] - mp["in_turn"])))
+    check(mp_dev <= 1e-4, f"member_parallel and members in turn disagree by "
+          f"{mp_dev} (float32, TF32 off)")
+    out["member_parallel"] = {"max_dev": mp_dev}
+    for form in ("in_turn", "vmap"):
+        eng = engine(f"serve.member_parallel={form == 'vmap'}")
+        for b, imgs in batches.items():
+            out["member_parallel"][f"{form}_batch{b}_ms"] = request_ms(
+                torch, lambda: eng.probs(imgs))
+        chunks += eng.chunks_dispatched
+        del eng
+    m = out["member_parallel"]
+    log(f"serve knobs: member_parallel vs members in turn: max |member prob "
+        f"diff| {mp_dev:.3e} (float32, TF32 off); bf16 compute, batch 8: "
+        f"vmap {fmt_ms(m['vmap_batch8_ms'])}, in turn "
+        f"{fmt_ms(m['in_turn_batch8_ms'])}; batch 64: vmap "
+        f"{fmt_ms(m['vmap_batch64_ms'])}, in turn "
+        f"{fmt_ms(m['in_turn_batch64_ms'])} ({smi})")
+
+    # The micro-batcher: one bucket of 32, so every row runs at the shape
+    # the table was scored at; 4 closed-loop clients, then a burst.
+    reg = Registry()
+    one_bucket = ("serve.max_batch=32", "serve.bucket_sizes=32")
+    eng = engine(*one_bucket, registry=reg)
+    table = {"canvases": canvases, "probs": eng.probs(canvases)}
+    rng = np.random.default_rng(seed)
+    picks = [rng.integers(0, 64, int(n)) for n in rng.integers(1, 9, 200)]
+    storm = batcher_storm(eng.make_batcher(), table, picks, threads=4)
+    lat = np.asarray([ms for ms, _ in storm["lat"]])
+    slowest = ", ".join(f"{ms:.1f} ms at {at:.0f} ms"
+                        for ms, at in storm["lat"][-3:])
+    hist = reg.snapshot()["histograms"]["serve.request_latency_s"]
+    check(storm["outcome"]["served"] == 200,
+          f"the batcher served {storm['outcome']}")
+    check(not storm["wrong"], f"{len(storm['wrong'])} batcher rows differ "
+          "from the engine's score at the same bucket")
+    counters = reg.snapshot()["counters"]
+    out["batcher"] = {
+        "requests": 200, "rows": int(sum(len(p) for p in picks)),
+        "windows": counters["serve.batcher.batches"],
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "hist_p50_ms": hist["p50"] * 1e3, "hist_p99_ms": hist["p99"] * 1e3}
+    bt = out["batcher"]
+    log(f"serve knobs: batcher, 4 closed-loop clients, 200 requests of 1-8 "
+        f"rows ({bt['rows']} rows) in {bt['windows']:.0f} windows, every row "
+        f"equal to the engine's score at bucket 32; request latency p50 "
+        f"{bt['p50_ms']:.3f} ms, p99 {bt['p99_ms']:.3f} ms (histogram "
+        f"estimate {bt['hist_p50_ms']:.3f} / {bt['hist_p99_ms']:.3f}); the "
+        f"slowest three, with their submit times into the run: {slowest} "
+        f"({smi})")
+    chunks += eng.chunks_dispatched
+    del eng
+    reg = Registry()
+    eng = engine(*one_bucket, "serve.shed_queue_depth=8",
+                 "serve.default_deadline_ms=5", registry=reg)
+    burst = batcher_storm(eng.make_batcher(), table, picks, threads=4,
+                          burst=True)
+    counters = reg.snapshot()["counters"]
+    shed = {k: counters.get(k, 0.0)
+            for k in ("serve.shed.queue_depth", "serve.shed.deadline")}
+    o = burst["outcome"]
+    check(o["shed"] == shed["serve.shed.queue_depth"] > 0
+          and o["deadline"] == shed["serve.shed.deadline"] > 0
+          and sum(o.values()) == 200 and not burst["wrong"],
+          f"forced overload: outcomes {o}, counters {shed}, "
+          f"{len(burst['wrong'])} rows wrong")
+    out["overload"] = {**o, **shed}
+    log(f"serve knobs: forced overload (burst of 200, shed_queue_depth 8, "
+        f"deadline 5 ms): served {o['served']}, shed {o['shed']} "
+        f"(serve.shed.queue_depth {shed['serve.shed.queue_depth']:.0f}), "
+        f"deadline {o['deadline']} (serve.shed.deadline "
+        f"{shed['serve.shed.deadline']:.0f}); served rows equal the table")
+    chunks += eng.chunks_dispatched
+    del eng
+
+    # The monitor fed by B4's statistics, against a profile of the same
+    # canvases from the host numpy pass.
+    host_stats = quality.input_stat_values(canvases)
+    profile = quality.save_profile(
+        str(SCRATCH / "profile.json"),
+        quality.build_profile(scores["fp32"], stat_values=host_stats))
+    reg = Registry()
+    eng = engine("obs.quality.enabled=true",
+                 f"obs.quality.profile_path={profile}",
+                 "obs.quality.window_scores=64", registry=reg)
+    eng.probs(canvases)
+    b4 = eng.last_input_stats
+    diffs = {k: int(np.abs(quality.bin_counts(b4[k], 20)
+                           - quality.bin_counts(host_stats[k], 20)).sum())
+             for k in quality.INPUT_STATS}
+    stat_dev = max(float(np.max(np.abs(b4[k] - host_stats[k])))
+                   for k in quality.INPUT_STATS)
+    # The host pass sums in float32 (input_stat_values, as the reference
+    # does); B4's integer sums are exact, so they are held to float64.
+    x = canvases.astype(np.float64) / 255.0
+    chan = x.mean(axis=(1, 2))
+    exact = {"mean_r": chan[:, 0], "mean_g": chan[:, 1],
+             "mean_b": chan[:, 2],
+             "std": x.reshape(x.shape[0], -1).std(axis=1),
+             "brightness": chan @ np.array([0.299, 0.587, 0.114])}
+    exact_dev = max(float(np.max(np.abs(b4[k] - exact[k])))
+                    for k in quality.INPUT_STATS)
+    snap = reg.snapshot()
+    check(snap["counters"]["quality.scores"] == 64
+          and snap["counters"]["quality.windows"] == 1,
+          f"the monitor saw {snap['counters']}")
+    check(exact_dev <= 1e-9, f"B4's statistics are {exact_dev} from a "
+          "float64 pass")
+    chunks += eng.chunks_dispatched
+    del eng
+    out["monitor"] = {"bin_count_diffs": diffs, "max_stat_dev": stat_dev,
+                      "max_stat_dev_float64": exact_dev,
+                      "input_psi_max": snap["gauges"]["quality.input_psi_max"],
+                      "score_psi": snap["gauges"]["quality.score_psi"]}
+    log(f"serve knobs: monitor fed by B4: 64 scores in 1 window; |count "
+        f"differences| of B4's histograms (20 bins) against the host numpy "
+        f"pass {diffs}; max |stat diff| {stat_dev:.3e} from it (float32 "
+        f"sums), {exact_dev:.3e} from a float64 pass; input_psi_max "
+        f"{out['monitor']['input_psi_max']:.4g}, score_psi "
+        f"{out['monitor']['score_psi']:.4g} against that pass's profile")
+
+    counts = launch_counts()
+    check(counts["fused_serve_preprocess"] == chunks > 0,
+          f"B4 launched {counts['fused_serve_preprocess']} times for "
+          f"{chunks} chunks")
+    check(sum(counts.values()) == chunks,
+          f"the serve-knobs path launched a train kernel: {counts}")
+    out["launches"] = counts
+    log(f"serve knobs: launches {counts} for {chunks} chunks; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    return out
+
+
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"jama16_retina_tpu_torch/ops/csrc/{source}",
@@ -1807,6 +2218,7 @@ def main(argv=None) -> int:
         f"% of the bound; two pass {b2['two_pass_ms']:.5f} ms; yardstick "
         f"images.to(float32) {b2['yardstick_ms']:.5f} ms ({smi})")
     request_times(torch, serve, smi)
+    knobs_serve = phase_serve_knobs(torch, args.seed, smi, serve)
     steps = train_step_times(torch, args.seed, smi)
     fit = phase_fit(torch, args.seed, smi, steps["preset"]["step_ms"])
     knobs = phase_knobs(torch, args.seed, smi, fit)
@@ -1853,7 +2265,8 @@ def main(argv=None) -> int:
     runs = {"serve": serve["launches"],
             **{f"train_{form}": t["launches"] for form, t in train.items()},
             **{f"fit_{run}": n for run, n in fit["launches"].items()},
-            **knobs["launches"], **model_runs}
+            **knobs["launches"], **model_runs,
+            "serve_knobs": knobs_serve["launches"]}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

@@ -1,7 +1,8 @@
 """The slice of ``jama16_retina_tpu/configs.py`` that the port reads
 (serving, training, eval, checkpoints and resume of every preset of the
 JAX package: the binary and 5-class heads, Inception-v3, ResNet-50,
-EfficientNet-B4 and the smoke ``tiny_cnn``).
+EfficientNet-B4 and the smoke ``tiny_cnn``; the serving knobs and the
+quality monitor's ``obs.quality``).
 
 Field names, defaults, preset names and the dotted ``--set`` syntax are
 those of the JAX package, so one override list configures both. Only the
@@ -130,17 +131,70 @@ class EvalConfig:
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     # Largest chunk one engine forward serves; larger requests are chunked.
+    # The micro-batcher closes a window at this many rows.
     max_batch: int = 64
+    # Longest a request waits in the micro-batcher for co-riders (ms).
+    max_wait_ms: float = 5.0
     # Padded batch shapes; empty = powers of two from 8 up to max_batch.
     bucket_sizes: tuple[int, ...] = ()
+    # Members forward in one vmap over their stacked weights (float-
+    # equivalent to the default one-after-another form, not bitwise).
+    member_parallel: bool = False
+    # Host threads for fundus normalization (0 = auto).
+    host_workers: int = 0
+    # Micro-batcher admission control (0 = off): requests waiting, and
+    # requests admitted but unresolved, beyond which submit raises
+    # serve.batcher.Overloaded.
+    shed_queue_depth: int = 0
+    shed_in_flight: int = 0
+    # Deadline given at submit to a request that names none (ms; 0 =
+    # none). An expired request fails with DeadlineExceeded at window
+    # close, before any device work.
+    default_deadline_ms: float = 0.0
+    # fp32 | bf16 | int8 weights on the device (serve/quantize.py).
+    dtype: str = "fp32"
+    # Max |score - pinned canary| a bf16/int8 engine may show at
+    # construction (binds only with a pinned obs.quality canary).
+    dtype_canary_max_dev: float = 0.05
+    compile_cache_dir: str = ""
     # Normalize each padded chunk with the fused CUDA kernel
     # (ops/serve_preprocess.py) and keep the per-image input statistics.
     fused_preprocess: bool = False
-    # Host threads for fundus normalization (0 = auto).
-    host_workers: int = 0
-    dtype: str = "fp32"
-    member_parallel: bool = False
-    compile_cache_dir: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class QualityConfig:
+    """The quality monitor (obs/quality.py): drift of live scores and
+    input statistics against a reference profile, and the golden-set
+    canary. Off by default."""
+
+    enabled: bool = False
+    # Reference profile to compare against (evaluate --profile_out).
+    profile_path: str = ""
+    # fit/fit_ensemble write the run's own reference profile here.
+    profile_out: str = ""
+    # Scores per tumbling drift window.
+    window_scores: int = 256
+    # Histogram bins over [0, 1], for scores and input statistics.
+    score_bins: int = 20
+    # Thresholds and rules of the alert plane (not ported).
+    psi_alert: float = 0.2
+    input_psi_alert: float = 0.25
+    alert_for_s: float = 0.0
+    alert_rules: tuple[str, ...] = ()
+    # Golden-set canary .npz (images, optional pinned scores); empty off.
+    canary_path: str = ""
+    # Seconds between canary runs on live requests (<= 0: explicit only).
+    canary_every_s: float = 300.0
+    # 0 compares canary scores exactly; > 0 allows this deviation.
+    canary_atol: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    # Off: the engine's registry records nothing and no monitor is built.
+    enabled: bool = True
+    quality: QualityConfig = dataclasses.field(default_factory=QualityConfig)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +205,7 @@ class ExperimentConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
 
     def replace(self, **sections) -> "ExperimentConfig":
         return dataclasses.replace(self, **sections)
@@ -228,15 +283,17 @@ PRESETS = {
     "smoke": _preset_smoke,
 }
 
+_ALERTS = "Queue A item 11 (planes: alerts)"
 # Knob -> (its default, the ROADMAP item that will implement it).
 _UNIMPLEMENTED = {
     ("model", "stem_s2d"): (False, "Queue A item 2 (stem_s2d)"),
     ("model", "remat_stem"): (False, "Queue A item 2 (remat_stem)"),
-    ("serve", "dtype"): ("fp32", "Queue A item 9 (serve/quantize.py)"),
-    ("serve", "member_parallel"): (
-        False, "Queue A item 9 (member-parallel serving)"),
     ("serve", "compile_cache_dir"): (
         "", "Queue A item 9 (compile cache / CUDA graphs)"),
+    ("obs.quality", "psi_alert"): (0.2, _ALERTS),
+    ("obs.quality", "input_psi_alert"): (0.25, _ALERTS),
+    ("obs.quality", "alert_for_s"): (0.0, _ALERTS),
+    ("obs.quality", "alert_rules"): ((), _ALERTS),
     ("train", "optimizer"): (
         "adamw", "Queue A item 4 (sgdm, rmsprop, lamb)"),
     ("train", "gradient_clip_norm"): (
@@ -259,6 +316,32 @@ _NOT_PORTED = {
                               "recipe and its curve gate)",
     "train.lr_scale_ref_batch": "Queue A items 4 and 8 (the large-batch "
                                 "recipe and its curve gate)",
+    **dict.fromkeys(
+        ("serve.cascade_band", "serve.cascade_thresholds",
+         "serve.cascade_student_dir", "serve.cascade_speculative"),
+        "Queue A item 9 (the cascade)"),
+    "serve.rollback_keep_s": "Queue A item 9 (reload, hot-swap and "
+                             "rollback)",
+    **dict.fromkeys(
+        ("serve.router_replicas", "serve.router_policy",
+         "serve.router_tick_ms", "serve.router_shed_rows",
+         "serve.router_batch_shed_frac", "serve.router_escalation_replicas",
+         "serve.router_fusion", "serve.policy_from",
+         "serve.scaler_min_replicas", "serve.scaler_max_replicas",
+         "serve.scaler_window_s", "serve.scaler_slo_p99_ms"),
+        "Queue A item 9 (the router, fusion, policy and scaler)"),
+    # Every obs field but enabled and quality.*; obs.audit covers its
+    # own fields.
+    **dict.fromkeys(
+        ("obs.flush_every_s", "obs.trace_enabled", "obs.trace_buffer_events",
+         "obs.slow_step_factor", "obs.blackbox_events", "obs.blackbox_keep",
+         "obs.fleet_dir", "obs.fleet_role", "obs.fleet_keep_segments",
+         "obs.fleet_rules", "obs.http_port", "obs.audit", "obs.fault_plan",
+         "obs.quarantine_alert_per_s", "obs.diagnosis_enabled",
+         "obs.diagnosis_top_k", "obs.device_enabled",
+         "obs.device_hbm_headroom_alert"),
+        "Queue A item 11 (planes: telemetry export, tracing, flight "
+        "recorder, fleet, audit, faults and device)"),
 }
 # Fields of this port that the JAX package's configs.py does not have.
 PORT_FIELDS = {("data", "readers")}
@@ -280,7 +363,10 @@ def check_supported(cfg: ExperimentConfig, training: bool = False) -> None:
     for (section, field), (default, item) in _UNIMPLEMENTED.items():
         if section == "train" and not training:
             continue
-        value = getattr(getattr(cfg, section), field)
+        sec = cfg
+        for part in section.split("."):
+            sec = getattr(sec, part)
+        value = getattr(sec, field)
         if value != default:
             raise NotImplementedError(
                 f"{section}.{field}={value!r} is not ported yet; see "
@@ -393,10 +479,12 @@ def override(cfg: ExperimentConfig, dotted: Sequence[str]) -> ExperimentConfig:
     """Apply ``section.field=value`` overrides (the CLI's ``--set``)."""
     for item in dotted:
         key, eq, raw = item.partition("=")
-        if key in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{key} is not ported yet; see ROADMAP.md {_NOT_PORTED[key]}")
         parts = key.split(".")
+        for k in (key, ".".join(parts[:2])):
+            if k in _NOT_PORTED:
+                raise NotImplementedError(
+                    f"{key} is not ported yet; see ROADMAP.md "
+                    f"{_NOT_PORTED[k]}")
         if not eq or len(parts) < 2 or not all(parts):
             raise ValueError(
                 f"malformed override {item!r}; expected section.field=value"

@@ -11,7 +11,8 @@ repository's ``evaluate.py``).
 probabilities are averaged in float64. The report (AUC, the operating
 points at ``eval.operating_specificities``, and the transferred points,
 intervals and calibration when asked) is printed as the last line, one
-JSON object. ``--device`` defaults to the card and raises without one.
+JSON object. ``--profile_out=P`` also writes the quality monitor's
+reference profile of ``--split`` to ``P``. ``--device`` defaults to the card and raises without one.
 """
 
 from __future__ import annotations
@@ -50,7 +51,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--save_probs", default="",
                    help="write per-image probabilities to this CSV")
     p.add_argument("--profile_out", default="",
-                   help="quality reference profile (not ported yet)")
+                   help="write the quality monitor's reference profile of "
+                        "--split (score and input-statistic histograms, "
+                        "base rate, operating thresholds) to this JSON, "
+                        "the artifact obs.quality.profile_path reads")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 

@@ -64,13 +64,19 @@ class _Sigmoid(torch.autograd.Function):
     """``jax.nn.sigmoid`` as XLA computes it: ``1 / (1 + exp(-x))``, each
     operation rounded to ``x``'s dtype (in bf16 this differs from the
     correctly rounded ``torch.sigmoid`` in about a third of the values),
-    with the stable derivative ``y * (1 - y)`` of ``lax.logistic``."""
+    with the stable derivative ``y * (1 - y)`` of ``lax.logistic``. The
+    forward takes no context, so the Function runs under
+    ``torch.func.vmap`` (member-parallel serving)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x):
-        y = 1.0 / (1.0 + torch.exp(-x))
-        ctx.save_for_backward(y)
-        return y
+    def forward(x):
+        return 1.0 / (1.0 + torch.exp(-x))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):

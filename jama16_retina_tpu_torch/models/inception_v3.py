@@ -39,12 +39,22 @@ class _AvgPoolSame(torch.autograd.Function):
     written out (each output gradient divided by its window's cell count,
     summed back over the 3x3 window, in float32 or wider): PyTorch 2.11's CUDA
     backward of that call on channels_last input returns wrong gradients
-    (``tests/test_torch_gpu.py`` pins the port's against the CPU's)."""
+    (``tests/test_torch_gpu.py`` pins the port's against the CPU's).
+
+    The forward takes no context (``setup_context`` records the spatial
+    size), so the Function runs under ``torch.func.vmap``, with the
+    vmap rule PyTorch derives from the forward: the member-parallel
+    serving form (``serve.member_parallel``)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.hw = tuple(x.shape[2:])
+    def forward(x):
         return F.avg_pool2d(x, 3, 1, 1, count_include_pad=False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.hw = tuple(inputs[0].shape[2:])
 
     @staticmethod
     def backward(ctx, g):

@@ -16,6 +16,13 @@ or holds no fundus becomes ``{"image", "error"}``. Exit codes: 0 when
 at least one image scored, 1 when none did, 2 under ``--strict`` when
 any image was skipped. Member dirs hold ``params.npz``
 (``utils/checkpoint.py``).
+
+The engine is built from the config, so ``--set serve.dtype=bf16|int8``,
+``--set serve.member_parallel=true`` and ``--set obs.quality.*`` (a
+reference profile to monitor drift against; a golden canary, which with
+bf16 or int8 gates the engine's construction and refuses the batch with
+``DtypeRejected`` when its scores move more than
+``serve.dtype_canary_max_dev``) reach it as they reach ``ServingEngine``.
 """
 
 from __future__ import annotations

@@ -39,6 +39,8 @@ from jama16_retina_tpu_torch import train_lib
 from jama16_retina_tpu_torch.data import pipeline, synthetic, tfrecord
 from jama16_retina_tpu_torch.eval import metrics
 from jama16_retina_tpu_torch.models import convert, init
+from jama16_retina_tpu_torch.obs import quality as quality_lib
+from jama16_retina_tpu_torch.obs import registry as obs_registry
 from jama16_retina_tpu_torch.serve.engine import ServingEngine
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 from jama16_retina_tpu_torch.utils.logging import RunLog, read_jsonl
@@ -156,6 +158,34 @@ def predict_split(cfg: configs.ExperimentConfig, member_probs_fn,
         names_all.append(batch["name"][keep])
     return (np.concatenate(grades_all), np.concatenate(probs_all, axis=1),
             np.concatenate(names_all))
+
+
+def _emit_quality_profile(cfg: configs.ExperimentConfig, data_dir: str,
+                          predict_fn, log: RunLog) -> None:
+    """The end-of-fit reference profile at ``obs.quality.profile_out``
+    (the reference's ``_emit_quality_profile``): ``predict_fn() ->
+    (grades, probs)`` scores the val split with the final state, and the
+    profile holds its score histogram, input-statistic histograms, base
+    rate and operating thresholds (none when val has one class)."""
+    path = cfg.obs.quality.profile_out
+    grades, probs = predict_fn()
+    bin_labels = (grades >= 2).astype(np.float64)
+    scores = np.asarray(_referable(probs, cfg.model.head), np.float64)
+    thresholds: list = []
+    if 0.0 < bin_labels.mean() < 1.0:
+        thresholds = [
+            metrics.sensitivity_at_specificity(bin_labels, scores,
+                                               s).as_dict()
+            for s in cfg.eval.operating_specificities]
+    stats = quality_lib.split_input_stats(
+        data_dir, "val", cfg.eval.batch_size, cfg.model.image_size)
+    profile = quality_lib.build_profile(
+        scores, labels=bin_labels, stat_values=stats, thresholds=thresholds,
+        bins=cfg.obs.quality.score_bins,
+        meta={"config": cfg.name, "split": "val",
+              "source": "trainer_end_of_fit"})
+    quality_lib.save_profile(path, profile)
+    log.write("quality_profile", path=path, n_examples=profile["n_examples"])
 
 
 def _best_tracking_update(aucs, best_auc, best_step, since_best, step: int,
@@ -748,6 +778,9 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
             stopped_early = stopped_early or stop
         if saver is not None:
             saver.close()
+        if cfg.obs.quality.profile_out:
+            _emit_quality_profile(cfg, data_dir, lambda: predict_val(state),
+                                  log)
     finally:
         stream.close()
         if saver is not None:
@@ -770,7 +803,9 @@ def fit_ensemble(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
     with seed ``train.seed + m`` in ``<workdir>/member_NN``, each through
     ``fit`` with the run knobs as set (every member warm-starts from
     ``train.init_from``, and each is held to ``train.dtype_curve_ref``),
-    as the reference's sequential ``fit_ensemble`` does."""
+    as the reference's sequential ``fit_ensemble`` does; with
+    ``obs.quality.profile_out`` each member writes its profile there in
+    turn, so the last member's stays, as in the reference."""
     member_cfg = cfg.replace(
         train=dataclasses.replace(cfg.train, ensemble_size=1))
     results = []
@@ -820,7 +855,14 @@ def evaluate_checkpoints(
     itself raises. ``bootstrap`` > 0 adds 95 % intervals. ``save_probs``
     writes per-image probabilities as CSV. ``calibrate`` (needs
     ``threshold_split``) fits a temperature on the tuning split and
-    reports the calibrated Brier score and ECE."""
+    reports the calibrated Brier score and ECE. ``profile_out`` writes
+    the quality monitor's reference profile of ``split``
+    (``obs/quality.py``): score and input-statistic histograms, base
+    rate and the report's operating thresholds.
+
+    Members are scored in float32 weights, one after another, as the
+    reference's evaluate does: the serving knobs ``serve.dtype``,
+    ``serve.member_parallel`` and ``obs.quality`` do not apply."""
     dev = device_lib.resolve(device)
     if backend == "tf":
         raise NotImplementedError(
@@ -828,11 +870,6 @@ def evaluate_checkpoints(
             "machine has no TensorFlow; see ROADMAP.md Queue A item 5")
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r} (want 'torch')")
-    if profile_out:
-        raise NotImplementedError(
-            "profile_out (the quality-observability reference profile) is "
-            "not ported yet; see ROADMAP.md Queue A item 9 (quality "
-            "monitor)")
     if not ckpt_dirs:
         raise ValueError("need at least one checkpoint dir")
     if calibrate and not threshold_split:
@@ -847,9 +884,13 @@ def evaluate_checkpoints(
             "set itself — self-tuned thresholds are exactly the bias this "
             "protocol avoids (the plain operating_points rows already "
             "report them)")
+    eval_cfg = cfg.replace(
+        serve=dataclasses.replace(cfg.serve, dtype="fp32",
+                                  member_parallel=False),
+        obs=dataclasses.replace(cfg.obs, quality=configs.QualityConfig()))
     engine = ServingEngine(
-        cfg, state_dicts=[restore_for_eval(cfg, d) for d in ckpt_dirs],
-        device=dev)
+        eval_cfg, state_dicts=[restore_for_eval(cfg, d) for d in ckpt_dirs],
+        device=dev, registry=obs_registry.Registry(enabled=False))
 
     passes = [("eval", data_dir, split)]
     if threshold_split:
@@ -895,6 +936,20 @@ def evaluate_checkpoints(
         _write_probs_csv(save_probs, eval_names, grades_by["eval"], probs,
                          head, quality_by_name)
         report["probs_file"] = save_probs
+    if profile_out:
+        profile = quality_lib.build_profile(
+            _referable(probs, head),
+            labels=(grades_by["eval"] >= 2).astype(np.float64),
+            stat_values=quality_lib.split_input_stats(
+                data_dir, split, cfg.eval.batch_size, cfg.model.image_size),
+            thresholds=[{"target_specificity": row["target_specificity"],
+                         "threshold": row["threshold"]}
+                        for row in report["operating_points"]],
+            bins=cfg.obs.quality.score_bins,
+            meta={"config": cfg.name, "split": split,
+                  "n_models": len(ckpt_dirs), "source": "evaluate"})
+        quality_lib.save_profile(profile_out, profile)
+        report["profile_out"] = profile_out
     report["split"] = split
     report["n_models"] = len(ckpt_dirs)
     return report

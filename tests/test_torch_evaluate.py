@@ -121,9 +121,6 @@ def test_evaluate_refuses_what_it_cannot_honour(exported):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer.evaluate_checkpoints(cfg, data, dirs, backend="tf",
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        trainer.evaluate_checkpoints(cfg, data, dirs, profile_out="/p.json",
-                                     device="cpu")
     with pytest.raises(ValueError, match="threshold_split"):
         trainer.evaluate_checkpoints(cfg, data, dirs, calibrate=True,
                                      device="cpu")
@@ -132,6 +129,40 @@ def test_evaluate_refuses_what_it_cannot_honour(exported):
                                      device="cpu")
     with pytest.raises(ValueError, match="at least one"):
         trainer.evaluate_checkpoints(cfg, data, [], device="cpu")
+
+
+@pytest.mark.parametrize("split", ["val", "test"])
+def test_profile_out_gives_the_jax_profile(exported, tmp_path, split):
+    """``evaluate_checkpoints(profile_out=)`` on the exported k=2 ensemble
+    against the JAX ``evaluate_checkpoints`` on its checkpoints: the same
+    score and input-statistic histograms, base rate, counts and meta,
+    and thresholds within 1e-6 (the scores' agreement); the port's
+    profile loads in the JAX package and the JAX one in the port."""
+    from jama16_retina_tpu.obs import quality as jax_quality
+    from jama16_retina_tpu_torch.obs import quality
+
+    data, jax_root, port_root = exported
+    members = ["member_00", "member_01"]
+    jcfg = jax_configs.override(jax_configs.get_config("smoke"), F32)
+    cfg = configs.override(configs.get_config("smoke"), F32)
+    want_path, got_path = str(tmp_path / "jax.json"), str(tmp_path / "p.json")
+    jax_trainer.evaluate_checkpoints(
+        jcfg, data, [os.path.join(jax_root, m) for m in members],
+        split=split, profile_out=want_path)
+    report = trainer.evaluate_checkpoints(
+        cfg, data, [os.path.join(port_root, m) for m in members],
+        split=split, profile_out=got_path, device="cpu")
+    assert report["profile_out"] == got_path
+    # Each package reads the other's artifact.
+    want = quality.load_profile(want_path)
+    got = jax_quality.load_profile(got_path)
+    thresholds = got.pop("thresholds")
+    want_thresholds = want.pop("thresholds")
+    assert got == want
+    assert len(thresholds) == 2
+    _close(thresholds, want_thresholds, atol=1e-6)
+    assert got["n_examples"] == {"val": 12, "test": 14}[split]
+    assert sum(got["input_stats"]["std"]) == got["n_examples"]
 
 
 def test_exported_member_is_the_jax_eval_tree(exported):

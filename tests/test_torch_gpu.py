@@ -430,3 +430,44 @@ def test_bf16_fused_step_on_the_card(cuda):
             *state.model.parameters(), *state.mu.values(),
             *state.nu.values()))
     assert abs(losses["bf16"] - losses["fp32"]) < 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("parallel", [False, True], ids=["in_turn", "vmap"])
+def test_serving_dtypes_and_member_parallel_on_the_card(cuda, dtype,
+                                                        parallel):
+    """The smoke preset's engine at each serving dtype, members in turn and
+    in one vmap, on the card against the same engine on the CPU (float32
+    compute, TF32 off): within 1e-4, and the fused preprocess launched
+    once per chunk."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, models
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    cfg = configs.override(configs.get_config("smoke"), [
+        "model.compute_dtype=float32", "serve.max_batch=8",
+        "serve.fused_preprocess=true", f"serve.dtype={dtype}",
+        f"serve.member_parallel={parallel}"])
+    sds = []
+    for m in range(2):
+        gen = torch.Generator().manual_seed(m)
+        sds.append({k: (v if k.endswith((".mean", ".var"))
+                        else v + 0.05 * torch.randn(v.shape, generator=gen))
+                    for k, v in models.build(cfg.model).state_dict().items()})
+    imgs = np.random.default_rng(0).integers(0, 256, (11, 64, 64, 3),
+                                             np.uint8)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = sp.launches
+        card = ServingEngine(cfg, state_dicts=sds, device=cuda,
+                             registry=Registry()).member_probs(imgs)
+        assert sp.launches == before + 2
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cpu = ServingEngine(cfg, state_dicts=sds, device="cpu",
+                        registry=Registry()).member_probs(imgs)
+    assert np.abs(card - cpu).max() <= 1e-4

@@ -3,6 +3,7 @@ its entry points never run on the CPU unless asked, its kernel wrappers
 never fall back from the card to the plain version, and config knobs
 it cannot honour raise instead of being ignored."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -28,9 +29,9 @@ for name in names:
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "tensorflow", "absl")
+                                    "tensorflow", "absl", "aqt")
              or m == "jama16_retina_tpu" or m.startswith("jama16_retina_tpu."))
-print(len(names), bad)
+print(len(names), bad, "|", " ".join(names))
 """
 
 
@@ -38,12 +39,17 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.split(" ", 1)
+    head, names = out.stdout.split("|")
+    n_modules, bad = head.split(" ", 1)
     # Every module of the package: the train slice's (train_lib, trainer,
-    # train, ops/color_jitter, ops/adamw, models/init) and the fit and
+    # train, ops/color_jitter, ops/adamw, models/init), the fit and
     # evaluate slice's (data/tfrecord, data/pipeline, utils/logging,
-    # evaluate) included.
-    assert int(n_modules) >= 25
+    # evaluate) and the serving knobs' (obs, integrity, serve/quantize,
+    # serve/batcher) included.
+    assert int(n_modules) >= 31
+    assert {f"jama16_retina_tpu_torch.{m}" for m in (
+        "obs.registry", "obs.quality", "integrity.artifact",
+        "serve.quantize", "serve.batcher")} <= set(names.split())
     assert bad.strip() == "[]"
 
 
@@ -144,8 +150,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("item,exc", [
-    ("serve.dtype=bf16", NotImplementedError),
-    ("serve.member_parallel=true", NotImplementedError),
+    ("obs.quality.alert_rules=quality.score_psi > 0.3", NotImplementedError),
+    ("obs.quality.alert_for_s=60", NotImplementedError),
     ("serve.compile_cache_dir=/x", NotImplementedError),
     ("model.stem_s2d=true", NotImplementedError),
     ("model.remat_stem=true", NotImplementedError),
@@ -193,12 +199,45 @@ def test_unknown_arch_or_head_raises():
 
 
 @pytest.mark.parametrize("item", [
-    "train.steps=x", "serve.max_wait_ms=1", "model.aux_weight=x",
+    "train.steps=x", "serve.max_wait_ms=x", "model.aux_weight=x",
     "train.stpes=3", "serve", "serve.max_batch", "serve.max_batch.x=1",
 ])
 def test_unknown_or_malformed_overrides_raise(item):
     with pytest.raises(ValueError):
         configs.override(configs.get_config("smoke"), [item])
+
+
+@pytest.mark.parametrize("item", [
+    "serve.cascade_band=0.1", "serve.router_replicas=2",
+    "serve.rollback_keep_s=0", "obs.flush_every_s=1",
+    "obs.audit.enabled=true", "obs.quality.psi_alert=0.5"])
+def test_refused_serving_and_obs_knobs_name_their_roadmap_item(item):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
+        configs.check_supported(
+            configs.override(configs.get_config("smoke"), [item]))
+
+
+def test_serving_knobs_take_the_jax_names_and_defaults():
+    """The serve and obs.quality fields the port reads, against the JAX
+    package's ServeConfig and QualityConfig."""
+    from jama16_retina_tpu import configs as jax_configs
+
+    ours, theirs = configs.ExperimentConfig(), jax_configs.ExperimentConfig()
+    for f in dataclasses.fields(ours.serve):
+        assert getattr(ours.serve, f.name) == getattr(theirs.serve, f.name)
+    assert ours.obs.quality == configs.QualityConfig(
+        **dataclasses.asdict(theirs.obs.quality))
+    assert ours.obs.enabled is theirs.obs.enabled is True
+    cfg = configs.override(configs.get_config("smoke"), [
+        "serve.dtype=int8", "serve.member_parallel=true",
+        "serve.max_wait_ms=2.5", "serve.shed_queue_depth=4",
+        "serve.shed_in_flight=9", "serve.default_deadline_ms=250",
+        "serve.dtype_canary_max_dev=0.01", "obs.quality.enabled=true",
+        "obs.quality.window_scores=64", "obs.quality.canary_atol=1e-6"])
+    configs.check_supported(cfg)
+    assert (cfg.serve.dtype, cfg.serve.member_parallel, cfg.serve.max_wait_ms,
+            cfg.serve.default_deadline_ms) == ("int8", True, 2.5, 250.0)
+    assert cfg.obs.quality.window_scores == 64
 
 
 def test_overrides_parse_like_the_jax_package():

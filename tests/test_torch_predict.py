@@ -103,3 +103,36 @@ def test_predict_strict_exit_2_and_empty_glob_error(setup, capsys, tmp_path):
     code, rows = _run(capsys, base + [f"--images={imgdir}/junk.jpeg"])
     assert code == 1 and rows == [{"image": f"{imgdir}/junk.jpeg",
                                    "error": "unreadable"}]
+
+
+def test_predict_serving_knobs_reach_the_engine(setup, capsys, tmp_path):
+    """``--set serve.dtype=int8 --set serve.member_parallel=true`` serves
+    the rows the JAX int8 engine serves (1e-5); with a canary pinned to
+    other scores and ``serve.dtype_canary_max_dev=0`` under
+    ``obs.quality``, the engine's construction gate refuses the batch."""
+    from jama16_retina_tpu_torch.obs import quality
+    from jama16_retina_tpu_torch.serve.quantize import DtypeRejected
+
+    jcfg, flats, ckdir, imgdir = setup
+    base = [f"--checkpoint_dir={ckdir}", f"--images={imgdir}",
+            "--config=smoke", "--device=cpu", f"--batch_size={BATCH}",
+            "--set", "serve.dtype=int8"]
+    for o in OVERRIDES:
+        base += ["--set", o]
+    code, rows = _run(capsys, base + ["--set", "serve.member_parallel=true"])
+    assert code == 0
+    pre = host.preprocess_paths(predict._expand([imgdir]), 64)
+    ecfg = jcfg.replace(serve=jax_configs.ServeConfig(
+        max_batch=BATCH, bucket_sizes=(BATCH,), dtype="int8"))
+    want = jax_engine.ServingEngine(
+        ecfg, model=jax_models.build(ecfg.model), state=stacked_state(flats),
+        registry=Registry()).probs(pre.images)
+    got = np.array([r["prob"] for r in rows if "error" not in r])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+    canary = quality.save_canary(str(tmp_path / "c"), pre.images[:2],
+                                 np.zeros(2))
+    with pytest.raises(DtypeRejected, match="golden canary"):
+        predict.main(base + ["--set", "obs.quality.enabled=true",
+                             "--set", f"obs.quality.canary_path={canary}",
+                             "--set", "serve.dtype_canary_max_dev=0"])

@@ -4,10 +4,14 @@
 Both configs come from one list of ``--set`` overrides, so the port's
 config names are pinned too. Models run in float32 (the smoke preset's
 default is bf16, whose cross-framework gap is bounded in
-test_torch_models.py), so probabilities agree to 1e-5."""
+test_torch_models.py), so probabilities agree to 1e-5. The
+member-parallel form (``serve.member_parallel``, one vmap over the
+stacked members) is held to the members-in-turn form and to the JAX
+member-parallel engine, within 1e-5."""
 
 import numpy as np
 import pytest
+import torch
 
 from jama16_retina_tpu import configs as jax_configs
 from jama16_retina_tpu import models as jax_models
@@ -19,7 +23,7 @@ from jama16_retina_tpu_torch.ops import serve_preprocess
 from jama16_retina_tpu_torch.serve import host
 from jama16_retina_tpu_torch.serve.engine import ServingEngine, resolve_buckets
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
-from torch_parity import random_flat, stacked_state
+from torch_parity import random_flat, stacked_state, torch_threads
 
 SMOKE = ["model.image_size=64", "model.compute_dtype=float32",
          "serve.max_batch=16"]
@@ -142,3 +146,68 @@ def test_engine_rejects_malformed_requests(smoke_members):
         engine.member_probs(np.zeros((2, 32, 32, 3), np.uint8))
     with pytest.raises(TypeError, match="uint8"):
         engine.member_probs(np.zeros((2, 64, 64, 3), np.float32))
+
+
+def _member_parallel_pair(cfg, sds, imgs):
+    seq = ServingEngine(cfg, state_dicts=sds, device="cpu")
+    par = ServingEngine(configs.override(cfg, ["serve.member_parallel=true"]),
+                        state_dicts=sds, device="cpu")
+    assert par.member_parallel and par.n_members == len(sds)
+    assert par.resident_bytes() == seq.resident_bytes()
+    return par.member_probs(imgs), seq.member_probs(imgs)
+
+
+@pytest.mark.parametrize("extra", [[], ["eval.tta=true"],
+                                   ["serve.dtype=bf16"],
+                                   ["serve.dtype=int8"]],
+                         ids=["fp32", "tta", "bf16", "int8"])
+def test_member_parallel_matches_members_in_turn(smoke_members, extra):
+    """One vmap over the stacked members against the members one after
+    another: float-equivalent, within 1e-5, at every serving dtype."""
+    flats, _ = smoke_members
+    _, pcfg = _configs("smoke", SMOKE + extra)
+    model = models.build(pcfg.model)
+    sds = [convert.flax_to_torch(f, model) for f in flats]
+    got, want = _member_parallel_pair(pcfg, sds, _images(11, 64, seed=8))
+    assert got.shape == want.shape == (2, 11)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("preset,overrides", [
+    ("eyepacs_binary", ["model.image_size=75", "model.aux_head=false"]),
+    ("efficientnet_b4", ["model.image_size=64"]),
+], ids=["inception_v3", "efficientnet_b4"])
+def test_member_parallel_runs_the_custom_functions_under_vmap(preset,
+                                                              overrides):
+    """Inception-v3's SAME average pool and EfficientNet's sigmoid are
+    ``autograd.Function``s: under vmap they run by the rule PyTorch
+    derives from their forward, and agree with the members in turn."""
+    cfg = configs.override(configs.get_config(preset), overrides + [
+        "model.compute_dtype=float32", "serve.max_batch=8"])
+    sds = []
+    for m in range(2):
+        gen = torch.Generator().manual_seed(m)
+        sd = models.build(cfg.model).state_dict()
+        sds.append({k: (v + 0.05 * torch.randn(v.shape, generator=gen)
+                        if not k.endswith((".mean", ".var")) else v)
+                    for k, v in sd.items()})
+    with torch_threads(1):
+        got, want = _member_parallel_pair(cfg, sds,
+                                          _images(3, cfg.model.image_size, 9))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_member_parallel_matches_the_jax_member_parallel_engine(
+        smoke_members):
+    flats, _ = smoke_members
+    jcfg, pcfg = _configs("smoke", SMOKE + ["serve.member_parallel=true"])
+    ref = _jax_engine(jcfg, flats)
+    model = models.build(pcfg.model)
+    port = ServingEngine(pcfg, state_dicts=[
+        convert.flax_to_torch(f, model) for f in flats], device="cpu")
+    for n in (5, 21):
+        imgs = _images(n, 64, seed=30 + n)
+        np.testing.assert_allclose(port.member_probs(imgs),
+                                   ref.member_probs(imgs), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(port.probs(imgs), ref.probs(imgs),
+                                   rtol=0, atol=1e-5)
