@@ -189,6 +189,39 @@ Phases, any failure exits nonzero before the result line:
               the statistics within 1e-9 of a float64 numpy pass, and
               their distance and the histograms' count differences from
               the host pass (``input_stat_values``, float32 sums) printed.
+11. optimizers, recipe, ensemble - after phase 9, on the fit phase's
+              splits. (a) ``eyepacs_binary`` (Inception-v3, 299 px, batch
+              32, bf16 compute, B1) from one seeded init under each of
+              ``train.optimizer`` sgdm, rmsprop, lamb and adamw with
+              ``train.gradient_clip_norm=1.0``: 4 steps (counts set to 0
+              just before, read just after: B1 once a step), finite
+              losses, the median step (steps 2-4), the device launches of
+              one traced step and of the update alone, and peak memory;
+              then one update on the same float32 gradients and state on
+              the card and on the CPU, every parameter and state leaf
+              within 1e-6 relative L2 (1e-5 for lamb). (b) A 4-step
+              ``lamb`` fit with ``train.lr_scale_ref_batch=8`` (evals at 2
+              and 4, cuDNN deterministic): the logged effective learning
+              rate must be 4x ``learning_rate``; rerun with its own
+              ``metrics.jsonl`` as ``train.recipe_curve_ref`` it passes;
+              against that curve shifted by -0.5 it stops at step 2 with
+              ``RecipeCurveRejected``. (c) ``ensemble10`` stacked
+              (``train.ensemble_parallel`` + ``_force``, B1, constant
+              learning rate, cuDNN deterministic): B1 bitwise at the
+              stacked shape [k x 32, 299, 299, 3]; a 4-step fit with
+              evals every 2 at k = 10, or the largest of 8, 6, 4, 2 that
+              fits (each out-of-memory error printed with the free
+              bytes): B1 once a stacked step, every ``member_NN/{best,
+              latest}`` and ``run_meta`` seed, per-member and ensemble
+              val AUCs; the same run cut at step 2 and resumed to 4 ends
+              bitwise where the uninterrupted one did, member by member;
+              one stacked step against the k members stepped in turn
+              (float32, TF32 off, sgdm, batch 8): losses within 1e-3, each
+              member's update within 8 % relative L2 and cosine >= 0.995
+              (the float32 card-vs-CPU gradient bar of phase 5); and the
+              stacked step timed against k member steps in turns
+              (stacked, in turn, in turn, stacked; bf16, batch 32, adamw):
+              median ms, member images/s, peak memory and the ratio.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
@@ -439,12 +472,14 @@ def jitter_inputs(torch, dev, shape, gen):
     return imgs, (affine, offset), (m, contrast, bright)
 
 
-def device_ops(torch, fn) -> list:
+def device_ops(torch, fn, warm: bool = True) -> list:
     """(name, count) of every device operation (kernel, memset, copy) that
-    one ``fn()`` call issues, from a CUDA-only ``torch.profiler`` trace."""
+    one ``fn()`` call issues, from a CUDA-only ``torch.profiler`` trace
+    (after one untraced call when ``warm``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
@@ -2122,6 +2157,473 @@ def phase_serve_knobs(torch, seed: int, smi: str, serve: dict) -> dict:
     return out
 
 
+# Phase 11: the optimizer families at full width, the large-batch recipe
+# fits, and member-parallel ensemble10.
+OPT_FAMILIES = {"sgdm": ["train.optimizer=sgdm"],
+                "rmsprop": ["train.optimizer=rmsprop"],
+                "lamb": ["train.optimizer=lamb"],
+                "adamw+clip": ["train.gradient_clip_norm=1.0"]}
+OPT_STEPS = 4
+# Card-vs-CPU update bound per leaf (relative L2): LAMB's norms reduce in
+# another order on the card.
+OPT_BOUND = {"lamb": 1e-5}
+OPT_BOUND_DEFAULT = 1e-6
+RECIPE_REF_BATCH = 8
+ENSEMBLE_K = 10
+# Tried in turn when a k runs out of device memory.
+ENSEMBLE_KS = (ENSEMBLE_K, 8, 6, 4, 2)
+ENSEMBLE_STEPS = 4
+ENSEMBLE_EVAL_EVERY = 2
+AGREE_BATCH = 8
+RATIO_TURNS = ("stacked", "sequential", "sequential", "stacked")
+RATIO_STEPS = 3
+
+
+def phase_optimizers(torch, seed: int, smi: str) -> dict:
+    """Phase 11a: each optimizer family (and adamw behind the clip) on
+    ``eyepacs_binary`` at full width from one seeded init: 4 steps (B1
+    once a step, counted), finite losses, step time, launches and peak
+    memory; then one update on the same float32 gradients and state on
+    the card and on the CPU, held per leaf."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, models, optim, train_lib
+    from jama16_retina_tpu_torch.data import synthetic
+    from jama16_retina_tpu_torch.models import init
+
+    images, grades = synthetic.make_dataset(
+        TRAIN_BATCH, synthetic.SynthConfig(image_size=299), seed=seed + 11)
+    batch = {"image": torch.from_numpy(images).cuda(),
+             "grade": torch.from_numpy(grades).cuda()}
+    base = init.init_flax_default(
+        models.build(configs.get_config("eyepacs_binary").model), seed)
+    out = {"launches": {}, "families": {}}
+    for fam, items in OPT_FAMILIES.items():
+        family = fam.split("+")[0]
+        cfg = configs.override(configs.get_config("eyepacs_binary"), [
+            "train.steps=1000", f"train.seed={seed}",
+            f"data.batch_size={TRAIN_BATCH}", *items])
+        model = models.build(cfg.model)
+        model.load_state_dict(base.state_dict())
+        state = train_lib.create_state(cfg, model, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # The main path: counts set to 0 just before, read just after.
+        reset_launch_counts()
+        losses, times = [], []
+        for _ in range(OPT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(train_lib.train_step(state, batch, cfg)))
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(counts == {"fused_color_jitter": OPT_STEPS,
+                         "fused_normalize_color_jitter": 0,
+                         "fused_adamw_update": 0,
+                         "fused_serve_preprocess": 0},
+              f"the {fam} steps launched {counts}")
+        check(bool(np.all(np.isfinite(losses))),
+              f"{fam} losses not finite: {losses}")
+        out["launches"][f"optim_{fam}"] = counts
+        step_ops = sum(n for _, n in device_ops(
+            torch, lambda: train_lib.train_step(state, batch, cfg),
+            warm=False))
+        # One update on the same float32 gradients and state, card and CPU.
+        _, grads = train_lib.compute_grads(state, batch, cfg)
+        names = [k for k, _ in state.model.named_parameters()]
+        params = dict(state.model.named_parameters())
+        moms = train_lib.moments(state)
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            p = [params[k].detach().to(dev, copy=True) for k in names]
+            m = {n: [moms[n][k].to(dev, copy=True) for k in names]
+                 for n in moms}
+            g = [t.to(dev, copy=True) for t in grads]
+            count = (None if state.count is None
+                     else state.count.to(dev, copy=True))
+
+            def update(p=p, g=g, m=m, count=count, dev=dev):
+                optim.apply_update(family, cfg.train, p, g, m, count,
+                                   state.sched_count.to(dev),
+                                   train_lib.make_schedule(cfg.train))
+
+            if dev == "cuda":
+                update_ops = sum(n for _, n in device_ops(torch, update,
+                                                          warm=False))
+            else:
+                update()
+            sides[dev] = p + [t for n in sorted(m) for t in m[n]]
+        worst = 0.0
+        for a, b in zip(sides["cuda"], sides["cpu"]):
+            a64, b64 = a.cpu().double(), b.double()
+            rel = float((a64 - b64).norm() / max(float(b64.norm()), 1e-30))
+            worst = max(worst, rel)
+        bound = OPT_BOUND.get(family, OPT_BOUND_DEFAULT)
+        check(worst <= bound, f"{fam}: the card's update is {worst:.3g} "
+              f"(relative L2, worst leaf) from the CPU's, bound {bound}")
+        med = statistics.median(times[1:])
+        out["families"][fam] = {
+            "step_ms": med, "step_ms_range": [min(times[1:]), max(times[1:])],
+            "launches_per_step": step_ops, "update_launches": update_ops,
+            "peak_bytes": peak, "card_vs_cpu": worst, "bound": bound,
+            "losses": losses}
+        log(f"optim: {fam}: losses {[round(x, 5) for x in losses]}; step "
+            f"median {med:.3f} ms (steps 2-{OPT_STEPS}, range "
+            f"{min(times[1:]):.3f}-{max(times[1:]):.3f}), "
+            f"{TRAIN_BATCH * 1e3 / med:.1f} images/s; {step_ops} device "
+            f"launches a step, {update_ops} in the update over "
+            f"{len(names)} leaves; peak device memory {peak} bytes; card vs "
+            f"CPU update {worst:.3g} relative L2 (worst of "
+            f"{len(sides['cpu'])} leaves, bound {bound}) ({smi})")
+        del state, sides, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_recipe(torch, seed: int, smi: str, root: Path, data: Path) -> dict:
+    """Phase 11b: a 4-step ``lamb`` fit with ``lr_scale_ref_batch=8`` on
+    the fit phase's splits (its effective learning rate, logged, must be
+    4x ``learning_rate``), rerun against its own curve as
+    ``recipe_curve_ref`` (passes), then against that curve shifted by 0.5
+    (stops with ``RecipeCurveRejected``)."""
+    import logging
+
+    from jama16_retina_tpu_torch import train_lib
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    class Grab(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    # cuDNN deterministic: the gated rerun must see the first run's curve.
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    grab = Grab()
+    lib_log = logging.getLogger(train_lib.__name__)
+    level = lib_log.level
+    lib_log.addHandler(grab)
+    lib_log.setLevel(logging.INFO)
+    out = {"launches": {}}
+    items = ["train.optimizer=lamb",
+             f"train.lr_scale_ref_batch={RECIPE_REF_BATCH}",
+             "train.lr_schedule=warmup_cosine", "train.warmup_steps=1",
+             f"train.eval_every={ENSEMBLE_EVAL_EVERY}"]
+    try:
+        cfg = fit_config(ENSEMBLE_STEPS, root / "recipe_a", seed, *items)
+        _, counts, recs = fit_run(torch, cfg, data)
+    finally:
+        lib_log.removeHandler(grab)
+        lib_log.setLevel(level)
+    out["launches"]["recipe_fit"] = counts
+    check(counts["fused_color_jitter"] == ENSEMBLE_STEPS,
+          f"the recipe fit launched {counts}")
+    lines = [s for s in grab.lines if s.startswith("large-batch recipe")]
+    check(len(lines) == 1, f"the recipe logged {grab.lines}")
+    eff = float(re.search(r"-> (\S+) \(lamb\)", lines[0]).group(1))
+    want = cfg.train.learning_rate * TRAIN_BATCH / RECIPE_REF_BATCH
+    check(abs(eff - want) <= 1e-6 * want and TRAIN_BATCH
+          == 4 * RECIPE_REF_BATCH,
+          f"effective LR {eff} != {want} (4x {cfg.train.learning_rate})")
+    curve = {r["step"]: r["val_auc"] for r in recs if r["kind"] == "eval"}
+    ref = root / "recipe_a" / "metrics.jsonl"
+    again_cfg = fit_config(ENSEMBLE_STEPS, root / "recipe_b", seed, *items,
+                           f"train.recipe_curve_ref={ref}")
+    _, counts, again = fit_run(torch, again_cfg, data)
+    out["launches"]["recipe_gated"] = counts
+    again_curve = {r["step"]: r["val_auc"] for r in again
+                   if r["kind"] == "eval"}
+    check(sorted(again_curve) == sorted(curve),
+          f"the gated rerun evaluated {sorted(again_curve)}")
+    shifted = root / "recipe_shifted.jsonl"
+    with open(shifted, "w") as f:
+        for step, auc in curve.items():
+            f.write(json.dumps({"kind": "eval", "step": step,
+                                "val_auc": auc - 0.5}) + "\n")
+    refused = None
+    try:
+        fit_run(torch, fit_config(ENSEMBLE_STEPS, root / "recipe_c", seed,
+                                  *items,
+                                  f"train.recipe_curve_ref={shifted}"), data)
+    except train_lib.RecipeCurveRejected as e:
+        refused = str(e)
+    check(refused is not None and f"step {ENSEMBLE_EVAL_EVERY}" in refused,
+          f"the shifted curve was not refused at step "
+          f"{ENSEMBLE_EVAL_EVERY}: {refused}")
+    done = [r for r in read_jsonl(root / "recipe_c" / "metrics.jsonl")
+            if r["kind"] == "eval"]
+    log(f"recipe: lamb, batch {TRAIN_BATCH}, lr_scale_ref_batch="
+        f"{RECIPE_REF_BATCH}: logged \"{lines[0]}\"; effective LR {eff:g} = "
+        f"4 x {cfg.train.learning_rate:g}; val AUC {curve}; the rerun gated "
+        f"on that curve (tol {cfg.train.recipe_curve_tol}) passed with "
+        f"{again_curve}; the curve shifted by -0.5 refused after "
+        f"{len(done)} eval: {refused} ({smi})")
+    for name in ("recipe_a", "recipe_b", "recipe_c"):
+        shutil.rmtree(root / name, ignore_errors=True)
+    torch.backends.cudnn.deterministic = flags
+    return out
+
+
+def ensemble_config(k: int, steps: int, workdir: Path, seed: int, *extra):
+    """``ensemble10`` cut to ``k`` members and ``steps`` steps, stacked,
+    with ``data.use_pallas`` (B1) and a constant learning rate (so a run
+    cut at step 2 and resumed is the uninterrupted run)."""
+    from jama16_retina_tpu_torch import configs
+
+    return configs.override(configs.get_config("ensemble10"), [
+        f"train.ensemble_size={k}", "train.ensemble_parallel=true",
+        "train.ensemble_parallel_force=true", "data.use_pallas=true",
+        "train.lr_schedule=constant", f"train.steps={steps}",
+        f"train.eval_every={ENSEMBLE_EVAL_EVERY}", "train.log_every=1",
+        f"train.seed={seed}", f"train.checkpoint_dir={workdir}",
+        f"data.batch_size={TRAIN_BATCH}", *extra])
+
+
+def ensemble_fit(torch, cfg, data: Path) -> "tuple[list, dict, list, int]":
+    """``trainer.fit_ensemble`` (stacked), counts set to 0 just before and
+    read just after -> (result, counts, metrics records, peak bytes)."""
+    from jama16_retina_tpu_torch import trainer
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    workdir = cfg.train.checkpoint_dir
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    result = trainer.fit_ensemble(cfg, str(data), workdir, device="cuda")
+    counts = launch_counts()
+    return (result, counts,
+            read_jsonl(f"{workdir}/{trainer.METRICS_FILE}"),
+            torch.cuda.max_memory_allocated())
+
+
+def phase_ensemble(torch, seed: int, smi: str, root: Path, data: Path
+                   ) -> dict:
+    """Phase 11c: member-parallel ``ensemble10`` on the fit phase's
+    splits: B1 at the stacked shape against its plain version; the
+    stacked fit (the largest k of ``ENSEMBLE_KS`` that fits, each
+    out-of-memory error recorded); layout, a resume from step 2 bitwise
+    the uninterrupted run; the stacked step against the members in turn;
+    and the stacked step timed against k member steps in turns."""
+    import gc
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, models, train_lib
+    from jama16_retina_tpu_torch.data import synthetic
+    from jama16_retina_tpu_torch.models import init
+    from jama16_retina_tpu_torch.ops import color_jitter as cj
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    out = {"launches": {}, "oom": []}
+    dev = torch.device("cuda")
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        free, total = torch.cuda.mem_get_info()
+        log(f"ensemble: device memory before the phase: {free} of {total} "
+            f"bytes free ({smi})")
+        k = None
+        for k_try in ENSEMBLE_KS:
+            gen = torch.Generator(device=dev).manual_seed(seed + 3)
+            imgs, b1_args, _ = jitter_inputs(
+                torch, dev, (k_try * TRAIN_BATCH, 299, 299, 3), gen)
+            got = cj.fused_color_jitter(imgs, *b1_args)
+            want = cj.color_jitter_reference(imgs, *b1_args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"fused_color_jitter differs at "
+                  f"the stacked shape [{k_try * TRAIN_BATCH}, 299, 299, 3]")
+            log(f"kernels: fused_color_jitter [{k_try * TRAIN_BATCH}, 299, "
+                "299, 3] (the stacked step's one launch) bitwise")
+            del imgs, b1_args, got, want
+            full = root / f"ens{k_try}_full"
+            try:
+                res, counts, recs, peak = ensemble_fit(
+                    torch, ensemble_config(k_try, ENSEMBLE_STEPS, full, seed),
+                    data)
+                k = k_try
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                msg = str(e).splitlines()[0]
+                free, total = torch.cuda.mem_get_info()
+                out["oom"].append({"k": k_try, "error": msg})
+                log(f"ensemble: k={k_try} ran out of device memory: {msg} "
+                    f"(after cleanup {free} of {total} bytes free)")
+                del e
+                gc.collect()
+                torch.cuda.empty_cache()
+                shutil.rmtree(full, ignore_errors=True)
+        check(k is not None, f"no k of {ENSEMBLE_KS} fits: {out['oom']}")
+        out["k"] = k
+        out["launches"]["ensemble_fit"] = counts
+        check(counts == {"fused_color_jitter": ENSEMBLE_STEPS,
+                         "fused_normalize_color_jitter": 0,
+                         "fused_adamw_update": 0,
+                         "fused_serve_preprocess": 0},
+              f"the stacked fit launched {counts}, want B1 once a step")
+        for m in range(k):
+            mdir = Path(ckpt_lib.member_dir(str(full), m))
+            check(sorted(p.name for p in (mdir / "latest").iterdir())
+                  == [str(ENSEMBLE_STEPS)] and any((mdir / "best").iterdir()),
+                  f"member {m} lacks best/ or latest/{ENSEMBLE_STEPS}")
+            with open(mdir / "run_meta.json") as f:
+                check(json.load(f)["seed"] == seed + m,
+                      f"member {m} run_meta seed")
+        evals = [r for r in recs if r["kind"] == "eval"]
+        check([r["step"] for r in evals] == [2, 4]
+              and all(len(r["val_auc_per_member"]) == k
+                      and 0.0 <= r["ensemble_val_auc"] <= 1.0
+                      for r in evals), f"stacked eval records {evals}")
+        trains = [r for r in recs if r["kind"] == "train"]
+        check(all(np.all(np.isfinite(r["loss_per_member"])) for r in trains),
+              "a member's loss is not finite")
+        out["peak"] = peak
+        log(f"ensemble: k={k} stacked fit of {ENSEMBLE_STEPS} steps: "
+            f"ensemble val AUC {[r['ensemble_val_auc'] for r in evals]}, "
+            f"best steps {[r['best_step'] for r in res]}, launches {counts}, "
+            f"peak device memory {peak} bytes ({smi})")
+
+        # Resume from step 2 to 4, bitwise the uninterrupted run.
+        cut = root / f"ens{k}_cut"
+        _, counts, _, _ = ensemble_fit(
+            torch, ensemble_config(k, ENSEMBLE_EVAL_EVERY, cut, seed), data)
+        out["launches"]["ensemble_cut"] = counts
+        _, counts, recs, _ = ensemble_fit(
+            torch, ensemble_config(k, ENSEMBLE_STEPS, cut, seed,
+                                   "train.resume=true"), data)
+        out["launches"]["ensemble_resume"] = counts
+        check(counts["fused_color_jitter"] == ENSEMBLE_STEPS
+              - ENSEMBLE_EVAL_EVERY, f"the resumed fit launched {counts}")
+        check([r["step"] for r in recs if r["kind"] == "resume"]
+              == [ENSEMBLE_EVAL_EVERY], "no resume record at step 2")
+        differ = []
+        for m in range(k):
+            a = ckpt_lib.Checkpointer(ckpt_lib.member_dir(str(full), m))
+            b = ckpt_lib.Checkpointer(ckpt_lib.member_dir(str(cut), m))
+            x, y = a.restore(ENSEMBLE_STEPS), b.restore(ENSEMBLE_STEPS)
+            if set(x) != set(y) or any(not np.array_equal(x[n], y[n])
+                                       for n in x):
+                differ.append(m)
+        check(not differ, f"resumed members {differ} differ from the "
+              "uninterrupted run at the last step")
+        log(f"ensemble: k={k} cut at step {ENSEMBLE_EVAL_EVERY} and resumed "
+            f"to {ENSEMBLE_STEPS}: all {k} members' step-{ENSEMBLE_STEPS} "
+            "checkpoints bitwise the uninterrupted run's (cuDNN "
+            "deterministic)")
+        for path in (full, cut):
+            shutil.rmtree(path, ignore_errors=True)
+
+        # The stacked step against the members stepped in turn: float32,
+        # TF32 off, sgdm, one step on AGREE_BATCH canvases.
+        agree = configs.override(ensemble_config(k, 1000, root, seed), [
+            "model.compute_dtype=float32", "train.optimizer=sgdm"])
+        canv = render(seed + 21, AGREE_BATCH)
+        small = {"image": torch.from_numpy(canv).cuda(),
+                 "grade": torch.arange(AGREE_BATCH, device=dev) % 5}
+        seeds = [seed + m for m in range(k)]
+        state = train_lib.create_ensemble_state(agree, seeds, dev)
+        before = {n: p.detach().clone() for n, p in state.params.items()}
+        losses = train_lib.ensemble_train_step(state, small, agree)
+        stacked = train_lib.eval_state_dicts(state)
+        del state
+        worst = {"loss": 0.0, "rel": 0.0, "cos": 1.0}
+        for m, s in enumerate(seeds):
+            mcfg = configs.override(agree, [f"train.seed={s}",
+                                             "train.ensemble_size=1"])
+            single = train_lib.create_state(
+                mcfg, init.init_flax_default(models.build(mcfg.model), s),
+                dev)
+            loss = float(train_lib.train_step(single, small, mcfg))
+            worst["loss"] = max(worst["loss"], abs(loss - float(losses[m])))
+            num = den = dot = nrm = 0.0
+            for n, p in single.model.named_parameters():
+                d_single = (p.detach() - before[n][m]).double()
+                d_stack = (stacked[m][n] - before[n][m]).double()
+                num += float((d_stack - d_single).square().sum())
+                den += float(d_single.square().sum())
+                dot += float((d_stack * d_single).sum())
+                nrm += float(d_stack.square().sum())
+            worst["rel"] = max(worst["rel"], (num / den) ** 0.5)
+            worst["cos"] = min(worst["cos"], dot / (nrm * den) ** 0.5)
+            del single
+        del stacked, before
+        torch.cuda.empty_cache()
+        check(worst["loss"] <= 1e-3 and worst["rel"] <= 0.08
+              and worst["cos"] >= 0.995,
+              f"the stacked step vs the members in turn: {worst}")
+        out["agreement"] = worst
+        log(f"ensemble: k={k} stacked step vs the members in turn (float32, "
+            f"TF32 off, sgdm, batch {AGREE_BATCH}, one step): loss within "
+            f"{worst['loss']:.3g} (bound 1e-3), worst member's update "
+            f"{worst['rel']:.3g} relative L2 (bound 0.08) and cosine "
+            f"{worst['cos']:.6f} (bound 0.995)")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            flags)
+
+    # The card's ratio: the stacked step against k member steps, in turns,
+    # preset form (bf16 compute, B1, adamw), batch 32 in memory.
+    cfg = ensemble_config(k, 1000, root, seed)
+    images, grades = synthetic.make_dataset(
+        TRAIN_BATCH, synthetic.SynthConfig(image_size=299), seed=seed + 13)
+    batch = {"image": torch.from_numpy(images).cuda(),
+             "grade": torch.from_numpy(grades).cuda()}
+    seeds = [seed + m for m in range(k)]
+    state = train_lib.create_ensemble_state(cfg, seeds, dev)
+    singles = []
+    for s in seeds:
+        mcfg = configs.override(cfg, [f"train.seed={s}",
+                                      "train.ensemble_size=1"])
+        singles.append((mcfg, train_lib.create_state(
+            mcfg, init.init_flax_default(models.build(mcfg.model), s), dev)))
+    turns = {"stacked": [], "sequential": []}
+    peaks = {"stacked": 0, "sequential": 0}
+    for turn in RATIO_TURNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(1 + RATIO_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if turn == "stacked":
+                train_lib.ensemble_train_step(state, batch, cfg)
+            else:
+                for mcfg, single in singles:
+                    train_lib.train_step(single, batch, mcfg)
+            torch.cuda.synchronize()
+            if i:
+                turns[turn].append((time.perf_counter() - t0) * 1e3)
+        peaks[turn] = max(peaks[turn], torch.cuda.max_memory_allocated())
+    ratio = {}
+    for form, times in turns.items():
+        med = statistics.median(times)
+        ratio[form] = {"step_ms": med, "range": [min(times), max(times)],
+                       "member_images_per_sec": k * TRAIN_BATCH * 1e3 / med,
+                       "peak_bytes": peaks[form]}
+    speedup = ratio["sequential"]["step_ms"] / ratio["stacked"]["step_ms"]
+    out["ratio"] = {**ratio, "stacked_speedup": speedup}
+    log(f"times: ensemble k={k} (bf16, batch {TRAIN_BATCH}, B1, adamw), in "
+        f"turns {list(RATIO_TURNS)}, {RATIO_STEPS} timed steps a turn: "
+        f"stacked step {ratio['stacked']['step_ms']:.1f} ms (range "
+        f"{ratio['stacked']['range'][0]:.1f}-"
+        f"{ratio['stacked']['range'][1]:.1f}), "
+        f"{ratio['stacked']['member_images_per_sec']:.1f} member images/s, "
+        f"peak {peaks['stacked']} bytes; {k} member steps in turn "
+        f"{ratio['sequential']['step_ms']:.1f} ms (range "
+        f"{ratio['sequential']['range'][0]:.1f}-"
+        f"{ratio['sequential']['range'][1]:.1f}), "
+        f"{ratio['sequential']['member_images_per_sec']:.1f} member "
+        f"images/s, peak {peaks['sequential']} bytes; stacked speedup "
+        f"{speedup:.3f}x ({smi})")
+    del state, singles
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"jama16_retina_tpu_torch/ops/csrc/{source}",
@@ -2222,6 +2724,12 @@ def main(argv=None) -> int:
     steps = train_step_times(torch, args.seed, smi)
     fit = phase_fit(torch, args.seed, smi, steps["preset"]["step_ms"])
     knobs = phase_knobs(torch, args.seed, smi, fit)
+    t_phase = time.perf_counter()
+    optimizers = phase_optimizers(torch, args.seed, smi)
+    recipe = phase_recipe(torch, args.seed, smi, fit["root"], fit["data"])
+    ensemble = phase_ensemble(torch, args.seed, smi, fit["root"], fit["data"])
+    log(f"times: phase 11 (optimizers, recipe, ensemble) wall "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
     shutil.rmtree(fit["root"], ignore_errors=True)
     torch.cuda.empty_cache()
     for form, t in train.items():
@@ -2266,7 +2774,9 @@ def main(argv=None) -> int:
             **{f"train_{form}": t["launches"] for form, t in train.items()},
             **{f"fit_{run}": n for run, n in fit["launches"].items()},
             **knobs["launches"], **model_runs,
-            "serve_knobs": knobs_serve["launches"]}
+            "serve_knobs": knobs_serve["launches"],
+            **optimizers["launches"], **recipe["launches"],
+            **ensemble["launches"]}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

@@ -77,8 +77,19 @@ class TrainConfig:
     lr_schedule: str = "cosine"  # constant | cosine | warmup_cosine
     warmup_steps: int = 500
     weight_decay: float = 4e-5
+    # adamw | sgdm | rmsprop | lamb (optim.py), each optax's chain.
     optimizer: str = "adamw"
     momentum: float = 0.9
+    # The large-batch recipe: with a reference batch R > 0 the peak
+    # learning rate becomes learning_rate * data.batch_size / R, resolved
+    # once at fit entry (train_lib.resolve_large_batch).
+    lr_scale_ref_batch: int = 0
+    # A pinned baseline run's metrics.jsonl: a recipe run (lamb, or a
+    # scaled learning rate) whose val AUC drifts beyond recipe_curve_tol
+    # of it at a matching step is refused (train_lib.RecipeCurveRejected).
+    # Empty = ungated (logged).
+    recipe_curve_ref: str = ""
+    recipe_curve_tol: float = 0.02
     # fp32 | bf16: bf16 runs forward and backward on a bfloat16 view of
     # float32 master weights (train_lib.compute_grads).
     dtype: str = "fp32"
@@ -109,6 +120,12 @@ class TrainConfig:
     save_first_eval: bool = True
     seed: int = 0
     ensemble_size: int = 1
+    # Train the ensemble_size members in one stacked step
+    # (trainer.fit_ensemble_parallel) instead of one after another. On
+    # one device the members are trained in turn anyway, with the reason
+    # logged, unless ensemble_parallel_force.
+    ensemble_parallel: bool = False
+    ensemble_parallel_force: bool = False
     init_from: str = ""
     distill_from: str = ""
     async_save: bool = False
@@ -294,28 +311,34 @@ _UNIMPLEMENTED = {
     ("obs.quality", "input_psi_alert"): (0.25, _ALERTS),
     ("obs.quality", "alert_for_s"): (0.0, _ALERTS),
     ("obs.quality", "alert_rules"): ((), _ALERTS),
-    ("train", "optimizer"): (
-        "adamw", "Queue A item 4 (sgdm, rmsprop, lamb)"),
-    ("train", "gradient_clip_norm"): (
-        0.0, "Queue A item 4 (gradient clipping)"),
     ("train", "distill_from"): ("", "Queue A item 9 (distillation)"),
 }
-# JAX-package fields this port has no copy of yet. Overriding one raises
-# NotImplementedError naming its item; any other unknown field is a typo
-# and raises ValueError.
+_DATA_PLANE = "Queue A item 7 (the data plane)"
+_MULTI_DEVICE = "Queue A item 8 (multi-device)"
+_PLANES = "Queue A item 11 (planes)"
+# JAX-package fields (or whole sections) this port has no copy of yet.
+# Overriding one raises NotImplementedError naming its item; any other
+# unknown field is a typo and raises ValueError.
 _NOT_PORTED = {
     "train.tensorboard": "Queue A item 11 (planes: TensorBoard mirror)",
     "train.debug": "Queue A item 11 (planes: NaN debugging)",
     "data.shuffle_buffer": "Queue C (the port's train stream shuffles "
                            "the whole split; no buffer)",
     "eval.sharded": "Queue A item 8 (multi-host eval)",
-    "train.ensemble_parallel": "Queue A item 8 (member-parallel ensembles)",
-    "train.recipe_curve_ref": "Queue A items 4 and 8 (the large-batch "
-                              "recipe and its curve gate)",
-    "train.recipe_curve_tol": "Queue A items 4 and 8 (the large-batch "
-                              "recipe and its curve gate)",
-    "train.lr_scale_ref_batch": "Queue A items 4 and 8 (the large-batch "
-                                "recipe and its curve gate)",
+    "train.ensemble_manual_data": _MULTI_DEVICE + " (the manual data axis "
+                                  "of a member-parallel mesh)",
+    "parallel": _MULTI_DEVICE + " (meshes)",
+    **dict.fromkeys(
+        ("data.autotune", "data.hbm_budget_bytes", "data.rawshard_dir",
+         "data.decode_workers", "data.stage_depth",
+         "data.tiered_resident_bytes", "data.stage_per_shard",
+         "data.grain_workers", "data.quarantine_bad_records"),
+        _DATA_PLANE + " (rawshard, hbm, tiered, grain and served loaders, "
+        "autotune, quarantine)"),
+    "train.profile_steps": _PLANES + " (profiler windows)",
+    "lifecycle": _PLANES + " (the lifecycle)",
+    "ingest": _PLANES + " (the ingest service)",
+    "integrity": _PLANES + " (integrity: caches, telemetry retention)",
     **dict.fromkeys(
         ("serve.cascade_band", "serve.cascade_thresholds",
          "serve.cascade_student_dir", "serve.cascade_speculative"),
@@ -353,6 +376,7 @@ _ARCHS = ("inception_v3", "resnet50", "efficientnet_b4", "tiny_cnn")
 _HEADS = ("binary", "multi")
 _DTYPES = ("float32", "bfloat16")
 _SCHEDULES = ("constant", "cosine", "warmup_cosine")
+_OPTIMIZERS = ("adamw", "sgdm", "rmsprop", "lamb")
 
 
 def check_supported(cfg: ExperimentConfig, training: bool = False) -> None:
@@ -386,10 +410,12 @@ def check_supported(cfg: ExperimentConfig, training: bool = False) -> None:
     if training and cfg.train.ensemble_size != 1:
         raise NotImplementedError(
             f"train.ensemble_size={cfg.train.ensemble_size!r}: one fit "
-            "trains one model here; trainer.fit_ensemble (the train CLI's "
-            "route) trains the members one after another. Members trained "
-            "in parallel in one program are not ported yet; see ROADMAP.md "
-            "Queue A item 8")
+            "trains one model; trainer.fit_ensemble (the train CLI's route) "
+            "trains the members, one after another or stacked "
+            "(train.ensemble_parallel)")
+    if training and cfg.train.optimizer not in _OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {cfg.train.optimizer!r} (want "
+                         f"one of {_OPTIMIZERS})")
     if training and cfg.train.lr_schedule not in _SCHEDULES:
         raise ValueError(f"unknown lr_schedule {cfg.train.lr_schedule!r}")
     if training and cfg.data.prefetch_batches < 0:
@@ -480,7 +506,7 @@ def override(cfg: ExperimentConfig, dotted: Sequence[str]) -> ExperimentConfig:
     for item in dotted:
         key, eq, raw = item.partition("=")
         parts = key.split(".")
-        for k in (key, ".".join(parts[:2])):
+        for k in (".".join(parts[:i]) for i in range(1, len(parts) + 1)):
             if k in _NOT_PORTED:
                 raise NotImplementedError(
                     f"{key} is not ported yet; see ROADMAP.md "

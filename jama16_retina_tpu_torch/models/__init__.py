@@ -40,6 +40,23 @@ def build(cfg: ModelConfig) -> nn.Module:
     return model.eval()
 
 
+def dropout_shapes(model: nn.Module, batch: int) -> "list[tuple]":
+    """Shapes of the uniform draws one train forward of ``batch`` images
+    makes, in its order: EfficientNet's stochastic depth (one per image
+    in each residual block with a drop rate), then the head's dropout.
+    A ``models.common.Draws`` of these replaces the forward's
+    generator."""
+    shapes = []
+    if isinstance(model, EfficientNet):
+        for name in model.block_names:
+            block = model._modules[name]
+            if block.residual and block.drop_rate > 0.0:
+                shapes.append((batch, 1, 1, 1))
+    if model.dropout_rate > 0.0:
+        shapes.append((batch, model.Logits.in_features))
+    return shapes
+
+
 def head_probs(logits: torch.Tensor, head: str) -> torch.Tensor:
     """Probabilities of one head (``train_lib._probs`` of the JAX
     package): sigmoid of column 0 ([B]) for ``binary``, softmax over the

@@ -50,15 +50,50 @@ def head_mean(x: torch.Tensor) -> torch.Tensor:
     return at_least_f32(x).mean(dim=(2, 3)).to(x.dtype).float()
 
 
+class Draws:
+    """Uniform [0, 1) draws made before a train forward, handed out in the
+    order its dropout and stochastic-depth masks ask for them. It stands
+    in for the forward's generator where a generator cannot run: the
+    stacked-member step (``train_lib.ensemble_train_step``) makes each
+    member's draws from that member's generator outside
+    ``torch.func.vmap``, the numbers a forward with that generator would
+    draw (``models.dropout_shapes`` gives their shapes)."""
+
+    def __init__(self, tensors):
+        self._tensors = list(tensors)
+        self._next = 0
+
+    def uniform(self, shape) -> torch.Tensor:
+        if self._next >= len(self._tensors):
+            raise ValueError("the forward asked for more draws than were "
+                             f"made ({len(self._tensors)})")
+        t = self._tensors[self._next]
+        self._next += 1
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"draw {self._next - 1} has shape "
+                             f"{tuple(t.shape)}, the forward wants "
+                             f"{tuple(shape)}")
+        return t
+
+
+def uniform(shape, generator: "torch.Generator | Draws | None",
+            device) -> torch.Tensor:
+    """A float32 uniform [0, 1) draw of ``shape`` from ``generator`` on
+    ``device``, or the next of a ``Draws``."""
+    if isinstance(generator, Draws):
+        return generator.uniform(shape)
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def dropout(x: torch.Tensor, rate: float,
-            generator: "torch.Generator | None") -> torch.Tensor:
+            generator: "torch.Generator | Draws | None") -> torch.Tensor:
     """Flax ``nn.Dropout`` in train mode: keep each value with
     probability ``1 - rate`` (a uniform draw from ``generator`` on the
     tensor's device) and scale it by ``1 / (1 - rate)``."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = uniform(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

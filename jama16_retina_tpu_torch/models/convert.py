@@ -16,8 +16,9 @@ kernel, to torch's ``(C, 1, k, k)``.
 The port's modules carry the Flax scope names, so the mapping is a
 rename plus a transpose. Every key on either side must be matched:
 an unmatched or missing key, or a shape that disagrees, raises. The
-optax AdamW state (moments and counts) is carried across by the same
-rename and transpose (``optax_adamw_to_port`` / ``port_to_optax_adamw``).
+optax state of each optimizer family (moments and counts) is carried
+across by the same rename and transpose (``optax_to_port`` /
+``port_to_optax``).
 """
 
 from __future__ import annotations
@@ -96,62 +97,108 @@ def torch_to_flax(state: "nn.Module | dict") -> "dict[str, np.ndarray]":
     return flat
 
 
-# The optax adamw state of the JAX package, ``(ScaleByAdamState(count, mu,
-# nu), MaskedState(EmptyState), ScaleByScheduleState(count))``, as a flat
-# numpy dict: ``adam/count``, ``adam/mu/<params path>``, ``adam/nu/<params
-# path>`` and ``schedule/count``, where ``<params path>`` is the Flax key
-# without its ``params/`` collection (``Mixed_5b/.../conv/kernel``). The
-# masked state holds no arrays.
+# The optax state of the JAX package's optimizer families, as a flat numpy
+# dict, where ``<path>`` is the Flax params key without its ``params/``
+# collection (``Mixed_5b/.../conv/kernel``) and every family carries its
+# schedule's count as ``schedule/count`` (``ScaleByScheduleState.count``):
+#
+#   adamw    (ScaleByAdamState(count, mu, nu), MaskedState(EmptyState),
+#            ScaleByScheduleState): adam/count, adam/mu/<path>,
+#            adam/nu/<path>
+#   lamb     (ScaleByAdamState, MaskedState(EmptyState), EmptyState,
+#            ScaleByScheduleState): lamb/count, lamb/mu/<path>,
+#            lamb/nu/<path>
+#   sgdm     (MaskedState(EmptyState), (TraceState(trace),
+#            ScaleByScheduleState)): trace/<path>
+#   rmsprop  (MaskedState(EmptyState), (ScaleByRmsState(nu),
+#            ScaleByScheduleState, TraceState(trace))): rms/nu/<path>,
+#            trace/<path>
+#
+# The masked and trust-ratio states, and the EmptyState that
+# ``clip_by_global_norm`` chains in front, hold no arrays and add no key.
+# The prefixes tell the families apart (adamw and lamb share optax's
+# state type), so a checkpoint names the family that wrote it.
+OPT_PREFIXES = {
+    "adamw": {"mu": "adam/mu", "nu": "adam/nu"},
+    "lamb": {"mu": "lamb/mu", "nu": "lamb/nu"},
+    "sgdm": {"trace": "trace"},
+    "rmsprop": {"nu": "rms/nu", "trace": "trace"},
+}
+OPT_COUNTS = {"adamw": "adam/count", "lamb": "lamb/count"}
+SCHEDULE_COUNT = "schedule/count"
+# Every top-level name an optimizer key may start with.
+OPT_ROOTS = ("adam/", "lamb/", "rms/", "trace/", "schedule/")
 
 
-def optax_adamw_to_port(flat: "dict[str, np.ndarray]", model: nn.Module,
-                        ) -> dict:
-    """The port's AdamW state from the flat optax state: ``{"mu": ...,
-    "nu": ...}`` keyed like ``model.named_parameters()`` (conv moments
-    HWIO -> OIHW, Dense moments transposed, as the params are), and the
-    ``count`` and ``sched_count`` ints. Every parameter must be matched
-    exactly once; anything else raises."""
+def optax_family(flat: "dict[str, np.ndarray]") -> str:
+    """The family whose optax state ``flat`` holds (format above)."""
+    roots = {k.split("/", 1)[0] for k in flat}
+    for family, root in (("adamw", "adam"), ("lamb", "lamb"),
+                         ("rmsprop", "rms")):
+        if root in roots:
+            return family
+    if "trace" in roots:
+        return "sgdm"
+    raise KeyError(f"no optimizer state among {sorted(roots)}")
+
+
+def optax_to_port(flat: "dict[str, np.ndarray]", model: nn.Module,
+                  family: str) -> dict:
+    """The port's state of ``family`` from the flat optax state:
+    ``{"moments": {name: {param key: tensor}}, "count": int or None,
+    "sched_count": int}``, keyed like ``model.named_parameters()`` (conv
+    moments HWIO -> OIHW, Dense moments transposed, as the params are).
+    Every parameter must be matched exactly once per moment; any other
+    key raises."""
     params = dict(model.named_parameters())
-    out: dict = {"mu": {}, "nu": {}}
+    prefixes = OPT_PREFIXES[family]
+    by_prefix = {pre: name for name, pre in prefixes.items()}
+    count_key = OPT_COUNTS.get(family)
+    moments: dict = {name: {} for name in prefixes}
     for key, value in flat.items():
-        if key in ("adam/count", "schedule/count"):
+        if key in (count_key, SCHEDULE_COUNT):
             continue
-        group, _, path = key.partition("/")
-        moment, _, path = path.partition("/")
-        if group != "adam" or moment not in ("mu", "nu") or not path:
-            raise KeyError(f"unexpected optax state key {key!r}")
+        pre = next((p for p in by_prefix if key.startswith(p + "/")), None)
+        path = key[len(pre) + 1:] if pre else ""
+        if pre is None or not path:
+            raise KeyError(f"unexpected optax state key {key!r} for "
+                           f"{family}")
+        name = by_prefix[pre]
         value = np.asarray(value)
         tkey, axes = _torch_key("params/" + path, value.ndim)
         if tkey not in params:
             raise KeyError(f"optax key {key!r} -> {tkey!r} has no parameter "
                            f"in {type(model).__name__}")
-        if tkey in out[moment]:
-            raise KeyError(f"two optax keys map to {moment} of {tkey!r}")
+        if tkey in moments[name]:
+            raise KeyError(f"two optax keys map to {name} of {tkey!r}")
         arr = np.array(value.transpose(axes) if axes else value,
                        np.float32, order="C")
         if arr.shape != tuple(params[tkey].shape):
             raise ValueError(f"{key!r}: shape {value.shape} does not fit "
                              f"{tkey!r} {tuple(params[tkey].shape)}")
-        out[moment][tkey] = torch.from_numpy(arr)
-    for moment in ("mu", "nu"):
-        missing = sorted(set(params) - set(out[moment]))
+        moments[name][tkey] = torch.from_numpy(arr)
+    for name in prefixes:
+        missing = sorted(set(params) - set(moments[name]))
         if missing:
-            raise KeyError(f"optax state lacks {moment} of {len(missing)} "
+            raise KeyError(f"optax state lacks {name} of {len(missing)} "
                            f"parameter(s), e.g. {missing[:3]}")
-    out["count"] = int(flat["adam/count"])
-    out["sched_count"] = int(flat["schedule/count"])
-    return out
+    return {"moments": moments,
+            "count": None if count_key is None else int(flat[count_key]),
+            "sched_count": int(flat[SCHEDULE_COUNT])}
 
 
-def port_to_optax_adamw(mu: dict, nu: dict, count: int,
-                        sched_count: int) -> "dict[str, np.ndarray]":
-    """The flat optax state (format above) of the port's AdamW state."""
-    flat = {"adam/count": np.asarray(count, np.int32),
-            "schedule/count": np.asarray(sched_count, np.int32)}
-    for moment, tree in (("mu", mu), ("nu", nu)):
-        for tkey, tensor in tree.items():
+def port_to_optax(family: str, moments: dict, count: "int | None",
+                  sched_count: int) -> "dict[str, np.ndarray]":
+    """The flat optax state (format above) of the port's state of
+    ``family``: ``moments`` maps each of its names to a dict keyed like
+    ``model.named_parameters()``."""
+    flat = {SCHEDULE_COUNT: np.asarray(sched_count, np.int32)}
+    if family in OPT_COUNTS:
+        flat[OPT_COUNTS[family]] = np.asarray(count, np.int32)
+    for name, pre in OPT_PREFIXES[family].items():
+        for tkey, tensor in moments[name].items():
             arr = torch.as_tensor(tensor).detach().cpu().float().numpy()
             fkey, axes = _flax_key(tkey, arr.ndim)
-            flat[f"adam/{moment}/" + fkey.split("/", 1)[1]] = (
+            flat[f"{pre}/" + fkey.split("/", 1)[1]] = (
                 np.ascontiguousarray(arr.transpose(axes) if axes else arr))
     return flat

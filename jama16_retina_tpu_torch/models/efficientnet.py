@@ -31,7 +31,8 @@ from torch import nn
 
 from jama16_retina_tpu_torch.models.common import (BatchNorm, Dense,
                                                    at_least_f32, conv,
-                                                   dropout, head_mean)
+                                                   dropout, head_mean,
+                                                   uniform)
 
 # (expand_ratio, kernel, stride, out_filters_b0, repeats_b0)
 B0_BLOCKS = (
@@ -139,8 +140,8 @@ class MBConv(nn.Module):
             return x
         if train and self.drop_rate > 0.0:
             keep = 1.0 - self.drop_rate
-            mask = (torch.rand((x.shape[0], 1, 1, 1), generator=generator,
-                               device=x.device) < keep).to(x.dtype)
+            mask = (uniform((x.shape[0], 1, 1, 1), generator, x.device)
+                    < keep).to(x.dtype)
             x = x * mask / keep
         return x + inputs
 

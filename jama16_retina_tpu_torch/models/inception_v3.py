@@ -66,7 +66,12 @@ class _AvgPoolSame(torch.autograd.Function):
         for i, j in ((0, 1), (0, 2), (1, 0), (1, 1), (1, 2), (2, 0), (2, 1),
                      (2, 2)):
             out = out + gd[:, :, i:i + h, j:j + w]
-        return out.to(g.dtype).contiguous(memory_format=torch.channels_last)
+        out = out.to(g.dtype)
+        if torch._C._functorch.is_batchedtensor(out):
+            # Under vmap (the stacked-member step) the layout is the
+            # batching rule's; a memory-format query is not allowed there.
+            return out
+        return out.contiguous(memory_format=torch.channels_last)
 
 
 _avg_pool_same = _AvgPoolSame.apply

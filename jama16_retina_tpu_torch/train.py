@@ -9,7 +9,9 @@
 With ``--data_dir`` (default ``data.train_dir``) it trains on the
 directory's ``train`` TFRecord split with evals on ``val``
 (``trainer.fit``; ``trainer.fit_ensemble`` into ``member_NN`` dirs when
-``train.ensemble_size`` > 1) and writes ``metrics.jsonl``,
+``train.ensemble_size`` > 1, the members in turn, or in one stacked step
+with ``train.ensemble_parallel`` and ``train.ensemble_parallel_force``)
+and writes ``metrics.jsonl``,
 ``run_meta.json`` and the ``best/`` and ``latest/`` checkpoints to
 ``--workdir`` (default ``train.checkpoint_dir``); ``--resume`` (or
 ``--set train.resume=true``) continues the run there. With

@@ -13,17 +13,27 @@ and the view's backward hands them float32 gradients (``_f32_grads``).
 micro-batches run in order (ghost BatchNorm: each normalizes by its own
 moments and updates the running statistics once), with the gradients
 accumulated in float32 as ``acc + g * (1 / accum)``, micro by micro.
-The optimizer is the plain AdamW (``ops/adamw.adamw_reference``,
-optax's adamw with the rank >= 2 decay mask) or, with
-``train.use_pallas_fused``, kernel B3 (``ops/adamw.fused_adamw_update``);
-the augment goes through kernel B1 (``data.use_pallas``) or B2 (fused).
+The optimizer is ``train.optimizer``'s family (``optim.py``: adamw,
+sgdm, rmsprop or lamb, optionally behind ``train.gradient_clip_norm``);
+adamw runs the plain AdamW (``ops/adamw.adamw_reference``) or, with
+``train.use_pallas_fused``, kernel B3 (``ops/adamw.fused_adamw_update``).
+The augment goes through kernel B1 (``data.use_pallas``) or B2 (fused).
 
-The state mirrors the reference's ``TrainState`` and optax's adamw state:
-the step, the model (params and batch statistics), the Adam count and
-moments, the schedule's count and the EMA shadow. Counts and moments live
-on the model's device, so a step reads no host value. ``state_to_flat``
-and ``load_state_flat`` carry the whole state to and from the flat numpy
+The state mirrors the reference's ``TrainState`` and the family's optax
+state: the step, the model (params and batch statistics), the family's
+moments per leaf (``optim.MOMENTS``) with the Adam count where it has
+one, the schedule's count and the EMA shadow. Counts and moments live on
+the model's device, so a step reads no host value. ``state_to_flat`` and
+``load_state_flat`` carry the whole state to and from the flat numpy
 dict a checkpoint stores.
+
+The member-parallel ensemble (``train.ensemble_parallel``) trains k
+members in one stacked state (``EnsembleState``): every leaf gains a
+leading member dimension, and ``ensemble_train_step`` advances all k in
+one forward and backward under ``torch.func.vmap``, the counterpart of
+the reference's ``make_ensemble_train_step`` without a mesh.
+``global_batch`` and ``resolve_large_batch`` are the large-batch
+recipe's learning-rate rule.
 """
 
 from __future__ import annotations
@@ -39,10 +49,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jama16_retina_tpu_torch import configs, models, optim
 from jama16_retina_tpu_torch.configs import ExperimentConfig, TrainConfig
 from jama16_retina_tpu_torch.data import augment
-from jama16_retina_tpu_torch.models import convert
-from jama16_retina_tpu_torch.ops import adamw
+from jama16_retina_tpu_torch.models import common, convert, init
 from jama16_retina_tpu_torch.serve.engine import ServingEngine
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
@@ -56,35 +66,68 @@ class DtypeCurveRejected(RuntimeError):
     ``train_lib.DtypeCurveRejected``)."""
 
 
+class RecipeCurveRejected(RuntimeError):
+    """A large-batch recipe run (``train.optimizer=lamb`` or a scaled
+    learning rate, ``train.lr_scale_ref_batch``) drifted beyond
+    ``train.recipe_curve_tol`` of the pinned baseline curve
+    (``train.recipe_curve_ref``) at an eval step: the run stops with the
+    step and both AUCs named (the reference's
+    ``train_lib.RecipeCurveRejected``)."""
+
+
 @dataclasses.dataclass
 class TrainState:
     step: int
     model: nn.Module
-    # optax ScaleByAdamState.count and ScaleByScheduleState.count: int32
-    # scalars on the model's device.
-    count: torch.Tensor
+    # optax ScaleByAdamState.count (adamw, lamb; None for the others) and
+    # ScaleByScheduleState.count: int32 scalars on the model's device.
+    count: "torch.Tensor | None"
     sched_count: torch.Tensor
-    # Adam moments, keyed like ``model.named_parameters()``.
-    mu: "dict[str, torch.Tensor]"
-    nu: "dict[str, torch.Tensor]"
+    # The family's moments (optim.MOMENTS), keyed like
+    # ``model.named_parameters()``; None where the family has none: Adam's
+    # mu and nu (adamw, lamb), the RMS nu (rmsprop), the momentum trace
+    # (sgdm, rmsprop).
+    mu: "dict[str, torch.Tensor] | None"
+    nu: "dict[str, torch.Tensor] | None"
     # EMA shadow of the parameters (None when train.ema_decay == 0).
     ema: "dict[str, torch.Tensor] | None" = None
+    trace: "dict[str, torch.Tensor] | None" = None
+    optimizer: str = "adamw"
+
+
+def moments(state) -> "dict[str, dict[str, torch.Tensor]]":
+    """The state's moments by name (``optim.MOMENTS`` of its family)."""
+    return {name: getattr(state, name)
+            for name in optim.MOMENTS[state.optimizer]}
+
+
+def _opt_fields(family: str, params: "dict[str, torch.Tensor]",
+                device) -> dict:
+    """Zero moments and counts of ``family`` for ``params`` (rmsprop's
+    nu starts at optax's ``initial_scale`` 0 too)."""
+    optim.check_family(family)
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    fields = {"mu": None, "nu": None, "trace": None, "optimizer": family,
+              "count": zero.clone() if family in optim.COUNTED else None,
+              "sched_count": zero.clone()}
+    for name in optim.MOMENTS[family]:
+        fields[name] = {k: torch.zeros_like(p) for k, p in params.items()}
+    return fields
 
 
 def create_state(cfg: ExperimentConfig, model: nn.Module,
                  device: "str | torch.device") -> TrainState:
     """A fresh state around ``model`` (weights already set), moved to
     ``device`` with channels_last convolution weights: zero moments and
-    counts, and the EMA shadow starting at the params when carried."""
+    counts of ``train.optimizer``'s family, and the EMA shadow starting
+    at the params when carried."""
     model = model.to(device, memory_format=torch.channels_last)
     params = dict(model.named_parameters())
-    zero = torch.zeros((), dtype=torch.int32, device=device)
     return TrainState(
-        step=0, model=model, count=zero.clone(), sched_count=zero.clone(),
-        mu={k: torch.zeros_like(p) for k, p in params.items()},
-        nu={k: torch.zeros_like(p) for k, p in params.items()},
+        step=0, model=model,
         ema=({k: p.detach().clone() for k, p in params.items()}
              if cfg.train.ema_decay > 0 else None),
+        **_opt_fields(cfg.train.optimizer, params, device),
     )
 
 
@@ -128,6 +171,43 @@ def make_schedule(tc: TrainConfig) -> Callable:
 
         return schedule
     raise ValueError(f"unknown lr_schedule {tc.lr_schedule!r}")
+
+
+def global_batch(cfg: ExperimentConfig) -> int:
+    """The batch the optimizer sees per update: ``data.batch_size``,
+    which factors as ``accum_steps`` x the per-forward batch x the data
+    ways (1 on one card). The large-batch rule scales against it."""
+    return int(cfg.data.batch_size)
+
+
+def resolve_large_batch(cfg: ExperimentConfig) -> ExperimentConfig:
+    """Linear learning-rate scaling tied to the global batch
+    (``train.lr_scale_ref_batch``): the effective peak learning rate is
+    ``learning_rate * global_batch / lr_scale_ref_batch``, logged with
+    its factorization. A pure function of the config, applied once at
+    fit entry, so a resume derives the same rate; 0 (the default)
+    returns ``cfg`` unchanged. Warns when the scale is not 1 and the
+    schedule is not ``warmup_cosine``."""
+    ref = int(cfg.train.lr_scale_ref_batch)
+    if ref <= 0:
+        return cfg
+    gb = global_batch(cfg)
+    scale = gb / ref
+    ways = 1
+    accum = max(1, int(cfg.train.accum_steps))
+    eff_lr = cfg.train.learning_rate * scale
+    _log.info("large-batch recipe: global batch %d (= %d accum x %d device "
+              "batch x %d data ways), LR %g x %.3g -> %g (%s)",
+              gb, accum, gb // (accum * ways), ways, cfg.train.learning_rate,
+              scale, eff_lr, cfg.train.optimizer)
+    if scale != 1.0 and cfg.train.lr_schedule not in ("warmup_cosine",):
+        _log.warning(
+            "lr_scale_ref_batch scaled the peak LR %.3gx under "
+            "lr_schedule=%s: scaled-LR recipes want warmup_cosine (a cold "
+            "start at the scaled LR is the classic large-batch divergence "
+            "mode)", scale, cfg.train.lr_schedule)
+    return dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, learning_rate=eff_lr))
 
 
 def _labels_from_grades(grades: torch.Tensor, head: str) -> torch.Tensor:
@@ -180,12 +260,6 @@ def step_generators(seed: int, step: int, device) -> "tuple":
                  for s in seeds)
 
 
-def decay_flags(model: nn.Module) -> "list[bool]":
-    """Decoupled weight decay on rank >= 2 leaves only (conv and Dense
-    kernels), as ``train_lib._decay_mask``."""
-    return [p.ndim >= 2 for p in model.parameters()]
-
-
 def micro_generator(seed: int, step: int, micro: int, device
                     ) -> torch.Generator:
     """Dropout generator of micro-batch ``micro`` of a step under
@@ -223,7 +297,7 @@ def compute_grads(state: TrainState, batch: dict, cfg: ExperimentConfig,
     statistics are updated in place, once per micro-batch."""
     tc = cfg.train
     model = state.model
-    dev = state.count.device
+    dev = state.sched_count.device
     accum = tc.accum_steps
     n = batch["image"].shape[0]
     if n % accum != 0:
@@ -267,26 +341,32 @@ def train_step(state: TrainState, batch: dict, cfg: ExperimentConfig,
     the card). ``batch`` holds ``image`` (uint8 NHWC) and ``grade`` on the
     model's device; ``augment_params`` replaces the augment draws."""
     tc = cfg.train
-    model = state.model
     loss, grads = compute_grads(state, batch, cfg, augment_params)
-    names = [k for k, _ in model.named_parameters()]
-    params = [p for _, p in model.named_parameters()]
-    scalars = adamw.adamw_scalars(state.count, state.sched_count,
-                                  make_schedule(tc))
-    update = (adamw.fused_adamw_update if tc.use_pallas_fused
-              else adamw.adamw_reference)
+    _update(state, dict(state.model.named_parameters()), grads, tc, lead=0)
+    return loss
+
+
+def _update(state, params: "dict[str, torch.Tensor]", grads, tc, lead: int
+            ) -> None:
+    """The optimizer update and the EMA shadow in place, then the counts
+    and the step: the tail of a step, single (``lead`` 0) or stacked
+    (``lead`` 1)."""
+    names = list(params)
+    leaves = [params[k] for k in names]
+    optim.apply_update(
+        state.optimizer, tc, leaves, grads,
+        {name: [m[k] for k in names] for name, m in moments(state).items()},
+        state.count, state.sched_count, make_schedule(tc), lead=lead,
+        fused=tc.use_pallas_fused)
     with torch.no_grad():
-        update(params, grads, [state.mu[k] for k in names],
-               [state.nu[k] for k in names], decay_flags(model), scalars,
-               tc.weight_decay)
         if state.ema is not None:
             d = tc.ema_decay
-            for k, p in zip(names, params):
+            for k, p in zip(names, leaves):
                 state.ema[k].mul_(d).add_(p * (1.0 - d))
-    state.count += 1
+    if state.count is not None:
+        state.count += 1
     state.sched_count += 1
     state.step += 1
-    return loss
 
 
 @dataclasses.dataclass
@@ -304,24 +384,29 @@ class Snapshot:
             self.event.synchronize()
 
 
-def snapshot(state: TrainState) -> Snapshot:
+def snapshot(state: "TrainState | EnsembleState") -> Snapshot:
     """A ``clone()`` of every tensor of ``state`` on its device (params,
-    batch statistics, moments, both counts and the EMA shadow), taken on
+    batch statistics, moments, the counts and the EMA shadow; a stacked
+    state's too), taken on
     the current stream before the next step is issued, so a background
     save or eval reads this step's values while training updates the
     live state in place (the reference's ``_state_snapshot``)."""
+    def clone(v):
+        if isinstance(v, nn.Module):
+            return copy.deepcopy(v)
+        if isinstance(v, dict):
+            return {k: t.clone() for k, t in v.items()}
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
     with torch.no_grad():
-        copied = TrainState(
-            step=state.step, model=copy.deepcopy(state.model),
-            count=state.count.clone(), sched_count=state.sched_count.clone(),
-            mu={k: v.clone() for k, v in state.mu.items()},
-            nu={k: v.clone() for k, v in state.nu.items()},
-            ema=(None if state.ema is None
-                 else {k: v.clone() for k, v in state.ema.items()}))
+        copied = dataclasses.replace(state, **{
+            f.name: clone(getattr(state, f.name))
+            for f in dataclasses.fields(state)})
     event = None
-    if state.count.device.type == "cuda":
+    dev = state.sched_count.device
+    if dev.type == "cuda":
         event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(state.count.device))
+        event.record(torch.cuda.current_stream(dev))
     return Snapshot(copied, event)
 
 
@@ -350,17 +435,20 @@ def make_eval_step(cfg: ExperimentConfig, state: TrainState,
 
 # The flat form of a TrainState, as a checkpoint stores it: the model's
 # ``params/...`` and ``batch_stats/...`` (the flat Flax tree,
-# ``models/convert.torch_to_flax``), the optax-shaped AdamW state
-# (``adam/count``, ``adam/mu/...``, ``adam/nu/...``, ``schedule/count``,
-# ``convert.port_to_optax_adamw``), the EMA shadow under
-# ``utils.checkpoint.EMA_PREFIX`` + <params path> when carried, and
-# ``step``.
+# ``models/convert.torch_to_flax``), the family's optax-shaped state
+# (``convert.port_to_optax``: adamw's ``adam/count``, ``adam/mu/...``,
+# ``adam/nu/...``; lamb's ``lamb/...``; sgdm's ``trace/...``; rmsprop's
+# ``rms/nu/...`` and ``trace/...``; every family's ``schedule/count``), the
+# EMA shadow under ``utils.checkpoint.EMA_PREFIX`` + <params path> when
+# carried, and ``step``.
 
 
 def state_to_flat(state: TrainState) -> "dict[str, np.ndarray]":
     flat = convert.torch_to_flax(state.model)
-    flat.update(convert.port_to_optax_adamw(
-        state.mu, state.nu, int(state.count), int(state.sched_count)))
+    flat.update(convert.port_to_optax(
+        state.optimizer, moments(state),
+        None if state.count is None else int(state.count),
+        int(state.sched_count)))
     if state.ema is not None:
         for k, v in convert.torch_to_flax(state.ema).items():
             flat[ckpt_lib.EMA_PREFIX + k.split("/", 1)[1]] = v
@@ -372,24 +460,33 @@ def load_state_flat(state: TrainState,
                     flat: "dict[str, np.ndarray]") -> TrainState:
     """Fill ``state`` (made by ``create_state`` for the same config) in
     place from ``flat``; every value is copied exactly. The EMA shadow
-    must be carried on both sides or on neither."""
+    must be carried on both sides or on neither, and the optimizer
+    family must be the same: a checkpoint of another family raises,
+    naming both."""
     model = state.model
     has_ema = ckpt_lib.has_ema(flat)
     if has_ema != (state.ema is not None):
         raise ValueError(
             f"the saved state {'carries' if has_ema else 'lacks'} an EMA "
             f"shadow but this state {'does not' if has_ema else 'does'}")
+    opt_flat = {k: v for k, v in flat.items()
+                if k.startswith(convert.OPT_ROOTS)}
+    family = convert.optax_family(opt_flat)
+    if family != state.optimizer:
+        raise ValueError(
+            f"the saved state holds the {family} optimizer's state but this "
+            f"run trains with train.optimizer={state.optimizer}: resume "
+            "with the optimizer that wrote the checkpoint")
     with torch.no_grad():
         model.load_state_dict(convert.flax_to_torch(
             {k: v for k, v in flat.items()
              if k.startswith(("params/", "batch_stats/"))}, model))
-        opt = convert.optax_adamw_to_port(
-            {k: v for k, v in flat.items()
-             if k.startswith(("adam/", "schedule/"))}, model)
-        for k in state.mu:
-            state.mu[k].copy_(opt["mu"][k])
-            state.nu[k].copy_(opt["nu"][k])
-        state.count.fill_(opt["count"])
+        opt = convert.optax_to_port(opt_flat, model, family)
+        for name, saved in opt["moments"].items():
+            for k, t in getattr(state, name).items():
+                t.copy_(saved[k])
+        if state.count is not None:
+            state.count.fill_(opt["count"])
         state.sched_count.fill_(opt["sched_count"])
         if has_ema:
             ema = convert.flax_to_torch(ckpt_lib.eval_tree(flat), model)
@@ -397,3 +494,229 @@ def load_state_flat(state: TrainState,
                 state.ema[k].copy_(ema[k])
     state.step = int(flat["step"])
     return state
+
+
+# ---------------------------------------------------------------------------
+# Member-parallel ensembles
+# ---------------------------------------------------------------------------
+#
+# Member m keeps the sequential driver's seed (train.seed + m) for its
+# init, augment and dropout draws; all members see one batch stream (the
+# train.seed stream), as in the reference's member-parallel form.
+
+
+@dataclasses.dataclass
+class EnsembleState:
+    """k members' train states stacked: every tensor of ``TrainState``
+    gains a leading member dimension, ``params`` (leaves that take
+    gradients) and ``buffers`` (the BatchNorm running statistics) keyed
+    like the member model's ``named_parameters`` / ``named_buffers``.
+    ``model`` is a weightless skeleton (on the meta device) that
+    ``torch.func.functional_call`` fills with one member's tensors. The
+    counts are shared: all members step together."""
+    step: int
+    model: nn.Module
+    seeds: "list[int]"
+    params: "dict[str, torch.Tensor]"
+    buffers: "dict[str, torch.Tensor]"
+    count: "torch.Tensor | None"
+    sched_count: torch.Tensor
+    mu: "dict[str, torch.Tensor] | None"
+    nu: "dict[str, torch.Tensor] | None"
+    ema: "dict[str, torch.Tensor] | None" = None
+    trace: "dict[str, torch.Tensor] | None" = None
+    optimizer: str = "adamw"
+
+    @property
+    def k(self) -> int:
+        return len(self.seeds)
+
+
+def stack_states(states: "list[TrainState]", seeds: "list[int]",
+                 device: "str | torch.device") -> EnsembleState:
+    """Stack k single-member states (one config, one step) into one
+    ``EnsembleState`` on ``device``; the inverse of ``unstack_member``.
+    Unlike the reference's serving-side ``stack_states``, the optimizer
+    state is kept: this state trains."""
+    if not states or len(states) != len(seeds):
+        raise ValueError("need one state per member seed, at least one")
+    first = states[0]
+    for s in states[1:]:
+        if (s.step, s.optimizer, s.ema is None) != (
+                first.step, first.optimizer, first.ema is None):
+            raise ValueError("member states disagree on step, optimizer or "
+                             "EMA shadow")
+
+    def stack(dicts):
+        return {k: torch.stack([d[k] for d in dicts]).to(device)
+                for k in dicts[0]}
+
+    with torch.no_grad():
+        params = stack([dict(s.model.named_parameters()) for s in states])
+        fields = {name: (None if getattr(first, name) is None
+                         else stack([getattr(s, name) for s in states]))
+                  for name in ("mu", "nu", "trace", "ema")}
+        return EnsembleState(
+            step=first.step,
+            model=copy.deepcopy(first.model).to("meta"),
+            seeds=[int(x) for x in seeds],
+            params={k: v.requires_grad_() for k, v in params.items()},
+            buffers=stack([dict(s.model.named_buffers()) for s in states]),
+            count=None if first.count is None else first.count.to(device),
+            sched_count=first.sched_count.to(device),
+            optimizer=first.optimizer, **fields)
+
+
+def create_ensemble_state(cfg: ExperimentConfig, seeds: "list[int]",
+                          device: "str | torch.device") -> EnsembleState:
+    """The stacked state of ``len(seeds)`` fresh members: member m is the
+    state ``create_state`` makes under seed ``seeds[m]`` (the same init
+    the sequential driver's ``fit`` draws), stacked on ``device``.
+    ``train.use_pallas_fused`` is refused, as the reference refuses it:
+    the fused step path is a single-model path."""
+    check_ensemble_knobs(cfg.train)
+    return stack_states(
+        [create_state(cfg, init.init_flax_default(models.build(cfg.model),
+                                                  s), "cpu")
+         for s in seeds], seeds, device)
+
+
+def check_ensemble_knobs(tc: TrainConfig) -> None:
+    """The reference's refusals of the stacked step."""
+    configs.validate_train_knobs(tc)
+    if tc.use_pallas_fused:
+        raise ValueError(
+            "train.use_pallas_fused is a single-model step path; the "
+            "member-parallel ensemble step runs every member in one vmap "
+            "and does not batch kernels B2 and B3: unset one of the two")
+
+
+def unstack_member(state: EnsembleState, m: int) -> TrainState:
+    """Member m's single-model ``TrainState``, on the CPU (a copy): the
+    per-member checkpoint layout is the sequential driver's."""
+    model = copy.deepcopy(state.model).to_empty(device="cpu")
+    with torch.no_grad():
+        model.load_state_dict({k: v[m].detach().cpu() for k, v in
+                               {**state.params, **state.buffers}.items()})
+
+    def pick(d):
+        return None if d is None else {k: v[m].detach().cpu()
+                                       for k, v in d.items()}
+
+    return TrainState(
+        step=state.step, model=model,
+        count=None if state.count is None else state.count.cpu(),
+        sched_count=state.sched_count.cpu(), mu=pick(state.mu),
+        nu=pick(state.nu), ema=pick(state.ema), trace=pick(state.trace),
+        optimizer=state.optimizer)
+
+
+def _member_draws(shapes, gens, device) -> "list[torch.Tensor]":
+    """[k, *shape] uniform draws per shape, member m's from its own
+    generator in the forward's order (``models.dropout_shapes``)."""
+    per_member = [[torch.rand(s, generator=g, device=device) for s in shapes]
+                  for g in gens]
+    return [torch.stack(ts) for ts in zip(*per_member)] if shapes else []
+
+
+def ensemble_train_step(state: EnsembleState, batch: dict,
+                        cfg: ExperimentConfig,
+                        augment_params: "list[dict] | None" = None
+                        ) -> torch.Tensor:
+    """One step of all k members in place on ``state``; returns the [k]
+    losses on the device. Member m draws its augment and dropout from
+    (``seeds[m]``, step), as a sequential member does. The augment runs
+    once over the k x B stacked images, every member's draws
+    concatenated (one B1 launch under ``data.use_pallas``); then one
+    forward and backward of every member under ``torch.func.vmap``
+    (convolutions batched as grouped convolutions, each member's
+    BatchNorm running statistics updated in its slice), micro-batch by
+    micro-batch under ``train.accum_steps``; then the family's update
+    with every norm per member. ``augment_params`` (one dict per member)
+    replaces the augment draws. Float-equivalent to the members stepped
+    in turn, not bitwise."""
+    tc = cfg.train
+    check_ensemble_knobs(tc)
+    k, dev = state.k, state.sched_count.device
+    images_u8, grades = batch["image"], batch["grade"]
+    n = images_u8.shape[0]
+    accum = tc.accum_steps
+    if n % accum != 0:
+        raise ValueError(f"train.accum_steps={accum} must divide the batch "
+                         f"size {n} evenly")
+    gens = [step_generators(s, state.step, dev) for s in state.seeds]
+    stacked_params = None
+    if cfg.data.augment:
+        if augment_params is None:
+            augment_params = [augment._draw_params(g, n, cfg.data, dev)
+                              for g, _ in gens]
+        stacked_params = {key: torch.cat([p[key] for p in augment_params])
+                          for key in augment_params[0]}
+    images = augment.augment_batch(
+        None, images_u8.repeat(k, 1, 1, 1), cfg.data,
+        params=stacked_params).view(k, n, *images_u8.shape[1:])
+    shapes = models.dropout_shapes(state.model, n // accum)
+
+    def member_loss(params, buffers, imgs, draws, member_grades):
+        # NHWC seen as NCHW: a channels_last view of each member's batch.
+        logits, aux = torch.func.functional_call(
+            state.model, {**params, **buffers}, (imgs.permute(0, 3, 1, 2),),
+            {"train": True, "generator": common.Draws(draws)}, strict=True)
+        return loss_fn(logits, aux, member_grades, cfg)
+
+    stacked_loss = torch.func.vmap(member_loss,
+                                   in_dims=(0, 0, 0, 0, None))
+    names = list(state.params)
+    grads = None
+    losses = []
+    micro = n // accum
+    for i in range(accum):
+        rows = slice(i * micro, (i + 1) * micro)
+        micro_gens = ([g for _, g in gens] if accum == 1 else
+                      [micro_generator(s, state.step, i, dev)
+                       for s in state.seeds])
+        view = state.params
+        if tc.dtype == "bf16":
+            view = {key: p.to(torch.bfloat16) for key, p in view.items()}
+        loss = stacked_loss(view, state.buffers, images[:, rows],
+                            _member_draws(shapes, micro_gens, dev),
+                            grades[rows])
+        loss.sum().backward()
+        with torch.no_grad():
+            if accum == 1:
+                grads = [state.params[key].grad for key in names]
+            elif grads is None:
+                grads = [state.params[key].grad * (1.0 / accum)
+                         for key in names]
+            else:
+                for acc, key in zip(grads, names):
+                    acc.add_(state.params[key].grad * (1.0 / accum))
+        for p in state.params.values():
+            p.grad = None
+        losses.append(loss.detach())
+    _update(state, state.params, grads, tc, lead=1)
+    return losses[0] if accum == 1 else torch.stack(losses).mean(dim=0)
+
+
+def eval_state_dicts(state: EnsembleState) -> "list[dict[str, torch.Tensor]]":
+    """Each member's eval ``state_dict`` (views into the stacked state):
+    its EMA shadow in place of the params when carried, and its
+    statistics."""
+    tensors = {**{k: v.detach() for k, v in state.params.items()},
+               **state.buffers, **(state.ema or {})}
+    return [{k: v[m] for k, v in tensors.items()} for m in range(state.k)]
+
+
+def make_ensemble_eval_step(cfg: ExperimentConfig, state: EnsembleState,
+                            device: "str | torch.device | None" = None
+                            ) -> Callable:
+    """uint8 images [B, S, S, 3] (numpy) -> [k, B] (or [k, B, C])
+    probabilities of every member's eval params: one forward of all k
+    members under ``torch.func.vmap`` (the serving engine's
+    ``member_parallel`` form in float32), the counterpart of the
+    reference's ``make_ensemble_eval_step``."""
+    eval_cfg = cfg.replace(serve=dataclasses.replace(
+        cfg.serve, member_parallel=True, dtype="fp32"))
+    engine = ServingEngine(eval_cfg, state_dicts=eval_state_dicts(state),
+                           device=device)
+    return engine.member_probs

@@ -219,40 +219,62 @@ def _check_ema_compat(ckpt: ckpt_lib.Checkpointer,
 def _reconstruct_best_tracking(workdir: str, start_step: int,
                                cfg: configs.ExperimentConfig,
                                ckpt: ckpt_lib.Checkpointer):
-    """(best_auc, best_step, since_best) as of ``start_step``, for resume:
-    the run's own eval history (``metrics.jsonl``, the first eval record
-    per step at step <= start_step) replayed through
-    ``_best_tracking_update``, so a resumed run stops exactly when an
-    uninterrupted one would. Without a history, the best checkpoint's
-    (step, val AUC), with patience from the eval cadence."""
+    """(best_auc, best_step, since_best) of one model as of
+    ``start_step``, for resume (``_reconstruct_member_tracking`` with one
+    member)."""
+    best_auc, best_step, since_best = _reconstruct_member_tracking(
+        workdir, start_step, cfg, [ckpt])
+    return float(best_auc[0]), int(best_step[0]), int(since_best[0])
+
+
+def _reconstruct_member_tracking(workdir: str, start_step: int,
+                                 cfg: configs.ExperimentConfig, ckpts: list):
+    """Per-member (best_auc, best_step, since_best) arrays as of
+    ``start_step``, for resume: the run's own eval history
+    (``metrics.jsonl``: ``val_auc_per_member`` of k members, or
+    ``val_auc`` of one; the first eval record per step at step <=
+    start_step) replayed through ``_best_tracking_update``, so a resumed
+    run stops exactly when an uninterrupted one would. Without a history,
+    each checkpoint's best (step, val AUC), with patience from the eval
+    cadence."""
+    k = len(ckpts)
+    best_auc = np.full((k,), -np.inf)
+    best_step = np.zeros((k,), np.int64)
+    since_best = np.zeros((k,), np.int64)
     path = os.path.join(workdir, METRICS_FILE)
     kept: dict = {}
     if os.path.exists(path):
         for r in read_jsonl(path):
-            if (r.get("kind") != "eval" or r.get("step", 0) > start_step
-                    or "val_auc" not in r):
+            if r.get("kind") != "eval" or r.get("step", 0) > start_step:
                 continue
-            s, auc = r["step"], r["val_auc"]
+            if len(r.get("val_auc_per_member", ())) == k:
+                aucs = r["val_auc_per_member"]
+            elif "val_auc" in r and k == 1:
+                aucs = [r["val_auc"]]
+            else:
+                continue
+            s = r["step"]
             if s not in kept:
-                kept[s] = auc
-            elif not np.allclose(kept[s], auc, atol=1e-9, equal_nan=True):
+                kept[s] = aucs
+            elif not np.allclose(kept[s], aucs, atol=1e-9, equal_nan=True):
                 _log.warning(
                     "metrics.jsonl holds disagreeing duplicate eval records "
                     "at step %d (%s vs %s); replaying the first — best/"
                     "patience reconstruction may not match the restored "
-                    "state", s, kept[s], auc)
-    best_auc, best_step, since_best = -np.inf, 0, 0
+                    "state", s, kept[s], aucs)
     if kept:
-        for step, auc in kept.items():
+        for step, aucs in kept.items():
             best_auc, best_step, since_best = _best_tracking_update(
-                auc, best_auc, best_step, since_best, step,
+                aucs, best_auc, best_step, since_best, step,
                 cfg.train.min_delta)
-        return float(best_auc), int(best_step), int(since_best)
-    info = ckpt.best_info()
-    if info is not None:
-        best_step, best_auc = info
-        since_best = max(0, (start_step - best_step) // cfg.train.eval_every)
-    return float(best_auc), int(best_step), int(since_best)
+        return best_auc, best_step, since_best
+    for m, ckpt in enumerate(ckpts):
+        info = ckpt.best_info()
+        if info is not None:
+            best_step[m], best_auc[m] = info
+            since_best[m] = max(
+                0, (start_step - info[0]) // cfg.train.eval_every)
+    return best_auc, best_step, since_best
 
 
 def _save_due(cfg: configs.ExperimentConfig, step: int) -> bool:
@@ -321,39 +343,66 @@ def _load_curve_ref(path: str, knob: str) -> dict:
 
 
 class _DtypeCurveGate:
-    """The dtype arm of the reference's golden-curve gate: a
-    ``train.dtype=bf16`` run with ``train.dtype_curve_ref`` set must keep
-    each eval's val AUC within ``train.dtype_curve_tol`` of the pinned
-    fp32 curve at the same step, or ``check`` raises
-    ``train_lib.DtypeCurveRejected``. fp32 runs never gate; a bf16 run
-    without a ref logs that it runs ungated."""
+    """The reference's golden-curve gate, with its two arms:
+
+    - dtype: a ``train.dtype=bf16`` run with ``train.dtype_curve_ref``
+      must keep each eval's val AUC within ``train.dtype_curve_tol`` of
+      the pinned fp32 curve at the same step, or ``check`` raises
+      ``train_lib.DtypeCurveRejected``;
+    - recipe: a large-batch recipe run (``train.optimizer=lamb`` or
+      ``train.lr_scale_ref_batch`` > 0) with ``train.recipe_curve_ref``
+      must keep within ``train.recipe_curve_tol`` of the pinned baseline
+      curve, or ``check`` raises ``train_lib.RecipeCurveRejected``.
+
+    Both arms can gate one run (a bf16 LAMB run checks both curves at
+    every eval); fp32 and baseline runs never gate; a bf16 or recipe run
+    without its ref logs that it runs ungated."""
 
     def __init__(self, cfg: configs.ExperimentConfig):
         tc = cfg.train
-        self._ref: "dict | None" = None
-        self._tol = tc.dtype_curve_tol
-        self._dtype = tc.dtype
-        if tc.dtype == "fp32":
-            return
-        if tc.dtype_curve_ref:
-            self._ref = _load_curve_ref(tc.dtype_curve_ref,
-                                        "train.dtype_curve_ref")
-        else:
-            _log.warning(
-                "train.dtype=%s runs UNGATED: no train.dtype_curve_ref "
-                "golden curve is pinned; eval-AUC parity with fp32 is not "
-                "being checked", tc.dtype)
+        # [(step -> auc, tol, exception, what drifted, the remedy)]
+        self._arms: list = []
+        if tc.dtype != "fp32":
+            if tc.dtype_curve_ref:
+                self._arms.append((
+                    _load_curve_ref(tc.dtype_curve_ref,
+                                    "train.dtype_curve_ref"),
+                    tc.dtype_curve_tol, train_lib.DtypeCurveRejected,
+                    f"train.dtype={tc.dtype} drifted from the pinned fp32 "
+                    "golden curve",
+                    "the cheap numerics mode is refused: retrain in fp32 "
+                    "or widen train.dtype_curve_tol deliberately"))
+            else:
+                _log.warning(
+                    "train.dtype=%s runs UNGATED: no train.dtype_curve_ref "
+                    "golden curve is pinned; eval-AUC parity with fp32 is "
+                    "not being checked", tc.dtype)
+        if tc.optimizer == "lamb" or tc.lr_scale_ref_batch > 0:
+            if tc.recipe_curve_ref:
+                self._arms.append((
+                    _load_curve_ref(tc.recipe_curve_ref,
+                                    "train.recipe_curve_ref"),
+                    tc.recipe_curve_tol, train_lib.RecipeCurveRejected,
+                    f"the {tc.optimizer} large-batch recipe drifted from the "
+                    "pinned baseline golden curve",
+                    "the recipe is refused: rebaseline or widen "
+                    "train.recipe_curve_tol deliberately"))
+            else:
+                _log.warning(
+                    "large-batch recipe (optimizer=%s, lr_scale_ref_batch="
+                    "%d) runs UNGATED: no train.recipe_curve_ref golden curve "
+                    "is pinned; eval-AUC parity with the baseline recipe is "
+                    "not being checked", tc.optimizer, tc.lr_scale_ref_batch)
 
     def check(self, step: int, auc: float) -> None:
-        ref = None if self._ref is None else self._ref.get(int(step))
-        if ref is None or abs(float(auc) - ref) <= self._tol:
-            return
-        raise train_lib.DtypeCurveRejected(
-            f"train.dtype={self._dtype} drifted from the pinned fp32 golden "
-            f"curve at step {step}: val AUC {float(auc):.5f} vs pinned "
-            f"{ref:.5f} (|delta|={abs(float(auc) - ref):.5f} > "
-            f"tol={self._tol}); the cheap numerics mode is refused: retrain "
-            "in fp32 or widen train.dtype_curve_tol deliberately")
+        for ref_map, tol, exc, what, remedy in self._arms:
+            ref = ref_map.get(int(step))
+            if ref is None or abs(float(auc) - ref) <= tol:
+                continue
+            raise exc(
+                f"{what} at step {step}: val AUC {float(auc):.5f} vs pinned "
+                f"{ref:.5f} (|delta|={abs(float(auc) - ref):.5f} > "
+                f"tol={tol}); {remedy}")
 
 
 class _BgJob:
@@ -568,8 +617,11 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
     tc = cfg.train
     seed = tc.seed if seed is None else seed
     seed = _load_or_write_run_meta(workdir, seed, cfg.name, tc.resume)
-    # The step's augment and dropout draws are seeded by train.seed.
-    cfg = cfg.replace(train=dataclasses.replace(tc, seed=seed))
+    # The step's augment and dropout draws are seeded by train.seed. The
+    # large-batch rule scales the learning rate once, here, so a resume
+    # derives the same rate.
+    cfg = train_lib.resolve_large_batch(
+        cfg.replace(train=dataclasses.replace(tc, seed=seed)))
     tc = cfg.train
     log = RunLog(workdir, METRICS_FILE, fresh=not tc.resume)
     log.write("config", name=cfg.name, seed=seed, n_devices=1)
@@ -799,22 +851,399 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
 
 def fit_ensemble(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                  device: "str | torch.device | None" = None) -> "list[dict]":
-    """Train ``train.ensemble_size`` members one after another, member m
-    with seed ``train.seed + m`` in ``<workdir>/member_NN``, each through
-    ``fit`` with the run knobs as set (every member warm-starts from
-    ``train.init_from``, and each is held to ``train.dtype_curve_ref``),
-    as the reference's sequential ``fit_ensemble`` does; with
-    ``obs.quality.profile_out`` each member writes its profile there in
-    turn, so the last member's stays, as in the reference."""
+    """Train ``train.ensemble_size`` members, member m with seed
+    ``train.seed + m`` in ``<workdir>/member_NN``.
+
+    ``train.ensemble_parallel`` with ``train.ensemble_parallel_force``
+    routes to ``fit_ensemble_parallel`` (one stacked step for all
+    members). Without the force, the reference's one-device rule holds:
+    a run on one device trains the members in turn, with the reason
+    logged (the port always runs on one device).
+
+    In turn, each member goes through ``fit`` with the run knobs as set
+    (every member warm-starts from ``train.init_from``, and each is held
+    to the curve refs), as the reference's sequential ``fit_ensemble``
+    does; with ``obs.quality.profile_out`` each member writes its profile
+    there in turn, so the last member's stays, as in the reference."""
+    tc = cfg.train
+    if tc.ensemble_parallel:
+        if tc.ensemble_parallel_force:
+            return fit_ensemble_parallel(cfg, data_dir, workdir, device)
+        _log.warning(
+            "train.ensemble_parallel disabled: one device, and the "
+            "reference's rule trains members in turn on one device (its "
+            "stacked step measured slower than members in turn on one TPU "
+            "chip); training the %d members one after another. Set "
+            "train.ensemble_parallel_force=true to train them stacked.",
+            tc.ensemble_size)
     member_cfg = cfg.replace(
-        train=dataclasses.replace(cfg.train, ensemble_size=1))
+        train=dataclasses.replace(tc, ensemble_size=1))
     results = []
-    for member in range(cfg.train.ensemble_size):
+    for member in range(tc.ensemble_size):
         mdir = ckpt_lib.member_dir(workdir, member)
-        res = fit(member_cfg, data_dir, mdir, seed=cfg.train.seed + member,
+        res = fit(member_cfg, data_dir, mdir, seed=tc.seed + member,
                   device=device)
         results.append({"member": member, "workdir": mdir, **res})
     return results
+
+
+def _predict_split_members(cfg: configs.ExperimentConfig,
+                           state: train_lib.EnsembleState, data_dir: str,
+                           split: str, device: torch.device
+                           ) -> "tuple[np.ndarray, np.ndarray]":
+    """``predict_split`` of a stacked state: one vmapped forward scores
+    all k members per batch -> (grades [n], probs [k, n] or [k, n, C])."""
+    step = train_lib.make_ensemble_eval_step(cfg, state, device)
+    grades, probs, _ = predict_split(cfg, step, data_dir, split)
+    return grades, probs
+
+
+MEMBER_PARALLEL_MARKER = ".member_parallel"
+
+
+def _restore_members(cfg: configs.ExperimentConfig, workdir: str,
+                     ckpts: list, was_member_parallel: bool) -> "int | None":
+    """The step every member restores from on resume (None: no
+    checkpoint yet). Members checkpoint in lock-step, so an intact
+    workdir has all at one step; after a save torn by a crash between
+    the members' saves, every member rolls back to the newest step all
+    of them still hold, and the newer checkpoints are deleted. Members at
+    different steps in a workdir this driver did not write (a sequential
+    ensemble's) raise instead."""
+    latest = [c.latest_step for c in ckpts]
+    if all(s is None for s in latest):
+        return None
+    if None not in latest and len(set(latest)) == 1:
+        step0 = latest[0]
+    else:
+        if not was_member_parallel:
+            raise ValueError(
+                f"member checkpoints are at different steps {latest} and "
+                "this is not a member-parallel workdir: resume the "
+                "sequential ensemble with train.ensemble_parallel=false (if "
+                "a member-parallel run did write it, create the "
+                f"{MEMBER_PARALLEL_MARKER} file in the workdir to enable the "
+                "torn-save rollback)")
+        common = set.intersection(*[c.all_steps() for c in ckpts])
+        if not common:
+            raise ValueError(
+                f"member checkpoints are at different steps {latest} and "
+                "share no restorable step: a save was torn by a crash and "
+                "retention has dropped the last common step")
+        step0 = max(common)
+        _log.warning("member latest checkpoints disagree (%s), likely a "
+                     "save torn by a crash; rolling back to the newest "
+                     "common step %d", latest, step0)
+        for c in ckpts:
+            c.delete_newer_than(step0)
+    for m, c in enumerate(ckpts):
+        _check_ema_compat(c, cfg, ckpt_lib.member_dir(workdir, m), step0)
+    return step0
+
+
+def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
+                          workdir: str,
+                          device: "str | torch.device | None" = None
+                          ) -> "list[dict]":
+    """Member-parallel ensemble training: all k members advance in one
+    stacked step (``train_lib.ensemble_train_step``) per batch.
+
+    Member m keeps the sequential driver's seed (``train.seed + m``) for
+    its init, augment and dropout; all members share the ``train.seed``
+    batch stream. Checkpoints land in the sequential driver's
+    ``member_NN/{best,latest}`` layout, best by each member's own val
+    AUC, so ``evaluate`` and ``predict`` cannot tell which driver trained
+    the members; each member's ``run_meta.json`` pins its seed, and a
+    workdir whose members pin other seeds is refused. Every eval logs
+    ``val_auc_per_member`` and ``ensemble_val_auc``; the curve gate reads
+    the ensemble AUC; early stopping fires when every member has
+    exhausted its patience. ``train.save_every_evals``,
+    ``train.async_save`` and ``train.eval_overlap`` act as in ``fit``.
+    ``train.resume`` restores every member in lock-step (after a torn
+    save, at the newest step all members hold) and continues the exact
+    stream; ``train.init_from`` is refused (it would seed every member
+    alike). A ``SystemExit``/``KeyboardInterrupt`` between steps saves
+    every member's ``latest/`` at the last completed step."""
+    dev = device_lib.resolve(device)
+    tc = cfg.train
+    k = tc.ensemble_size
+    if tc.init_from:
+        raise ValueError(
+            "train.init_from warm-starts one member from one checkpoint "
+            "dir; the member-parallel driver would seed every stacked member "
+            "identically (diversity collapse). Fine-tune members through "
+            "sequential fit() calls")
+    configs.validate_train_knobs(tc)
+    configs.check_supported(
+        cfg.replace(train=dataclasses.replace(tc, ensemble_size=1)),
+        training=True)
+    train_lib.check_ensemble_knobs(tc)
+    cfg = train_lib.resolve_large_batch(cfg)
+    # The persisted member-0 seed is the base seed on resume; member m's
+    # run_meta then pins base + m.
+    seed = _load_or_write_run_meta(ckpt_lib.member_dir(workdir, 0), tc.seed,
+                                   cfg.name, tc.resume)
+    for m in range(1, k):
+        persisted = _load_or_write_run_meta(ckpt_lib.member_dir(workdir, m),
+                                            seed + m, cfg.name, tc.resume)
+        if persisted != seed + m:
+            raise ValueError(
+                f"member {m} run_meta pins seed {persisted}, but this "
+                f"ensemble derives member seeds from base {seed} (expected "
+                f"{seed + m}): the workdir belongs to a differently seeded "
+                "ensemble; resume with the original base seed or use a fresh "
+                "workdir")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, seed=seed))
+    tc = cfg.train
+    seeds = [seed + m for m in range(k)]
+    # Marks this driver's workdirs: the torn-save rollback deletes
+    # checkpoints and must never fire on a sequential ensemble's. Read
+    # before it is written.
+    marker = os.path.join(workdir, MEMBER_PARALLEL_MARKER)
+    was_member_parallel = os.path.exists(marker)
+    os.makedirs(workdir, exist_ok=True)
+    with open(marker, "w") as f:
+        f.write("workdir written by trainer.fit_ensemble_parallel\n")
+    log = RunLog(workdir, METRICS_FILE, fresh=not tc.resume)
+    log.write("config", name=cfg.name, seed=seed, ensemble_parallel=True,
+              n_members=k, n_devices=1)
+    curve_gate = _DtypeCurveGate(cfg)
+    ckpts = [ckpt_lib.Checkpointer(
+        os.path.abspath(ckpt_lib.member_dir(workdir, m)),
+        max_to_keep=tc.max_to_keep) for m in range(k)]
+
+    start_step = 0
+    best_auc = np.full((k,), -np.inf)
+    best_step = np.zeros((k,), np.int64)
+    since_best = np.zeros((k,), np.int64)
+    step0 = (_restore_members(cfg, workdir, ckpts, was_member_parallel)
+             if tc.resume else None)
+    if step0 is None:
+        state = train_lib.create_ensemble_state(cfg, seeds, dev)
+    else:
+        members = []
+        for c in ckpts:
+            member = train_lib.create_state(cfg, models.build(cfg.model),
+                                            "cpu")
+            members.append(train_lib.load_state_flat(member,
+                                                     c.restore(step0)))
+        state = train_lib.stack_states(members, seeds, dev)
+        del members
+        start_step = int(step0)
+        best_auc, best_step, since_best = _reconstruct_member_tracking(
+            workdir, start_step, cfg, ckpts)
+        log.write("resume", step=start_step,
+                  best_auc_per_member=[
+                      round(float(a), 5) if np.isfinite(a) else None
+                      for a in best_auc])
+
+    overlap = tc.eval_overlap
+    saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
+    depth = cfg.data.prefetch_batches
+    stream = pipeline.DevicePrefetch(pipeline.train_batches(
+        data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
+        skip_batches=start_step, pin_memory=dev.type == "cuda" and depth == 0,
+        readers=cfg.data.readers), dev, depth)
+    clock = _ThroughputClock(cfg.data.batch_size)
+    stalls = _StallClock()
+    stopped_early = False
+    save_stall = [0.0]
+    last_step = start_step
+    in_step = False
+    eval_job: "_BgJob | None" = None
+    preempted = threading.Event()
+
+    def save_members(step_now: int, src: train_lib.EnsembleState,
+                     aucs) -> None:
+        # Checked on the writer too: a late eval-time save must not land
+        # behind the preemption save and roll latest/ back.
+        if preempted.is_set():
+            return
+        for m in range(k):
+            ckpts[m].save(step_now,
+                          train_lib.state_to_flat(
+                              train_lib.unstack_member(src, m)),
+                          {"val_auc": float(aucs[m])})
+
+    def eval_members(step_now: int, eval_state, ba, bs, sb, stable: bool,
+                     attribute: bool):
+        """One eval block: predict -> per-member AUCs -> ensemble AUC ->
+        best tracking -> the curve gate -> the lock-step save. Inline
+        (``attribute``: its save time goes to the ``save`` stall), or on
+        the overlap thread over a snapshot (``stable``)."""
+        grades, probs = _predict_split_members(cfg, eval_state, data_dir,
+                                               "val", dev)
+        labels = (grades >= 2).astype(np.float64)
+        member_probs = [_referable(p, cfg.model.head) for p in probs]
+        aucs = np.array([metrics.roc_auc(labels, p) for p in member_probs])
+        ens_auc = metrics.roc_auc(labels,
+                                  metrics.ensemble_average(member_probs))
+        ba, bs, sb = _best_tracking_update(aucs, ba, bs, sb, step_now,
+                                           tc.min_delta)
+        # Full precision per member: resume replays it.
+        log.write("eval", step=step_now,
+                  val_auc_per_member=[float(a) for a in aucs],
+                  ensemble_val_auc=round(float(ens_auc), 5),
+                  best_auc_per_member=[round(float(a), 5) for a in ba])
+        curve_gate.check(step_now, float(ens_auc))
+        stopping = bool(np.all(sb >= tc.early_stop_patience))
+        if (_save_due(cfg, step_now) or stopping) and not preempted.is_set():
+            t0 = time.perf_counter()
+            if saver is None:
+                save_members(step_now, eval_state, aucs)
+            else:
+                snap = (None if stable
+                        else train_lib.snapshot(eval_state))
+
+                def job(snap=snap):
+                    if snap is not None:
+                        snap.wait()
+                    save_members(step_now,
+                                 eval_state if snap is None else snap.state,
+                                 aucs)
+
+                saver.submit(job)
+            if attribute:
+                dt = time.perf_counter() - t0
+                stalls.add("save", dt)
+                save_stall[0] += dt
+        if stopping:
+            log.write("early_stop", step=step_now,
+                      best_step=[int(x) for x in bs])
+        return ba, bs, sb, stopping
+
+    def submit_eval(step_now: int) -> _BgJob:
+        snap = train_lib.snapshot(state)
+        tracked = (best_auc, best_step, since_best)
+
+        def job():
+            snap.wait()
+            with _stream_context(dev), torch.no_grad():
+                return eval_members(step_now, snap.state, *tracked,
+                                    stable=True, attribute=False)
+
+        return _BgJob(job)
+
+    def preempt_save_latest(step_now: int) -> bool:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+        def write() -> bool:
+            wrote = False
+            for m in range(k):
+                wrote = ckpts[m].save_latest(
+                    step_now, train_lib.state_to_flat(
+                        train_lib.unstack_member(state, m))) or wrote
+            return wrote
+
+        if saver is None:
+            return write()
+        out = {}
+        saver.submit(lambda: out.__setitem__("saved", write()))
+        saver.drain()
+        return out["saved"]
+
+    try:
+        try:
+            for step_i in range(start_step, tc.steps):
+                with stalls.measure("input"):
+                    batch = next(stream)
+                in_step = True
+                with stalls.measure("dispatch"):
+                    losses = train_lib.ensemble_train_step(state, batch, cfg)
+                last_step = step_i + 1
+                in_step = False
+                clock.after_step()
+                if (step_i + 1) % tc.log_every == 0:
+                    per = losses.detach().cpu().numpy()
+                    log.write("train", step=step_i + 1,
+                              loss=round(float(per.mean()), 6),
+                              loss_per_member=[round(float(x), 6)
+                                               for x in per],
+                              **clock.fields(), **stalls.fields())
+                if eval_job is not None and eval_job.done():
+                    best_auc, best_step, since_best, stop = eval_job.result()
+                    eval_job = None
+                    if stop:
+                        stopped_early = True
+                        break
+                if not ((step_i + 1) % tc.eval_every == 0
+                        or step_i + 1 == tc.steps):
+                    continue
+                if overlap:
+                    if eval_job is not None:
+                        clock.pause()
+                        with stalls.measure("pause"):
+                            best_auc, best_step, since_best, stop = (
+                                eval_job.result())
+                        eval_job = None
+                        clock.resume()
+                        if stop:
+                            stopped_early = True
+                            break
+                    with stalls.measure("pause"):
+                        eval_job = submit_eval(step_i + 1)
+                    continue
+                clock.pause()
+                t_pause = time.perf_counter()
+                save_stall[0] = 0.0
+                with torch.no_grad():
+                    best_auc, best_step, since_best, stop = eval_members(
+                        step_i + 1, state, best_auc, best_step, since_best,
+                        stable=False, attribute=True)
+                stalls.add("pause", max(
+                    0.0, time.perf_counter() - t_pause - save_stall[0]))
+                clock.resume()
+                if stop:
+                    stopped_early = True
+                    break
+        except BaseException as e:
+            if (isinstance(e, (SystemExit, KeyboardInterrupt))
+                    and last_step > start_step):
+                preempted.set()
+                if saver is not None:
+                    try:
+                        saver.drain()
+                    except Exception as err:  # noqa: BLE001 - exit path
+                        _log.error("a queued save failed before the "
+                                   "preemption save: %s", err)
+                if in_step:
+                    log.write("preempt_save", step=last_step, saved=False)
+                    _log.warning("preemption inside step %d: the state is "
+                                 "part-updated, latest/ is left as it was",
+                                 last_step + 1)
+                else:
+                    # Every member in lock-step, as the eval-time save.
+                    _preempt_save(log, last_step, preempt_save_latest)
+            raise
+        if eval_job is not None:
+            best_auc, best_step, since_best, stop = eval_job.result()
+            eval_job = None
+            stopped_early = stopped_early or stop
+        if saver is not None:
+            saver.close()
+        if cfg.obs.quality.profile_out:
+            def ensemble_predict():
+                grades, probs = _predict_split_members(cfg, state, data_dir,
+                                                       "val", dev)
+                return grades, metrics.ensemble_average(list(probs))
+
+            with torch.no_grad():
+                _emit_quality_profile(cfg, data_dir, ensemble_predict, log)
+    finally:
+        stream.close()
+        if saver is not None:
+            try:
+                saver.close()
+            except Exception as err:  # noqa: BLE001 - another is raising
+                _log.error("a queued save failed while the run was "
+                           "stopping: %s", err)
+        log.close()
+    return [{"member": m, "workdir": ckpt_lib.member_dir(workdir, m),
+             "best_auc": (float(best_auc[m]) if np.isfinite(best_auc[m])
+                          else None),
+             "best_step": int(best_step[m]),
+             "stopped_early": stopped_early} for m in range(k)]
 
 
 # ---------------------------------------------------------------------------

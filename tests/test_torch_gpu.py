@@ -471,3 +471,95 @@ def test_serving_dtypes_and_member_parallel_on_the_card(cuda, dtype,
     cpu = ServingEngine(cfg, state_dicts=sds, device="cpu",
                         registry=Registry()).member_probs(imgs)
     assert np.abs(card - cpu).max() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,clip,bound", [
+    ("sgdm", 0.0, 1e-6), ("rmsprop", 0.0, 1e-6), ("lamb", 0.0, 1e-5),
+    ("adamw", 1.0, 1e-6), ("sgdm", 1.0, 1e-6)])
+def test_family_update_on_the_card_matches_the_cpu(cuda, family, clip,
+                                                   bound):
+    """One update of each optimizer family (``optim.apply_update``) on
+    the same float32 gradients and state, on the card and on the CPU:
+    every parameter and state leaf within ``bound`` relative L2 (LAMB's
+    and the clip's norms reduce in another order on the card)."""
+    from jama16_retina_tpu_torch import configs, models, optim, train_lib
+
+    cfg = configs.override(configs.get_config("smoke"), [
+        f"train.optimizer={family}", f"train.gradient_clip_norm={clip}",
+        "train.weight_decay=0.01"])
+    gen = torch.Generator().manual_seed(3)
+    names = [k for k, _ in models.build(cfg.model).named_parameters()]
+    params = [p.detach() + 0.1 * torch.randn(p.shape, generator=gen)
+              for p in models.build(cfg.model).parameters()]
+    grads = [torch.randn(p.shape, generator=gen) for p in params]
+    moms = {n: [0.1 * torch.rand(p.shape, generator=gen) for p in params]
+            for n in optim.MOMENTS[family]}
+    counted = family in optim.COUNTED
+    out = {}
+    for dev in ("cpu", cuda):
+        p = [t.to(dev).clone() for t in params]
+        m = {n: [t.to(dev).clone() for t in ts] for n, ts in moms.items()}
+        count = torch.tensor(4, dtype=torch.int32, device=dev)
+        optim.apply_update(family, cfg.train, p,
+                           [g.to(dev) for g in grads], m,
+                           count if counted else None, count.clone(),
+                           train_lib.make_schedule(cfg.train))
+        out[str(dev)] = [t.cpu() for t in p] + [
+            t.cpu() for n in sorted(m) for t in m[n]]
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert len(cpu) == len(names) * (1 + len(moms))
+    for a, b in zip(card, cpu):
+        rel = float((a.double() - b.double()).norm() / b.double().norm())
+        assert rel <= bound, rel
+
+
+@pytest.mark.gpu
+def test_stacked_step_on_the_card_matches_members_in_turn(cuda):
+    """k=2 smoke members stepped 3 times stacked (B1 once over the 16
+    stacked images a step) against each stepped in turn (B1 once a
+    step), float32 with TF32 off and cuDNN deterministic: losses within
+    1e-5 and every param and statistic within 1e-4 absolute, as on the
+    CPU."""
+    import dataclasses
+
+    from jama16_retina_tpu_torch import configs, models, train_lib
+    from jama16_retina_tpu_torch.models import init
+
+    cfg = configs.override(configs.get_config("smoke"), [
+        "model.compute_dtype=float32", "data.use_pallas=true",
+        "train.optimizer=lamb", "train.gradient_clip_norm=1.0",
+        "train.ensemble_size=2", "train.ensemble_parallel=true"])
+    g = torch.Generator(device=cuda).manual_seed(2)
+    batch = {"image": torch.randint(0, 256, (8, 64, 64, 3), device=cuda,
+                                    dtype=torch.uint8, generator=g),
+             "grade": torch.arange(8, device=cuda, dtype=torch.int32) % 5}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        seeds = [0, 1]
+        state = train_lib.create_ensemble_state(cfg, seeds, cuda)
+        singles = [train_lib.create_state(
+            cfg, init.init_flax_default(models.build(cfg.model), s), cuda)
+            for s in seeds]
+        for _ in range(3):
+            before = cj.launches["fused_color_jitter"]
+            losses = train_lib.ensemble_train_step(state, batch, cfg)
+            torch.cuda.synchronize()
+            assert cj.launches["fused_color_jitter"] == before + 1
+            for m, single in enumerate(singles):
+                mcfg = cfg.replace(train=dataclasses.replace(
+                    cfg.train, seed=seeds[m], ensemble_size=1))
+                loss = train_lib.train_step(single, batch, mcfg)
+                assert abs(float(loss) - float(losses[m])) <= 1e-5
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    for m, single in enumerate(singles):
+        got = train_lib.state_to_flat(train_lib.unstack_member(state, m))
+        want = train_lib.state_to_flat(single)
+        for k in want:
+            if k.startswith(("params/", "batch_stats/")):
+                assert abs(got[k] - want[k]).max() <= 1e-4, k

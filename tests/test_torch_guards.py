@@ -44,12 +44,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # Every module of the package: the train slice's (train_lib, trainer,
     # train, ops/color_jitter, ops/adamw, models/init), the fit and
     # evaluate slice's (data/tfrecord, data/pipeline, utils/logging,
-    # evaluate) and the serving knobs' (obs, integrity, serve/quantize,
-    # serve/batcher) included.
-    assert int(n_modules) >= 31
+    # evaluate), the serving knobs' (obs, integrity, serve/quantize,
+    # serve/batcher) and the optimizer families' (optim; the ensemble
+    # code lives in train_lib and trainer) included.
+    assert int(n_modules) >= 32
     assert {f"jama16_retina_tpu_torch.{m}" for m in (
         "obs.registry", "obs.quality", "integrity.artifact",
-        "serve.quantize", "serve.batcher")} <= set(names.split())
+        "serve.quantize", "serve.batcher", "optim", "train_lib",
+        "trainer")} <= set(names.split())
     assert bad.strip() == "[]"
 
 
@@ -108,6 +110,29 @@ def test_fit_and_evaluate_default_to_the_card_and_raise_without_one(
         evaluate.main([f"--data_dir={tmp_path}",
                        f"--checkpoint_dir={tmp_path}"])
     assert not os.path.exists(tmp_path / "wd")
+
+
+def test_ensemble_entry_points_default_to_the_card_and_raise_without_one(
+        no_card, tmp_path):
+    """The member-parallel driver, through ``fit_ensemble`` and directly,
+    and the optimizer families' fits, raise without a card unless the
+    caller passes ``device="cpu"``; nothing is written."""
+    from jama16_retina_tpu_torch import trainer
+
+    ens = configs.override(configs.get_config("smoke"), [
+        "train.ensemble_size=2", "train.ensemble_parallel=true",
+        "train.ensemble_parallel_force=true"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.fit_ensemble(ens, str(tmp_path), str(tmp_path / "a"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.fit_ensemble_parallel(ens, str(tmp_path),
+                                      str(tmp_path / "b"))
+    for family in ("sgdm", "rmsprop", "lamb"):
+        cfg = configs.override(configs.get_config("smoke"), [
+            f"train.optimizer={family}", "train.gradient_clip_norm=1.0"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trainer.fit_synthetic(cfg, str(tmp_path / family), 2)
+    assert sorted(os.listdir(tmp_path)) == []
 
 
 def test_kernel_wrapper_never_falls_back_from_the_card():
@@ -186,6 +211,51 @@ def test_knobs_ported_since_build_and_train_a_step(item, tmp_path):
         torch.set_num_threads(threads)
     assert logits.shape == (2, cfg.model.num_classes)
     assert res["steps"] == 1 and np.isfinite(res["final_loss"])
+
+
+def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
+    """Each leaf field of the JAX package's ``ExperimentConfig`` is a field
+    of the port, or overriding it raises ``NotImplementedError`` naming
+    its ROADMAP item (``configs._NOT_PORTED`` by field or by section;
+    ``configs._UNIMPLEMENTED`` for copied knobs), never the typo error.
+    The data plane is item 7, multi-device item 8, the planes item 11."""
+    from jama16_retina_tpu import configs as jax_configs
+
+    def leaves(obj, prefix=""):
+        for f in dataclasses.fields(obj):
+            value = getattr(obj, f.name)
+            if dataclasses.is_dataclass(value):
+                yield from leaves(value, f"{prefix}{f.name}.")
+            else:
+                yield f"{prefix}{f.name}", value
+
+    ours = dict(leaves(configs.ExperimentConfig()))
+    items = {}
+    for key, value in leaves(jax_configs.ExperimentConfig()):
+        if key in ours:
+            continue
+        raw = ",".join(map(str, value)) if isinstance(value, tuple) else value
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md Queue [AC]") as e:
+            configs.override(configs.get_config("smoke"), [f"{key}={raw}"])
+        items[key] = str(e.value)
+    assert len(items) >= 80
+    for key, item in (("data.autotune", "item 7"),
+                      ("data.quarantine_bad_records", "item 7"),
+                      ("parallel.num_devices", "item 8"),
+                      ("train.ensemble_manual_data", "item 8"),
+                      ("eval.sharded", "item 8"),
+                      ("lifecycle.enabled", "item 11"),
+                      ("ingest.socket_path", "item 11"),
+                      ("integrity.cache_max_bytes", "item 11"),
+                      ("obs.audit.enabled", "item 11"),
+                      ("train.profile_steps", "item 11")):
+        assert f"Queue A {item} " in items[key], (key, items[key])
+    for key in ("train.optimizer", "train.gradient_clip_norm",
+                "train.lr_scale_ref_batch", "train.recipe_curve_ref",
+                "train.recipe_curve_tol", "train.ensemble_parallel",
+                "train.ensemble_parallel_force"):
+        assert key in ours
 
 
 def test_unknown_arch_or_head_raises():

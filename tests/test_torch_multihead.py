@@ -35,7 +35,7 @@ from jama16_retina_tpu_torch.serve.engine import ServingEngine
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 from jama16_retina_tpu_torch.utils.logging import read_jsonl
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
-from torch_parity import (flat_optax_adamw, random_flat, stacked_state,
+from torch_parity import (flat_optax_state, random_flat, stacked_state,
                           variables)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -147,9 +147,9 @@ def test_multi_train_step_matches_jax_for_three_steps(form):
             **{"batch_stats/" + k: a
                for k, a in _flat(jstate.batch_stats).items()}}
     _close(convert.torch_to_flax(state.model), want, atol=2e-5)
-    opt = convert.port_to_optax_adamw(state.mu, state.nu, int(state.count),
-                                      int(state.sched_count))
-    want_opt = flat_optax_adamw(jstate.opt_state)
+    opt = convert.port_to_optax("adamw", train_lib.moments(state),
+                                int(state.count), int(state.sched_count))
+    want_opt = flat_optax_state(jstate.opt_state, "adamw")
     assert int(opt["adam/count"]) == int(want_opt["adam/count"]) == 3
     _close(opt, want_opt, atol=1e-5)
 

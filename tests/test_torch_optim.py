@@ -30,7 +30,7 @@ from jama16_retina_tpu.ops import pallas_opt
 from jama16_retina_tpu_torch import configs, models, train_lib
 from jama16_retina_tpu_torch.models import convert
 from jama16_retina_tpu_torch.ops import adamw
-from torch_parity import flat_optax_adamw, random_flat
+from torch_parity import flat_optax_state, random_flat
 
 I32 = torch.int32
 
@@ -163,23 +163,24 @@ def test_optax_state_converter_round_trips_exactly():
     grads = jax.tree.map(lambda p: jnp.ones_like(p) * 0.5, params)
     for _ in range(2):
         _, st = tx.update(grads, st, params)
-    flat_st = flat_optax_adamw(st)
-    port = convert.optax_adamw_to_port(flat_st, model)
+    flat_st = flat_optax_state(st, "adamw")
+    port = convert.optax_to_port(flat_st, model, "adamw")
     assert port["count"] == 2 and port["sched_count"] == 2
     names = dict(model.named_parameters())
-    assert set(port["mu"]) == set(names) == set(port["nu"])
-    for k, t in port["mu"].items():
+    moments = port["moments"]
+    assert set(moments["mu"]) == set(names) == set(moments["nu"])
+    for k, t in moments["mu"].items():
         assert t.shape == names[k].shape
-    back = convert.port_to_optax_adamw(port["mu"], port["nu"], port["count"],
-                                       port["sched_count"])
+    back = convert.port_to_optax("adamw", moments, port["count"],
+                                 port["sched_count"])
     assert set(back) == set(flat_st)
     for k, v in flat_st.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
-    again = convert.optax_adamw_to_port(back, model)
+    again = convert.optax_to_port(back, model, "adamw")
     for moment in ("mu", "nu"):
-        for k, t in port[moment].items():
-            assert torch.equal(again[moment][k], t), k
+        for k, t in moments[moment].items():
+            assert torch.equal(again["moments"][moment][k], t), k
     with pytest.raises(KeyError, match="lacks mu"):
-        convert.optax_adamw_to_port(
+        convert.optax_to_port(
             {k: v for k, v in flat_st.items()
-             if k != "adam/mu/Logits/bias"}, model)
+             if k != "adam/mu/Logits/bias"}, model, "adamw")

@@ -32,7 +32,7 @@ from jama16_retina_tpu_torch.data import synthetic
 from jama16_retina_tpu_torch.models import common, convert, inception_v3
 from jama16_retina_tpu_torch.serve.engine import ServingEngine
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
-from torch_parity import (flat_optax_adamw, random_flat, to_nchw, to_nhwc,
+from torch_parity import (flat_optax_state, random_flat, to_nchw, to_nhwc,
                           torch_threads, variables)
 
 F32 = jnp.float32
@@ -297,9 +297,9 @@ def test_smoke_train_step_matches_jax_for_three_steps(form):
     want = {**_flax_grads(jstate.params),
             **_stats({"batch_stats": jstate.batch_stats})}
     _close(convert.torch_to_flax(state.model), want, atol=2e-5)
-    opt = convert.port_to_optax_adamw(state.mu, state.nu, int(state.count),
-                                      int(state.sched_count))
-    want_opt = flat_optax_adamw(jstate.opt_state)
+    opt = convert.port_to_optax("adamw", train_lib.moments(state),
+                                int(state.count), int(state.sched_count))
+    want_opt = flat_optax_state(jstate.opt_state, "adamw")
     assert int(opt["adam/count"]) == int(want_opt["adam/count"]) == 3
     assert int(opt["schedule/count"]) == int(want_opt["schedule/count"]) == 3
     _close(opt, want_opt, atol=1e-5)
@@ -312,10 +312,7 @@ def test_smoke_train_step_matches_jax_for_three_steps(form):
 @pytest.mark.parametrize("item,exc", [
     ("train.use_pallas_fused=true,train.optimizer=sgdm", ValueError),
     ("train.use_pallas_fused=true,train.gradient_clip_norm=1.0", ValueError),
-    ("train.optimizer=sgdm", NotImplementedError),
-    ("train.optimizer=lamb", NotImplementedError),
-    ("train.gradient_clip_norm=1.0", NotImplementedError),
-    ("train.ensemble_size=2", NotImplementedError),
+    ("train.optimizer=adagrad", ValueError),
     ("train.distill_from=/x", NotImplementedError),
     ("model.stem_s2d=true", NotImplementedError),
     ("model.remat_stem=true", NotImplementedError),
@@ -329,21 +326,38 @@ def test_train_refuses_knobs_it_cannot_honour(item, exc, tmp_path):
     assert not os.path.exists(tmp_path / trainer.METRICS_FILE)
 
 
-@pytest.mark.parametrize("item", ["model.head=multi"])
-def test_train_runs_knobs_it_once_refused(item, tmp_path):
-    """``model.head=multi`` was refused until the 5-class head was
-    ported: the model builds with five outputs and a ``fit_synthetic``
-    step on the CPU writes its train record and a servable member."""
+@pytest.mark.parametrize("item", [
+    "model.head=multi", "train.optimizer=sgdm", "train.optimizer=lamb",
+    "train.gradient_clip_norm=1.0", "train.ensemble_size=2"])
+def test_train_runs_knobs_it_once_refused(item, knob_data, tmp_path):
+    """Knobs refused until they were ported now train on ``smoke``:
+    ``model.head=multi`` (the 5-class head builds with five outputs),
+    the optimizers sgdm and lamb and the gradient clip (a
+    ``fit_synthetic`` step on the CPU writes its train record and a
+    servable member, with the family's state), and
+    ``train.ensemble_size=2`` (``fit_ensemble`` trains both members, one
+    after another, into ``member_00`` and ``member_01``). Their parity
+    with the reference is held in ``tests/test_torch_optimizers.py`` and
+    ``tests/test_torch_ensemble_parallel.py``."""
     cfg = configs.override(configs.get_config("smoke"), [
-        item, "train.steps=1", "train.log_every=1"])
-    assert models.build(cfg.model).Logits.out_features == 5
+        item, "train.steps=1", "train.log_every=1", "train.eval_every=1"])
+    if item == "train.ensemble_size=2":
+        with torch_threads(1):
+            res = trainer.fit_ensemble(cfg, knob_data[0], str(tmp_path),
+                                       device="cpu")
+        assert [r["member"] for r in res] == [0, 1]
+        assert all(r["best_step"] == 1 for r in res)
+        assert sorted(os.listdir(tmp_path)) == ["member_00", "member_01"]
+        return
+    if item == "model.head=multi":
+        assert models.build(cfg.model).Logits.out_features == 5
     with torch_threads(1):
         res = trainer.fit_synthetic(cfg, str(tmp_path), 8, device="cpu")
     assert res["steps"] == 1 and np.isfinite(res["final_loss"])
     assert os.path.exists(tmp_path / trainer.METRICS_FILE)
     probs = ServingEngine(cfg, [str(tmp_path)], device="cpu").probs(
         np.zeros((2, 64, 64, 3), np.uint8))
-    assert probs.shape == (2, 5)
+    assert probs.shape == ((2, 5) if item == "model.head=multi" else (2,))
 
 
 @pytest.fixture(scope="module")
@@ -405,9 +419,9 @@ def test_unported_reference_fields_name_their_roadmap_item(item):
 
 def test_serving_ignores_train_knobs():
     cfg = configs.override(configs.get_config("smoke"),
-                           ["train.optimizer=sgdm", "train.dtype=bf16"])
+                           ["train.distill_from=/x", "train.dtype=bf16"])
     configs.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
         configs.check_supported(cfg, training=True)
 
 

@@ -123,16 +123,40 @@ def to_nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).float().numpy()
 
 
-def flat_optax_adamw(opt_state) -> "dict[str, np.ndarray]":
-    """The flat numpy form of an optax adamw state that
-    ``models.convert.optax_adamw_to_port`` reads: ``adam/count``,
-    ``adam/mu/<path>``, ``adam/nu/<path>``, ``schedule/count``."""
-    adam, _, sched = opt_state
-    flat = {"adam/count": np.asarray(adam.count),
-            "schedule/count": np.asarray(sched.count)}
-    for moment in ("mu", "nu"):
-        for k, v in flatten_dict(getattr(adam, moment), sep="/").items():
-            flat[f"adam/{moment}/{k}"] = np.asarray(v)
+def flat_optax_state(opt_state, family: str) -> "dict[str, np.ndarray]":
+    """The flat numpy form of any optax state of the JAX package's
+    ``make_optimizer`` that ``models.convert.optax_to_port`` reads for
+    ``family`` (the naming documented in ``models/convert.py``): the
+    chain is walked and each state it holds named by its type, so the
+    clip's and the masks' empty states drop out."""
+    from jama16_retina_tpu_torch.models import convert
+
+    prefixes = convert.OPT_PREFIXES[family]
+    flat: dict = {}
+
+    def tree(prefix, t):
+        for k, v in flatten_dict(t, sep="/").items():
+            flat[f"{prefix}/{k}"] = np.asarray(v)
+
+    def walk(st):
+        kind = type(st).__name__
+        if kind == "ScaleByAdamState":
+            flat[convert.OPT_COUNTS[family]] = np.asarray(st.count)
+            tree(prefixes["mu"], st.mu)
+            tree(prefixes["nu"], st.nu)
+        elif kind == "ScaleByRmsState":
+            tree(prefixes["nu"], st.nu)
+        elif kind == "TraceState":
+            tree(prefixes["trace"], st.trace)
+        elif kind == "ScaleByScheduleState":
+            flat[convert.SCHEDULE_COUNT] = np.asarray(st.count)
+        elif kind == "MaskedState":
+            walk(st.inner_state)
+        elif isinstance(st, (tuple, list)) and kind != "EmptyState":
+            for sub in st:
+                walk(sub)
+
+    walk(opt_state)
     return flat
 
 
