@@ -222,6 +222,36 @@ Phases, any failure exits nonzero before the result line:
               stacked step timed against k member steps in turns
               (stacked, in turn, in turn, stacked; bf16, batch 32, adamw):
               median ms, member images/s, peak memory and the ratio.
+12. cascade  - after phase 11, on the fit phase's splits. (a) Ten random
+              ``eyepacs_binary`` members (``ensemble10``'s k) as the
+              teacher: its float32 soft targets of 8 canvases on the card
+              against the CPU within 1e-4 (TF32 off); a 4-step student fit
+              with ``train.distill_from`` (bf16 masters, fused form, batch
+              32, constant learning rate, evals every 2, cuDNN
+              deterministic): its ``distill`` record, B2 = B3 = 4, and the
+              same fit cut at step 2 and resumed bitwise the uninterrupted
+              one. (b) The cascade of that student (its best step) and the
+              ten members (float32 compute, fused preprocess) over 64
+              canvases, threshold at the median student score and a band
+              escalating about 30 %: student rows bitwise
+              ``student.probs``, escalated rows bitwise
+              ``ensemble.probs(images[mask])``, counters equal the mask's;
+              speculative against serial within 1e-6; cascade, speculative,
+              ensemble and student requests at batch 8 and 64 (median and
+              range of 10 after 2 warm). (c) ``assemble(go_live=True)`` of
+              a band covering [0, 1] passes against a canary pinned from
+              the ensemble's scores (and ``auc_floor`` on the 64 graded
+              canvases); a student with head bias +20 at band 0 raises
+              ``CascadeRejected``. (d) The ensemble engine under the
+              micro-batcher (one bucket of 32, 4 closed-loop clients):
+              ``reload`` to ten other members and ``rollback`` mid-run,
+              no request failing, every response's rows those of the
+              generation ``probs_with_generation`` named (float32 bar
+              1e-4), reload and rollback ms, ``memory_allocated`` before,
+              with a generation retained and after ``release_retained``; a
+              canary-failing candidate raises ``ReloadRejected``; a shadow
+              at 0.25 samples every 4th request. Launch counts are set to
+              0 before (b) and read after (d): B4 once a chunk.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
@@ -2624,6 +2654,429 @@ def phase_ensemble(torch, seed: int, smi: str, root: Path, data: Path
     return out
 
 
+# Phase 12: the distilled cascade and serving generations.
+CASCADE_K = 10
+DISTILL_STEPS = 4
+DISTILL_EVAL_EVERY = 2
+SOFT_CHECK_BATCH = 8
+CASCADE_CANVASES = 64
+# The band is set to escalate this share of the 64 canvases.
+CASCADE_ESCALATE = 0.3
+# Speculative vs serial cascade scores (tests/test_torch_cascade.py).
+SPEC_TOL = 1e-6
+LOAD_BUCKET = 32
+LOAD_CLIENTS = 4
+
+
+def save_random_members(torch, cfg, root: Path, seed: int, k: int) -> list:
+    """``k`` seeded random members of ``cfg``'s model as ``params.npz``
+    member dirs under ``root``."""
+    from jama16_retina_tpu_torch import models
+    from jama16_retina_tpu_torch.models import convert
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    dirs = []
+    for m in range(k):
+        model = random_member(models.build(cfg.model),
+                              torch.Generator().manual_seed(seed + m))
+        d = ckpt_lib.member_dir(str(root), m)
+        ckpt_lib.save_member(d, convert.torch_to_flax(model))
+        dirs.append(d)
+    return dirs
+
+
+def distill_config(steps: int, workdir: Path, seed: int, teacher: Path,
+                   *extra):
+    """``eyepacs_binary`` distilled from ``teacher``: fused form (B2 + B3),
+    bf16 masters, a constant learning rate (so a run cut at step 2 and
+    resumed is the uninterrupted run), evals every 2 steps."""
+    return fit_config(steps, workdir, seed,
+                      f"train.eval_every={DISTILL_EVAL_EVERY}",
+                      "train.use_pallas_fused=true", "train.dtype=bf16",
+                      "train.lr_schedule=constant",
+                      f"train.distill_from={teacher}", *extra)
+
+
+def phase_distill(torch, seed: int, smi: str, root: Path, data: Path
+                  ) -> dict:
+    """Phase 12a: ten random teacher members; their float32 soft targets
+    on the card against the CPU; a 4-step distill fit on the fit phase's
+    splits, and the same fit cut at step 2 and resumed (cuDNN
+    deterministic)."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, trainer
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    base = configs.get_config("eyepacs_binary")
+    teacher = root / "teacher"
+    t0 = time.perf_counter()
+    dirs = save_random_members(torch, base, teacher, seed + 100, CASCADE_K)
+    log(f"distill: wrote {CASCADE_K} random teacher members in "
+        f"{time.perf_counter() - t0:.1f} s")
+    f32 = configs.override(base, ["model.compute_dtype=float32",
+                                  f"train.distill_from={teacher}"])
+    canv = render(seed + 40, SOFT_CHECK_BATCH)
+    card = trainer._distill_teacher(f32, torch.device("cuda"))(
+        torch.from_numpy(canv).cuda()).cpu().numpy()
+    cpu = trainer._distill_teacher(f32, torch.device("cpu"))(
+        torch.from_numpy(canv)).numpy()
+    soft_dev = float(np.max(np.abs(card - cpu)))
+    check(card.dtype == np.float32 and card.shape == (SOFT_CHECK_BATCH,)
+          and np.isfinite(card).all() and soft_dev <= 1e-4,
+          f"teacher soft targets card vs CPU: {soft_dev} (bound 1e-4)")
+    log(f"distill: k={CASCADE_K} teacher float32 soft targets of "
+        f"{SOFT_CHECK_BATCH} canvases, card vs CPU max |diff| "
+        f"{soft_dev:.3e} (bound 1e-4, TF32 off); targets "
+        f"{np.round(card, 4).tolist()}")
+    out = {"launches": {}, "soft_dev": soft_dev, "teacher": dirs}
+    want = {"fused_color_jitter": 0, "fused_normalize_color_jitter":
+            DISTILL_STEPS, "fused_adamw_update": DISTILL_STEPS,
+            "fused_serve_preprocess": 0}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        full = root / "distill_full"
+        t0 = time.perf_counter()
+        res, counts, recs = fit_run(
+            torch, distill_config(DISTILL_STEPS, full, seed, teacher), data)
+        fit_s = time.perf_counter() - t0
+        out["launches"]["distill_fit"] = counts
+        check(counts == want, f"the distill fit launched {counts}, want "
+              f"{want}")
+        check([r["distill_from"] for r in recs if r["kind"] == "distill"]
+              == [str(teacher)], "no distill record")
+        evals = [r for r in recs if r["kind"] == "eval"]
+        trains = [r for r in recs if r["kind"] == "train"]
+        check([r["step"] for r in evals] == [2, 4]
+              and all(np.isfinite(r["loss"]) for r in trains),
+              f"distill fit records {evals}")
+        log(f"distill: {DISTILL_STEPS}-step fit (bf16, fused, batch "
+            f"{TRAIN_BATCH}) from {CASCADE_K} teacher members: losses "
+            f"{[round(r['loss'], 4) for r in trains]}, val AUC "
+            f"{[r['val_auc'] for r in evals]}, best step {res['best_step']}"
+            f", launches {counts}, {fit_s:.1f} s ({smi})")
+        cut = root / "distill_cut"
+        _, c1, _ = fit_run(torch, distill_config(
+            DISTILL_EVAL_EVERY, cut, seed, teacher), data)
+        _, c2, recs2 = fit_run(torch, distill_config(
+            DISTILL_STEPS, cut, seed, teacher, "train.resume=true"), data)
+        out["launches"]["distill_cut"] = c1
+        out["launches"]["distill_resume"] = c2
+        check(c2["fused_normalize_color_jitter"] == DISTILL_STEPS
+              - DISTILL_EVAL_EVERY, f"the resumed distill fit launched {c2}")
+        check([r["step"] for r in recs2 if r["kind"] == "resume"]
+              == [DISTILL_EVAL_EVERY], "no resume record at step 2")
+        a = ckpt_lib.Checkpointer(str(full)).restore(DISTILL_STEPS)
+        b = ckpt_lib.Checkpointer(str(cut)).restore(DISTILL_STEPS)
+        differ = sorted(k for k in a if k not in b
+                        or not np.array_equal(a[k], b[k]))
+        check(set(a) == set(b) and not differ,
+              f"resumed distill fit differs in {differ[:5]}")
+        log(f"distill: cut at step {DISTILL_EVAL_EVERY} and resumed to "
+            f"{DISTILL_STEPS}: the step-{DISTILL_STEPS} checkpoint ({len(a)} "
+            "arrays) bitwise the uninterrupted run's (cuDNN deterministic)")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            flags)
+    out["student"] = str(full)
+    return out
+
+
+def phase_cascade(torch, seed: int, smi: str, root: Path,
+                  distill: dict) -> dict:
+    """Phase 12b-d: the cascade of the distilled student and the ten
+    teacher members (float32, fused preprocess); its gate; the
+    ensemble's generations under the micro-batcher's load. Launch counts
+    are set to 0 before the path and read after it."""
+    import gc
+    import threading
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, models
+    from jama16_retina_tpu_torch.models import convert
+    from jama16_retina_tpu_torch.obs import quality
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.ops import serve_preprocess as sp
+    from jama16_retina_tpu_torch.serve import batcher as batcher_lib
+    from jama16_retina_tpu_torch.serve import engine as engine_lib
+    from jama16_retina_tpu_torch.serve.assemble import EngineSpec, assemble
+    from jama16_retina_tpu_torch.serve.cascade import (CascadeEngine,
+                                                       CascadeRejected)
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "model.compute_dtype=float32", "serve.fused_preprocess=true"])
+    canv = render(seed + 50, CASCADE_CANVASES)
+    grades = np.arange(CASCADE_CANVASES) % 5
+    teacher, student_dir = distill["teacher"], distill["student"]
+    gen_b = save_random_members(torch, cfg, root / "gen_b", seed + 200,
+                                CASCADE_K)
+    # B4 at the load bucket, bitwise against its plain version (outside
+    # the counted path).
+    x = torch.from_numpy(canv[:LOAD_BUCKET]).cuda()
+    (n_k, s_k), (n_p, s_p) = (sp.fused_serve_preprocess(x),
+                              sp.serve_preprocess_reference(x))
+    check(torch.equal(n_k, n_p) and torch.equal(s_k, s_p),
+          f"fused_serve_preprocess differs at [{LOAD_BUCKET}, 299, 299, 3]")
+    log(f"kernels: fused_serve_preprocess [{LOAD_BUCKET}, 299, 299, 3] (the "
+        "generations' bucket) bitwise")
+    out: dict = {}
+    chunks = 0
+    torch.cuda.synchronize()
+    reset_launch_counts()
+
+    # (b) The cascade.
+    student = engine_lib.ServingEngine(cfg, [student_dir], device="cuda",
+                                       registry=Registry())
+    ensemble = engine_lib.ServingEngine(cfg, teacher, device="cuda",
+                                        registry=Registry())
+    s = student.probs(canv)
+    thr = float(np.median(s))
+    band = float(np.quantile(np.abs(s - thr), CASCADE_ESCALATE))
+    ccfg = configs.override(cfg, [f"serve.cascade_band={band!r}",
+                                  f"serve.cascade_thresholds={thr!r}"])
+    reg = Registry()
+    cascade = CascadeEngine(ccfg, student, ensemble, registry=reg)
+    got, mask = cascade._probs_masked(canv)
+    n_esc = int(mask.sum())
+    check(0 < n_esc < CASCADE_CANVASES, f"{n_esc} rows escalated")
+    check(np.array_equal(got[~mask], student.probs(canv)[~mask]),
+          "a student row differs from student.probs of the request")
+    check(np.array_equal(got[mask], ensemble.probs(canv[mask])),
+          "an escalated row differs from ensemble.probs(images[mask])")
+    check(reg.counter("serve.cascade.student_rows").value == CASCADE_CANVASES
+          and reg.counter("serve.cascade.escalated_rows").value == n_esc,
+          f"cascade counters {reg.snapshot()}")
+    spec_reg = Registry()
+    spec = CascadeEngine(configs.override(
+        ccfg, ["serve.cascade_speculative=true"]), student, ensemble,
+        registry=spec_reg)
+    sgot, smask = spec._probs_masked(canv)
+    spec_dev = float(np.max(np.abs(sgot - got)))
+    check(np.array_equal(smask, mask) and spec_dev <= SPEC_TOL,
+          f"speculative vs serial: {spec_dev} (bound {SPEC_TOL})")
+    check(spec_reg.counter("serve.cascade.speculated").value
+          == CASCADE_CANVASES
+          and spec_reg.counter("serve.cascade.speculated.wasted").value
+          == CASCADE_CANVASES - n_esc, "speculation counters")
+    out.update(escalated=n_esc / CASCADE_CANVASES, spec_dev=spec_dev,
+               threshold=thr, band=band)
+    log(f"cascade: student = the distill fit's best step, ensemble = the "
+        f"{CASCADE_K} teacher members (float32, fused preprocess); threshold"
+        f" {thr:.6f} (median student score), band {band:.6f}: {n_esc} of "
+        f"{CASCADE_CANVASES} rows escalated "
+        f"({100 * n_esc / CASCADE_CANVASES:.1f} %); student rows bitwise student.probs, escalated rows bitwise "
+        "ensemble.probs(images[mask]), counters equal the mask's; "
+        f"speculative vs serial max |diff| {spec_dev:.3e} (bound {SPEC_TOL})")
+    times = {}
+    for b in (8, 64):
+        xb = canv[:b]
+        for name, fn in (("cascade", cascade.probs),
+                         ("speculative", spec.probs),
+                         ("ensemble", ensemble.probs),
+                         ("student", student.probs)):
+            times[f"{name}_b{b}"] = request_ms(torch, lambda: fn(xb))
+        share = float(cascade.escalation_mask(s[:b]).mean())
+        log(f"times: cascade request batch {b} ({100 * share:.0f} % "
+            f"escalated): cascade {fmt_ms(times[f'cascade_b{b}'])}; "
+            f"speculative {fmt_ms(times[f'speculative_b{b}'])}; ensemble "
+            f"alone ({CASCADE_K} members) {fmt_ms(times[f'ensemble_b{b}'])}"
+            f"; student alone {fmt_ms(times[f'student_b{b}'])} ({smi})")
+    spec.close()
+    out["times"] = times
+
+    # (c) The gate.
+    canary = quality.save_canary(str(root / "canary"), canv[:8],
+                                 ensemble.probs(canv[:8]))
+    qsets = ["obs.quality.enabled=true", f"obs.quality.canary_path={canary}",
+             "obs.quality.canary_every_s=0"]
+    faithful = assemble(EngineSpec(
+        cfg=configs.override(cfg, qsets + [
+            "serve.cascade_band=1.0",
+            f"serve.cascade_student_dir={student_dir}"]),
+        member_dirs=tuple(teacher), device="cuda", registry=Registry(),
+        go_live=True))
+    check(isinstance(faithful, CascadeEngine), "assemble built no cascade")
+    verdicts = {v.name: v for v in faithful.go_live(canv, grades)}
+    check(verdicts["golden_canary"].value == 0.0
+          and verdicts["auc_floor"].passed
+          and not verdicts["auc_floor"].skipped, f"faithful gate {verdicts}")
+    flat = ckpt_lib.load_member(student_dir)
+    flat["params/Logits/bias"] = flat["params/Logits/bias"] + 20.0
+    garbage = engine_lib.ServingEngine(
+        cfg, state_dicts=[convert.flax_to_torch(flat,
+                                                models.build(cfg.model))],
+        device="cuda", registry=Registry())
+    gmin = float(garbage.probs(canv[:8]).min())
+    gcfg = configs.override(cfg, qsets + ["serve.cascade_band=0"])
+    bad = CascadeEngine(gcfg, garbage, ensemble, registry=Registry(),
+                        quality=quality.monitor_from_config(
+                            gcfg.obs.quality, registry=Registry()))
+    try:
+        bad.go_live()
+        refused = None
+    except CascadeRejected as e:
+        refused = str(e)
+    check(gmin > 0.99 and refused is not None
+          and "golden_canary" in refused,
+          f"garbage student (min score {gmin}) not refused: {refused}")
+    log(f"cascade gate: band [0, 1] through assemble(go_live=True): "
+        f"golden_canary dev {verdicts['golden_canary'].value}, auc_floor "
+        f"{verdicts['auc_floor'].value:.6f} >= "
+        f"{verdicts['auc_floor'].threshold:.6f}: live; student with head "
+        f"bias +20 (min score {gmin:.6f}), band 0: CascadeRejected "
+        f"({refused[:160]})")
+    engines = [student, ensemble, faithful.student, faithful.ensemble,
+               garbage]
+    chunks += sum(e.chunks_dispatched for e in engines)
+    del cascade, spec, faithful, bad, garbage, student, ensemble, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) Generations under load.
+    lcfg = configs.override(cfg, qsets + [
+        "obs.quality.canary_atol=1.0", f"serve.max_batch={LOAD_BUCKET}",
+        f"serve.bucket_sizes={LOAD_BUCKET}", "serve.max_wait_ms=2"])
+    eng = engine_lib.ServingEngine(lcfg, teacher, device="cuda",
+                                   registry=Registry())
+    table = {0: eng.probs(canv)}
+    one_gen = eng.resident_bytes()
+    torch.cuda.synchronize()
+    mem = {"before": torch.cuda.memory_allocated()}
+
+    def infer(rows):
+        probs, gen = eng.probs_with_generation(rows)
+        return np.stack([probs, np.full(len(probs), float(gen))], 1)
+
+    batcher = batcher_lib.MicroBatcher(
+        infer, max_batch=LOAD_BUCKET, max_wait_ms=2.0,
+        row_shape=(299, 299, 3), row_dtype=np.uint8, registry=Registry())
+    stop = threading.Event()
+    responses, errors = [], []
+    lock = threading.Lock()
+
+    def client(c):
+        rng = np.random.default_rng(seed + 300 + c)
+        while not stop.is_set():
+            idx = rng.integers(0, CASCADE_CANVASES, int(rng.integers(1, 9)))
+            try:
+                rows = batcher.submit(canv[idx]).result(timeout=120)
+                with lock:
+                    responses.append((idx, rows))
+            except Exception as e:  # noqa: BLE001 - counted and checked
+                with lock:
+                    errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(LOAD_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(1.0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        info = eng.reload(gen_b)
+        reload_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        mem["peak_during_reload"] = torch.cuda.max_memory_allocated()
+        mem["retained"] = torch.cuda.memory_allocated()
+        retained_bytes = eng.resident_bytes()
+        probs_b, gen = eng.probs_with_generation(canv)
+        table[gen] = probs_b
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        rb = eng.rollback()
+        rollback_ms = (time.perf_counter() - t0) * 1e3
+        table[rb["generation"]] = table[0]
+        time.sleep(1.0)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(300)
+        batcher.close()
+    check(not any(t.is_alive() for t in threads), "a load client hung")
+    check(not errors, f"{len(errors)} requests failed: {errors[:3]}")
+    check(info["generation"] == 1 and info["canary_checked"]
+          and rb == {"generation": 2, "restored_from": 0,
+                     "n_members": CASCADE_K}, f"reload {info}, rollback {rb}")
+    check(retained_bytes == 2 * one_gen, "resident bytes with a generation "
+          f"retained {retained_bytes}, one generation {one_gen}")
+    seen, worst, exact = {}, 0.0, 0
+    for idx, rows in responses:
+        g = int(rows[0, 1])
+        check(np.all(rows[:, 1] == g) and g in table,
+              f"a response spans generations {rows[:, 1]}")
+        dev = float(np.max(np.abs(rows[:, 0] - table[g][idx])))
+        worst = max(worst, dev)
+        exact += dev == 0.0
+        seen[g] = seen.get(g, 0) + 1
+    check(worst <= 1e-4 and sorted(seen) == [0, 1, 2],
+          f"responses by generation {seen}, worst |diff| {worst}")
+    # A second rollout, released: back to one generation.
+    eng.reload(gen_b)
+    eng.release_retained()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem["released"] = torch.cuda.memory_allocated()
+    check(eng.resident_bytes() == one_gen, "release_retained kept bytes")
+    # A candidate failing the canary: rejected, the live one serves on.
+    eng.quality.canary.atol = 1e-6
+    live = eng.generation
+    try:
+        eng.reload(teacher[:1])
+        rejected = False
+    except engine_lib.ReloadRejected:
+        rejected = True
+    eng.quality.canary.atol = 1.0
+    check(rejected and eng.generation == live
+          and eng.registry.counter("serve.reload_rejected").value == 1,
+          "a canary-failing candidate went live")
+    check(np.array_equal(eng.probs(canv[:8]), table[1][:8]),
+          "the live generation changed after a rejected reload")
+    # A shadow at fraction 0.25 samples every 4th request.
+    eng.begin_shadow(teacher, fraction=0.25)
+    for i in range(8):
+        eng.probs(canv[i:i + 2])
+    report = eng.end_shadow()
+    check(report["requests"] == 2 and report["rows"] == 4
+          and eng.registry.counter("serve.shadow.requests").value == 2,
+          f"shadow report {report}")
+    chunks += eng.chunks_dispatched
+    counts = launch_counts()
+    check(counts["fused_serve_preprocess"] == chunks
+          and counts["fused_color_jitter"] == 0
+          and counts["fused_normalize_color_jitter"] == 0
+          and counts["fused_adamw_update"] == 0,
+          f"the cascade path launched {counts}, want B4 once a chunk "
+          f"({chunks})")
+    out["launches"] = {"cascade_serve": counts}
+    out.update(reload_ms=reload_ms, rollback_ms=rollback_ms, memory=mem,
+               responses=len(responses), by_generation=seen)
+    log(f"generations: {len(responses)} requests of 1-8 rows from "
+        f"{LOAD_CLIENTS} closed-loop clients through the micro-batcher "
+        f"(bucket {LOAD_BUCKET}), {seen} by generation, 0 failed, every "
+        f"row within {worst:.3e} of its generation's direct scoring "
+        f"({exact} of {len(responses)} bitwise); reload to {CASCADE_K} "
+        f"other members (load, warm-up, canary) {reload_ms:.1f} ms, "
+        f"rollback {rollback_ms:.3f} ms ({smi})")
+    log(f"generations: memory_allocated before the reload {mem['before']}, "
+        f"with a generation retained {mem['retained']} (peak during the "
+        f"reload {mem['peak_during_reload']}), after release_retained "
+        f"{mem['released']} bytes; one generation {one_gen} bytes; a "
+        f"canary-failing candidate raised ReloadRejected (reload_rejected "
+        f"1) and generation {live} kept serving; a shadow at 0.25 scored "
+        f"{report['requests']} of 8 requests ({report})")
+    log(f"cascade: launches {counts} for {chunks} chunks")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"jama16_retina_tpu_torch/ops/csrc/{source}",
@@ -2730,6 +3183,11 @@ def main(argv=None) -> int:
     ensemble = phase_ensemble(torch, args.seed, smi, fit["root"], fit["data"])
     log(f"times: phase 11 (optimizers, recipe, ensemble) wall "
         f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    t_phase = time.perf_counter()
+    distill = phase_distill(torch, args.seed, smi, fit["root"], fit["data"])
+    cascade = phase_cascade(torch, args.seed, smi, fit["root"], distill)
+    log(f"times: phase 12 (distill, cascade, generations) wall "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
     shutil.rmtree(fit["root"], ignore_errors=True)
     torch.cuda.empty_cache()
     for form, t in train.items():
@@ -2776,7 +3234,8 @@ def main(argv=None) -> int:
             **knobs["launches"], **model_runs,
             "serve_knobs": knobs_serve["launches"],
             **optimizers["launches"], **recipe["launches"],
-            **ensemble["launches"]}
+            **ensemble["launches"], **distill["launches"],
+            **cascade["launches"]}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

@@ -127,6 +127,9 @@ class TrainConfig:
     ensemble_parallel: bool = False
     ensemble_parallel_force: bool = False
     init_from: str = ""
+    # Teacher ensemble root (or one member dir): the student trains
+    # against its members' averaged soft scores on each batch's clean
+    # images instead of the hard grades (trainer.fit). Empty: hard labels.
     distill_from: str = ""
     async_save: bool = False
     eval_overlap: bool = False
@@ -177,6 +180,19 @@ class ServeConfig:
     # Normalize each padded chunk with the fused CUDA kernel
     # (ops/serve_preprocess.py) and keep the per-image input statistics.
     fused_preprocess: bool = False
+    # The distilled cascade (serve/cascade.py): rows whose student score
+    # lies within cascade_band of any of cascade_thresholds (empty means
+    # (0.5,)) are scored again by the full ensemble. predict serves a
+    # cascade when cascade_student_dir names the student; with
+    # cascade_speculative the ensemble scores the whole request beside
+    # the student and the escalated rows take its scores.
+    cascade_band: float = 0.05
+    cascade_thresholds: tuple[float, ...] = ()
+    cascade_student_dir: str = ""
+    cascade_speculative: bool = False
+    # Seconds a reload keeps the previous generation on the device for
+    # an instant rollback (0: none is kept).
+    rollback_keep_s: float = 900.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,6 +231,19 @@ class ObsConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LifecycleConfig:
+    """The two gate bounds of the JAX package's ``lifecycle`` section that
+    the cascade's go-live gate reads; the lifecycle controller and its
+    other fields are not ported."""
+
+    # Max |cascade - pinned canary| referable-score deviation.
+    gate_canary_max_dev: float = 0.2
+    # Cascade AUC (and sensitivity/specificity at every cascade
+    # threshold) may fall at most this far below the full ensemble's.
+    gate_auc_floor_delta: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     name: str = "eyepacs_binary"
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -223,6 +252,8 @@ class ExperimentConfig:
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
+    lifecycle: LifecycleConfig = dataclasses.field(
+        default_factory=LifecycleConfig)
 
     def replace(self, **sections) -> "ExperimentConfig":
         return dataclasses.replace(self, **sections)
@@ -311,7 +342,6 @@ _UNIMPLEMENTED = {
     ("obs.quality", "input_psi_alert"): (0.25, _ALERTS),
     ("obs.quality", "alert_for_s"): (0.0, _ALERTS),
     ("obs.quality", "alert_rules"): ((), _ALERTS),
-    ("train", "distill_from"): ("", "Queue A item 9 (distillation)"),
 }
 _DATA_PLANE = "Queue A item 7 (the data plane)"
 _MULTI_DEVICE = "Queue A item 8 (multi-device)"
@@ -336,15 +366,15 @@ _NOT_PORTED = {
         _DATA_PLANE + " (rawshard, hbm, tiered, grain and served loaders, "
         "autotune, quarantine)"),
     "train.profile_steps": _PLANES + " (profiler windows)",
-    "lifecycle": _PLANES + " (the lifecycle)",
+    **dict.fromkeys(
+        ("lifecycle." + f for f in (
+            "enabled", "trigger_reasons", "retrain_steps",
+            "gate_parity_psi_max", "gate_eval_rows", "shadow_fraction",
+            "shadow_requests", "shadow_wait_s", "watch_rules",
+            "watch_probes", "watch_interval_s")),
+        "Queue A item 11 (planes: the lifecycle)"),
     "ingest": _PLANES + " (the ingest service)",
     "integrity": _PLANES + " (integrity: caches, telemetry retention)",
-    **dict.fromkeys(
-        ("serve.cascade_band", "serve.cascade_thresholds",
-         "serve.cascade_student_dir", "serve.cascade_speculative"),
-        "Queue A item 9 (the cascade)"),
-    "serve.rollback_keep_s": "Queue A item 9 (reload, hot-swap and "
-                             "rollback)",
     **dict.fromkeys(
         ("serve.router_replicas", "serve.router_policy",
          "serve.router_tick_ms", "serve.router_shed_rows",
@@ -385,8 +415,6 @@ def check_supported(cfg: ExperimentConfig, training: bool = False) -> None:
     configured. The ``train`` section's knobs are checked only when
     ``training``: serving a member never reads them."""
     for (section, field), (default, item) in _UNIMPLEMENTED.items():
-        if section == "train" and not training:
-            continue
         sec = cfg
         for part in section.split("."):
             sec = getattr(sec, part)

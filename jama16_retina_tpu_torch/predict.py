@@ -23,6 +23,12 @@ reference profile to monitor drift against; a golden canary, which with
 bf16 or int8 gates the engine's construction and refuses the batch with
 ``DtypeRejected`` when its scores move more than
 ``serve.dtype_canary_max_dev``) reach it as they reach ``ServingEngine``.
+The engine is assembled through ``serve/assemble.py``: with ``--set
+serve.cascade_student_dir=STUDENT`` it is a ``CascadeEngine`` (the
+student scores every image, the ``--checkpoint_dir`` ensemble the rows
+within ``serve.cascade_band`` of ``serve.cascade_thresholds``) that must
+pass its go-live gate first; a refused cascade exits 1 before any row
+is printed.
 """
 
 from __future__ import annotations
@@ -99,7 +105,8 @@ def main(argv: "list[str] | None" = None) -> int:
     from jama16_retina_tpu_torch import configs
     from jama16_retina_tpu_torch.eval import metrics
     from jama16_retina_tpu_torch.serve import host
-    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+    from jama16_retina_tpu_torch.serve.assemble import EngineSpec, assemble
+    from jama16_retina_tpu_torch.serve.cascade import CascadeRejected
     from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
     cfg = configs.override(configs.get_config(args.config), args.set)
@@ -114,16 +121,22 @@ def main(argv: "list[str] | None" = None) -> int:
         paths, cfg.model.image_size, ben_graham=args.ben_graham,
         workers=args.host_workers or cfg.serve.host_workers,
     )
+    if pre.kept:
+        # One bucket at --batch_size: every row runs at the same padded
+        # shape.
+        cfg = cfg.replace(serve=dataclasses.replace(
+            cfg.serve, max_batch=args.batch_size,
+            bucket_sizes=(args.batch_size,)))
+        try:
+            engine = assemble(EngineSpec(
+                cfg=cfg, member_dirs=tuple(dirs), device=args.device,
+                go_live=bool(cfg.serve.cascade_student_dir)))
+        except CascadeRejected as e:
+            raise SystemExit(f"predict: {e}") from None
     for p, why in pre.skipped:
         print(json.dumps({"image": p, "error": why}))
     if not pre.kept:
         return 1
-
-    # One bucket at --batch_size: every row runs at the same padded shape.
-    cfg = cfg.replace(serve=dataclasses.replace(
-        cfg.serve, max_batch=args.batch_size,
-        bucket_sizes=(args.batch_size,)))
-    engine = ServingEngine(cfg, dirs, device=args.device)
     probs = engine.probs(pre.images)
 
     for p, pr, qual in zip(pre.kept, probs, pre.qualities):

@@ -31,6 +31,16 @@ as ``member_probs`` but leave ``last_input_stats`` to the last live
 request. A bf16 or int8 engine with a pinned canary is refused at
 construction (``quantize.DtypeRejected``) when its canary scores move
 more than ``serve.dtype_canary_max_dev``.
+
+The members live in a ``_Generation`` (the JAX engine's hot-swap
+handle). ``reload`` builds generation N+1 off the request path (load,
+dtype transform, placement, one warm forward per bucket), holds it to
+the pinned golden canary, and puts it live by one reference assignment;
+a request reads the handle once and scores every chunk (and its canary
+ride-along) on that generation. The outgoing generation stays on the
+device for ``serve.rollback_keep_s`` so that ``rollback`` is one more
+assignment. ``begin_shadow`` scores every Nth live request through a
+candidate too, for comparison only.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from __future__ import annotations
 import copy
 import logging
 import threading
+import time
 
 import numpy as np
 import torch
@@ -84,6 +95,94 @@ def _on_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
                                     else torch.preserve_format))
 
 
+class ReloadRejected(RuntimeError):
+    """A candidate generation failed its pre-swap gate (golden-canary
+    deviation): the live generation keeps serving and the candidate never
+    took a request. Counted under ``serve.reload_rejected``."""
+
+
+class RollbackUnavailable(RuntimeError):
+    """``rollback()`` found no previous generation retained (never
+    swapped, already rolled back, or ``serve.rollback_keep_s`` expired):
+    ``reload()`` the previous member dirs instead."""
+
+
+class _ShadowSession:
+    """One candidate generation shadow-scoring every Nth live request
+    (N = round(1 / fraction)), counted under a lock: deterministic for a
+    fixed request sequence. A shadow failure is counted
+    (``serve.shadow.errors``), never raised into the live request."""
+
+    __slots__ = ("gen", "member_dirs", "every", "count", "requests",
+                 "rows", "max_abs_dev", "sum_abs_dev", "errors", "lock")
+
+    def __init__(self, gen: "_Generation", member_dirs, fraction: float):
+        if not (0.0 < fraction <= 1.0):
+            raise ValueError(
+                f"shadow fraction must be in (0, 1], got {fraction}")
+        self.gen = gen
+        self.member_dirs = list(member_dirs) if member_dirs else None
+        self.every = max(1, int(round(1.0 / fraction)))
+        self.count = 0
+        self.requests = 0
+        self.rows = 0
+        self.max_abs_dev = 0.0
+        self.sum_abs_dev = 0.0
+        self.errors = 0
+        self.lock = threading.Lock()
+
+    def claim(self) -> bool:
+        """The sampling decision for one live request."""
+        with self.lock:
+            self.count += 1
+            return self.count % self.every == 0
+
+    def record(self, live: np.ndarray, shadow: np.ndarray) -> None:
+        dev = np.abs(np.asarray(shadow, np.float64)
+                     - np.asarray(live, np.float64))
+        with self.lock:
+            self.requests += 1
+            self.rows += int(dev.shape[0]) if dev.ndim else 1
+            self.max_abs_dev = max(self.max_abs_dev, float(dev.max()))
+            self.sum_abs_dev += float(dev.sum())
+
+    def report(self) -> dict:
+        with self.lock:
+            return {
+                "requests": self.requests,
+                "rows": self.rows,
+                "errors": self.errors,
+                "max_abs_dev": round(self.max_abs_dev, 9),
+                "mean_abs_dev": (round(self.sum_abs_dev / self.rows, 9)
+                                 if self.rows else None),
+            }
+
+
+class _Generation:
+    """One immutable serving generation: the members' tensors at the
+    serving dtype in the form the engine forwards them (``members``:
+    (params, buffers) per member, for int8 in turn; ``modules``: one
+    module per fp32 or bf16 member in turn; ``stacked``: the stacked
+    (params, buffers) of ``serve.member_parallel``), their count and
+    their dirs."""
+
+    __slots__ = ("gen_id", "members", "modules", "stacked", "n_members",
+                 "member_dirs")
+
+    def __init__(self, gen_id: int, members, modules, stacked,
+                 n_members: int, member_dirs):
+        self.gen_id = gen_id
+        self.members = members
+        self.modules = modules
+        self.stacked = stacked
+        self.n_members = n_members
+        self.member_dirs = list(member_dirs) if member_dirs else None
+
+    def renamed(self, gen_id: int) -> "_Generation":
+        return _Generation(gen_id, self.members, self.modules, self.stacked,
+                           self.n_members, self.member_dirs)
+
+
 class ServingEngine:
     """Load-once, bucket-batched ensemble inference.
 
@@ -91,8 +190,8 @@ class ServingEngine:
     ``utils/checkpoint.py``) or, for tests and tools, as ready
     ``state_dicts``. ``device=None`` means the card; with no card this
     raises unless ``device="cpu"`` is passed. ``registry`` receives the
-    quality monitor's metrics (default: the process registry, recording
-    as ``obs.enabled`` says).
+    quality monitor's and the generations' metrics (default: the process
+    registry, recording as ``obs.enabled`` says).
     """
 
     def __init__(self, cfg: configs.ExperimentConfig,
@@ -104,9 +203,6 @@ class ServingEngine:
         configs.check_supported(cfg)
         self.cfg = cfg
         self.dtype = quantize.check_dtype(cfg.serve.dtype)
-        if (member_dirs is None) == (state_dicts is None):
-            raise ValueError(
-                "ServingEngine needs member dirs or state_dicts (one of)")
         # The monitor's artifacts load first: a wrong path or canary size
         # fails before the members load.
         if registry is None:
@@ -124,52 +220,322 @@ class ServingEngine:
                     f"canary images are {got} but this engine serves "
                     f"{(size, size, 3)} (model.image_size={size}) — re-pin "
                     "obs.quality.canary_path for this checkpoint")
-        self._model = models.build(cfg.model)
-        if member_dirs is not None:
-            state_dicts = [
-                convert.flax_to_torch(ckpt_lib.load_member(d), self._model)
-                for d in member_dirs]
-        if not state_dicts:
-            raise ValueError("ServingEngine needs at least one member")
-        names = {n for n, _ in self._model.named_parameters()}
-        members = []
-        for sd in state_dicts:
-            # Checks the member's names and shapes against the model.
-            self._model.load_state_dict(sd)
-            params = {k: _on_device(v, self.device) for k, v in sd.items()
-                      if k in names}
-            buffers = {k: _on_device(v, self.device) for k, v in sd.items()
-                       if k not in names}
-            members.append((quantize.params_for_dtype(params, self.dtype),
-                            buffers))
+        c, g = registry.counter, registry.gauge
+        self._c_reloads = c("serve.reloads",
+                            help="hot-swap generation reloads that went live")
+        self._c_reload_rejected = c(
+            "serve.reload_rejected",
+            help="candidate generations rejected before the swap (canary "
+                 "deviation, load or warm-up failure); the old generation "
+                 "kept serving")
+        self._g_generation = g("serve.generation",
+                               help="the generation new requests score on")
+        self._c_rollbacks = c(
+            "serve.rollbacks",
+            help="instant re-swaps to the retained previous generation")
+        self._c_shadow_requests = c(
+            "serve.shadow.requests",
+            help="live requests also scored through a shadow candidate")
+        self._c_shadow_rows = c("serve.shadow.rows",
+                                help="rows scored through a shadow candidate")
+        self._c_shadow_errors = c(
+            "serve.shadow.errors",
+            help="shadow scorings that failed (never raised into the live "
+                 "request)")
+        self._g_shadow_dev = g(
+            "serve.shadow.max_abs_dev",
+            help="max |candidate - live| score over the shadow session")
         # The skeleton keeps no weights: the int8 and the stacked forms
         # swap a member's into it for one forward (functional_call), so
-        # those forwards take turns. An fp32 or bf16 member in turn is a
-        # module of its own on the same tensors.
+        # those forwards take turns, in every generation. An fp32 or bf16
+        # member in turn is a module of its own on the same tensors.
+        self._model = models.build(cfg.model)
+        self._shapes = {k: tuple(v.shape)
+                        for k, v in self._model.state_dict().items()}
+        self._names = {n for n, _ in self._model.named_parameters()}
         self._model.to("meta")
         self._forward_lock = threading.Lock()
-        self.n_members = len(members)
         self.member_parallel = bool(cfg.serve.member_parallel)
-        self._members, self._modules, self._stacked = members, None, None
-        if self.member_parallel:
-            self._members = None
-            self._stacked = (quantize.stack([p for p, _ in members]),
-                             quantize.stack([b for _, b in members]))
-        elif self.dtype != "int8":
-            self._modules = []
-            for p, b in members:
-                module = copy.deepcopy(self._model)
-                module.load_state_dict({**p, **b}, assign=True)
-                self._modules.append(module)
         self.max_batch = int(cfg.serve.max_batch)
         self.buckets = resolve_buckets(cfg.serve)
         self.fused = bool(cfg.serve.fused_preprocess)
         # INPUT_STATS dict of the last live request's rows (fused path
-        # only); the canary and the gate leave it alone.
+        # only); the canary, the gates and the shadow leave it alone.
         self.last_input_stats: "dict | None" = None
         # Padded chunks forwarded since construction.
         self.chunks_dispatched = 0
+        # One rollout at a time; requests read the handle, not the lock.
+        self._reload_lock = threading.Lock()
+        self._prev_gen: "_Generation | None" = None
+        self._prev_gen_t = 0.0
+        self._shadow: "_ShadowSession | None" = None
+        if (member_dirs is None) == (state_dicts is None):
+            raise ValueError(
+                "ServingEngine needs member dirs or state_dicts (one of)")
+        self._gen = self._build_generation(0, member_dirs, state_dicts)
+        self._g_generation.set(0)
         self._dtype_construction_gate()
+
+    # -- generations -------------------------------------------------------
+
+    @property
+    def generation(self) -> int:
+        """Id of the generation new requests score on."""
+        return self._gen.gen_id
+
+    @property
+    def n_members(self) -> int:
+        return self._gen.n_members
+
+    @property
+    def _members(self):
+        return self._gen.members
+
+    def _check(self, sd: dict) -> None:
+        """A member's names and shapes against the model's."""
+        got = {k: tuple(v.shape) for k, v in sd.items()}
+        if got != self._shapes:
+            missing = sorted(set(self._shapes) - set(got))
+            extra = sorted(set(got) - set(self._shapes))
+            wrong = sorted(k for k in set(got) & set(self._shapes)
+                           if got[k] != self._shapes[k])
+            raise ValueError(
+                f"member state_dict does not fit {type(self._model).__name__}"
+                f": missing {missing[:3]}, unexpected {extra[:3]}, wrong "
+                f"shape {wrong[:3]}")
+
+    def _build_generation(self, gen_id: int, member_dirs=None,
+                          state_dicts=None, warm: bool = False
+                          ) -> _Generation:
+        """Load -> dtype transform -> place -> (optionally) one warm
+        forward per bucket, off the request path: nothing here touches
+        the live generation."""
+        if state_dicts is None:
+            state_dicts = [
+                convert.flax_to_torch(ckpt_lib.load_member(d), self._model)
+                for d in member_dirs or ()]
+        if not state_dicts:
+            raise ValueError("ServingEngine needs at least one member")
+        members = []
+        for sd in state_dicts:
+            self._check(sd)
+            params = {k: _on_device(v, self.device) for k, v in sd.items()
+                      if k in self._names}
+            buffers = {k: _on_device(v, self.device) for k, v in sd.items()
+                       if k not in self._names}
+            members.append((quantize.params_for_dtype(params, self.dtype),
+                            buffers))
+        modules = stacked = None
+        if self.member_parallel:
+            stacked = (quantize.stack([p for p, _ in members]),
+                       quantize.stack([b for _, b in members]))
+            kept = None
+        else:
+            kept = members
+            if self.dtype != "int8":
+                modules = []
+                for p, b in members:
+                    module = copy.deepcopy(self._model)
+                    module.load_state_dict({**p, **b}, assign=True)
+                    modules.append(module)
+        gen = _Generation(gen_id, kept, modules, stacked, len(members),
+                          member_dirs)
+        if warm:
+            self._warm(gen)
+        return gen
+
+    def _warm(self, gen: _Generation) -> None:
+        """One forward per bucket on ``gen``, finished on the device (the
+        probabilities come back to the host) before this returns."""
+        size = self.cfg.model.image_size
+        for b in self.buckets:
+            self._member_probs(np.zeros((b, size, size, 3), np.uint8), gen)
+
+    def _canary_gate(self, gen: _Generation) -> dict:
+        """The reload's canary check of a candidate: ``canary_checked``
+        and ``canary_max_dev`` for the info dict; raises
+        ``ReloadRejected`` on a deviation beyond ``canary_atol`` (exact
+        at 0)."""
+        q = self.quality
+        canary = q.canary if q is not None else None
+        if canary is None or canary.reference is None:
+            return {"canary_checked": False}
+        scores = np.asarray(metrics.ensemble_average(list(
+            self._member_probs(canary.images, gen)[0])), np.float64).ravel()
+        ref = canary.reference
+        same = scores.shape == ref.shape
+        dev = float(np.max(np.abs(scores - ref))) if same else float("inf")
+        ok = same and (np.array_equal(scores, ref) if canary.atol == 0.0
+                       else bool(dev <= canary.atol))
+        if not ok:
+            self._c_reload_rejected.inc()
+            cur = self._gen.gen_id
+            _log.error("reload rejected: candidate generation %d deviates "
+                       "from the golden canary (max dev %s, atol %g); "
+                       "generation %d keeps serving", gen.gen_id, dev,
+                       canary.atol, cur)
+            raise ReloadRejected(
+                f"candidate generation {gen.gen_id} failed the golden canary "
+                f"(max deviation {dev} vs atol {canary.atol}); generation "
+                f"{cur} keeps serving")
+        return {"canary_checked": True,
+                "canary_max_dev": None if dev == float("inf") else dev}
+
+    def reload(self, member_dirs=None, *,
+               state_dicts: "list[dict] | None" = None) -> dict:
+        """Hot-swap to a new member set with no dropped request.
+
+        Generation N+1 is built off the request path (load, dtype
+        transform, placement, one warm forward per bucket), held to the
+        pinned golden canary, then put live by one reference assignment:
+        requests that already read generation N finish on it. A candidate
+        that fails never takes a request: ``serve.reload_rejected``
+        counts it and ``ReloadRejected`` (canary) or the load's own error
+        propagates. Returns {'generation', 'n_members',
+        'canary_checked'[, 'canary_max_dev']}."""
+        with self._reload_lock:
+            return self._reload_locked(member_dirs, state_dicts)
+
+    def release_retained(self) -> None:
+        """Drop the retained previous generation (frees its device
+        memory)."""
+        with self._reload_lock:
+            self._prev_gen = None
+
+    def _reload_locked(self, member_dirs, state_dicts,
+                       candidate: "_Generation | None" = None) -> dict:
+        cur = self._gen
+        new_id = cur.gen_id + 1
+        # A new rollout drops the retained generation before its candidate
+        # builds, so the device holds at most two generations.
+        self._prev_gen = None
+        try:
+            if candidate is None:
+                gen = self._build_generation(new_id, member_dirs, state_dicts,
+                                             warm=True)
+            else:
+                gen = candidate.renamed(new_id)
+                self._warm(gen)
+        except Exception:
+            self._c_reload_rejected.inc()
+            raise
+        info = {"generation": new_id, "n_members": gen.n_members,
+                **self._canary_gate(gen)}
+        if self.cfg.serve.rollback_keep_s > 0:
+            self._prev_gen = cur
+            self._prev_gen_t = time.monotonic()
+        # A shadow session compared against the outgoing generation.
+        self._shadow = None
+        self._gen = gen
+        self._c_reloads.inc()
+        self._g_generation.set(new_id)
+        _log.info("serving generation %d live (%d members)", new_id,
+                  gen.n_members)
+        return info
+
+    def rollback(self) -> dict:
+        """Instant re-swap to the retained previous generation, minted as
+        a new generation id (ids stay monotonic). Raises
+        ``RollbackUnavailable`` when none is retained or the
+        ``serve.rollback_keep_s`` window expired. Returns {'generation',
+        'restored_from', 'n_members'}."""
+        with self._reload_lock:
+            prev = self._prev_gen
+            keep_s = self.cfg.serve.rollback_keep_s
+            if prev is None:
+                raise RollbackUnavailable(
+                    "no previous generation retained (never swapped, or "
+                    "already rolled back); reload() the previous member "
+                    "dirs instead")
+            age = time.monotonic() - self._prev_gen_t
+            if keep_s <= 0 or age > keep_s:
+                self._prev_gen = None
+                raise RollbackUnavailable(
+                    f"retained generation {prev.gen_id} expired ({age:.0f}s "
+                    f"old vs serve.rollback_keep_s={keep_s:g}); reload() "
+                    "the previous member dirs instead")
+            cur = self._gen
+            gen = prev.renamed(cur.gen_id + 1)
+            self._prev_gen = None  # one rollback per swap
+            self._shadow = None
+            self._gen = gen
+            self._c_rollbacks.inc()
+            self._g_generation.set(gen.gen_id)
+            _log.warning("ROLLBACK: generation %d live again as generation "
+                         "%d (was serving %d)", prev.gen_id, gen.gen_id,
+                         cur.gen_id)
+            return {"generation": gen.gen_id, "restored_from": prev.gen_id,
+                    "n_members": gen.n_members}
+
+    # -- the shadow seam ----------------------------------------------------
+
+    def prepare_candidate(self, member_dirs=None, *,
+                          state_dicts: "list[dict] | None" = None,
+                          warm: bool = False) -> _Generation:
+        """A candidate generation built off the request path and put
+        nowhere; ``member_probs(images, _gen=candidate)`` scores through
+        it."""
+        return self._build_generation(self._gen.gen_id + 1, member_dirs,
+                                      state_dicts, warm=warm)
+
+    def begin_shadow(self, member_dirs=None, *,
+                     state_dicts: "list[dict] | None" = None,
+                     candidate: "_Generation | None" = None,
+                     fraction: float = 0.25) -> dict:
+        """Shadow-score every round(1/fraction)-th live request through a
+        candidate (a ``prepare_candidate`` handle, or one built and warmed
+        here from ``member_dirs``/``state_dicts``). One session at a
+        time; a reload or rollback ends it."""
+        with self._reload_lock:
+            if self._shadow is not None:
+                raise RuntimeError("a shadow session is already active; "
+                                   "end_shadow() it first")
+            if candidate is None:
+                candidate = self._build_generation(
+                    self._gen.gen_id + 1, member_dirs, state_dicts,
+                    warm=True)
+            self._shadow = _ShadowSession(candidate, candidate.member_dirs,
+                                          fraction)
+            return {"fraction": fraction, "every": self._shadow.every}
+
+    def shadow_report(self) -> "dict | None":
+        """The active session's comparison (None: no session)."""
+        sh = self._shadow
+        return sh.report() if sh is not None else None
+
+    def end_shadow(self, promote: bool = False) -> "dict | None":
+        """Stop sampling and return the final report; ``promote=True``
+        then puts the candidate live through the reload path (warm,
+        canary gate, swap, retention), its info under 'reload'. Of two
+        racing enders exactly one gets the report."""
+        with self._reload_lock:
+            sh, self._shadow = self._shadow, None
+        if sh is None:
+            return None
+        report = sh.report()
+        if promote:
+            with self._reload_lock:
+                report = {**report, "reload": self._reload_locked(
+                    None, None, candidate=sh.gen)}
+        return report
+
+    def _shadow_sample(self, sh: _ShadowSession, images: np.ndarray,
+                       live_out: np.ndarray) -> None:
+        try:
+            shadow_out = metrics.ensemble_average(
+                list(self._member_probs(images, sh.gen)[0]))
+            sh.record(live_out, shadow_out)
+            self._c_shadow_requests.inc()
+            self._c_shadow_rows.inc(images.shape[0])
+            self._g_shadow_dev.set(sh.max_abs_dev)
+        except Exception as e:  # noqa: BLE001 - advisory path
+            with sh.lock:
+                sh.errors += 1
+            self._c_shadow_errors.inc()
+            _log.error("shadow scoring failed (live request unaffected): "
+                       "%s: %s", type(e).__name__, e)
+
+    # -- scoring -------------------------------------------------------------
 
     def _dtype_construction_gate(self) -> None:
         """A bf16 or int8 engine with a pinned canary scores it now and is
@@ -187,7 +553,8 @@ class ServingEngine:
                 "check", self.dtype)
             return
         scores = np.asarray(metrics.ensemble_average(
-            list(self._member_probs(canary.images)[0])), np.float64).ravel()
+            list(self._member_probs(canary.images, self._gen)[0])),
+            np.float64).ravel()
         ref = np.asarray(canary.reference, np.float64).ravel()
         dev = (float(np.max(np.abs(scores - ref)))
                if scores.shape == ref.shape else float("inf"))
@@ -204,12 +571,16 @@ class ServingEngine:
 
     def resident_bytes(self) -> int:
         """Device bytes of the members' weights and BatchNorm statistics
-        at the serving dtype."""
-        if self._stacked is not None:
-            return sum(quantize.nbytes(d) for d in self._stacked)
-        # A module holds the same tensors as its member's dicts.
-        return sum(quantize.nbytes(p) + quantize.nbytes(b)
-                   for p, b in self._members)
+        at the serving dtype, of the live and the retained generation."""
+        def nbytes(gen: _Generation) -> int:
+            if gen.stacked is not None:
+                return sum(quantize.nbytes(d) for d in gen.stacked)
+            # A module holds the same tensors as its member's dicts.
+            return sum(quantize.nbytes(p) + quantize.nbytes(b)
+                       for p, b in gen.members)
+
+        prev = self._prev_gen
+        return nbytes(self._gen) + (nbytes(prev) if prev is not None else 0)
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -237,24 +608,33 @@ class ServingEngine:
         return lambda v: torch.func.functional_call(self._model, tensors,
                                                     (v,), strict=True)
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[k, B] (or [k, B, C]) probabilities of every member."""
-        if self._modules is not None:
-            return torch.stack([self._probs(m, x) for m in self._modules])
+    def _forward(self, x: torch.Tensor, gen: _Generation) -> torch.Tensor:
+        """[k, B] (or [k, B, C]) probabilities of every member of
+        ``gen``."""
+        if gen.modules is not None:
+            return torch.stack([self._probs(m, x) for m in gen.modules])
         with self._forward_lock:
-            if self._stacked is None:
+            if gen.stacked is None:
                 return torch.stack([
                     self._probs(self._functional(
                         {**quantize.dequantize(p), **b}), x)
-                    for p, b in self._members])
-            params, buffers = self._stacked
+                    for p, b in gen.members])
+            params, buffers = gen.stacked
             tensors = {**quantize.dequantize(params), **buffers}
             return torch.func.vmap(
                 lambda t, v: self._probs(self._functional(t), v),
                 in_dims=(0, None))(tensors, x)
 
-    def _member_probs(self, images: np.ndarray
+    def forward_normalized(self, x: torch.Tensor) -> torch.Tensor:
+        """[k, B] (or [k, B, C]) probabilities of the live generation's
+        members for a normalized NCHW batch already on the device: the
+        distillation teacher's forward, with no chunking or padding."""
+        return self._forward(x, self._gen)
+
+    def _member_probs(self, images: np.ndarray, gen: _Generation
                       ) -> "tuple[np.ndarray, dict | None]":
+        """Every chunk of the request on ``gen``: (member probabilities,
+        the real rows' INPUT_STATS on the fused path, else None)."""
         images = np.asarray(images)
         size = self.cfg.model.image_size
         if images.ndim != 4 or images.shape[1:] != (size, size, 3):
@@ -279,7 +659,8 @@ class ServingEngine:
                 else:
                     norm = augment.normalize(padded)
                 # NHWC float32 seen as NCHW: a channels_last view, no copy.
-                outs.append(self._forward(norm.permute(0, 3, 1, 2))[:, :n])
+                outs.append(
+                    self._forward(norm.permute(0, 3, 1, 2), gen)[:, :n])
                 self.chunks_dispatched += 1
             probs = torch.cat(outs, dim=1).cpu().numpy()
             stats = None
@@ -289,11 +670,15 @@ class ServingEngine:
                                                      size * size))
         return probs, stats
 
-    def member_probs(self, images: np.ndarray) -> np.ndarray:
+    def member_probs(self, images: np.ndarray, *,
+                     _gen: "_Generation | None" = None) -> np.ndarray:
         """uint8 images [n, S, S, 3] -> per-member probabilities [k, n]
-        (binary head) or [k, n, C] (``multi``)."""
-        probs, stats = self._member_probs(images)
-        if stats is not None:
+        (binary head) or [k, n, C] (``multi``), on the live generation
+        or, internally, on the pinned ``_gen`` (a candidate's scoring
+        leaves ``last_input_stats`` alone)."""
+        probs, stats = self._member_probs(
+            images, _gen if _gen is not None else self._gen)
+        if stats is not None and _gen is None:
             self.last_input_stats = stats
         return probs
 
@@ -303,17 +688,28 @@ class ServingEngine:
         statistics (from the fused kernel's sums when it ran), and the
         canary, when due, is scored through ``_member_probs``, so it
         enters neither the drift windows nor ``last_input_stats``."""
-        member, stats = self._member_probs(images)
+        return self.probs_with_generation(images)[0]
+
+    def probs_with_generation(self, images: np.ndarray
+                              ) -> "tuple[np.ndarray, int]":
+        """``probs`` and the id of the generation that scored every row:
+        the handle is read once, before the first chunk, and kept for the
+        whole request, its shadow sample and its canary ride-along."""
+        gen = self._gen
+        member, stats = self._member_probs(images, gen)
         if stats is not None:
             self.last_input_stats = stats
         out = metrics.ensemble_average(list(member))
+        sh = self._shadow
+        if sh is not None and sh.claim():
+            self._shadow_sample(sh, images, out)
         q = self.quality
         if q is not None:
             q.observe(images, out, stats=stats)
             if q.canary_claim():
                 q.run_canary(lambda imgs: metrics.ensemble_average(
-                    list(self._member_probs(imgs)[0])))
-        return out
+                    list(self._member_probs(imgs, gen)[0])))
+        return out, gen.gen_id
 
     def make_batcher(self):
         """A ``MicroBatcher`` over ``probs`` under the ``serve`` section's

@@ -13,6 +13,9 @@ and the view's backward hands them float32 gradients (``_f32_grads``).
 micro-batches run in order (ghost BatchNorm: each normalizes by its own
 moments and updates the running statistics once), with the gradients
 accumulated in float32 as ``acc + g * (1 / accum)``, micro by micro.
+A batch that carries ``"soft"`` (the distillation teacher's scores,
+``train.distill_from``) trains against them instead of the grades
+(``_distill_loss``, in float32; split by the same micro-batch rows).
 The optimizer is ``train.optimizer``'s family (``optim.py``: adamw,
 sgdm, rmsprop or lamb, optionally behind ``train.gradient_clip_norm``);
 adamw runs the plain AdamW (``ops/adamw.adamw_reference``) or, with
@@ -218,6 +221,18 @@ def _labels_from_grades(grades: torch.Tensor, head: str) -> torch.Tensor:
     return grades.long()
 
 
+def _sigmoid_bce(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean sigmoid BCE of logits ``x`` [B] against probabilities."""
+    return (-target * F.logsigmoid(x)
+            - (1.0 - target) * F.logsigmoid(-x)).mean()
+
+
+def _softmax_ce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross entropy of [B, C] logits against [B, C]
+    distributions."""
+    return -(target * F.log_softmax(logits, dim=-1)).sum(dim=-1).mean()
+
+
 def _head_loss(logits: torch.Tensor, labels: torch.Tensor, head: str,
                smoothing: float) -> torch.Tensor:
     """Mean loss of one head, written as optax writes it. Binary: sigmoid
@@ -226,21 +241,40 @@ def _head_loss(logits: torch.Tensor, labels: torch.Tensor, head: str,
     does, ``onehot * (1 - s) + s / C``."""
     if head == "binary":
         target = labels * (1.0 - smoothing) + 0.5 * smoothing
-        x = logits[:, 0]
-        per_ex = (-target * F.logsigmoid(x)
-                  - (1.0 - target) * F.logsigmoid(-x))
-        return per_ex.mean()
+        return _sigmoid_bce(logits[:, 0], target)
     target = F.one_hot(labels, logits.shape[-1]).to(logits.dtype)
     if smoothing > 0:
         target = target * (1.0 - smoothing) + smoothing / logits.shape[-1]
-    return -(target * F.log_softmax(logits, dim=-1)).sum(dim=-1).mean()
+    return _softmax_ce(logits, target)
+
+
+def _distill_loss(logits: torch.Tensor, soft: torch.Tensor,
+                  head: str) -> torch.Tensor:
+    """Soft-target loss against the teacher's averaged scores
+    (``train.distill_from``): the binary head's sigmoid BCE against the
+    probability [B], the multi head's softmax cross entropy against the
+    teacher's [B, C] distribution. No label smoothing: the teacher's
+    scores are already soft."""
+    if head == "binary":
+        return _sigmoid_bce(logits[:, 0], soft)
+    return _softmax_ce(logits, soft)
 
 
 def loss_fn(logits: torch.Tensor, aux: "torch.Tensor | None",
-            grades: torch.Tensor, cfg: ExperimentConfig) -> torch.Tensor:
+            grades: torch.Tensor, cfg: ExperimentConfig,
+            soft: "torch.Tensor | None" = None) -> torch.Tensor:
     """Head loss plus ``model.aux_weight`` times the aux head's loss, both
-    under ``model.head``."""
+    under ``model.head``: against the grades, or with ``soft`` (the
+    teacher's scores) the soft-target loss in their place, computed in
+    float32."""
     head = cfg.model.head
+    if soft is not None:
+        logits = logits.float()
+        loss = _distill_loss(logits, soft, head)
+        if aux is not None:
+            loss = loss + cfg.model.aux_weight * _distill_loss(
+                aux.float(), soft, head)
+        return loss
     labels = _labels_from_grades(grades, head)
     smoothing = cfg.train.label_smoothing
     loss = _head_loss(logits, labels, head, smoothing)
@@ -308,10 +342,11 @@ def compute_grads(state: TrainState, batch: dict, cfg: ExperimentConfig,
         aug_gen, batch["image"], cfg.data, fused=tc.use_pallas_fused,
         params=augment_params)
     grades = batch["grade"]
+    soft = batch.get("soft")
     params = list(model.parameters())
     if accum == 1:
         logits, aux = _forward(model, images, drop_gen, tc)
-        loss = loss_fn(logits, aux, grades, cfg)
+        loss = loss_fn(logits, aux, grades, cfg, soft)
         loss.backward()
         grads = [p.grad for p in params]
         model.zero_grad(set_to_none=True)
@@ -324,7 +359,8 @@ def compute_grads(state: TrainState, batch: dict, cfg: ExperimentConfig,
         logits, aux = _forward(model, images[rows],
                                micro_generator(tc.seed, state.step, i, dev),
                                tc)
-        loss = loss_fn(logits, aux, grades[rows], cfg)
+        loss = loss_fn(logits, aux, grades[rows], cfg,
+                       None if soft is None else soft[rows])
         loss.backward()
         with torch.no_grad():
             for acc, p in zip(grads, params):

@@ -15,6 +15,12 @@ reference's records (``config``, ``train``, ``eval``, ``early_stop``,
 on a split and reports AUC and the operating points, as the reference's
 evaluate does.
 
+With ``train.distill_from`` both fits distill: the teacher's members
+are restored once onto the fit's device, each batch's clean uint8 images
+are scored through them in eval mode (the plain normalize, as the
+reference's teacher normalizes), and their float32 average rides the
+batch under ``"soft"``, which ``train_lib.loss_fn`` trains against.
+
 ``fit_synthetic`` is the in-memory form: ``train.steps`` steps on rendered
 fundus images held on the device, the eval params written as a member dir
 (``<workdir>/params.npz``). It times the step without the input stream.
@@ -36,7 +42,7 @@ import torch
 from jama16_retina_tpu_torch import configs, models
 from jama16_retina_tpu_torch import device as device_lib
 from jama16_retina_tpu_torch import train_lib
-from jama16_retina_tpu_torch.data import pipeline, synthetic, tfrecord
+from jama16_retina_tpu_torch.data import augment, pipeline, synthetic, tfrecord
 from jama16_retina_tpu_torch.eval import metrics
 from jama16_retina_tpu_torch.models import convert, init
 from jama16_retina_tpu_torch.obs import quality as quality_lib
@@ -65,6 +71,32 @@ def batch_indices(n: int, batch_size: int, steps: int,
     return order[:need].reshape(steps, batch_size)
 
 
+def _distill_teacher(cfg: configs.ExperimentConfig, dev: torch.device):
+    """The teacher of ``train.distill_from`` (the reference's
+    ``_distill_stream``): every member under it restored once onto
+    ``dev`` as an fp32 engine with no monitor. Returns uint8 images
+    [B, S, S, 3] on ``dev`` -> float32 soft targets [B] (or [B, C]), the
+    members' eval-mode probabilities of the plain-normalized images
+    averaged in float64 (``metrics.ensemble_average``)."""
+    dirs = ckpt_lib.discover_member_dirs(cfg.train.distill_from)
+    teacher_cfg = cfg.replace(
+        serve=configs.ServeConfig(),
+        obs=dataclasses.replace(cfg.obs, enabled=False))
+    engine = ServingEngine(
+        teacher_cfg, state_dicts=[restore_for_eval(cfg, d) for d in dirs],
+        device=dev, registry=obs_registry.Registry())
+    _log.info("distilling from %d teacher member(s) under %s", len(dirs),
+              cfg.train.distill_from)
+
+    def soft(images: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            member = engine.forward_normalized(
+                augment.normalize(images).permute(0, 3, 1, 2))
+        return member.double().mean(dim=0).float()
+
+    return soft
+
+
 def fit_synthetic(cfg: configs.ExperimentConfig, workdir: str,
                   n_synthetic: int,
                   device: "str | torch.device | None" = None) -> dict:
@@ -89,6 +121,7 @@ def fit_synthetic(cfg: configs.ExperimentConfig, workdir: str,
     state = train_lib.create_state(cfg, model, dev)
     if tc.init_from:
         _warm_start_state(cfg, state, tc.init_from)
+    teacher = _distill_teacher(cfg, dev) if tc.distill_from else None
 
     os.makedirs(workdir, exist_ok=True)
     losses = {}
@@ -96,8 +129,10 @@ def fit_synthetic(cfg: configs.ExperimentConfig, workdir: str,
     with open(os.path.join(workdir, METRICS_FILE), "a") as log:
         for i in range(tc.steps):
             idx = order[i]
-            loss = train_lib.train_step(
-                state, {"image": images[idx], "grade": grades[idx]}, cfg)
+            batch = {"image": images[idx], "grade": grades[idx]}
+            if teacher is not None:
+                batch["soft"] = teacher(batch["image"])
+            loss = train_lib.train_step(state, batch, cfg)
             if (i + 1) % tc.log_every == 0:
                 losses[i + 1] = float(loss)
                 log.write(json.dumps({"kind": "train",
@@ -648,6 +683,13 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
         _warm_start_state(cfg, state, tc.init_from)
         log.write("warm_start", init_from=tc.init_from)
 
+    teacher = None
+    if tc.distill_from:
+        # The soft targets are a pure function of the batch, so a resumed
+        # run distills exactly as the uninterrupted one.
+        teacher = _distill_teacher(cfg, dev)
+        log.write("distill", distill_from=tc.distill_from)
+
     overlap = tc.eval_overlap
     saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
     # One batch per completed step: a resumed stream continues exactly
@@ -744,6 +786,8 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
             for step_i in range(start_step, tc.steps):
                 with stalls.measure("input"):
                     batch = next(stream)
+                    if teacher is not None:
+                        batch = {**batch, "soft": teacher(batch["image"])}
                 # The step updates the state in place, leaf by leaf: an
                 # interrupt inside it leaves no step's state to save.
                 in_step = True
@@ -967,6 +1011,13 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
     dev = device_lib.resolve(device)
     tc = cfg.train
     k = tc.ensemble_size
+    if tc.distill_from:
+        # The reference's stacked step takes no soft targets, and its
+        # fit_ensemble_parallel never reads distill_from.
+        raise ValueError(
+            "train.distill_from is not read by the member-parallel step: "
+            "it would train every member on the hard labels. Distill the "
+            "members in turn (train.ensemble_parallel=false)")
     if tc.init_from:
         raise ValueError(
             "train.init_from warm-starts one member from one checkpoint "

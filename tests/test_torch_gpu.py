@@ -563,3 +563,90 @@ def test_stacked_step_on_the_card_matches_members_in_turn(cuda):
         for k in want:
             if k.startswith(("params/", "batch_stats/")):
                 assert abs(got[k] - want[k]).max() <= 1e-4, k
+
+
+def _smoke_members(cfg, seeds):
+    from jama16_retina_tpu_torch import models
+
+    sds = []
+    for s in seeds:
+        gen = torch.Generator().manual_seed(s)
+        sds.append({k: (v if k.endswith((".mean", ".var"))
+                        else v + 0.05 * torch.randn(v.shape, generator=gen))
+                    for k, v in models.build(cfg.model).state_dict().items()})
+    return sds
+
+
+@pytest.mark.gpu
+def test_reload_and_rollback_on_the_card(cuda):
+    """A reload on the card swaps generations (each scored within 1e-4 of
+    the CPU engine on the same members, TF32 off) and a rollback restores
+    the first bitwise; the retained generation doubles the resident
+    bytes until it is released."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    cfg = configs.override(configs.get_config("smoke"), [
+        "model.compute_dtype=float32", "serve.max_batch=8",
+        "serve.fused_preprocess=true"])
+    a, b = _smoke_members(cfg, (0, 1)), _smoke_members(cfg, (2, 3))
+    imgs = np.random.default_rng(1).integers(0, 256, (11, 64, 64, 3),
+                                             np.uint8)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        eng = ServingEngine(cfg, state_dicts=a, device=cuda,
+                            registry=Registry())
+        one = eng.resident_bytes()
+        gen_a = eng.probs(imgs)
+        assert eng.reload(state_dicts=b)["generation"] == 1
+        assert eng.resident_bytes() == 2 * one
+        got_b, gen = eng.probs_with_generation(imgs)
+        assert gen == 1
+        assert eng.rollback()["restored_from"] == 0
+        np.testing.assert_array_equal(eng.probs(imgs), gen_a)
+        eng.release_retained()
+        assert eng.resident_bytes() == one
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for sds, got in ((a, gen_a), (b, got_b)):
+        cpu = ServingEngine(cfg, state_dicts=sds, device="cpu",
+                            registry=Registry()).probs(imgs)
+        assert np.abs(got - cpu).max() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_cascade_escalated_rows_are_the_ensembles_on_the_card(cuda):
+    """The cascade's escalated rows are bitwise ``ensemble.probs`` of the
+    same rows and its other rows bitwise ``student.probs`` of the
+    request, on the card."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve.cascade import CascadeEngine
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    cfg = configs.override(configs.get_config("smoke"), [
+        "model.compute_dtype=float32", "serve.max_batch=16",
+        "serve.fused_preprocess=true"])
+    sds = _smoke_members(cfg, (0, 1, 2))
+    student = ServingEngine(cfg, state_dicts=sds[:1], device=cuda,
+                            registry=Registry())
+    ensemble = ServingEngine(cfg, state_dicts=sds, device=cuda,
+                             registry=Registry())
+    imgs = np.random.default_rng(2).integers(0, 256, (13, 64, 64, 3),
+                                             np.uint8)
+    s = student.probs(imgs)
+    thr = float(np.median(s))
+    band = float(np.quantile(np.abs(s - thr), 0.5))
+    cascade = CascadeEngine(configs.override(cfg, [
+        f"serve.cascade_band={band}", f"serve.cascade_thresholds={thr}"]),
+        student, ensemble, registry=Registry())
+    out, mask = cascade._probs_masked(imgs)
+    assert 0 < mask.sum() < len(mask)
+    np.testing.assert_array_equal(out[~mask], student.probs(imgs)[~mask])
+    np.testing.assert_array_equal(out[mask], ensemble.probs(imgs[mask]))

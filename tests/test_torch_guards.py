@@ -99,6 +99,34 @@ def test_engine_defaults_to_the_card_and_raises_without_one(no_card):
     assert ServingEngine(cfg, state_dicts=sds, device="cpu").n_members == 1
 
 
+def test_cascade_and_distill_default_to_the_card_and_raise_without_one(
+        no_card, tmp_path):
+    """``assemble`` (an engine or a cascade) and a distilling fit run on
+    the card unless ``device="cpu"`` is passed; nothing is written."""
+    from jama16_retina_tpu_torch import trainer
+    from jama16_retina_tpu_torch.models import convert
+    from jama16_retina_tpu_torch.serve import assemble as assemble_lib
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    cfg = configs.get_config("smoke")
+    member = str(tmp_path / "m")
+    ckpt_lib.save_member(member, convert.torch_to_flax(
+        models.build(cfg.model)))
+    for student in ((), (member,)):
+        spec = assemble_lib.EngineSpec(cfg=cfg, member_dirs=(member,),
+                                       student_dirs=student)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            assemble_lib.assemble(spec)
+        built = assemble_lib.assemble(dataclasses.replace(spec,
+                                                          device="cpu"))
+        assert type(built).__name__ == ("CascadeEngine" if student
+                                        else "ServingEngine")
+    distill = configs.override(cfg, [f"train.distill_from={member}"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.fit(distill, str(tmp_path), str(tmp_path / "wd"))
+    assert sorted(os.listdir(tmp_path)) == ["m"]
+
+
 def test_fit_and_evaluate_default_to_the_card_and_raise_without_one(
         no_card, tmp_path):
     from jama16_retina_tpu_torch import evaluate, trainer
@@ -239,7 +267,9 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
                            match=r"ROADMAP\.md Queue [AC]") as e:
             configs.override(configs.get_config("smoke"), [f"{key}={raw}"])
         items[key] = str(e.value)
-    assert len(items) >= 80
+    # 80 until the cascade, the generations and the distillation ported
+    # their 7 fields (train.distill_from was copied and refused before).
+    assert len(items) >= 77
     for key, item in (("data.autotune", "item 7"),
                       ("data.quarantine_bad_records", "item 7"),
                       ("parallel.num_devices", "item 8"),
@@ -254,8 +284,16 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
     for key in ("train.optimizer", "train.gradient_clip_norm",
                 "train.lr_scale_ref_batch", "train.recipe_curve_ref",
                 "train.recipe_curve_tol", "train.ensemble_parallel",
-                "train.ensemble_parallel_force"):
+                "train.ensemble_parallel_force", "train.distill_from",
+                "serve.cascade_band", "serve.cascade_thresholds",
+                "serve.cascade_student_dir", "serve.cascade_speculative",
+                "serve.rollback_keep_s", "lifecycle.gate_canary_max_dev",
+                "lifecycle.gate_auc_floor_delta"):
         assert key in ours
+    lifecycle = [k for k in items if k.startswith("lifecycle.")]
+    assert len(lifecycle) == 11
+    for key in lifecycle:
+        assert "Queue A item 11 (planes: the lifecycle)" in items[key], key
 
 
 def test_unknown_arch_or_head_raises():
@@ -278,8 +316,8 @@ def test_unknown_or_malformed_overrides_raise(item):
 
 
 @pytest.mark.parametrize("item", [
-    "serve.cascade_band=0.1", "serve.router_replicas=2",
-    "serve.rollback_keep_s=0", "obs.flush_every_s=1",
+    "serve.router_fusion=true", "serve.router_replicas=2",
+    "lifecycle.shadow_fraction=0.5", "obs.flush_every_s=1",
     "obs.audit.enabled=true", "obs.quality.psi_alert=0.5"])
 def test_refused_serving_and_obs_knobs_name_their_roadmap_item(item):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
