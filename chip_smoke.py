@@ -252,6 +252,39 @@ Phases, any failure exits nonzero before the result line:
               canary-failing candidate raises ``ReloadRejected``; a shadow
               at 0.25 samples every 4th request. Launch counts are set to
               0 before (b) and read after (d): B4 once a chunk.
+13. router   - after phase 12, on phase 4's k=2 members and phase 12's
+              student, ten members and 64 canvases (``eyepacs_binary``,
+              Inception-v3, 299 px, aux head, float32 compute, TF32 off,
+              ``serve.fused_preprocess``, buckets 8, 16, 32, 64); launch
+              counts set to 0 just before each part and read just after:
+              B4 once a chunk (once a fused bin), no train kernel. (a) Two
+              replicas of the k=2 engine under ``least_in_flight`` and
+              ``bucket_affinity``, 1.5 s each of 3 interactive (1-8 rows)
+              and 1 batch (64 rows) closed-loop clients: every response
+              row bitwise its replica engine's score of that canvas at
+              the bucket its bin ran at, segments naming replica and
+              generation; p50/p99 per class and each replica thread's
+              first bin against its steady bins; a routed batch-8
+              request's idle share beside the engine's; a burst under
+              ``serve.router_shed_rows`` sheds batch first; a replica
+              raising from its 3rd bin on is marked failed and no request
+              fails; a drain halfway through the load completes. (b) Two
+              tenants (k=2 each, one fusion token, one bucket of 8, 4 rows
+              each) with ``router_fusion``: one fused bin, one B4 launch,
+              rows bitwise each tenant's direct rows with members in turn
+              and within 1e-5 under ``serve.member_parallel``; fused vs
+              grouped ms. (c) Two student ``CascadeEngine`` replicas over
+              one ``EscalationPool`` of the ten members: rows bitwise
+              phase 12's serial and speculative cascades,
+              ``serve.router.escalations`` = 2 x the mask's sum both ways,
+              ``serve.router.speculations`` = the speculated rows. (d) A
+              replica factory (``scaler_min_replicas`` 1, max 3, window
+              0.5 s): a 3 s burst scales up, quiet drains; the ledger
+              printed. (e) A frontier swept through the router (buckets 8,
+              16, 32, 64 x concurrency 1, 4, 1 s each), ``derive_policy``
+              -> ``save_policy`` -> ``load_policy`` ->
+              ``maybe_apply_policy`` on a fresh config, and a router built
+              from it; the derived knobs printed beside the card.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
@@ -2864,7 +2897,8 @@ def phase_cascade(torch, seed: int, smi: str, root: Path,
           and spec_reg.counter("serve.cascade.speculated.wasted").value
           == CASCADE_CANVASES - n_esc, "speculation counters")
     out.update(escalated=n_esc / CASCADE_CANVASES, spec_dev=spec_dev,
-               threshold=thr, band=band)
+               threshold=thr, band=band, canvases=canv, rows=got,
+               spec_rows=sgot, mask=mask)
     log(f"cascade: student = the distill fit's best step, ensemble = the "
         f"{CASCADE_K} teacher members (float32, fused preprocess); threshold"
         f" {thr:.6f} (median student score), band {band:.6f}: {n_esc} of "
@@ -3077,6 +3111,639 @@ def phase_cascade(torch, seed: int, smi: str, root: Path,
     return out
 
 
+# Phase 13: the router, fusion, policy and scaler.
+ROUTER_BUCKETS = (8, 16, 32, 64)
+# Seconds of closed-loop load per dispatch policy, and of the failure and
+# drain runs; clients 0-2 send interactive requests of 1-8 rows, client 3
+# batch requests of 64.
+ROUTER_LOAD_S = 1.5
+ROUTER_INTERACTIVE, ROUTER_BATCH = 3, 1
+ROUTER_BATCH_ROWS = 64
+# A fused bin under serve.member_parallel against each tenant's direct
+# rows (tests/test_torch_router.py).
+FUSED_VMAP_TOL = 1e-5
+SCALER_WINDOW_S = 0.5
+SCALER_BURST_S = 3.0
+# The policy's frontier: seconds per (bucket, concurrency) point.
+SWEEP_S = 1.0
+SWEEP_CONCURRENCY = (1, 4)
+
+
+class TaggedReplica:
+    """A router replica over a ``ServingEngine`` whose response rows carry
+    the bucket their bin ran at, as a second column, so each row can be
+    held against the engine's score of its canvas at that bucket. Times
+    every bin; from its ``fail_from``-th bin on (when set) it raises, a
+    replica that dies."""
+
+    def __init__(self, engine, fail_from: int = 0):
+        self.engine = engine
+        self.fail_from = fail_from
+        self.bins = 0
+        self.ms = []
+
+    @property
+    def generation(self) -> int:
+        return self.engine.generation
+
+    def probs_with_generation(self, rows):
+        import numpy as np
+
+        self.bins += 1
+        if self.fail_from and self.bins >= self.fail_from:
+            raise RuntimeError(f"replica wrapper: bin {self.bins} refused")
+        t0 = time.perf_counter()
+        out, gen = self.engine.probs_with_generation(rows)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        bucket = next(b for b in self.engine.buckets if b >= len(rows))
+        return np.stack([out, np.full(len(out), float(bucket))], 1), gen
+
+
+def closed_loop(router, canv, seconds: float, seed: int,
+                interactive: int = ROUTER_INTERACTIVE,
+                batch: int = ROUTER_BATCH, rows: int = 0,
+                mid=None) -> list:
+    """``interactive`` + ``batch`` closed-loop client threads for
+    ``seconds`` (``mid()`` called halfway): interactive requests of 1-8
+    random canvases (or ``rows``), batch requests of
+    ``ROUTER_BATCH_ROWS``. Returns (class, canvas indices, rows,
+    segments, ms, error) per request."""
+    import threading
+
+    import numpy as np
+
+    stop = threading.Event()
+    lock = threading.Lock()
+    recs = []
+
+    def client(c):
+        rng = np.random.default_rng(seed + c)
+        cls = "interactive" if c < interactive else "batch"
+        while not stop.is_set():
+            n = ((rows or int(rng.integers(1, 9))) if cls == "interactive"
+                 else ROUTER_BATCH_ROWS)
+            idx = rng.integers(0, len(canv), n)
+            t0 = time.perf_counter()
+            try:
+                f = router.submit(canv[idx], priority=cls)
+                got = np.asarray(f.result(timeout=120))
+                rec = (cls, idx, got, f.segments,
+                       (time.perf_counter() - t0) * 1e3, None)
+            except Exception as e:  # noqa: BLE001 - counted and checked
+                rec = (cls, idx, None, None, None, repr(e))
+            with lock:
+                recs.append(rec)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(interactive + batch)]
+    for t in threads:
+        t.start()
+    try:
+        if mid is not None:
+            time.sleep(seconds / 2)
+            mid()
+            time.sleep(seconds / 2)
+        else:
+            time.sleep(seconds)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(300)
+    check(not any(t.is_alive() for t in threads), "a router client hung")
+    return recs
+
+
+def check_routed(recs, tables) -> int:
+    """Every request answered, and every row bitwise its replica engine's
+    score of that canvas at the bucket its bin ran at (generation 0).
+    Returns the number of requests."""
+    import numpy as np
+
+    errors = [r[5] for r in recs if r[5] is not None]
+    check(not errors, f"{len(errors)} routed requests failed: {errors[:3]}")
+    for _cls, idx, rows, segs, _ms, _err in recs:
+        check(segs[0]["lo"] == 0 and segs[-1]["hi"] == len(idx)
+              and all(a["hi"] == b["lo"] for a, b in zip(segs, segs[1:])),
+              f"segments do not tile the request: {segs}")
+        for s in segs:
+            seg = rows[s["lo"]:s["hi"]]
+            b = int(seg[0, 1])
+            want = tables[s["replica"]][b][idx[s["lo"]:s["hi"]]]
+            check(s["generation"] == 0 and np.all(seg[:, 1] == b)
+                  and np.array_equal(seg[:, 0], want),
+                  f"routed rows of replica {s['replica']} differ from its "
+                  f"engine's at bucket {b}")
+    return len(recs)
+
+
+def nearest_rank(ms, q: float) -> float:
+    import numpy as np
+
+    a = np.sort(np.asarray(ms, np.float64))
+    return float(a[min(len(a) - 1, max(0, int(np.ceil(q * len(a))) - 1))])
+
+
+def percentiles(ms) -> str:
+    if not ms:
+        return "none"
+    return (f"n {len(ms)}, p50 {statistics.median(ms):.1f} ms, p99 "
+            f"{nearest_rank(ms, 0.99):.1f} ms")
+
+
+def reset_counts(engines) -> None:
+    """Launch counts and the engines' chunk counts set to 0."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for e in engines:
+        e.chunks_dispatched = 0
+
+
+def check_b4(part: str, engines, fused_bins: int = 0) -> dict:
+    """The part's launch counts: B4 once a chunk the engines dispatched
+    (plus once a fused bin), no train kernel."""
+    counts = launch_counts()
+    chunks = sum(e.chunks_dispatched for e in engines)
+    want = {"fused_color_jitter": 0, "fused_normalize_color_jitter": 0,
+            "fused_adamw_update": 0,
+            "fused_serve_preprocess": chunks + fused_bins}
+    check(counts == want and chunks + fused_bins > 0,
+          f"router {part}: launches {counts}, want {want}")
+    return counts
+
+
+def router_replicas(torch, seed, smi, cfg, dirs, canv) -> dict:
+    """13a: two replicas of the k = 2 engine under each dispatch policy,
+    class-aware shedding, a replica's death and a drain."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import router as router_lib
+    from jama16_retina_tpu_torch.serve.batcher import Overloaded
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    engines = [ServingEngine(cfg, dirs, device="cuda", registry=Registry())
+               for _ in range(2)]
+    # Each canvas's score at each bucket, per replica engine (a row's
+    # score does not depend on its co-riders at one bucket).
+    tables = [{b: np.concatenate([e.probs(canv[i:i + b])
+                                  for i in range(0, len(canv), b)])
+               for b in ROUTER_BUCKETS} for e in engines]
+    out = {"launches": {}}
+
+    def start(policy="least_in_flight", fail_from=0, shed=0):
+        rcfg = configs.override(cfg, [f"serve.router_policy={policy}",
+                                      f"serve.router_shed_rows={shed}"])
+        reps = [TaggedReplica(engines[0]),
+                TaggedReplica(engines[1], fail_from=fail_from)]
+        reg = Registry()
+        return router_lib.Router(rcfg, engines=reps, registry=reg), reps, reg
+
+    for policy in router_lib.DISPATCH_POLICIES:
+        reset_counts(engines)
+        router, reps, reg = start(policy)
+        recs = closed_loop(router, canv, ROUTER_LOAD_S, seed + 10)
+        router.close()
+        counts = check_b4(policy, engines)
+        n = check_routed(recs, tables)
+        rep = router.report()
+        check(rep["replica_failures"] == 0
+              and all(r["rows"] > 0 for r in rep["replicas"]),
+              f"{policy}: {rep['replicas']}")
+        out["launches"][f"router_{policy}"] = counts
+        by_cls = {c: [r[4] for r in recs if r[0] == c]
+                  for c in ("interactive", "batch")}
+        out[policy] = {c: (statistics.median(v), nearest_rank(v, 0.99),
+                           len(v)) for c, v in by_cls.items() if v}
+        log(f"router {policy}: {n} requests in {ROUTER_LOAD_S} s from "
+            f"{ROUTER_INTERACTIVE} interactive (1-8 rows) and "
+            f"{ROUTER_BATCH} batch ({ROUTER_BATCH_ROWS} rows) closed-loop "
+            f"clients over 2 replicas (k=2, buckets {list(ROUTER_BUCKETS)}):"
+            f" every row bitwise its engine's at its bin's bucket; "
+            f"{rep['dispatches']} bins, {rep['rebins']} requests re-binned, "
+            f"rows by replica {[r['rows'] for r in rep['replicas']]}; B4 "
+            f"{counts['fused_serve_preprocess']} launches, one a chunk; "
+            f"interactive {percentiles(by_cls['interactive'])}; batch "
+            f"{percentiles(by_cls['batch'])} ({smi})")
+        for i, r in enumerate(reps):
+            steady = statistics.median(r.ms[1:])
+            out.setdefault("first_bin_ms", []).append(
+                (policy, i, r.ms[0], steady))
+            log(f"router {policy}: replica {i}'s worker thread: first bin "
+                f"{r.ms[0]:.1f} ms, steady bins median {steady:.1f} ms of "
+                f"{len(r.ms) - 1} ({smi})")
+
+    # The idle share of a routed batch-8 request beside the engine's.
+    router, reps, reg = start()
+    x8 = canv[:8]
+    routed = request_ms(torch, lambda: router.submit(x8).result())
+    busy_r = device_ms(lambda i: router.submit(x8).result(), 3,
+                       strict=False)
+    router.close()
+    direct = request_ms(torch, lambda: engines[0].probs(x8))
+    busy_d = device_ms(lambda i: engines[0].probs(x8), 3, strict=False)
+    out["idle"] = {"routed": routed, "routed_busy": busy_r,
+                   "direct": direct, "direct_busy": busy_d}
+    log(f"times: batch-8 request (float32, k=2, fused preprocess): routed "
+        f"{fmt_ms(routed)}, device busy {busy_r:.3f} ms, idle "
+        f"{100 * (1 - busy_r / routed[0]):.1f} %; the engine alone "
+        f"{fmt_ms(direct)}, device busy {busy_d:.3f} ms, idle "
+        f"{100 * (1 - busy_d / direct[0]):.1f} % ({smi})")
+
+    # Class-aware shedding: batch sheds at half the row threshold, so a
+    # burst of interactive and batch submits sheds batch first.
+    reset_counts(engines)
+    router, reps, reg = start(shed=2 * ROUTER_BATCH_ROWS)
+    events, futs = [], []
+    rng = np.random.default_rng(seed + 20)
+    for _ in range(12):
+        for cls, n in (("interactive", 8), ("batch", ROUTER_BATCH_ROWS)):
+            idx = rng.integers(0, len(canv), n)
+            try:
+                futs.append((cls, idx, router.submit(canv[idx],
+                                                     priority=cls)))
+            except Overloaded:
+                events.append(cls)
+    recs = [(cls, idx, np.asarray(f.result(timeout=120)), f.segments, None,
+             None) for cls, idx, f in futs]
+    router.close()
+    counts = check_b4("shed", engines)
+    check_routed(recs, tables)
+    shed = reg.snapshot()["counters"]
+    check(events and events[0] == "batch"
+          and shed["serve.router.shed.batch"] == events.count("batch")
+          and shed["serve.router.shed.interactive"]
+          == events.count("interactive"),
+          f"shed order {events}, counters {shed}")
+    out["launches"]["router_shed"] = counts
+    log(f"router shed: serve.router_shed_rows={2 * ROUTER_BATCH_ROWS}, batch "
+        f"frac 0.5; a burst of 12 x (interactive 8 rows, batch "
+        f"{ROUTER_BATCH_ROWS} rows): shed batch {events.count('batch')}, "
+        f"interactive {events.count('interactive')}, the first shed a batch "
+        f"request; {len(futs)} admitted, every row bitwise")
+
+    # A replica that raises from its 3rd bin on.
+    reset_counts(engines)
+    router, reps, reg = start(fail_from=3)
+    recs = closed_loop(router, canv, ROUTER_LOAD_S, seed + 30)
+    states = router.replica_states()
+    router.close()
+    counts = check_b4("failure", engines)
+    n = check_routed(recs, tables)
+    c = reg.snapshot()["counters"]
+    check(states[1]["state"] == router_lib.FAILED
+          and states[1]["generation"] is None
+          and c["serve.router.replica_failures"] == 1
+          and c["serve.router.request_failures"] == 0
+          and c["serve.router.retried_bins"] >= 1,
+          f"replica failure: {states}, {c}")
+    out["launches"]["router_failure"] = counts
+    log(f"router failure: replica 1 raises from its 3rd bin: marked failed, "
+        f"{int(c['serve.router.retried_bins'])} bin(s) retried on replica 0, "
+        f"{n} requests, none failed, every row bitwise")
+
+    # Replica 1 drained halfway through the load.
+    reset_counts(engines)
+    router, reps, reg = start()
+    recs = closed_loop(router, canv, ROUTER_LOAD_S, seed + 40,
+                       mid=lambda: router.drain_replica(1))
+    deadline = time.monotonic() + 30
+    while (router.replica_states()[1]["state"] != router_lib.DRAINED
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+    states = router.replica_states()
+    after = router.submit(canv[:8])
+    after.result(timeout=120)
+    router.close()
+    counts = check_b4("drain", engines)
+    n = check_routed(recs, tables)
+    check(states[1]["state"] == router_lib.DRAINED
+          and states[1]["generation"] is None
+          and states[1]["in_flight_rows"] == 0
+          and all(s["replica"] == 0 for s in after.segments),
+          f"drain: {states}")
+    out["launches"]["router_drain"] = counts
+    log(f"router drain: replica 1 drained halfway through {n} requests "
+        f"({states[1]['rows']} rows served before its release), none "
+        "failed, later requests on replica 0")
+    return out
+
+
+def router_fusion(torch, seed, smi, cfg, dirs, canv) -> dict:
+    """13b: two tenants sharing one bucket of 8, fused, with members in
+    turn and under ``serve.member_parallel``."""
+    import types
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, models
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import fusion
+    from jama16_retina_tpu_torch.serve import router as router_lib
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    fcfg = configs.override(cfg, [
+        "serve.bucket_sizes=8", "serve.max_batch=8", "serve.max_wait_ms=200",
+        "serve.router_fusion=true"])
+    other = [random_member(models.build(fcfg.model),
+                           torch.Generator().manual_seed(seed + 600 + m)
+                           ).state_dict() for m in range(2)]
+    out = {"launches": {}}
+    rows8 = canv[:8]
+    parts = [(types.SimpleNamespace(model="a"), 0, 4),
+             (types.SimpleNamespace(model="b"), 0, 4)]
+    for form in ("in_turn", "vmap"):
+        ecfg = (fcfg if form == "in_turn" else configs.override(
+            fcfg, ["serve.member_parallel=true"]))
+        eng_a = ServingEngine(ecfg, dirs, device="cuda", registry=Registry())
+        eng_b = ServingEngine(ecfg, state_dicts=other, device="cuda",
+                              registry=Registry())
+        check(fusion.fusion_token(eng_a) is not None
+              and fusion.fusion_token(eng_a) == fusion.fusion_token(eng_b),
+              "the tenants' fusion tokens differ")
+        ref_a, ref_b = eng_a.probs(rows8[:4]), eng_b.probs(rows8[4:])
+        check(not np.array_equal(ref_a, ref_b), "the tenants agree")
+        reset_counts([eng_a, eng_b])
+        reg = Registry()
+        router = router_lib.Router(ecfg, engines={"a": [eng_a],
+                                                  "b": [eng_b]},
+                                   registry=reg)
+        fa = router.submit(rows8[:4], model="a")
+        fb = router.submit(rows8[4:], model="b")
+        got_a, got_b = fa.result(timeout=120), fb.result(timeout=120)
+        router.close()
+        counts = check_b4(f"fusion {form}", [eng_a, eng_b], fused_bins=1)
+        c = reg.snapshot()["counters"]
+        check(eng_a.chunks_dispatched + eng_b.chunks_dispatched == 0
+              and c["serve.router.fused_bins"] == 1
+              and c["serve.router.fused_rows"] == 8,
+              f"fusion {form}: {c}")
+        gap = float(max(np.abs(got_a - ref_a).max(),
+                        np.abs(got_b - ref_b).max()))
+        if form == "in_turn":
+            check(np.array_equal(got_a, ref_a)
+                  and np.array_equal(got_b, ref_b),
+                  f"fused rows differ from the tenants' direct rows by {gap}")
+        else:
+            check(gap <= FUSED_VMAP_TOL, f"fused member_parallel rows "
+                  f"{gap} from the direct ones (bound {FUSED_VMAP_TOL})")
+        out["launches"][f"router_fusion_{form}"] = counts
+        cache = fusion.FusionCache()
+        ebm = {"a": eng_a, "b": eng_b}
+        spans = fusion._model_spans(parts)
+        fused_t = request_ms(torch, lambda: fusion.score_mixed(
+            ebm, rows8, parts, 8, cache=cache))
+        grouped_t = request_ms(torch, lambda: fusion._score_grouped(
+            ebm, rows8, spans, ["a", "b"]))
+        out[form] = {"fused": fused_t, "grouped": grouped_t, "gap": gap}
+        how = "bitwise" if gap == 0 else f"bound {FUSED_VMAP_TOL}"
+        log(f"router fusion ({form}): tenants a and b (k=2 each, other "
+            f"random members, one fusion token), 4 rows each at bucket 8: "
+            f"one fused bin, B4 launched {counts['fused_serve_preprocess']} "
+            f"time(s); rows vs each tenant's direct rows max |diff| "
+            f"{gap:.3e} ({how}); fused {fmt_ms(fused_t)}, grouped "
+            f"{fmt_ms(grouped_t)} ({smi})")
+    return out
+
+
+def router_cascade(torch, seed, smi, cfg, distill, cascade) -> dict:
+    """13c: two student cascade replicas over one ``EscalationPool`` of
+    the ten-member ensemble, serially and speculating."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import router as router_lib
+    from jama16_retina_tpu_torch.serve.cascade import CascadeEngine
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    canv = cascade["canvases"]
+    n_esc = int(cascade["mask"].sum())
+    students = [ServingEngine(cfg, [distill["student"]], device="cuda",
+                              registry=Registry()) for _ in range(2)]
+    ensemble = ServingEngine(cfg, distill["teacher"], device="cuda",
+                             registry=Registry())
+    engines = students + [ensemble]
+    out = {"launches": {}}
+    for speculative, want_rows in ((False, cascade["rows"]),
+                                   (True, cascade["spec_rows"])):
+        name = "speculative" if speculative else "serial"
+        scfg = configs.override(cfg, [
+            f"serve.cascade_band={cascade['band']!r}",
+            f"serve.cascade_thresholds={cascade['threshold']!r}",
+            f"serve.cascade_speculative={speculative}"])
+        reset_counts(engines)
+        reg = Registry()
+        pool = router_lib.EscalationPool([ensemble], registry=reg)
+        cascades = [CascadeEngine(scfg, s, pool, registry=reg)
+                    for s in students]
+        router = router_lib.Router(scfg, engines=cascades, registry=reg)
+        futs = [router.submit(canv) for _ in range(2)]
+        got = [f.result(timeout=300) for f in futs]
+        router.close()
+        for c in cascades:
+            c.close()
+        counts = check_b4(f"cascade {name}", engines)
+        c = reg.snapshot()["counters"]
+        used = sorted(s["replica"] for f in futs for s in f.segments)
+        check(all(np.array_equal(g, want_rows) for g in got),
+              f"routed {name} cascade rows differ from phase 12's")
+        check(c["serve.router.escalations"] == 2 * n_esc
+              and c.get("serve.router.speculations", 0)
+              == (2 * len(canv) if speculative else 0)
+              and used == [0, 1],
+              f"cascade {name}: counters {c}, replicas {used}")
+        out["launches"][f"router_cascade_{name}"] = counts
+        log(f"router cascade ({name}): 2 student replicas over one "
+            f"EscalationPool of the {CASCADE_K}-member ensemble, 2 requests "
+            f"of {len(canv)} canvases: rows bitwise phase 12's {name} "
+            f"cascade; serve.router.escalations "
+            f"{int(c['serve.router.escalations'])} = 2 x the mask's {n_esc};"
+            f" serve.router.speculations "
+            f"{int(c.get('serve.router.speculations', 0))}; B4 "
+            f"{counts['fused_serve_preprocess']} launches, one a chunk")
+    return out
+
+
+def router_scaler(torch, seed, smi, cfg, dirs, canv) -> dict:
+    """13d: a replica factory over the k = 2 members; a burst scales up,
+    quiet drains."""
+    from jama16_retina_tpu_torch import configs, models
+    from jama16_retina_tpu_torch.models import convert
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import router as router_lib
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    scfg = configs.override(cfg, [
+        "serve.router_replicas=1", "serve.scaler_min_replicas=1",
+        "serve.scaler_max_replicas=3",
+        f"serve.scaler_window_s={SCALER_WINDOW_S}",
+        f"serve.router_shed_rows={8 * ROUTER_BATCH_ROWS}"])
+    sds = [convert.flax_to_torch(ckpt_lib.load_member(d),
+                                 models.build(cfg.model)) for d in dirs]
+    built = []
+
+    def factory(rid):
+        eng = ServingEngine(scfg, state_dicts=sds, device="cuda",
+                            registry=Registry())
+        built.append(eng)
+        return eng
+
+    reset_counts([])
+    reg = Registry()
+    router = router_lib.Router(scfg, replica_factory=factory, registry=reg)
+    t0 = time.perf_counter()
+    recs = closed_loop(router, canv, SCALER_BURST_S, seed + 50,
+                       interactive=0, batch=4)
+    burst_s = time.perf_counter() - t0
+    peak = len(built)
+    deadline = time.monotonic() + 20
+    while (time.monotonic() < deadline and not any(
+            r["state"] == router_lib.DRAINED
+            for r in router.replica_states())):
+        time.sleep(0.05)
+    states = router.replica_states()
+    ledger = router.scaler_ledger()
+    router.close()
+    counts = check_b4("scaler", built)
+    errors = [r[5] for r in recs if r[5] is not None]
+    c = reg.snapshot()["counters"]
+    check(not errors and peak >= 2 and c["serve.scaler.scale_ups"] >= 1
+          and c["serve.scaler.scale_downs"] >= 1
+          and any(r["state"] == router_lib.DRAINED for r in states),
+          f"scaler: built {peak}, counters {c}, states {states}, errors "
+          f"{errors[:3]}")
+    log(f"router scaler: replica factory over the k=2 members, "
+        f"scaler_min_replicas 1, max 3, window {SCALER_WINDOW_S} s; "
+        f"{len(recs)} batch requests of {ROUTER_BATCH_ROWS} rows from 4 "
+        f"closed-loop clients in {burst_s:.1f} s: {peak} replicas built, "
+        f"{int(c['serve.scaler.scale_ups'])} scale-up(s); then quiet: "
+        f"{int(c['serve.scaler.scale_downs'])} scale-down(s), states "
+        f"{[r['state'] for r in states]}; B4 "
+        f"{counts['fused_serve_preprocess']} launches, one a chunk ({smi})")
+    t_first = ledger[0]["t"] if ledger else 0.0
+    for d in ledger:
+        log(f"router scaler ledger: +{d['t'] - t_first:.2f} s active "
+            f"{d['active']} -> desired {d['desired']} ({d['reason']}), "
+            f"queue {d['queue_rows']} rows, in flight {d['in_flight_rows']} "
+            f"rows, p99 {d['p99_latency_ms']} ms")
+    return {"launches": {"router_scaler": counts}, "ledger": ledger,
+            "built": peak}
+
+
+def router_policy(torch, seed, smi, cfg, dirs, canv, root: Path) -> dict:
+    """13e: a frontier swept through the router on the card, and the
+    policy derived from it, sealed, loaded, applied and served."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import policy as policy_lib
+    from jama16_retina_tpu_torch.serve import router as router_lib
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    eng = ServingEngine(cfg, dirs, device="cuda", registry=Registry())
+    for b in ROUTER_BUCKETS:
+        eng.probs(canv[:b])
+    reset_counts([eng])
+    frontier = []
+    for b in ROUTER_BUCKETS:
+        bcfg = configs.override(cfg, [f"serve.bucket_sizes={b}",
+                                      f"serve.max_batch={b}",
+                                      "serve.max_wait_ms=1"])
+        for conc in SWEEP_CONCURRENCY:
+            router = router_lib.Router(bcfg, engines=[eng],
+                                       registry=Registry())
+            t0 = time.perf_counter()
+            recs = closed_loop(router, canv, SWEEP_S, seed + 60,
+                               interactive=conc, batch=0, rows=b)
+            wall = time.perf_counter() - t0
+            router.close()
+            check(recs and all(r[5] is None for r in recs),
+                  "a sweep request failed")
+            ms = [r[4] for r in recs]
+            frontier.append({
+                "bucket": b, "concurrency": conc,
+                "images_per_sec": round(b * len(recs) / wall, 3),
+                "p50_ms": round(statistics.median(ms), 3),
+                "p99_ms": round(nearest_rank(ms, 0.99), 3)})
+            log(f"router policy sweep: {frontier[-1]} ({smi})")
+    fp = policy_lib.policy_fingerprint(cfg, n_devices=1)
+    pol = policy_lib.derive_policy(frontier, fp, source={
+        "sweep": "chip_smoke.py phase 13e", "card": smi})
+    path = str(root / "serve_policy.json")
+    policy_lib.save_policy(path, pol)
+    check(policy_lib.load_policy(path) == pol,
+          "the policy did not round-trip its artifact")
+    fresh = configs.override(configs.get_config("eyepacs_binary"), [
+        "model.compute_dtype=float32", f"serve.policy_from={path}"])
+    applied, prov = policy_lib.maybe_apply_policy(fresh, n_devices=1)
+    check(prov["version"] == pol.version
+          and applied.serve.max_batch == pol.max_batch
+          and applied.serve.bucket_sizes == pol.bucket_sizes,
+          f"policy not applied: {prov}")
+    router = router_lib.Router(applied, engines=[eng], registry=Registry(),
+                               policy_provenance=prov)
+    got = router.submit(canv[:8]).result(timeout=120)
+    report = router.report()
+    router.close()
+    counts = check_b4("policy", [eng])
+    check(report["policy"]["version"] == pol.version
+          and np.isfinite(got).all(), f"policy router report {report}")
+    log(f"router policy: derived from the card's frontier "
+        f"({len(frontier)} points): version {pol.version}, max_batch "
+        f"{pol.max_batch}, buckets {list(pol.bucket_sizes)}, max_wait_ms "
+        f"{pol.max_wait_ms}, shed_in_flight {pol.shed_in_flight}, "
+        f"shed_queue_depth {pol.shed_queue_depth}, classes {pol.classes}; "
+        f"applied to a fresh config: {prov['applied']}; a router built from "
+        f"it served a request ({smi})")
+    return {"launches": {"router_policy": counts}, "frontier": frontier,
+            "policy": pol.payload()}
+
+
+def phase_router(torch, seed: int, smi: str, serve: dict, distill: dict,
+                 cascade: dict, root: Path) -> dict:
+    """Phase 13: the router, fusion, cascade-aware routing, the scaler and
+    the policy, on phase 4's k = 2 members and phase 12's student, ten
+    members and canvases (float32 compute, TF32 off, fused preprocess).
+    Launch counts are set to 0 just before each part and read just
+    after."""
+    from jama16_retina_tpu_torch import configs
+
+    t_phase = time.perf_counter()
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "model.compute_dtype=float32", "serve.fused_preprocess=true",
+        "serve.bucket_sizes=" + ",".join(map(str, ROUTER_BUCKETS)),
+        "serve.max_batch=64", "serve.router_tick_ms=1"])
+    canv, dirs = cascade["canvases"], serve["dirs"]
+    parts = (
+        ("a", "replicas", lambda: router_replicas(torch, seed, smi, cfg,
+                                                  dirs, canv)),
+        ("b", "fusion", lambda: router_fusion(torch, seed, smi, cfg, dirs,
+                                              canv)),
+        ("c", "cascade", lambda: router_cascade(torch, seed, smi, cfg,
+                                                distill, cascade)),
+        ("d", "scaler", lambda: router_scaler(torch, seed, smi, cfg, dirs,
+                                              canv)),
+        ("e", "policy", lambda: router_policy(torch, seed, smi, cfg, dirs,
+                                              canv, root)))
+    out = {"launches": {}}
+    for letter, name, fn in parts:
+        t0 = time.perf_counter()
+        res = fn()
+        out["launches"].update(res.pop("launches"))
+        out[name] = res
+        torch.cuda.empty_cache()
+        log(f"times: phase 13{letter} ({name}) wall "
+            f"{time.perf_counter() - t0:.1f} s ({smi})")
+    log(f"times: phase 13 (router) wall {time.perf_counter() - t_phase:.1f} s"
+        f" ({smi})")
+    return out
+
+
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"jama16_retina_tpu_torch/ops/csrc/{source}",
@@ -3188,6 +3855,8 @@ def main(argv=None) -> int:
     cascade = phase_cascade(torch, args.seed, smi, fit["root"], distill)
     log(f"times: phase 12 (distill, cascade, generations) wall "
         f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    router = phase_router(torch, args.seed, smi, serve, distill, cascade,
+                          fit["root"])
     shutil.rmtree(fit["root"], ignore_errors=True)
     torch.cuda.empty_cache()
     for form, t in train.items():
@@ -3235,7 +3904,7 @@ def main(argv=None) -> int:
             "serve_knobs": knobs_serve["launches"],
             **optimizers["launches"], **recipe["launches"],
             **ensemble["launches"], **distill["launches"],
-            **cascade["launches"]}
+            **cascade["launches"], **router["launches"]}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

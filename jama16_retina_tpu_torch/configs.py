@@ -193,6 +193,38 @@ class ServeConfig:
     # Seconds a reload keeps the previous generation on the device for
     # an instant rollback (0: none is kept).
     rollback_keep_s: float = 900.0
+    # The front-door router (serve/router.py). Replicas it builds from
+    # its replica factory when it is handed no engines.
+    router_replicas: int = 1
+    # Bin -> replica: least_in_flight (fewest rows queued or scoring) or
+    # bucket_affinity (prefer a replica that already served the bin's
+    # bucket, least in flight among those).
+    router_policy: str = "least_in_flight"
+    # How often queued rows are re-binned across bucket boundaries (ms).
+    # A full bucket dispatches at the next tick; only a partial remainder
+    # waits out max_wait_ms.
+    router_tick_ms: float = 2.0
+    # Rows queued plus in flight beyond which submits raise Overloaded
+    # (0 = off): interactive at this, batch at router_batch_shed_frac
+    # of it, so batch sheds first.
+    router_shed_rows: int = 0
+    router_batch_shed_frac: float = 0.5
+    # Engines of the shared full-ensemble EscalationPool behind student
+    # cascade replicas (predict --replicas with cascade_student_dir).
+    router_escalation_replicas: int = 1
+    # Bins may mix rows of different models (serve/fusion.py): one
+    # forward over the concatenated members when the engines' programs
+    # agree, one call per model otherwise.
+    router_fusion: bool = False
+    # A sealed serving-policy artifact (serve/policy.py); the knobs it
+    # derives fill fields still at their defaults. Empty = off.
+    policy_from: str = ""
+    # The autoscaler (serve/scaler.py): bounds of the desired replica
+    # count, its window (s) and the p99 SLO it treats as hot (ms; 0 off).
+    scaler_min_replicas: int = 1
+    scaler_max_replicas: int = 8
+    scaler_window_s: float = 10.0
+    scaler_slo_p99_ms: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -375,14 +407,6 @@ _NOT_PORTED = {
         "Queue A item 11 (planes: the lifecycle)"),
     "ingest": _PLANES + " (the ingest service)",
     "integrity": _PLANES + " (integrity: caches, telemetry retention)",
-    **dict.fromkeys(
-        ("serve.router_replicas", "serve.router_policy",
-         "serve.router_tick_ms", "serve.router_shed_rows",
-         "serve.router_batch_shed_frac", "serve.router_escalation_replicas",
-         "serve.router_fusion", "serve.policy_from",
-         "serve.scaler_min_replicas", "serve.scaler_max_replicas",
-         "serve.scaler_window_s", "serve.scaler_slo_p99_ms"),
-        "Queue A item 9 (the router, fusion, policy and scaler)"),
     # Every obs field but enabled and quality.*; obs.audit covers its
     # own fields.
     **dict.fromkeys(

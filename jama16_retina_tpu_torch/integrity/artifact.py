@@ -1,9 +1,10 @@
 """The sealed-artifact envelope (counterpart of
 ``jama16_retina_tpu/integrity/artifact.py``): the part the quality
-profile and the golden-set canary are written and read through.
+profile, the golden-set canary and the serving policy are written and
+read through.
 
-The seal format is the reference's, byte for byte, so a profile or
-canary written by either package loads in the other:
+The seal format is the reference's, byte for byte, so a profile,
+canary or policy written by either package loads in the other:
 
   * a JSON artifact carries an embedded ``__seal__`` block (seal
     version, schema name and version, an environment fingerprint, and a
@@ -39,6 +40,8 @@ REBUILD = {
                "--profile_out",
     "canary": "NOT derivable — restore it, or re-pin with "
               "obs/quality.save_canary on the served checkpoint",
+    "policy": "re-derive with serve/policy.derive_policy over a fresh "
+              "serve_frontier sweep, then save_policy",
 }
 
 

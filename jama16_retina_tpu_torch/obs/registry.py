@@ -165,6 +165,12 @@ class Registry:
         return self._get_or_create(name, Histogram, buckets=buckets,
                                    help=help)
 
+    def remove(self, name: str) -> None:
+        """Stop exporting ``name`` (a no-op when absent); a handle a caller
+        still holds keeps counting, unexported."""
+        with self._lock:
+            self._metrics.pop(name, None)
+
     def snapshot(self) -> dict:
         """{'counters': {name: v}, 'gauges': {name: v}, 'histograms':
         {name: Histogram.snapshot()}}."""

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -33,8 +34,10 @@ SCALE = float(np.float32(1.0 / 127.5))
 # Rec.601 luma weights, as in obs/quality.input_stat_values.
 _LUMA = (0.299, 0.587, 0.114)
 
-# Times the CUDA kernel was launched in this process.
+# Times the CUDA kernel was launched in this process, counted under a
+# lock: the router's worker threads launch it concurrently.
 launches = 0
+_launches_lock = threading.Lock()
 
 
 def _check(images_u8: torch.Tensor) -> None:
@@ -109,7 +112,8 @@ def fused_serve_preprocess(
         raise RuntimeError(
             f"serve_preprocess kernel launch failed: cudaError {err} for "
             f"images {tuple(images_u8.shape)}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out, sums
 
 

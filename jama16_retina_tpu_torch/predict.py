@@ -29,6 +29,18 @@ student scores every image, the ``--checkpoint_dir`` ensemble the rows
 within ``serve.cascade_band`` of ``serve.cascade_thresholds``) that must
 pass its go-live gate first; a refused cascade exits 1 before any row
 is printed.
+
+``--replicas N`` (N >= 1) serves the batch through the front-door
+``Router`` (``serve/router.py``) over N in-process replicas: the blocks
+of ``--batch_size`` rows are submitted under ``--priority``, re-binned
+and reassembled in order, so ``--replicas 1`` prints the same JSONL as
+the direct path. With ``serve.cascade_student_dir`` the replicas are
+student cascades sharing one ``EscalationPool`` of
+``serve.router_escalation_replicas`` ensemble engines. The quality
+monitor lives on replica 0, and the cascades pass one go-live gate. The
+router's report goes to stderr as one JSON line. ``serve.policy_from``
+applies a sealed serving policy (``serve/policy.py``) before the engines
+are built, on either path.
 """
 
 from __future__ import annotations
@@ -74,7 +86,54 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--host_workers", type=int, default=0,
                    help="fundus-normalization threads (0 = serve."
                         "host_workers, whose 0 is auto)")
+    p.add_argument("--replicas", type=int, default=0,
+                   help="serve through the Router over N replicas (0: the "
+                        "direct single-engine path)")
+    p.add_argument("--priority", choices=("interactive", "batch"),
+                   default="interactive",
+                   help="router priority class of this batch (with "
+                        "--replicas)")
     return p
+
+
+def _router_replica_engines(cfg, dirs, n: int, device):
+    """The router's replicas: n plain engines, or with
+    ``serve.cascade_student_dir`` n student cascades sharing one
+    ``EscalationPool`` of ``serve.router_escalation_replicas`` engines.
+    Quality lives on replica 0 only (at n = 1 that is the direct path's
+    wiring), and the cascades pass one go-live gate: they share the
+    student, band and thresholds."""
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+    from jama16_retina_tpu_torch.serve.assemble import (EngineSpec,
+                                                        _quality_off,
+                                                        assemble,
+                                                        cascade_monitor)
+    from jama16_retina_tpu_torch.serve.cascade import CascadeEngine
+    from jama16_retina_tpu_torch.serve.router import EscalationPool
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    sub = _quality_off(cfg)
+    dirs = tuple(dirs)
+    if not cfg.serve.cascade_student_dir:
+        return [assemble(EngineSpec(cfg=cfg if i == 0 else sub,
+                                    member_dirs=dirs, device=device))
+                for i in range(n)]
+    student_dirs = tuple(ckpt_lib.discover_member_dirs(
+        cfg.serve.cascade_student_dir))
+    pool = EscalationPool([
+        assemble(EngineSpec(cfg=sub, member_dirs=dirs, device=device,
+                            cascade=False))
+        for _ in range(max(1, cfg.serve.router_escalation_replicas))])
+    cascades = []
+    for i in range(n):
+        student = assemble(EngineSpec(cfg=sub, member_dirs=student_dirs,
+                                      device=device, cascade=False))
+        quality = (cascade_monitor(cfg, obs_registry.default_registry(),
+                                   student.device) if i == 0 else None)
+        cascades.append(CascadeEngine(cfg if i == 0 else sub, student, pool,
+                                      quality=quality))
+    cascades[0].go_live()
+    return cascades
 
 
 def _expand(patterns: "list[str]") -> "list[str]":
@@ -106,10 +165,14 @@ def main(argv: "list[str] | None" = None) -> int:
     from jama16_retina_tpu_torch.eval import metrics
     from jama16_retina_tpu_torch.serve import host
     from jama16_retina_tpu_torch.serve.assemble import EngineSpec, assemble
+    from jama16_retina_tpu_torch.serve import policy as policy_lib
     from jama16_retina_tpu_torch.serve.cascade import CascadeRejected
+    from jama16_retina_tpu_torch.serve.router import Router
     from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
     cfg = configs.override(configs.get_config(args.config), args.set)
+    if args.replicas < 0:
+        raise SystemExit(f"--replicas must be >= 0, got {args.replicas}")
     dirs = list(args.ensemble_dir)
     if not dirs:
         if not args.checkpoint_dir:
@@ -122,22 +185,42 @@ def main(argv: "list[str] | None" = None) -> int:
         workers=args.host_workers or cfg.serve.host_workers,
     )
     if pre.kept:
+        # The policy first, so the one-bucket pin below still wins on
+        # shapes; a stale fingerprint refuses the batch.
+        cfg, policy_prov = policy_lib.maybe_apply_policy(cfg, n_devices=1)
         # One bucket at --batch_size: every row runs at the same padded
         # shape.
         cfg = cfg.replace(serve=dataclasses.replace(
             cfg.serve, max_batch=args.batch_size,
             bucket_sizes=(args.batch_size,)))
         try:
-            engine = assemble(EngineSpec(
-                cfg=cfg, member_dirs=tuple(dirs), device=args.device,
-                go_live=bool(cfg.serve.cascade_student_dir)))
+            if args.replicas:
+                engines = _router_replica_engines(cfg, dirs, args.replicas,
+                                                  args.device)
+            else:
+                engine = assemble(EngineSpec(
+                    cfg=cfg, member_dirs=tuple(dirs), device=args.device,
+                    go_live=bool(cfg.serve.cascade_student_dir)))
         except CascadeRejected as e:
             raise SystemExit(f"predict: {e}") from None
     for p, why in pre.skipped:
         print(json.dumps({"image": p, "error": why}))
     if not pre.kept:
         return 1
-    probs = engine.probs(pre.images)
+    if args.replicas:
+        router = Router(cfg, engines=engines,
+                        policy_provenance=policy_prov or None)
+        try:
+            futs = [router.submit(pre.images[i:i + args.batch_size],
+                                  priority=args.priority)
+                    for i in range(0, len(pre.kept), args.batch_size)]
+            blocks = [np.asarray(f.result()) for f in futs]
+        finally:
+            router.close()
+        probs = blocks[0] if len(blocks) == 1 else np.concatenate(blocks)
+        print(json.dumps({"router": router.report()}), file=sys.stderr)
+    else:
+        probs = engine.probs(pre.images)
 
     for p, pr, qual in zip(pre.kept, probs, pre.qualities):
         if cfg.model.head != "binary":

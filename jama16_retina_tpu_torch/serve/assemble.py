@@ -70,6 +70,23 @@ def _resolve_student_dirs(spec: EngineSpec) -> tuple:
     return ()
 
 
+def cascade_monitor(cfg: ExperimentConfig, registry, device, quality=None):
+    """The quality monitor a cascade's merged view owns: ``quality``, or
+    one built from ``cfg.obs.quality`` (None with ``obs`` off), its input
+    statistics from kernel B4 under ``serve.fused_preprocess``."""
+    if quality is None and cfg.obs.enabled:
+        from jama16_retina_tpu_torch.obs import quality as quality_lib
+
+        quality = quality_lib.monitor_from_config(cfg.obs.quality,
+                                                  registry=registry)
+    if quality is not None and cfg.serve.fused_preprocess:
+        from jama16_retina_tpu_torch.serve import host
+
+        quality.stats_fn = lambda rows: host.stats_only(
+            rows, fused=True, device=device)
+    return quality
+
+
 def assemble(spec: EngineSpec):
     """Spec -> ready engine: a ``ServingEngine``, or a ``CascadeEngine``
     when the spec carries a student."""
@@ -86,7 +103,6 @@ def assemble(spec: EngineSpec):
         return ServingEngine(cfg, member_dirs, state_dicts=spec.state_dicts,
                              device=spec.device, registry=spec.registry)
 
-    from jama16_retina_tpu_torch.obs import quality as quality_lib
     from jama16_retina_tpu_torch.obs import registry as obs_registry
     from jama16_retina_tpu_torch.serve.cascade import CascadeEngine
 
@@ -107,16 +123,7 @@ def assemble(spec: EngineSpec):
                                  device=spec.device, registry=spec.registry)
     registry = (spec.registry if spec.registry is not None
                 else obs_registry.default_registry())
-    quality = spec.quality
-    if quality is None and cfg.obs.enabled:
-        quality = quality_lib.monitor_from_config(cfg.obs.quality,
-                                                  registry=registry)
-    if quality is not None and cfg.serve.fused_preprocess:
-        from jama16_retina_tpu_torch.serve import host
-
-        device = ensemble.device
-        quality.stats_fn = lambda rows: host.stats_only(
-            rows, fused=True, device=device)
+    quality = cascade_monitor(cfg, registry, ensemble.device, spec.quality)
     engine = CascadeEngine(
         cfg, ServingEngine(sub, list(student_dirs), device=spec.device),
         ensemble, registry=registry, quality=quality)

@@ -65,8 +65,9 @@ class CascadeEngine:
     """Student-first scoring with band escalation to the full ensemble.
 
     ``student`` and ``ensemble`` are two ``ServingEngine``s (or anything
-    with the engine's ``probs`` row contract); the student is normally a
-    one-member engine over the ``train.distill_from`` product.
+    with the engine's ``probs`` row contract, such as the router's
+    ``EscalationPool``); the student is normally a one-member engine over
+    the ``train.distill_from`` product.
     ``quality``: a monitor fed the merged scores; build both halves with
     ``obs.quality`` off when one is passed (``serve/assemble.py`` does).
     """
@@ -143,7 +144,13 @@ class CascadeEngine:
         """(merged scores, escalation mask)."""
         spec_fut = None
         if self.speculative and len(images):
-            spec_fut = self._spec_submit(self.ensemble.probs, images)
+            # An EscalationPool ensemble takes its speculative entry point,
+            # so whole speculated batches do not count as escalations
+            # there; the rows the band flips are credited back below.
+            spec_fn = getattr(self.ensemble, "probs_speculative", None)
+            spec_fut = self._spec_submit(
+                spec_fn if spec_fn is not None else self.ensemble.probs,
+                images)
         out = np.asarray(self.student.probs(images))
         n = int(out.shape[0])
         self._c_student_rows.inc(n)
@@ -153,6 +160,9 @@ class CascadeEngine:
             self._c_speculated.inc(n)
             esc_n = int(mask.sum())
             self._c_speculated_wasted.inc(n - esc_n)
+            note = getattr(self.ensemble, "note_escalated", None)
+            if note is not None:
+                note(esc_n)
             if mask.any():
                 out = np.array(out)
                 out[mask] = esc_all[mask]

@@ -248,7 +248,9 @@ class ServingEngine:
         # The skeleton keeps no weights: the int8 and the stacked forms
         # swap a member's into it for one forward (functional_call), so
         # those forwards take turns, in every generation. An fp32 or bf16
-        # member in turn is a module of its own on the same tensors.
+        # member in turn is a module of its own on the same tensors; its
+        # eval-mode forward writes no state, so threads that share the
+        # engine (the router's workers) forward it at once, unlocked.
         self._model = models.build(cfg.model)
         self._shapes = {k: tuple(v.shape)
                         for k, v in self._model.state_dict().items()}
@@ -262,8 +264,11 @@ class ServingEngine:
         # INPUT_STATS dict of the last live request's rows (fused path
         # only); the canary, the gates and the shadow leave it alone.
         self.last_input_stats: "dict | None" = None
-        # Padded chunks forwarded since construction.
+        # Padded chunks forwarded since construction. The router's worker
+        # threads may score through one engine at once, so the count is
+        # taken under a lock of its own (the forwards are not).
         self.chunks_dispatched = 0
+        self._count_lock = threading.Lock()
         # One rollout at a time; requests read the handle, not the lock.
         self._reload_lock = threading.Lock()
         self._prev_gen: "_Generation | None" = None
@@ -631,6 +636,27 @@ class ServingEngine:
         distillation teacher's forward, with no chunking or padding."""
         return self._forward(x, self._gen)
 
+    def score_padded(self, rows: np.ndarray, bucket: int, gen: _Generation
+                     ) -> "tuple[torch.Tensor, torch.Tensor | None]":
+        """uint8 rows [n, S, S, 3] padded with zero rows to ``bucket``,
+        normalized once (kernel B4 on the fused path) and forwarded
+        through every member of ``gen``: ([k, n] (or [k, n, C])
+        probabilities on the device, the real rows' B4 sums or None). Call
+        it under ``torch.inference_mode``."""
+        size = self.cfg.model.image_size
+        n = rows.shape[0]
+        padded = torch.zeros((bucket, size, size, 3), dtype=torch.uint8,
+                             device=self.device)
+        padded[:n].copy_(torch.from_numpy(np.ascontiguousarray(rows)))
+        sums = None
+        if self.fused:
+            norm, sums = serve_preprocess.fused_serve_preprocess(padded)
+            sums = sums[:n]
+        else:
+            norm = augment.normalize(padded)
+        # NHWC float32 seen as NCHW: a channels_last view, no copy.
+        return self._forward(norm.permute(0, 3, 1, 2), gen)[:, :n], sums
+
     def _member_probs(self, images: np.ndarray, gen: _Generation
                       ) -> "tuple[np.ndarray, dict | None]":
         """Every chunk of the request on ``gen``: (member probabilities,
@@ -648,20 +674,13 @@ class ServingEngine:
         with torch.inference_mode():
             for lo in range(0, images.shape[0], self.max_batch):
                 chunk = images[lo:lo + self.max_batch]
-                n = chunk.shape[0]
-                padded = torch.zeros((self._bucket_for(n), size, size, 3),
-                                     dtype=torch.uint8, device=self.device)
-                padded[:n].copy_(torch.from_numpy(np.ascontiguousarray(chunk)))
-                if self.fused:
-                    norm, chunk_sums = serve_preprocess.fused_serve_preprocess(
-                        padded)
-                    sums.append(chunk_sums[:n])
-                else:
-                    norm = augment.normalize(padded)
-                # NHWC float32 seen as NCHW: a channels_last view, no copy.
-                outs.append(
-                    self._forward(norm.permute(0, 3, 1, 2), gen)[:, :n])
-                self.chunks_dispatched += 1
+                probs, chunk_sums = self.score_padded(
+                    chunk, self._bucket_for(chunk.shape[0]), gen)
+                outs.append(probs)
+                if chunk_sums is not None:
+                    sums.append(chunk_sums)
+                with self._count_lock:
+                    self.chunks_dispatched += 1
             probs = torch.cat(outs, dim=1).cpu().numpy()
             stats = None
             if self.fused:

@@ -650,3 +650,43 @@ def test_cascade_escalated_rows_are_the_ensembles_on_the_card(cuda):
     assert 0 < mask.sum() < len(mask)
     np.testing.assert_array_equal(out[~mask], student.probs(imgs)[~mask])
     np.testing.assert_array_equal(out[mask], ensemble.probs(imgs[mask]))
+
+
+@pytest.mark.gpu
+def test_a_fused_bin_of_two_299px_tenants_launches_b4_once(cuda):
+    """Two Inception-v3 tenants (299 px, float32 compute, TF32 off, k=2
+    each) share one fused bin of 8 rows: B4 launches once, and each
+    tenant's rows are bitwise its own engine's direct rows at bucket 8."""
+    import types
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import fusion
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "model.compute_dtype=float32", "serve.max_batch=8",
+        "serve.bucket_sizes=8", "serve.fused_preprocess=true"])
+    imgs = np.random.default_rng(3).integers(0, 256, (8, 299, 299, 3),
+                                             np.uint8)
+    parts = [(types.SimpleNamespace(model="a"), 0, 4),
+             (types.SimpleNamespace(model="b"), 0, 4)]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        engines = {m: ServingEngine(cfg, state_dicts=_smoke_members(cfg, s),
+                                    device=cuda, registry=Registry())
+                   for m, s in (("a", (0, 1)), ("b", (2, 3)))}
+        ref_a = engines["a"].probs(imgs[:4])
+        ref_b = engines["b"].probs(imgs[4:])
+        before = sp.launches
+        out, gens = fusion.score_mixed(engines, imgs, parts, 8)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert sp.launches == before + 1 and gens == {"a": 0, "b": 0}
+    assert not np.array_equal(ref_a, ref_b)
+    np.testing.assert_array_equal(out[:4], ref_a)
+    np.testing.assert_array_equal(out[4:], ref_b)

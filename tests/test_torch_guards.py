@@ -268,8 +268,9 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
             configs.override(configs.get_config("smoke"), [f"{key}={raw}"])
         items[key] = str(e.value)
     # 80 until the cascade, the generations and the distillation ported
-    # their 7 fields (train.distill_from was copied and refused before).
-    assert len(items) >= 77
+    # their 7 fields (train.distill_from was copied and refused before);
+    # 77 until the router, fusion, policy and scaler ported their 12.
+    assert len(items) >= 65
     for key, item in (("data.autotune", "item 7"),
                       ("data.quarantine_bad_records", "item 7"),
                       ("parallel.num_devices", "item 8"),
@@ -288,7 +289,13 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
                 "serve.cascade_band", "serve.cascade_thresholds",
                 "serve.cascade_student_dir", "serve.cascade_speculative",
                 "serve.rollback_keep_s", "lifecycle.gate_canary_max_dev",
-                "lifecycle.gate_auc_floor_delta"):
+                "lifecycle.gate_auc_floor_delta", "serve.router_replicas",
+                "serve.router_policy", "serve.router_tick_ms",
+                "serve.router_shed_rows", "serve.router_batch_shed_frac",
+                "serve.router_escalation_replicas", "serve.router_fusion",
+                "serve.policy_from", "serve.scaler_min_replicas",
+                "serve.scaler_max_replicas", "serve.scaler_window_s",
+                "serve.scaler_slo_p99_ms"):
         assert key in ours
     lifecycle = [k for k in items if k.startswith("lifecycle.")]
     assert len(lifecycle) == 11
@@ -316,7 +323,7 @@ def test_unknown_or_malformed_overrides_raise(item):
 
 
 @pytest.mark.parametrize("item", [
-    "serve.router_fusion=true", "serve.router_replicas=2",
+    "serve.compile_cache_dir=/x", "obs.trace_enabled=true",
     "lifecycle.shadow_fraction=0.5", "obs.flush_every_s=1",
     "obs.audit.enabled=true", "obs.quality.psi_alert=0.5"])
 def test_refused_serving_and_obs_knobs_name_their_roadmap_item(item):
