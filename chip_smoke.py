@@ -8,7 +8,8 @@ trains.
 Phases, any failure exits nonzero before the result line:
 
 1. device   - a CUDA card is required; prints its name, count, power limit.
-2. build    - compiles every kernel from ``ops/csrc`` (``nvcc -Xptxas -v``);
+2. build    - compiles every kernel from ``ops/csrc`` (``nvcc -Xptxas -v``)
+              and the host-side image codec (the host C compiler);
               prints how many of B2's single-pass clusters (8 and 16
               blocks, 299 px) the card holds at once.
 3. kernels  - each kernel against its plain PyTorch version on the card,
@@ -285,6 +286,36 @@ Phases, any failure exits nonzero before the result line:
               -> ``save_policy`` -> ``load_policy`` ->
               ``maybe_apply_policy`` on a fresh config, and a router built
               from it; the derived knobs printed beside the card.
+14. jpeg and host - after phase 13, with no OpenCV, PIL or TensorFlow.
+              (a) Every fixture of ``tests/data/jpeg`` decoded on this
+              machine's host, bitwise its ``manifest.json`` digests: the
+              host path (EXIF applied) OpenCV's, the records path (EXIF
+              ignored) TensorFlow's; the progressive JPEG refused naming
+              item 14. (b) JPEG TFRecord splits packed from the fixtures
+              with ``make_jpeg_example`` (train 64 / val 32 / test 32 in 4
+              / 2 / 2 shards; train the eight 299-px renders repeated with
+              grades cycling, every fourth val and test record a 317-px
+              render, resized to 299 on read): ``trainer.fit`` of
+              ``eyepacs_binary`` (Inception-v3, 299 px, batch 32, preset
+              step, default readers) for 8 steps with evals at 4 and 8, B1
+              8 times (counts set to 0 just before, read just after), then
+              phase 6's card-vs-CPU evaluation of its best step. (c)
+              Printed, not asserted: records decoded a second by one
+              process (JPEG and raw at 299 px, the 1024-px fixture with and
+              without the resize), and the stream step from the JPEG
+              splits against the same pixels written raw, in turns, at
+              ``data.readers`` 1 and 2. (d) ``predict.main`` with
+              ``serve.fused_preprocess=true`` (float32 compute) on the
+              fixture photos, the EXIF-rotated one, a junk file and a
+              progressive JPEG against phase 4's k=2 members: junk skipped
+              as ``unreadable``, ``serve.input_rejected.decode_error`` up
+              by 2, B4 once per chunk, the quality monitor on (a profile
+              with input histograms) and ``serve.preprocess.fused_rows``
+              the kept rows it read, the kept canvases bitwise the
+              manifest's, rows within 1e-4 of the same engine on the
+              CPU. (e) The host stage's wall time per batch of 1, 8 and
+              64 photos at 299 and 1024 px, with one worker thread and
+              the default.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
@@ -1347,7 +1378,7 @@ def phase_fit(torch, seed: int, smi: str, step_ms: float) -> dict:
     evaluate, at full width on the card (phase 6 of the docstring)."""
     import numpy as np
 
-    from jama16_retina_tpu_torch import configs, models, train_lib, trainer
+    from jama16_retina_tpu_torch import models, train_lib
     from jama16_retina_tpu_torch.data import tfrecord
     from jama16_retina_tpu_torch.models import init
     from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
@@ -1439,35 +1470,7 @@ def phase_fit(torch, seed: int, smi: str, step_ms: float) -> dict:
 
     # Evaluate run A's best step on test, thresholds from val, float32,
     # on each device; the probabilities it wrote and its reports compared.
-    cfg_eval = configs.override(cfg_a, ["model.compute_dtype=float32"])
-    reports, probs = {}, {}
-    for dev in ("cuda", "cpu"):
-        csv_path = root / f"probs_{dev}.csv"
-        t0 = time.perf_counter()
-        reports[dev] = report = trainer.evaluate_checkpoints(
-            cfg_eval, str(data), [str(root / "a")], split="test",
-            threshold_split="val", save_probs=str(csv_path), device=dev)
-        ops = [(round(r["threshold"], 6), r["sensitivity"], r["specificity"])
-               for r in report["operating_points"]]
-        moved = [(r["sensitivity"], r["specificity"])
-                 for r in report["operating_points_transferred"]]
-        log(f"fit: evaluate {dev}: AUC {report['auc']:.6f}, operating "
-            f"points (threshold, sensitivity, specificity) {ops}, "
-            f"transferred from val (sensitivity, specificity) {moved} in "
-            f"{time.perf_counter() - t0:.2f} s")
-        probs[dev] = read_probs_csv(csv_path)
-    (names, grades, p_cpu), (names_c, grades_c, p_card) = (
-        probs["cpu"], probs["cuda"])
-    dev_cpu = float(np.max(np.abs(p_card - p_cpu)))
-    log(f"fit: evaluate float32 card vs CPU max |prob diff| {dev_cpu:.3e} "
-        f"over {p_cpu.size} test images in the save_probs CSVs (6 "
-        "decimals; atol 1e-4, TF32 off)")
-    check(names == names_c and np.array_equal(grades, grades_c)
-          and p_cpu.size == FIT_SPLITS[2][1] and dev_cpu <= 1e-4,
-          f"card and CPU evaluations disagree by {dev_cpu}")
-    gap = reports_gap(reports["cuda"], reports["cpu"], p_cpu,
-                      (grades >= 2).astype(int), dev_cpu)
-    check(gap is None, f"card and CPU evaluation reports disagree: {gap}")
+    dev_cpu = evaluate_card_and_cpu(cfg_a, data, root / "a", root, "fit")
     icdr5 = phase_fit_icdr5(torch, seed, data, root, smi)
     wall = time.perf_counter() - t_phase
     log(f"times: fit phase wall {wall:.1f} s ({smi})")
@@ -3744,6 +3747,377 @@ def phase_router(torch, seed: int, smi: str, serve: dict, distill: dict,
     return out
 
 
+# Phase 14: JPEG records and the host stage without OpenCV.
+FIXTURES = ROOT / "tests" / "data" / "jpeg"
+# (split, records, shards) of the JPEG splits, and the share of val and
+# test records drawn from the 317-px fixtures (the resize path).
+JPEG_SPLITS = (("train", 64, 4), ("val", 32, 2), ("test", 32, 2))
+JPEG_STREAM_TURNS = (("jpeg", 1), ("raw", 1), ("raw", 2), ("jpeg", 2))
+HOST_BATCHES = (1, 8, 64)
+PREDICT_BATCH = 8
+
+
+def fixture_manifest() -> dict:
+    with open(FIXTURES / "manifest.json") as f:
+        return json.load(f)
+
+
+def sha256(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def phase_fixture_decode() -> dict:
+    """(a) Every committed fixture decoded on this machine's host: the
+    host path (EXIF applied) bitwise OpenCV's decode, the records path
+    (EXIF ignored) bitwise TensorFlow's, by the manifest's digests."""
+    from jama16_retina_tpu_torch.data import imdecode, jpeg
+
+    manifest = fixture_manifest()
+    n_checked = 0
+    for name, entry in sorted(manifest.items()):
+        data = (FIXTURES / name).read_bytes()
+        check(sha256(data) == entry["sha256"], f"fixture {name} changed")
+        if name == "progressive.jpg":
+            rgb, why = imdecode.read_image(data)
+            check(rgb is None and "item 14" in (why or ""),
+                  f"progressive JPEG: {why}")
+            continue
+        host = imdecode.imdecode(data)
+        check(host is not None and sha256(host) == entry["cv2_rgb"],
+              f"{name}: the host decode differs from OpenCV's")
+        n_checked += 1
+        if "tf_rgb" in entry:
+            rec = jpeg.decode_jpeg(data, exif_orientation=False)
+            check(sha256(rec) == entry["tf_rgb"],
+                  f"{name}: the records decode differs from TensorFlow's")
+            n_checked += 1
+    log(f"jpeg: {n_checked} decodes of {len(manifest)} fixtures bitwise "
+        "their manifest digests (OpenCV with EXIF applied, TensorFlow "
+        "without); the progressive JPEG refused naming item 14")
+    return {"checked": n_checked}
+
+
+def jpeg_split_sources(split: str, n: int) -> list:
+    """(fixture, grade) per record: the 299-px renders with grades
+    cycling, and in val and test every fourth record a 317-px render."""
+    out = []
+    for i in range(n):
+        if split != "train" and i % 4 == 0:
+            out.append((f"fundus317_{(i // 4) % 4}.jpg", i % 5))
+        else:
+            out.append((f"fundus299_{i % 8}.jpg", i % 5))
+    return out
+
+
+def write_jpeg_splits(root: Path) -> "tuple[Path, Path]":
+    """The fixtures as JPEG TFRecord splits (``make_jpeg_example``), and
+    the same decoded pixels as raw splits."""
+    from jama16_retina_tpu_torch.data import jpeg, tfrecord
+
+    jdir, rdir = root / "jpeg", root / "raw"
+    for split, n, shards in JPEG_SPLITS:
+        src = jpeg_split_sources(split, n)
+        blobs = {f: (FIXTURES / f).read_bytes() for f, _ in src}
+        names = [f"{split}_{i:05d}" for i in range(n)]
+        tfrecord.write_example_shards(
+            (tfrecord.make_jpeg_example(blobs[f], g, nm)
+             for (f, g), nm in zip(src, names)), str(jdir), split, shards)
+        tfrecord.write_example_shards(
+            (tfrecord.make_raw_example(jpeg.decode_jpeg(
+                blobs[f], exif_orientation=False), g, nm)
+             for (f, g), nm in zip(src, names)), str(rdir), split, shards)
+    return jdir, rdir
+
+
+def evaluate_card_and_cpu(cfg, data: Path, workdir: Path, root: Path,
+                          tag: str) -> float:
+    """``evaluate_checkpoints`` of ``workdir``'s best step on ``test`` with
+    thresholds from ``val``, float32 with TF32 off, on the card and on the
+    CPU: probabilities within 1e-4 and the reports within ``reports_gap``.
+    Returns the largest probability difference."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, trainer
+
+    cfg_eval = configs.override(cfg, ["model.compute_dtype=float32"])
+    reports, probs = {}, {}
+    for dev in ("cuda", "cpu"):
+        csv_path = root / f"probs_{tag}_{dev}.csv"
+        t0 = time.perf_counter()
+        reports[dev] = report = trainer.evaluate_checkpoints(
+            cfg_eval, str(data), [str(workdir)], split="test",
+            threshold_split="val", save_probs=str(csv_path), device=dev)
+        ops = [(round(r["threshold"], 6), r["sensitivity"], r["specificity"])
+               for r in report["operating_points"]]
+        moved = [(r["sensitivity"], r["specificity"])
+                 for r in report["operating_points_transferred"]]
+        log(f"{tag}: evaluate {dev}: AUC {report['auc']:.6f}, operating "
+            f"points (threshold, sensitivity, specificity) {ops}, "
+            f"transferred from val (sensitivity, specificity) {moved} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        probs[dev] = read_probs_csv(csv_path)
+    (names, grades, p_cpu), (names_c, grades_c, p_card) = (
+        probs["cpu"], probs["cuda"])
+    dev_cpu = float(np.max(np.abs(p_card - p_cpu)))
+    log(f"{tag}: evaluate float32 card vs CPU max |prob diff| {dev_cpu:.3e} "
+        f"over {p_cpu.size} test images in the save_probs CSVs (6 "
+        "decimals; atol 1e-4, TF32 off)")
+    check(names == names_c and np.array_equal(grades, grades_c)
+          and p_cpu.size == FIT_SPLITS[2][1] and dev_cpu <= 1e-4,
+          f"card and CPU evaluations disagree by {dev_cpu}")
+    gap = reports_gap(reports["cuda"], reports["cpu"], p_cpu,
+                      (grades >= 2).astype(int), dev_cpu)
+    check(gap is None, f"card and CPU evaluation reports disagree: {gap}")
+    return dev_cpu
+
+
+def decode_rates(jdir: Path, rdir: Path, smi: str) -> dict:
+    """(c) Images/s of one process decoding the train split's records
+    (``readers.decode``: CRC, parse, JPEG decode) and the 1024-px fixture
+    (decode, and decode plus the resize to 299), on this host."""
+    from jama16_retina_tpu_torch.data import jpeg, readers, tfrecord
+
+    out = {}
+    for kind, d in (("jpeg", jdir), ("raw", rdir)):
+        records = [r for p in tfrecord.list_split(str(d), "train")
+                   for r in tfrecord.read_records(p)]
+        readers.decode(records[0], 299)
+        t0 = time.perf_counter()
+        for r in records:
+            readers.decode(r, 299)
+        out[f"{kind}_299"] = len(records) / (time.perf_counter() - t0)
+    big = (FIXTURES / "fundus1024.jpg").read_bytes()
+    for label, fn in (("jpeg_1024", lambda: jpeg.decode_jpeg(
+            big, exif_orientation=False)),
+            ("jpeg_1024_to_299", lambda: readers.decode(
+                tfrecord.make_jpeg_example(big, 0), 299))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        out[label] = 10 / (time.perf_counter() - t0)
+    log(f"times: jpeg decode, one process: {out['jpeg_299']:.1f} images/s "
+        f"of 299-px JPEG records (raw records {out['raw_299']:.1f}); the "
+        f"1024-px fixture {out['jpeg_1024']:.2f} images/s, with the resize "
+        f"to 299 {out['jpeg_1024_to_299']:.2f} images/s ({smi})")
+    return out
+
+
+def jpeg_stream_turns(torch, seed: int, smi: str, jdir: Path, rdir: Path,
+                      root: Path, out: dict) -> dict:
+    """(c) The stream step from the JPEG splits against the same pixels
+    written raw, in turns, at ``data.readers`` 1 and 2 (10-step fits,
+    steps 3-9's median ``window_sec`` and ``input_wait_sec``)."""
+    streams = {}
+    for turn, (kind, readers) in enumerate(JPEG_STREAM_TURNS):
+        cfg = fit_config(STREAM_STEPS, root / f"stream{turn}", seed,
+                         f"data.readers={readers}",
+                         f"train.eval_every={STREAM_STEPS}")
+        _, counts, recs = fit_run(torch, cfg, jdir if kind == "jpeg"
+                                  else rdir)
+        check(counts["fused_color_jitter"] == STREAM_STEPS,
+              f"the {kind} stream run launched {counts}")
+        train = {r["step"]: r for r in recs if r["kind"] == "train"}
+        steady = range(3, STREAM_STEPS)
+        step = statistics.median(1e3 * train[s]["window_sec"] for s in steady)
+        wait = statistics.median(1e3 * train[s]["input_wait_sec"]
+                                 for s in steady)
+        streams.setdefault((kind, readers), []).append((step, wait))
+        out["launches"][f"jpeg_stream{turn}"] = counts
+        log(f"times: jpeg stream {kind} records, data.readers={readers}: "
+            f"step median {step:.3f} ms, input wait {wait:.3f} ms (steps "
+            f"3-{STREAM_STEPS - 1}) ({smi})")
+        shutil.rmtree(root / f"stream{turn}", ignore_errors=True)
+    for readers in (1, 2):
+        j = streams[("jpeg", readers)][0][0]
+        r = streams[("raw", readers)][0][0]
+        log(f"jpeg: stream step at data.readers={readers}: JPEG {j:.3f} ms "
+            f"vs raw {r:.3f} ms ({100 * (j / r - 1):+.1f} %; printed, not "
+            f"asserted) ({smi})")
+    return streams
+
+
+def predict_rows(argv) -> "tuple[int, list]":
+    import contextlib
+    import io
+
+    from jama16_retina_tpu_torch import predict
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = predict.main(argv)
+    return code, [json.loads(x) for x in buf.getvalue().splitlines()
+                  if x.strip()]
+
+
+def phase_predict_images(torch, serve: dict, root: Path, smi: str,
+                         out: dict) -> None:
+    """(d) ``predict.main`` with ``serve.fused_preprocess=true`` on the
+    fixture photos, the EXIF-rotated one, a junk file and a progressive
+    JPEG, against phase 4's k=2 members, with the quality monitor reading
+    B4's statistics (so ``serve.preprocess.fused_rows`` counts the rows,
+    as the reference's monitor counts them)."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs import quality
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import host
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    images = root / "images"
+    images.mkdir(parents=True)
+    photos = ([f"fundus299_{i}.jpg" for i in range(8)]
+              + [f"fundus317_{i}.jpg" for i in range(4)]
+              + ["fundus1024.jpg", "exif6.jpg", "progressive.jpg"])
+    for name in photos:
+        shutil.copy(FIXTURES / name, images / name)
+    (images / "junk.jpg").write_bytes(b"not a jpeg")
+    reg = obs_registry.default_registry()
+
+    def counter(name):
+        m = reg._metrics.get(name)
+        return 0.0 if m is None else m.value
+
+    before = {k: counter(k) for k in (
+        "serve.input_rejected", "serve.input_rejected.decode_error",
+        "serve.preprocess.fused_rows")}
+    grid = np.linspace(0.0, 1.0, 8)
+    profile = quality.save_profile(
+        str(root / "profile.json"), quality.build_profile(
+            grid, stat_values={k: grid for k in quality.INPUT_STATS}))
+    sets = ["serve.fused_preprocess=true", "model.compute_dtype=float32",
+            "obs.quality.enabled=true", f"obs.quality.profile_path={profile}"]
+    argv = [f"--checkpoint_dir={Path(serve['dirs'][0]).parent}",
+            f"--images={images}", "--config=eyepacs_binary",
+            f"--batch_size={PREDICT_BATCH}", "--threshold=0.5",
+            *[a for s in sets for a in ("--set", s)]]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    code, rows = predict_rows(argv)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    out["launches"]["jpeg_predict"] = counts
+    delta = {k: counter(k) - v for k, v in before.items()}
+    errors = {Path(r["image"]).name: r["error"] for r in rows if "error" in r}
+    scored = [r for r in rows if "error" not in r]
+    kept = len(photos) - 1
+    chunks = -(-kept // PREDICT_BATCH)
+    log(f"jpeg: predict --images: exit {code}, {len(scored)} rows, skipped "
+        f"{errors}; launches {counts}; counters {delta}; {wall:.2f} s")
+    check(code == 0 and len(scored) == kept, f"predict rows {rows}")
+    check(errors.get("junk.jpg") == "unreadable"
+          and "item 14" in errors.get("progressive.jpg", ""),
+          f"predict skipped {errors}")
+    check(delta["serve.input_rejected"] == 2
+          and delta["serve.input_rejected.decode_error"] == 2,
+          f"reject counters moved by {delta}")
+    check(counts["fused_serve_preprocess"] == chunks
+          and sum(counts.values()) == chunks,
+          f"predict launched {counts}, want B4 once per chunk ({chunks})")
+    check(delta["serve.preprocess.fused_rows"] == kept,
+          f"serve.preprocess.fused_rows moved by {delta}")
+    probs = np.array([r["prob"] for r in scored])
+    check(bool(np.all(np.isfinite(probs))), f"predict rows {probs}")
+
+    # The kept canvases against the manifest, and the rows against the
+    # same engine on the CPU.
+    manifest = fixture_manifest()
+    paths = [str(images / n) for n in sorted(photos) if n != "progressive.jpg"]
+    pre = host.preprocess_paths(paths, 299, registry=Registry())
+    check([Path(p).name for p in pre.kept]
+          == [Path(r["image"]).name for r in scored],
+          "predict scored other rows than the host stage keeps")
+    bad = [Path(p).name for p, c in zip(pre.kept, pre.images)
+           if sha256(c) != manifest[Path(p).name]["canvas299"]]
+    check(not bad, f"canvases differ from the manifest: {bad}")
+    cfg = configs.override(configs.get_config("eyepacs_binary"), sets + [
+        f"serve.max_batch={PREDICT_BATCH}",
+        f"serve.bucket_sizes={PREDICT_BATCH}"])
+    want = ServingEngine(cfg, serve["dirs"], device="cpu",
+                         registry=Registry()).probs(pre.images)
+    dev = float(np.max(np.abs(probs - want)))
+    log(f"jpeg: predict --images: {kept} canvases bitwise the manifest's "
+        f"(host of this machine), card rows vs the CPU engine max |prob "
+        f"diff| {dev:.3e} (atol 1e-4, rows at 6 decimals, TF32 off)")
+    check(dev <= 1e-4, f"predict rows differ from the CPU engine by {dev}")
+
+
+def host_stage_times(smi: str) -> dict:
+    """(e) The host stage's wall time per batch of 1, 8 and 64 photos at
+    299 and 1024 px, with one worker thread and the default."""
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import host
+
+    sources = {299: [str(FIXTURES / f"fundus299_{i}.jpg") for i in range(8)],
+               1024: [str(FIXTURES / "fundus1024.jpg")]}
+    default = host.resolve_workers(0)
+    out = {}
+    for size, files in sources.items():
+        host.preprocess_paths(files[:1], 299, workers=1, registry=Registry())
+        for workers in (1, default):
+            for n in HOST_BATCHES:
+                paths = [files[i % len(files)] for i in range(n)]
+                t0 = time.perf_counter()
+                host.preprocess_paths(paths, 299, workers=workers,
+                                      registry=Registry())
+                ms = 1e3 * (time.perf_counter() - t0)
+                out[(size, workers, n)] = ms
+                log(f"times: host stage {size}-px JPEG photos -> 299 px, "
+                    f"host_workers={workers}, batch {n}: {ms:.1f} ms, "
+                    f"{ms / n:.2f} ms an image ({smi})")
+    return out
+
+
+def phase_jpeg_host(torch, seed: int, smi: str, serve: dict) -> dict:
+    """JPEG records and the host stage without OpenCV at full width (phase
+    14 of the docstring)."""
+    t_phase = time.perf_counter()
+    root = SCRATCH / "jpeg"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"launches": {}}
+    out["fixtures"] = phase_fixture_decode()
+    t0 = time.perf_counter()
+    jdir, rdir = write_jpeg_splits(root)
+    log(f"jpeg: wrote JPEG and raw splits {list(JPEG_SPLITS)} (split, "
+        f"records, shards) from the fixtures in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (b) eyepacs_binary from the JPEG splits, evals at 4 and 8.
+    cfg = fit_config(FIT_STEPS, root / "fit", seed)
+    res, counts, recs = fit_run(torch, cfg, jdir)
+    log(f"jpeg: fit from JPEG records: {res}; launches {counts}")
+    out["launches"]["jpeg_fit"] = counts
+    check(counts["fused_color_jitter"] == FIT_STEPS
+          and counts["fused_normalize_color_jitter"] == 0
+          and counts["fused_adamw_update"] == 0,
+          f"the JPEG fit launched {counts}, want B1 = {FIT_STEPS}")
+    evals = [r for r in recs if r["kind"] == "eval"]
+    check([r["step"] for r in evals] == [4, 8]
+          and all(0 <= r["val_auc"] <= 1 for r in evals),
+          f"the JPEG fit's evals {evals}")
+    out["eval_card_vs_cpu"] = evaluate_card_and_cpu(
+        cfg, jdir, root / "fit", root, "jpeg")
+
+    # (c) Decode rates and the stream from JPEG against raw.
+    out["decode"] = decode_rates(jdir, rdir, smi)
+    out["streams"] = jpeg_stream_turns(torch, seed, smi, jdir, rdir, root,
+                                       out)
+    # (d) predict --images on the card; (e) the host stage's times.
+    phase_predict_images(torch, serve, root, smi, out)
+    out["host"] = host_stage_times(smi)
+    shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"times: phase 14 (jpeg and host) wall {out['wall_s']:.1f} s ({smi})")
+    return out
+
+
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"jama16_retina_tpu_torch/ops/csrc/{source}",
@@ -3789,7 +4163,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     for src, out in build.build_all(ptxas_verbose=True).items():
-        log(f"build: {src}.cu\n{out.strip()}")
+        log(f"build: {build.source_path(src).name}\n{out.strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for c in (8, 16):
         plan = cj._b2_plan(299, 299, cluster=c)
@@ -3857,6 +4231,7 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t_phase:.1f} s ({smi})")
     router = phase_router(torch, args.seed, smi, serve, distill, cascade,
                           fit["root"])
+    jpeg = phase_jpeg_host(torch, args.seed, smi, serve)
     shutil.rmtree(fit["root"], ignore_errors=True)
     torch.cuda.empty_cache()
     for form, t in train.items():
@@ -3904,7 +4279,8 @@ def main(argv=None) -> int:
             "serve_knobs": knobs_serve["launches"],
             **optimizers["launches"], **recipe["launches"],
             **ensemble["launches"], **distill["launches"],
-            **cascade["launches"], **router["launches"]}
+            **cascade["launches"], **router["launches"],
+            **jpeg["launches"]}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

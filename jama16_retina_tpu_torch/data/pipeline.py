@@ -27,12 +27,13 @@ the batches still come out in the stream's order.
 ``DevicePrefetch`` (the reference's ``device_prefetch``) stages any
 stream of host batches on the device ahead of the step: a thread copies
 each batch into one of ``size + 1`` pinned host buffers and from there to
-the card on a side stream, ``size`` batches ahead of the consumer.
+the card on a side stream, ``size`` batches ahead of the consumer, and
+publishes how many are staged ahead in the ``data.prefetch.depth`` gauge
+of the process registry, as the reference does.
 
-Records must be raw-encoded at ``model.image_size``: JPEG records raise
-``NotImplementedError`` (ROADMAP Queue A item 7), and records of another
-size raise ``ValueError`` (the reference resizes them bilinearly in
-TensorFlow; the port has no counterpart).
+Records may be raw or JPEG-encoded (``tfrecord.parse_record``); a record
+that is not at ``model.image_size`` is resized as the reference resizes
+it (``readers.decode``).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import torch
 from jama16_retina_tpu_torch.configs import DataConfig
 from jama16_retina_tpu_torch.data import readers as readers_lib
 from jama16_retina_tpu_torch.data import tfrecord
+from jama16_retina_tpu_torch.obs import registry as obs_registry
 
 
 def interleave_records(paths: Sequence[str],
@@ -218,6 +220,10 @@ class DevicePrefetch:
         self._closed = False
         self._error: "BaseException | None" = None
         self._thread: "threading.Thread | None" = None
+        self._g_depth = obs_registry.default_registry().gauge(
+            "data.prefetch.depth",
+            help="batches staged ahead of the one being yielded in "
+                 "device_prefetch (the effective run-ahead config)")
         if self._size == 0:
             return
         self._cond = threading.Condition()
@@ -307,6 +313,7 @@ class DevicePrefetch:
             except BaseException as e:
                 self._error = e
                 raise
+            self._g_depth.set(0)
             return {k: torch.as_tensor(v).to(self._dev, non_blocking=True)
                     for k, v in batch.items()}
         with self._cond:
@@ -318,6 +325,7 @@ class DevicePrefetch:
             kind, item = self._ready[0]
             if kind == "batch":
                 self._ready.popleft()
+                self._g_depth.set(sum(k == "batch" for k, _ in self._ready))
                 self._cond.notify_all()
         if kind == "error":
             raise item

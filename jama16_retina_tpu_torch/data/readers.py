@@ -1,11 +1,12 @@
 """The train stream's record reading, as a function of the batch index,
 and the reader processes that run it (``pipeline.train_batches``).
 
-This module imports numpy and the port's TFRecord reader only: the
-reader processes are forked from a forkserver that preloads it, a clean
-single-threaded interpreter, never from the trainer's process, whose
-other threads (the prefetcher, the saver, an overlapped eval, CUDA's)
-may hold a lock at the moment of a fork.
+This module imports numpy and the port's TFRecord reader and resize
+only: the reader processes are forked from a forkserver that preloads
+it, a clean single-threaded interpreter, never from the trainer's
+process, whose other threads (the prefetcher, the saver, an overlapped
+eval, CUDA's) may hold a lock at the moment of a fork. Each reader loads
+the image codec library itself (``init``).
 """
 
 from __future__ import annotations
@@ -14,17 +15,16 @@ from multiprocessing import shared_memory
 
 import numpy as np
 
-from jama16_retina_tpu_torch.data import tfrecord
+from jama16_retina_tpu_torch.data import resize, tfrecord
 
 
 def decode(data, image_size: int) -> tfrecord.Record:
+    """One record, decoded and at ``image_size``: a record of another size
+    is resized as the reference's pipeline resizes it
+    (``resize.tf_bilinear_u8``)."""
     rec = tfrecord.parse_record(data)
-    if rec.image.shape != (image_size, image_size, 3):
-        raise ValueError(
-            f"record {rec.name!r} is {list(rec.image.shape)}, not "
-            f"[{image_size}, {image_size}, 3]: the port does not resize "
-            "records (the reference resizes them bilinearly in TensorFlow); "
-            "write the split at model.image_size")
+    if rec.image.shape[:2] != (image_size, image_size):
+        rec = rec._replace(image=resize.tf_bilinear_u8(rec.image, image_size))
     return rec
 
 
@@ -94,6 +94,9 @@ _READER: dict = {}
 def init(order: TrainOrder, shared_name: str, slots: int) -> None:
     """Reader process initializer: attach the batch buffers the stream
     owns (shared memory ``shared_name``) and open the split's files."""
+    from jama16_retina_tpu_torch.ops import image_codec
+
+    image_codec.lib()  # built (once, behind its digest) and bound here
     shm = shared_memory.SharedMemory(name=shared_name)
     images, grades = slot_views(shm.buf, slots, order.shape())
     _READER.update(order=order, files=order.open_files(), shm=shm,

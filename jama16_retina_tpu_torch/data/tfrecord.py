@@ -19,12 +19,17 @@ with these features:
     image/quality  float   gradability score in [0,1]; -1 = not computed
 
 Both CRCs are verified on every read; a mismatch raises
-``CorruptRecordError`` naming the file and the record's index. Raw records
-decode as ``parse_fn`` does (the bytes reshaped to ``[h, w, 3]`` uint8);
-JPEG records raise ``NotImplementedError``: the port has no JPEG decoder
-yet (ROADMAP Queue A item 7). The writer makes raw records only. Files are
-sharded ``<split>-00007-of-00016.tfrecord``; they read back identically in
-both packages, though they need not be byte-identical to TensorFlow's.
+``CorruptRecordError`` naming the file and the record's index. Records
+decode as ``parse_fn`` does: raw records reshape their bytes to ``[h, w,
+3]`` uint8, and JPEG records (what the reference's preprocessing writes
+by default) decode bit for bit as ``tf.io.decode_jpeg(dct_method=
+"INTEGER_ACCURATE")`` does, EXIF orientation ignored (``data/jpeg.py``;
+a format it does not decode raises ``jpeg.JpegError``). The writer packs
+raw pixels (``make_raw_example``) or already-encoded JPEG bytes
+(``make_jpeg_example``); the port has no JPEG encoder (ROADMAP Queue A
+item 7, part 2). Files are sharded ``<split>-00007-of-00016.tfrecord``;
+they read back identically in both packages, though they need not be
+byte-identical to TensorFlow's.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ from typing import Iterable, Iterator, NamedTuple, Sequence
 
 import numpy as np
 
-JPEG_ITEM = "ROADMAP.md Queue A item 7 (JPEG decode on the card machine)"
+JPEG_ENCODE_ITEM = ("ROADMAP.md Queue A item 7, part 2 (JPEG encoding on "
+                    "the card machine)")
 _POLY = 0x82F63B78  # CRC-32C (Castagnoli), reflected
 _MASK_DELTA = 0xA282EAD8
 # Below this many bytes a record is checked byte by byte; above it, in
@@ -344,7 +350,9 @@ def _scalar(feats: dict, name: str, kind: str, default=None):
 
 
 class Record(NamedTuple):
-    image: np.ndarray  # uint8 [h, w, 3], a read-only view of the record
+    # uint8 [h, w, 3]: a read-only view of a raw record, a new array of a
+    # JPEG one.
+    image: np.ndarray
     grade: int
     name: bytes
     quality: float
@@ -353,21 +361,27 @@ class Record(NamedTuple):
 def parse_record(data) -> Record:
     """One serialized Example -> ``Record``, as the reference's
     ``parse_fn`` decodes it: raw records reshape their bytes to
-    ``[h, w, 3]`` uint8; JPEG records raise ``NotImplementedError``."""
+    ``[h, w, 3]`` uint8; JPEG records decode (``jpeg.decode_jpeg`` with
+    the EXIF orientation ignored, as TensorFlow ignores it)."""
+    from jama16_retina_tpu_torch.data import jpeg
+
     feats = parse_example(data)
     raw = _scalar(feats, "image/raw", "bytes", b"")
-    if not raw:
-        raise NotImplementedError(
-            "JPEG-encoded TFRecord records are not supported by the port "
-            f"yet; see {JPEG_ITEM}. Write raw records "
-            "(preprocess_eyepacs.py --encoding=raw) or transcode them")
-    h = _scalar(feats, "image/height", "int64", 0)
-    w = _scalar(feats, "image/width", "int64", 0)
-    if h * w * 3 != len(raw):
-        raise ValueError(f"raw record of {len(raw)} bytes does not hold "
-                         f"[{h}, {w}, 3] uint8")
+    if raw:
+        h = _scalar(feats, "image/height", "int64", 0)
+        w = _scalar(feats, "image/width", "int64", 0)
+        if h * w * 3 != len(raw):
+            raise ValueError(f"raw record of {len(raw)} bytes does not hold "
+                             f"[{h}, {w}, 3] uint8")
+        image = np.frombuffer(raw, np.uint8).reshape(h, w, 3)
+    else:
+        encoded = _scalar(feats, "image/encoded", "bytes", b"")
+        if not encoded:
+            raise ValueError("record holds neither image/raw nor "
+                             "image/encoded bytes")
+        image = jpeg.decode_jpeg(encoded, exif_orientation=False)
     return Record(
-        image=np.frombuffer(raw, np.uint8).reshape(h, w, 3),
+        image=image,
         grade=int(_scalar(feats, "image/grade", "int64")),
         name=_scalar(feats, "image/name", "bytes", b""),
         quality=float(_scalar(feats, "image/quality", "float", -1.0)))
@@ -428,6 +442,24 @@ def make_raw_example(image_u8: np.ndarray, grade: int, name: str = "",
     return _len_field(1, entries)
 
 
+def make_jpeg_example(jpeg_bytes: bytes, grade: int, name: str = "",
+                      quality: float = -1.0) -> bytes:
+    """A serialized JPEG-encoded Example with the features the reference's
+    ``make_example`` writes (``image/encoded``, grade, name, quality: no
+    height or width, which read back as 0), from bytes that are already
+    JPEG."""
+    feats = {
+        "image/encoded": ("bytes", bytes(jpeg_bytes)),
+        "image/grade": ("int64", grade),
+        "image/name": ("bytes", name.encode()),
+        "image/quality": ("float", quality),
+    }
+    entries = b"".join(
+        _len_field(1, _len_field(1, k.encode()) + _len_field(2, _feature(*v)))
+        for k, v in sorted(feats.items()))
+    return _len_field(1, entries)
+
+
 def shard_path(out_dir: str, split: str, shard: int, num_shards: int) -> str:
     return os.path.join(
         out_dir, f"{split}-{shard:05d}-of-{num_shards:05d}.tfrecord")
@@ -460,8 +492,9 @@ def write_synthetic_split(out_dir: str, split: str, n: int,
 
     if encoding != "raw":
         raise NotImplementedError(
-            f"encoding={encoding!r}: the port writes raw records only; see "
-            f"{JPEG_ITEM}")
+            f"encoding={encoding!r}: the port has no JPEG encoder and writes "
+            f"raw records only (it reads JPEG records); see "
+            f"{JPEG_ENCODE_ITEM}")
     images, grades = synthetic.make_dataset(
         n, synthetic.SynthConfig(
             image_size=299 if image_size is None else image_size), seed=seed)

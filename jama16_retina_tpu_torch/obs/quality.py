@@ -413,6 +413,12 @@ class QualityMonitor:
         self._c_windows.inc()
         self._reset_window_locked()
 
+    def reads_input_stats(self) -> bool:
+        """Whether ``observe`` bins input statistics: the monitor and its
+        registry are on and the profile has reference histograms."""
+        return (self.enabled and self._registry.enabled
+                and bool(self._ref_stats))
+
     def observe(self, images: "np.ndarray | None", scores: np.ndarray,
                 stats: "dict | None" = None) -> None:
         """One batch of live traffic: ``scores`` the ensemble-averaged

@@ -4,8 +4,13 @@ Each photograph is normalized so the fundus disc has a fixed radius,
 centered on a black ``diameter x diameter`` canvas: threshold a
 grayscale copy, fit the disc from the lit extent, rescale, paste
 centered, mask the circle. ``ben_graham=True`` subtracts a local
-Gaussian average. Host-side numpy; ``cv2`` is imported inside the
-functions that need it, so importing this module needs no OpenCV.
+Gaussian average. Host-side numpy with no OpenCV: the resizes, the grey
+conversion, the Laplacian and the blur are ``preprocess/imgproc.py``'s
+counterparts of the reference's ``cv2`` calls. The canvas is bit for bit
+the reference's on a downscale (``INTER_AREA``); an upscale
+(``INTER_CUBIC``) is OpenCV's generic path, within 1 level of its
+default build's, and ``ben_graham`` within 1 level (the blur within
+1e-4).
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from jama16_retina_tpu_torch.preprocess import imgproc
 
 
 class FundusNotFound(ValueError):
@@ -56,9 +63,7 @@ def find_fundus_circle(
 
 
 def _gaussian_blur(image: np.ndarray, sigma: float) -> np.ndarray:
-    import cv2
-
-    return cv2.GaussianBlur(image, (0, 0), sigmaX=sigma, sigmaY=sigma)
+    return imgproc.gaussian_blur_f32(image, sigma)
 
 
 def ben_graham_enhance(image: np.ndarray, alpha: float = 4.0) -> np.ndarray:
@@ -102,15 +107,13 @@ def gradability_stats(
     should be chosen by inspecting the preprocessing report's
     distribution.
     """
-    import cv2
-
     if norm_rgb.ndim != 3 or norm_rgb.shape[0] != norm_rgb.shape[1]:
         raise ValueError(f"expected square HWC canvas, got {norm_rgb.shape}")
     d = norm_rgb.shape[0]
-    gray = cv2.cvtColor(norm_rgb, cv2.COLOR_RGB2GRAY)
+    gray = imgproc.rgb2gray(norm_rgb)
     mask = _circle_mask(d, fill)
     vals = gray[mask].astype(np.float32)
-    lap = cv2.Laplacian(gray, cv2.CV_32F)
+    lap = imgproc.laplacian_f32(gray)
     lap_var = float(lap[mask].var())
     mean = float(vals.mean())
     std = float(vals.std())
@@ -154,14 +157,10 @@ def resize_and_center_fundus(
     FundusNotFound for blank frames (callers count and skip these, as
     the reference's preprocessing scripts did).
     """
-    import cv2
-
     circle = find_fundus_circle(image_rgb, threshold=threshold)
     scale = (diameter * fill) / (2.0 * circle.radius)
-    resized = cv2.resize(
-        image_rgb, None, fx=scale, fy=scale,
-        interpolation=cv2.INTER_AREA if scale < 1 else cv2.INTER_CUBIC,
-    )
+    resize = imgproc.resize_area if scale < 1 else imgproc.resize_cubic
+    resized = resize(image_rgb, scale)
     cx, cy = circle.cx * scale, circle.cy * scale
 
     canvas = np.zeros((diameter, diameter, 3), dtype=np.uint8)

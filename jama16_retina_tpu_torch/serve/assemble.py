@@ -83,7 +83,7 @@ def cascade_monitor(cfg: ExperimentConfig, registry, device, quality=None):
         from jama16_retina_tpu_torch.serve import host
 
         quality.stats_fn = lambda rows: host.stats_only(
-            rows, fused=True, device=device)
+            rows, fused=True, device=device, registry=registry)
     return quality
 
 

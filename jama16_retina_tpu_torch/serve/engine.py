@@ -61,7 +61,7 @@ from jama16_retina_tpu_torch.models import convert
 from jama16_retina_tpu_torch.obs import quality as quality_lib
 from jama16_retina_tpu_torch.obs import registry as obs_registry
 from jama16_retina_tpu_torch.ops import serve_preprocess
-from jama16_retina_tpu_torch.serve import quantize
+from jama16_retina_tpu_torch.serve import host, quantize
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
 _log = logging.getLogger(__name__)
@@ -167,20 +167,25 @@ class _Generation:
     their dirs."""
 
     __slots__ = ("gen_id", "members", "modules", "stacked", "n_members",
-                 "member_dirs")
+                 "member_dirs", "c_rows")
 
     def __init__(self, gen_id: int, members, modules, stacked,
-                 n_members: int, member_dirs):
+                 n_members: int, member_dirs, c_rows=None):
         self.gen_id = gen_id
         self.members = members
         self.modules = modules
         self.stacked = stacked
         self.n_members = n_members
         self.member_dirs = list(member_dirs) if member_dirs else None
+        # Rows this generation scored: a detached counter until it goes
+        # live (``ServingEngine._register_gen_rows``), so a candidate's
+        # gate scoring stays out of the exported ledger. None: a fused
+        # generation of several tenants, which counts no rows of its own.
+        self.c_rows = c_rows
 
-    def renamed(self, gen_id: int) -> "_Generation":
+    def renamed(self, gen_id: int, c_rows) -> "_Generation":
         return _Generation(gen_id, self.members, self.modules, self.stacked,
-                           self.n_members, self.member_dirs)
+                           self.n_members, self.member_dirs, c_rows)
 
 
 class ServingEngine:
@@ -226,25 +231,62 @@ class ServingEngine:
         self._c_reload_rejected = c(
             "serve.reload_rejected",
             help="candidate generations rejected before the swap (canary "
-                 "deviation, load or warm-up failure); the old generation "
-                 "kept serving")
-        self._g_generation = g("serve.generation",
-                               help="the generation new requests score on")
+                 "deviation / restore or warm-up failure); the old "
+                 "generation kept serving")
+        self._g_generation = g(
+            "serve.generation",
+            help="currently-serving model generation (0 = the "
+                 "construction-time checkpoint set) [fleet:max]")
         self._c_rollbacks = c(
             "serve.rollbacks",
-            help="instant re-swaps to the retained previous generation")
+            help="instant re-swaps to the retained previous generation "
+                 "(lifecycle ROLLBACK; no restore from disk)")
         self._c_shadow_requests = c(
             "serve.shadow.requests",
-            help="live requests also scored through a shadow candidate")
-        self._c_shadow_rows = c("serve.shadow.rows",
-                                help="rows scored through a shadow candidate")
+            help="live requests shadow-scored through a staged-rollout "
+                 "candidate generation")
+        self._c_shadow_rows = c(
+            "serve.shadow.rows",
+            help="rows shadow-scored through a staged-rollout candidate")
         self._c_shadow_errors = c(
             "serve.shadow.errors",
-            help="shadow scorings that failed (never raised into the live "
-                 "request)")
+            help="shadow-scoring failures (counted, never raised into the "
+                 "live request they rode)")
         self._g_shadow_dev = g(
             "serve.shadow.max_abs_dev",
-            help="max |candidate - live| score over the shadow session")
+            help="running max |candidate - live| score deviation over the "
+                 "current shadow session [fleet:max]")
+        self._c_rows = c("serve.engine.rows",
+                         help="real (pre-padding) rows the engine forwarded")
+        self._c_batches = c(
+            "serve.engine.batches",
+            help="bucketed chunks dispatched through the stacked forward")
+        self._g_in_flight = g(
+            "serve.engine.in_flight",
+            help="engine chunks dispatched but not yet fetched (the "
+                 "bounded dispatch window)")
+        self._c_dtype_rows = c(
+            f"serve.dtype_rows.{self.dtype}",
+            help="real rows forwarded by an engine of this serving dtype "
+                 "(per-dtype traffic share; fp32/bf16/int8)")
+        # The port has no compile cache (ROADMAP item 9): the first
+        # request pays its warm-up, and the gauge reads 0, as the
+        # reference's does without one.
+        self._g_warmup_sec = g(
+            "serve.engine.warmup_sec",
+            help="seconds from engine construction to every bucket "
+                 "executable ready (cache-warmed restarts are the "
+                 "serve_warm_start_sec story; 0 = no compile cache "
+                 "configured, first request pays the compile) "
+                 "[fleet:max]")
+        # Pad-waste counters by bucket, made at a bucket's first use.
+        self._bucket_counters: dict = {}
+        # The reference's span histograms (seconds): padding a chunk, its
+        # copy to the device and forward, and the results' trip back.
+        h = registry.histogram
+        self._h_pad = h("serve.engine.pad_s")
+        self._h_dispatch = h("serve.engine.dispatch_s")
+        self._h_device_get = h("serve.engine.device_get_s")
         # The skeleton keeps no weights: the int8 and the stacked forms
         # swap a member's into it for one forward (functional_call), so
         # those forwards take turns, in every generation. An fp32 or bf16
@@ -278,8 +320,24 @@ class ServingEngine:
             raise ValueError(
                 "ServingEngine needs member dirs or state_dicts (one of)")
         self._gen = self._build_generation(0, member_dirs, state_dicts)
+        self._gen.c_rows = self._register_gen_rows(0)
         self._g_generation.set(0)
         self._dtype_construction_gate()
+
+    # How many generations' row counters stay exported after a swap: the
+    # live one, the one draining its last requests, and a little history.
+    GEN_ROWS_KEEP = 4
+
+    def _register_gen_rows(self, gen_id: int) -> obs_registry.Counter:
+        """The exported row counter of a generation going live; the one
+        ``GEN_ROWS_KEEP`` generations older is retired from snapshots."""
+        retire = gen_id - self.GEN_ROWS_KEEP
+        if retire >= 0:
+            self.registry.remove(f"serve.gen{retire}.rows")
+        return self.registry.counter(
+            f"serve.gen{gen_id}.rows",
+            help="rows served by this model generation (response "
+                 "attribution: the per-generation ledger)")
 
     # -- generations -------------------------------------------------------
 
@@ -344,7 +402,8 @@ class ServingEngine:
                     module.load_state_dict({**p, **b}, assign=True)
                     modules.append(module)
         gen = _Generation(gen_id, kept, modules, stacked, len(members),
-                          member_dirs)
+                          member_dirs, obs_registry.Counter(
+                              f"serve.gen{gen_id}.rows", self.registry))
         if warm:
             self._warm(gen)
         return gen
@@ -419,7 +478,8 @@ class ServingEngine:
                 gen = self._build_generation(new_id, member_dirs, state_dicts,
                                              warm=True)
             else:
-                gen = candidate.renamed(new_id)
+                gen = candidate.renamed(new_id, obs_registry.Counter(
+                    f"serve.gen{new_id}.rows", self.registry))
                 self._warm(gen)
         except Exception:
             self._c_reload_rejected.inc()
@@ -431,6 +491,7 @@ class ServingEngine:
             self._prev_gen_t = time.monotonic()
         # A shadow session compared against the outgoing generation.
         self._shadow = None
+        gen.c_rows = self._register_gen_rows(new_id)
         self._gen = gen
         self._c_reloads.inc()
         self._g_generation.set(new_id)
@@ -460,7 +521,8 @@ class ServingEngine:
                     f"old vs serve.rollback_keep_s={keep_s:g}); reload() "
                     "the previous member dirs instead")
             cur = self._gen
-            gen = prev.renamed(cur.gen_id + 1)
+            gen = prev.renamed(cur.gen_id + 1, self._register_gen_rows(
+                cur.gen_id + 1))
             self._prev_gen = None  # one rollback per swap
             self._shadow = None
             self._gen = gen
@@ -645,9 +707,11 @@ class ServingEngine:
         it under ``torch.inference_mode``."""
         size = self.cfg.model.image_size
         n = rows.shape[0]
+        t0 = time.perf_counter()
         padded = torch.zeros((bucket, size, size, 3), dtype=torch.uint8,
                              device=self.device)
         padded[:n].copy_(torch.from_numpy(np.ascontiguousarray(rows)))
+        self._h_pad.observe(time.perf_counter() - t0)
         sums = None
         if self.fused:
             norm, sums = serve_preprocess.fused_serve_preprocess(padded)
@@ -674,14 +738,35 @@ class ServingEngine:
         with torch.inference_mode():
             for lo in range(0, images.shape[0], self.max_batch):
                 chunk = images[lo:lo + self.max_batch]
-                probs, chunk_sums = self.score_padded(
-                    chunk, self._bucket_for(chunk.shape[0]), gen)
+                n = chunk.shape[0]
+                bucket = self._bucket_for(n)
+                self._c_rows.inc(n)
+                self._c_dtype_rows.inc(n)
+                if gen.c_rows is not None:
+                    gen.c_rows.inc(n)
+                self._c_batches.inc()
+                c_pad = self._bucket_counters.get(bucket)
+                if c_pad is None:
+                    c_pad = self._bucket_counters[bucket] = \
+                        self.registry.counter(
+                            f"serve.pad_rows_b{bucket}",
+                            help="pad waste: rows this bucket shape burned "
+                                 "beyond real chunk rows")
+                c_pad.inc(bucket - n)
+                t0 = time.perf_counter()
+                probs, chunk_sums = self.score_padded(chunk, bucket, gen)
+                self._h_dispatch.observe(time.perf_counter() - t0)
                 outs.append(probs)
+                # The chunks' results come back together, below.
+                self._g_in_flight.set(len(outs))
                 if chunk_sums is not None:
                     sums.append(chunk_sums)
                 with self._count_lock:
                     self.chunks_dispatched += 1
+            t0 = time.perf_counter()
             probs = torch.cat(outs, dim=1).cpu().numpy()
+            self._h_device_get.observe(time.perf_counter() - t0)
+            self._g_in_flight.set(0)
             stats = None
             if self.fused:
                 stats = serve_preprocess.input_stats_dict(
@@ -724,7 +809,7 @@ class ServingEngine:
             self._shadow_sample(sh, images, out)
         q = self.quality
         if q is not None:
-            q.observe(images, out, stats=stats)
+            host.observe_with_stats(q, images, out, stats, self.registry)
             if q.canary_claim():
                 q.run_canary(lambda imgs: metrics.ensemble_average(
                     list(self._member_probs(imgs, gen)[0])))

@@ -41,6 +41,7 @@ import torch
 
 from jama16_retina_tpu_torch.eval import metrics
 from jama16_retina_tpu_torch.ops import serve_preprocess
+from jama16_retina_tpu_torch.serve import host
 
 
 def _model_fingerprint(cfg, device_type: str) -> dict:
@@ -249,7 +250,7 @@ def _observe_fused(engine, gen, images, scores, stats) -> None:
         engine._shadow_sample(sh, images, scores)
     q = getattr(engine, "quality", None)
     if q is not None:
-        q.observe(images, scores, stats=stats)
+        host.observe_with_stats(q, images, scores, stats, engine.registry)
         if q.canary_claim():
             q.run_canary(
                 lambda imgs: metrics.ensemble_average(

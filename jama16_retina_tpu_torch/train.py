@@ -18,7 +18,8 @@ and writes ``metrics.jsonl``,
 ``--synthetic=N`` and no train split in ``--data_dir``, it first writes
 synthetic fundus splits there, as the reference's CLI does: train N, val
 and test max(N/2, 8) images, seeds 1/2/3, 4 shards each, but raw-encoded
-where the reference writes JPEG (the port has no JPEG codec). With
+where the reference writes JPEG (the port decodes JPEG records but has no
+JPEG encoder). With
 ``--synthetic=N`` and no ``--data_dir``, it trains ``train.steps`` steps
 on N rendered images held in memory (``trainer.fit_synthetic``) and
 writes the trained member as ``<workdir>/params.npz``.

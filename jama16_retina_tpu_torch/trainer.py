@@ -1347,7 +1347,7 @@ def evaluate_checkpoints(
     if backend == "tf":
         raise NotImplementedError(
             "backend='tf' (the keras legacy graph) is not ported: the card "
-            "machine has no TensorFlow; see ROADMAP.md Queue A item 5")
+            "machine has no TensorFlow; see ROADMAP.md, \"Not queued\"")
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r} (want 'torch')")
     if not ckpt_dirs:

@@ -4,6 +4,7 @@ never fall back from the card to the plain version, and config knobs
 it cannot honour raise instead of being ignored."""
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -82,6 +83,75 @@ def test_fit_and_evaluate_run_without_jax_or_tensorflow(tmp_path):
         timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
+_RUN_JPEG_FIT_AND_PREDICT = r"""
+import glob, json, sys
+from jama16_retina_tpu_torch import predict, train
+d, wd, images = sys.argv[1], sys.argv[2], sys.argv[3]
+train.main(["--config=smoke", "--device=cpu", f"--data_dir={d}",
+            f"--workdir={wd}", "--set", "train.steps=2", "--set",
+            "train.eval_every=1", "--set", "model.image_size=32",
+            "--set", "data.batch_size=4", "--set", "eval.batch_size=4"])
+code = predict.main([f"--checkpoint_dir={wd}", f"--images={images}",
+                     "--config=smoke", "--device=cpu", "--set",
+                     "model.image_size=32"])
+print("CODE", code)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "tensorflow", "absl", "cv2", "PIL")
+             or m == "jama16_retina_tpu" or m.startswith("jama16_retina_tpu."))
+print("BAD", bad)
+"""
+
+
+def test_jpeg_fit_and_predict_run_without_opencv_or_tensorflow(tmp_path):
+    """A fit from JPEG splits the JAX package wrote (train at 40 px, read
+    at 32 through the resize) and ``predict`` on JPEG and PNG files, with
+    none of JAX, TensorFlow, absl, OpenCV or PIL loaded."""
+    import shutil
+
+    from jama16_retina_tpu.data import tfrecord as jax_tfrecord
+
+    data = tmp_path / "d"
+    for split, n, size, seed in (("train", 8, 40, 1), ("val", 6, 32, 2)):
+        jax_tfrecord.write_synthetic_split(str(data), split, n, size,
+                                           num_shards=2, seed=seed,
+                                           encoding="jpeg")
+    images = tmp_path / "imgs"
+    images.mkdir()
+    fixtures = os.path.join(REPO, "tests", "data", "jpeg")
+    for name in ("fundus299_0.jpg", "exif6.jpg", "png_rgb.png",
+                 "png_16bit.png"):
+        shutil.copy(os.path.join(fixtures, name), images / name)
+    out = subprocess.run(
+        [sys.executable, "-c", _RUN_JPEG_FIT_AND_PREDICT, str(data),
+         str(tmp_path / "wd"), str(images)], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "BAD []" and lines[-2] == "CODE 0"
+    rows = [json.loads(x) for x in lines if x.startswith('{"image"')]
+    assert len(rows) == 4 and all(0 <= r["prob"] <= 1 for r in rows)
+
+
+def test_no_port_module_imports_opencv_pil_tensorflow_or_jax():
+    """A source check beside the import checks above: no line of the
+    port imports one of these, even inside a function."""
+    import re
+
+    pattern = re.compile(r"^\s*(import|from)\s+(cv2|PIL|tensorflow|jax|"
+                         r"jaxlib|flax|jama16_retina_tpu)\b", re.M)
+    root = os.path.join(REPO, "jama16_retina_tpu_torch")
+    offenders = []
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                with open(path) as f:
+                    offenders += [f"{path}: {m.group(0).strip()}"
+                                  for m in pattern.finditer(f.read())]
+    assert offenders == []
 
 
 @pytest.fixture

@@ -1,9 +1,11 @@
 """The port's TFRecord reader, writer and pipeline against the JAX
 package's on the CPU: shards written by either side decode identically
 through the other, the eval stream is bit for bit the reference's
-(tf.data's deterministic interleave over unequal shards), corrupt and
-JPEG records raise, and the port's own train stream is a pure, resumable
-function of (files, seed). Images are 32 px to keep the files small."""
+(tf.data's deterministic interleave over unequal shards), corrupt
+records and undecodable JPEG records raise, records of another size are
+resized as the reference resizes them, and the port's own train stream
+is a pure, resumable function of (files, seed). Images are 32 px to keep
+the files small."""
 
 import glob
 import os
@@ -151,22 +153,46 @@ def test_a_truncated_file_raises(tmp_path):
 
 
 def test_jpeg_records_raise_naming_their_item(tmp_path):
-    ex = jax_tfrecord.make_example(b"\xff\xd8\xff\xe0not-decoded", 3, "j0")
-    jax_tfrecord.write_example_shards([ex], str(tmp_path), "test", 1)
-    (data,) = tfrecord.read_records(tfrecord.list_split(str(tmp_path),
-                                                        "test")[0])
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tfrecord.parse_record(data)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    """JPEG records decode (tests/test_torch_jpeg.py); one the port cannot
+    decode raises ``JpegError``, naming item 14 for a recognized format
+    (progressive), and the writer refuses JPEG naming item 7, part 2 (no
+    encoder)."""
+    import cv2
+
+    from jama16_retina_tpu_torch.data import jpeg
+
+    img = np.random.default_rng(0).integers(0, 256, (SIZE, SIZE, 3),
+                                            dtype=np.uint8)
+    ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    exs = [jax_tfrecord.make_example(b"\xff\xd8\xff\xe0not-decoded", 3,
+                                     "j0"),
+           jax_tfrecord.make_example(prog.tobytes(), 1, "j1")]
+    jax_tfrecord.write_example_shards(exs, str(tmp_path), "test", 1)
+    junk, progressive = tfrecord.read_records(tfrecord.list_split(
+        str(tmp_path), "test")[0])
+    with pytest.raises(jpeg.JpegError, match="corrupt|truncated"):
+        tfrecord.parse_record(junk)
+    with pytest.raises(jpeg.JpegError, match="Queue A item 14"):
+        tfrecord.parse_record(progressive)
+    with pytest.raises(jpeg.JpegError):
         list(pipeline.eval_batches(str(tmp_path), "test", BATCH, SIZE))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="Queue A item 7, part 2"):
         tfrecord.write_synthetic_split(str(tmp_path), "x", 1, SIZE,
                                        encoding="jpeg")
 
 
 def test_records_of_another_size_raise(jax_splits):
-    with pytest.raises(ValueError, match="does not resize"):
-        next(pipeline.eval_batches(jax_splits, "rr", BATCH, SIZE + 1))
+    """They no longer raise: a record that is not at the model's size is
+    resized as the reference's pipeline resizes it (bilinear, half-pixel
+    centres, truncated to uint8), bit for bit, up and down."""
+    for size in (SIZE + 1, SIZE - 5):
+        want = list(jax_pipeline.eval_batches(
+            jax_splits, "rr", BATCH, size, process_index=0, process_count=1))
+        got = list(pipeline.eval_batches(jax_splits, "rr", BATCH, size))
+        assert len(got) == len(want) > 1
+        for g, w in zip(got, want):
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
 def _names_by_image(data_dir, split):
