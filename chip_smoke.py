@@ -316,6 +316,36 @@ Phases, any failure exits nonzero before the result line:
               CPU. (e) The host stage's wall time per batch of 1, 8 and
               64 photos at 299 and 1024 px, with one worker thread and
               the default.
+15. obs     - telemetry, tracing, the flight recorder and alerts, on phase
+              6's splits, each path's launch counts set to 0 just before it
+              and read just after. (a) A 16-step ``eyepacs_binary`` fit
+              (fused step, evals at 8 and 16) with the ``obs`` defaults,
+              ``obs.flush_every_s`` small enough for 3 flushes or more,
+              ``train.profile_steps=3`` and ``train.tensorboard=true``: B2
+              and B3 16 times; the telemetry and heartbeat records counted,
+              ``telemetry.prom`` parsed, the Chrome-trace events by name
+              (the stall segments among them), the tfevents records, and
+              the kernels of the ``torch.profiler`` window (B2 and B3
+              among them). (b) The drills: a 24-step preset-form fit with
+              ``obs.slow_step_factor=0.5`` writes exactly one blackbox
+              (``slow_step``, with ``diagnosis.json``) and opens exactly
+              one armed capture, whose kernels include B1; a fit in a
+              child process sent SIGTERM mid-run leaves a ``sigterm``
+              blackbox and a ``preempt_save`` record and exits 143. (c)
+              ``python -m jama16_retina_tpu_torch.predict --obs_workdir``
+              (in process, fused preprocess) over (a)'s member on the
+              eight 299-px fixture photos, with the user rule
+              ``serve.engine.rows > 0 -> slo_breach``: B4 once per chunk,
+              its ``alert`` record and blackbox, the heartbeats and the
+              final one. (d) A lone batch-8 request routed (phase 13a's
+              settings, one replica) and to the engine alone, 10 each
+              after 2 warm, with tracing on: the request's wall time split
+              per thread and segment from the trace (the caller, the tick
+              thread's ticks, the replica worker's engine spans). (e) The
+              planes' cost: the fused step's window (steps 3-12 of 12-step
+              fits, median and range) with ``obs.enabled=false`` and the
+              default, in turns, and the batch-8 request (10 calls a
+              turn) with the registry and tracer off and on, in turns.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
@@ -4118,6 +4148,458 @@ def phase_jpeg_host(torch, seed: int, smi: str, serve: dict) -> dict:
     return out
 
 
+# Phase 15: telemetry, tracing, the flight recorder and alerts.
+OBS_STEPS = 16
+OBS_EVAL_EVERY = 8
+OBS_FLUSH_S = 0.2
+OBS_PROFILE_STEPS = 3
+SLOW_STEPS = 24
+SIGTERM_STEPS = 400
+SIGTERM_AFTER_STEP = 3
+OVERHEAD_STEPS = 12
+OVERHEAD_TURNS = (False, True, True, False)
+# The request's turns and timed calls a turn (it costs ~50 ms a call).
+OVERHEAD_REQUEST_TURNS = (False, True, True, False, False, True)
+OVERHEAD_REQUEST_CALLS = 10
+LONE_REQUESTS = 10
+B1_KERNEL = "color_jitter_kernel"
+B2_KERNEL = "normalize_color_jitter"
+B3_KERNEL = "adamw_kernel"
+
+_SIGTERM_CHILD = r"""
+import sys
+
+if __name__ == "__main__":
+    from jama16_retina_tpu_torch import configs, trainer
+
+    data, wd = sys.argv[1], sys.argv[2]
+    cfg = configs.override(configs.get_config("eyepacs_binary"),
+                           sys.argv[3:])
+    trainer.fit(cfg, data, wd, device="cuda")
+"""
+
+
+def parse_prom(text: str) -> dict:
+    """Prometheus text exposition -> {series: value}; raises on a line
+    that is not a comment, a series and a number."""
+    series = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        check(re.fullmatch(r'[a-zA-Z_:][a-zA-Z0-9_:]*(\{le="[^"]+"\})?',
+                           name) is not None, f"bad .prom series {line!r}")
+        series[name] = float(value)
+    return series
+
+
+def profiled_kernels(trace_dir: Path) -> "list[set]":
+    """The device kernel names of each Chrome trace a profiler window
+    wrote under ``trace_dir``."""
+    out = []
+    for path in sorted(trace_dir.glob("*.json")):
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        out.append({e["name"] for e in events if e.get("cat") == "kernel"})
+    return out
+
+
+def has_kernel(names, kernel: str) -> bool:
+    word = re.compile(rf"(?<![A-Za-z0-9_]){re.escape(kernel)}")
+    return any(word.search(n) for n in names)
+
+
+def obs_fit(torch, seed: int, data: Path, wd: Path, steps: int,
+            *extra) -> "tuple[dict, list]":
+    """One ``eyepacs_binary`` fit with the planes at their defaults but
+    for ``extra``; (launch counts, metrics records)."""
+    cfg = fit_config(steps, wd, seed, *extra)
+    _, counts, recs = fit_run(torch, cfg, data)
+    return counts, recs
+
+
+def obs_fit_phase(torch, seed: int, smi: str, root: Path, data: Path,
+                  out: dict) -> Path:
+    """(a) The full-width fit with every plane on."""
+    from collections import Counter
+
+    from jama16_retina_tpu_torch.data import tfrecord
+    from jama16_retina_tpu_torch.obs import trace as obs_trace
+
+    wd = root / "fit"
+    t0 = time.perf_counter()
+    counts, recs = obs_fit(
+        torch, seed, data, wd, OBS_STEPS, f"train.eval_every={OBS_EVAL_EVERY}",
+        "train.use_pallas_fused=true", f"obs.flush_every_s={OBS_FLUSH_S}",
+        f"train.profile_steps={OBS_PROFILE_STEPS}", "train.tensorboard=true")
+    wall = time.perf_counter() - t0
+    out["launches"]["obs_fit"] = counts
+    check(counts["fused_normalize_color_jitter"] == OBS_STEPS
+          and counts["fused_adamw_update"] == OBS_STEPS
+          and counts["fused_color_jitter"] == 0
+          and counts["fused_serve_preprocess"] == 0,
+          f"the obs fit launched {counts}, want B2 = B3 = {OBS_STEPS}")
+    kinds = Counter(r["kind"] for r in recs)
+    check(kinds["telemetry"] >= 3 and kinds["heartbeat"] == kinds["telemetry"]
+          and kinds["train"] == OBS_STEPS and kinds["eval"] == 2,
+          f"obs fit records {dict(kinds)}")
+    beats = [r for r in recs if r["kind"] == "heartbeat"]
+    check(beats[-1]["step"] == OBS_STEPS, f"last heartbeat {beats[-1]}")
+    prom = parse_prom((wd / "telemetry.prom").read_text())
+    check(prom.get("trainer_dispatch_s_count") == OBS_STEPS,
+          f"telemetry.prom trainer_dispatch_s_count "
+          f"{prom.get('trainer_dispatch_s_count')}")
+    events = Counter(e["name"] for e in obs_trace.default_tracer().events())
+    check(all(events[f"trainer.{k}"] > 0 for k in ("input", "dispatch",
+                                                    "pause", "save")),
+          f"trace events {dict(events)}")
+    [tb] = list((wd / "tb").iterdir())
+    n_tb = sum(1 for _ in tfrecord.read_records(str(tb)))
+    n_scalars = sum(
+        sum(isinstance(v, (int, float)) for k, v in r.items()
+            if k not in ("kind", "t", "step"))
+        for r in recs if r.get("step") is not None
+        and r["kind"] != "heartbeat")
+    check(n_tb == 1 + n_scalars, f"tfevents records {n_tb}, want 1 + "
+          f"{n_scalars}")
+    profiles = [r for r in recs if r["kind"] == "profile"]
+    kernels = profiled_kernels(wd / "profile")
+    check(len(profiles) == 1 and profiles[0]["steps"] == OBS_PROFILE_STEPS
+          and len(kernels) == 1, f"profile records {profiles}")
+    check(has_kernel(kernels[0], B2_KERNEL)
+          and has_kernel(kernels[0], B3_KERNEL),
+          f"the profiler window holds no B2/B3: {sorted(kernels[0])[:20]}")
+    ours = sorted(n for n in kernels[0] if any(
+        has_kernel([n], k) for k in (B1_KERNEL, B2_KERNEL, B3_KERNEL)))
+    log(f"obs: (a) fit of {OBS_STEPS} steps (fused, evals at "
+        f"{OBS_EVAL_EVERY} and {OBS_STEPS}) in {wall:.1f} s: launches "
+        f"{counts}; records {dict(kinds)}; last heartbeat step "
+        f"{beats[-1]['step']}; telemetry.prom parses, {len(prom)} series; "
+        f"trace events by name {dict(sorted(events.items()))}; tfevents "
+        f"{n_tb} records; profiler window steps "
+        f"{OBS_PROFILE_STEPS}: {len(kernels[0])} kernels, ours {ours} "
+        f"({smi})")
+    out["fit"] = {"records": dict(kinds), "events": dict(events),
+                  "tfevents": n_tb, "kernels": ours, "wall_s": wall}
+    return wd
+
+
+def obs_drills(torch, seed: int, smi: str, root: Path, data: Path,
+               out: dict) -> None:
+    """(b) The slow-step drill in process and the SIGTERM drill in a
+    child process."""
+    import os
+    import signal
+
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    wd = root / "slow"
+    counts, recs = obs_fit(torch, seed, data, wd, SLOW_STEPS,
+                           f"train.eval_every={SLOW_STEPS}",
+                           "obs.slow_step_factor=0.5")
+    out["launches"]["obs_slow_step"] = counts
+    dumps = sorted(p.name for p in (wd / "blackbox").iterdir())
+    profiles = [r for r in recs if r["kind"] == "profile"]
+    check(dumps == ["01-slow_step"]
+          and (wd / "blackbox" / dumps[0] / "diagnosis.json").exists(),
+          f"slow-step drill dumps {dumps}")
+    check(len(profiles) == 1 and profiles[0].get("trigger") == "anomaly",
+          f"slow-step drill profile records {profiles}")
+    kernels = profiled_kernels(wd / "profile")
+    check(len(kernels) == 1 and has_kernel(kernels[0], B1_KERNEL),
+          f"the armed capture holds no B1: {kernels}")
+    check(counts["fused_color_jitter"] == SLOW_STEPS,
+          f"slow-step drill launched {counts}")
+    meta = json.loads((wd / "blackbox" / dumps[0] / "meta.json").read_text())
+    diag = json.loads(
+        (wd / "blackbox" / dumps[0] / "diagnosis.json").read_text())
+    log(f"obs: (b) slow-step drill ({SLOW_STEPS} steps, preset form, "
+        f"obs.slow_step_factor=0.5): blackbox {dumps} at step "
+        f"{meta['step']} ({meta['step_sec']} s against a median of "
+        f"{meta['rolling_median_sec']} s), diagnosis {diag['verdict']} "
+        f"(confidence {diag['confidence']}); one armed capture of "
+        f"{profiles[0]['steps']} steps holding B1; launches {counts}")
+
+    wd = root / "sigterm"
+    args = [f"train.steps={SIGTERM_STEPS}",
+            f"train.eval_every={SIGTERM_STEPS}", "train.log_every=1",
+            f"train.seed={seed}", f"data.batch_size={TRAIN_BATCH}"]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", _SIGTERM_CHILD, str(data), str(wd), *args],
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        metrics = wd / "metrics.jsonl"
+        step = 0
+        while time.perf_counter() - t0 < 300 and child.poll() is None:
+            if metrics.exists():
+                steps = [r["step"] for r in read_jsonl(str(metrics))
+                         if r["kind"] == "train"]
+                step = max(steps, default=0)
+                if step >= SIGTERM_AFTER_STEP:
+                    break
+            time.sleep(0.2)
+        check(child.poll() is None and step >= SIGTERM_AFTER_STEP,
+              f"the SIGTERM child did not reach step {SIGTERM_AFTER_STEP} "
+              f"(exit {child.poll()})")
+        child.send_signal(signal.SIGTERM)
+        _, err = child.communicate(timeout=180)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    recs = read_jsonl(str(wd / "metrics.jsonl"))
+    saves = [r for r in recs if r["kind"] == "preempt_save"]
+    dumps = sorted(os.listdir(wd / "blackbox"))
+    check(child.returncode == 128 + signal.SIGTERM,
+          f"the SIGTERM child exited {child.returncode}: {err[-2000:]}")
+    check(dumps == ["01-sigterm"] and len(saves) == 1,
+          f"SIGTERM drill: dumps {dumps}, preempt_save records {saves}")
+    meta = json.loads((wd / "blackbox" / dumps[0] / "meta.json").read_text())
+    log(f"obs: (b) SIGTERM drill: a child fit sent SIGTERM after step "
+        f"{step} exited {child.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; blackbox {dumps} (signal "
+        f"{meta['signal']}, step {meta['step']}); preempt_save {saves[0]}")
+    out["drills"] = {"slow_step": meta, "sigterm_save": saves[0]}
+
+
+def obs_predict(torch, smi: str, root: Path, fit_wd: Path,
+                out: dict) -> None:
+    """(c) predict --obs_workdir over (a)'s member, a rule that fires."""
+    from collections import Counter
+
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    photos = sorted(FIXTURES.glob("fundus299_*.jpg"))
+    wd = root / "predict"
+    batch = 4
+    argv = [f"--checkpoint_dir={fit_wd}", f"--images={FIXTURES}/fundus299_*",
+            "--config=eyepacs_binary", f"--batch_size={batch}",
+            f"--obs_workdir={wd}",
+            "--set", "serve.fused_preprocess=true",
+            "--set", "obs.flush_every_s=0",
+            "--set", "obs.quality.alert_rules=serve.engine.rows > 0 -> "
+                     "slo_breach"]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    code, rows = predict_rows(argv)
+    counts = launch_counts()
+    out["launches"]["obs_predict"] = counts
+    chunks = -(-len(photos) // batch)
+    check(code == 0 and len(rows) == len(photos)
+          and all("error" not in r for r in rows), f"predict rows {rows}")
+    check(counts["fused_serve_preprocess"] == chunks
+          and sum(counts.values()) == chunks,
+          f"predict --obs_workdir launched {counts}, want B4 = {chunks}")
+    recs = read_jsonl(str(wd / "metrics.jsonl"))
+    kinds = Counter(r["kind"] for r in recs)
+    alerts = [{k: r[k] for k in ("rule", "state", "value", "reason")}
+              for r in recs if r["kind"] == "alert"]
+    beats = [r for r in recs if r["kind"] == "heartbeat"]
+    dumps = sorted(p.name for p in (wd / "blackbox").iterdir())
+    check(alerts and alerts[0]["state"] == "firing"
+          and dumps == ["01-slo_breach"] and beats[-1]["step"] == len(photos)
+          and len(beats) >= chunks + 1,
+          f"predict --obs_workdir: alerts {alerts}, dumps {dumps}, "
+          f"heartbeats {beats}")
+    files = sorted(p.name for p in (wd / "blackbox" / dumps[0]).iterdir())
+    log(f"obs: (c) predict --obs_workdir on {len(photos)} photos at batch "
+        f"{batch}: exit {code}; launches {counts}; records {dict(kinds)}; "
+        f"alerts {alerts}; blackbox {dumps} {files}; heartbeat steps "
+        f"{[b['step'] for b in beats]}, the final one {beats[-1]}")
+    out["predict"] = {"records": dict(kinds), "alerts": alerts}
+
+
+def _seg_ms(events, name) -> dict:
+    """trace_id -> ms of the complete events called ``name``."""
+    return {e["args"]["trace_id"]: e["dur"] / 1e3 for e in events
+            if e["name"] == name and "args" in e}
+
+
+def _spans_in(events, name, tid, lo_us, hi_us) -> "tuple[int, float]":
+    """(count, ms) of ``name`` spans on thread ``tid`` inside [lo, hi]."""
+    spans = [e for e in events if e["name"] == name and e["tid"] == tid
+             and e["ts"] >= lo_us and e["ts"] + e["dur"] <= hi_us]
+    return len(spans), sum(e["dur"] for e in spans) / 1e3
+
+
+def obs_lone_request(torch, seed: int, smi: str, serve: dict,
+                     out: dict) -> None:
+    """(d) Where a routed lone batch-8 request's wall time goes."""
+    import threading
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs import trace as obs_trace
+    from jama16_retina_tpu_torch.serve import router as router_lib
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "model.compute_dtype=float32", "serve.fused_preprocess=true",
+        "serve.bucket_sizes=" + ",".join(map(str, ROUTER_BUCKETS)),
+        "serve.max_batch=64", "serve.router_tick_ms=1"])
+    engine = ServingEngine(cfg, serve["dirs"], device="cuda")
+    tracer = obs_trace.default_tracer()
+    check(tracer.enabled, "the engine left the process tracer off")
+    x8 = render(seed + 40, 8)
+    router = router_lib.Router(cfg, engines=[engine])
+    rows = {}
+    try:
+        for path, fn in (("routed", lambda: router.submit(x8).result()),
+                         ("engine", lambda: engine.probs(x8))):
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            tracer.clear()
+            walls = []
+            for _ in range(LONE_REQUESTS):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((t0, time.perf_counter()))
+            # Event ts count from the tracer's epoch, which clear() moves.
+            rows[path] = (walls, tracer.events(), tracer.epoch)
+    finally:
+        router.close()
+    caller = threading.get_ident()
+    walls, events, epoch = rows["routed"]
+    qw = _seg_ms(events, "serve.router.request.queue_wait")
+    dv = _seg_ms(events, "serve.router.request.device")
+    rs = _seg_ms(events, "serve.router.request.resolve")
+    check(len(qw) == len(dv) == len(rs) == LONE_REQUESTS,
+          f"{len(qw)} routed requests traced of {LONE_REQUESTS}")
+    tick_tid = next(e["tid"] for e in events
+                    if e["name"] == "serve.router.tick_s")
+    worker_tid = next(e["tid"] for e in events
+                      if e["name"] == "serve.router.request.device")
+    # Submission order is queue_wait order.
+    ids = [e["args"]["trace_id"] for e in sorted(
+        (e for e in events
+         if e["name"] == "serve.router.request.queue_wait"),
+        key=lambda e: e["ts"])]
+    split = []
+    for (t0, t1), tid in zip(walls, ids):
+        lo, hi = (t0 - epoch) * 1e6, (t1 - epoch) * 1e6
+        n_ticks, tick_ms = _spans_in(events, "serve.router.tick_s",
+                                     tick_tid, lo, hi)
+        eng = {k: _spans_in(events, f"serve.engine.{k}_s", worker_tid, lo,
+                            hi)[1] for k in ("pad", "dispatch", "device_get")}
+        wall = (t1 - t0) * 1e3
+        split.append({"wall": wall, "queue_wait": qw[tid],
+                      "device": dv[tid], "resolve": rs[tid],
+                      "caller_rest": wall - qw[tid] - dv[tid] - rs[tid],
+                      "ticks": n_ticks, "tick_ms": tick_ms,
+                      "worker_engine": sum(eng.values()),
+                      "worker_rest": dv[tid] - sum(eng.values()), **eng})
+    walls_e, events_e, epoch = rows["engine"]
+    eng_split = []
+    for t0, t1 in walls_e:
+        lo, hi = (t0 - epoch) * 1e6, (t1 - epoch) * 1e6
+        eng = {k: _spans_in(events_e, f"serve.engine.{k}_s", caller, lo,
+                            hi)[1] for k in ("pad", "dispatch", "device_get")}
+        wall = (t1 - t0) * 1e3
+        eng_split.append({"wall": wall, **eng,
+                          "rest": wall - sum(eng.values())})
+
+    def med(rows_, key):
+        return statistics.median(r[key] for r in rows_)
+
+    keys = ("wall", "queue_wait", "device", "resolve", "caller_rest",
+            "ticks", "tick_ms", "pad", "dispatch", "device_get",
+            "worker_engine", "worker_rest")
+    r_med = {k: round(med(split, k), 3) for k in keys}
+    e_med = {k: round(med(eng_split, k), 3)
+             for k in ("wall", "pad", "dispatch", "device_get", "rest")}
+    log(f"obs: (d) lone batch-8 request (float32, k=2, fused preprocess, "
+        f"tick 1 ms), medians of {LONE_REQUESTS} after 2 warm, ms: routed "
+        f"{r_med} (the caller thread: wall, caller_rest; the tick thread: "
+        f"ticks, tick_ms inside the request; the replica worker: device = "
+        f"pad + dispatch + device_get + worker_rest, then resolve); the "
+        f"engine alone on the caller thread {e_med} ({smi})")
+    out["lone_request"] = {"routed": r_med, "engine": e_med,
+                           "routed_walls": [round(r["wall"], 3)
+                                            for r in split]}
+
+
+def obs_overhead(torch, seed: int, smi: str, root: Path, data: Path,
+                 serve: dict, out: dict) -> None:
+    """(e) The planes' cost on the fused step and the batch-8 request."""
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+    from jama16_retina_tpu_torch.obs import trace as obs_trace
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    steps = {False: [], True: []}
+    # Each fit's per-step windows (log_every 1) but the first two
+    # (warm-up).
+    for i, on in enumerate(OVERHEAD_TURNS):
+        _, recs = obs_fit(torch, seed, data, root / f"overhead{i}",
+                          OVERHEAD_STEPS,
+                          f"train.eval_every={OVERHEAD_STEPS}",
+                          "train.use_pallas_fused=true",
+                          f"obs.enabled={str(on).lower()}")
+        steps[on] += [r["window_sec"] * 1e3 for r in recs
+                      if r["kind"] == "train" and r["step"] >= 3]
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "serve.bucket_sizes=8", "serve.max_batch=8"])
+    engine = ServingEngine(cfg, serve["dirs"], device="cuda")
+    reg, tracer = obs_registry.default_registry(), obs_trace.default_tracer()
+    x8 = render(seed + 41, 8)
+    req = {False: [], True: []}
+    try:
+        for on in OVERHEAD_REQUEST_TURNS:
+            # What obs.enabled=false does to the engine's path: the
+            # registry's and the tracer's ops become one branch.
+            reg.enabled = tracer.enabled = on
+            for i in range(2 + OVERHEAD_REQUEST_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.probs(x8)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    req[on].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        reg.enabled = tracer.enabled = True
+
+    def summary(v):
+        return (statistics.median(v), min(v), max(v), len(v))
+
+    res = {}
+    for name, on in (("off", False), ("on", True)):
+        res[f"step_{name}"] = summary(steps[on])
+        res[f"request_{name}"] = summary(req[on])
+    for k, (m, lo, hi, n) in res.items():
+        log(f"times: obs overhead {k}: median {m:.3f} ms, range "
+            f"{lo:.3f}-{hi:.3f} over {n} ({smi})")
+    step_pct = 100 * (res["step_on"][0] / res["step_off"][0] - 1)
+    req_pct = 100 * (res["request_on"][0] / res["request_off"][0] - 1)
+    log(f"obs: (e) the planes on against obs.enabled=false: fused step "
+        f"(bf16, batch 32, steps 3-{OVERHEAD_STEPS} of each fit's windows, "
+        f"fits in turns {list(OVERHEAD_TURNS)}) {step_pct:+.2f} %, batch-8 "
+        f"request (bf16, k=2, {OVERHEAD_REQUEST_CALLS} calls a turn, turns "
+        f"{list(OVERHEAD_REQUEST_TURNS)}) {req_pct:+.2f} % ({smi})")
+    out["overhead"] = {**res, "step_pct": step_pct, "request_pct": req_pct}
+
+
+def phase_obs(torch, seed: int, smi: str, serve: dict, data: Path) -> dict:
+    """Telemetry, tracing, the flight recorder and alerts at full width
+    (phase 15 of the docstring), on phase 6's splits ``data``."""
+    t_phase = time.perf_counter()
+    root = SCRATCH / "obs"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"launches": {}}
+    torch.cuda.empty_cache()
+    fit_wd = obs_fit_phase(torch, seed, smi, root, data, out)
+    obs_drills(torch, seed, smi, root, data, out)
+    obs_predict(torch, smi, root, fit_wd, out)
+    obs_lone_request(torch, seed, smi, serve, out)
+    obs_overhead(torch, seed, smi, root, data, serve, out)
+    shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"times: phase 15 (obs) wall {out['wall_s']:.1f} s ({smi})")
+    return out
+
+
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"jama16_retina_tpu_torch/ops/csrc/{source}",
@@ -4232,6 +4714,7 @@ def main(argv=None) -> int:
     router = phase_router(torch, args.seed, smi, serve, distill, cascade,
                           fit["root"])
     jpeg = phase_jpeg_host(torch, args.seed, smi, serve)
+    obs = phase_obs(torch, args.seed, smi, serve, fit["data"])
     shutil.rmtree(fit["root"], ignore_errors=True)
     torch.cuda.empty_cache()
     for form, t in train.items():
@@ -4280,7 +4763,7 @@ def main(argv=None) -> int:
             **optimizers["launches"], **recipe["launches"],
             **ensemble["launches"], **distill["launches"],
             **cascade["launches"], **router["launches"],
-            **jpeg["launches"]}
+            **jpeg["launches"], **obs["launches"]}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

@@ -1,8 +1,8 @@
 """The slice of ``jama16_retina_tpu/configs.py`` that the port reads
 (serving, training, eval, checkpoints and resume of every preset of the
 JAX package: the binary and 5-class heads, Inception-v3, ResNet-50,
-EfficientNet-B4 and the smoke ``tiny_cnn``; the serving knobs and the
-quality monitor's ``obs.quality``).
+EfficientNet-B4 and the smoke ``tiny_cnn``; the serving knobs; the
+telemetry, tracing, flight-recorder and alert planes of ``obs``).
 
 Field names, defaults, preset names and the dotted ``--set`` syntax are
 those of the JAX package, so one override list configures both. Only the
@@ -127,6 +127,16 @@ class TrainConfig:
     ensemble_parallel: bool = False
     ensemble_parallel_force: bool = False
     init_from: str = ""
+    # A torch.profiler capture of this many steps (from step 10, clamped
+    # inside short runs) into <workdir>/profile as a Chrome trace.
+    profile_steps: int = 0
+    # Mirror the numeric fields of step-indexed records into <workdir>/tb
+    # as TensorBoard scalars (utils/logging.py).
+    tensorboard: bool = False
+    # Steps under torch.autograd.detect_anomaly(check_nan=True) with the
+    # loss checked too: the first non-finite value raises
+    # FloatingPointError naming the step.
+    debug: bool = False
     # Teacher ensemble root (or one member dir): the student trains
     # against its members' averaged soft scores on each batch's clean
     # images instead of the hard grades (trainer.fit). Empty: hard labels.
@@ -242,7 +252,9 @@ class QualityConfig:
     window_scores: int = 256
     # Histogram bins over [0, 1], for scores and input statistics.
     score_bins: int = 20
-    # Thresholds and rules of the alert plane (not ported).
+    # The alert plane (obs/alerts.py): the built-in drift and canary
+    # rules fire above these PSIs (and on a failed canary) once they have
+    # held alert_for_s seconds; alert_rules are user rules in its grammar.
     psi_alert: float = 0.2
     input_psi_alert: float = 0.25
     alert_for_s: float = 0.0
@@ -257,8 +269,36 @@ class QualityConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ObsConfig:
-    # Off: the engine's registry records nothing and no monitor is built.
+    """Telemetry, tracing, the flight recorder and alerts (obs/). Off: every
+    metric op, span and trace event is one branch, no monitor is built and
+    nothing is exported."""
+
     enabled: bool = True
+    # Seconds between telemetry flushes (the `telemetry` and `heartbeat`
+    # records and <workdir>/telemetry.prom), checked at the train loop's
+    # logging cadence and predict's blocks.
+    flush_every_s: float = 60.0
+    # Event tracing (obs/trace.py): per-thread rings of this many events,
+    # the blackbox's source.
+    trace_enabled: bool = True
+    trace_buffer_events: int = 4096
+    # A loop iteration above this factor x the rolling median of recent
+    # steps dumps a blackbox and asks for one profiler capture (<= 0 off).
+    slow_step_factor: float = 4.0
+    # Newest trace events a blackbox dump carries, and the newest dump
+    # directories kept under <workdir>/blackbox (<= 0 keeps all).
+    blackbox_events: int = 1024
+    blackbox_keep: int = 20
+    # The critical-path verdict (obs/criticalpath.py) in every dump, with
+    # this many slowest waterfalls of each kind.
+    diagnosis_enabled: bool = True
+    diagnosis_top_k: int = 3
+    # Thresholds of two reliability rules whose metrics the port does not
+    # publish yet (data.quarantined, device.hbm.headroom_frac): their
+    # rules are installed and stay inactive, as the reference's do on a
+    # backend without those metrics.
+    quarantine_alert_per_s: float = 0.5
+    device_hbm_headroom_alert: float = 0.1
     quality: QualityConfig = dataclasses.field(default_factory=QualityConfig)
 
 
@@ -363,17 +403,18 @@ PRESETS = {
     "smoke": _preset_smoke,
 }
 
-_ALERTS = "Queue A item 11 (planes: alerts)"
 # Knob -> (its default, the ROADMAP item that will implement it).
 _UNIMPLEMENTED = {
     ("model", "stem_s2d"): (False, "Queue A item 2 (stem_s2d)"),
     ("model", "remat_stem"): (False, "Queue A item 2 (remat_stem)"),
     ("serve", "compile_cache_dir"): (
         "", "Queue A item 9 (compile cache / CUDA graphs)"),
-    ("obs.quality", "psi_alert"): (0.2, _ALERTS),
-    ("obs.quality", "input_psi_alert"): (0.25, _ALERTS),
-    ("obs.quality", "alert_for_s"): (0.0, _ALERTS),
-    ("obs.quality", "alert_rules"): ((), _ALERTS),
+    ("obs", "quarantine_alert_per_s"): (
+        0.5, "Queue A item 7 (part 2: data.quarantine_bad_records, whose "
+             "data.quarantined counter the rule reads)"),
+    ("obs", "device_hbm_headroom_alert"): (
+        0.1, "Queue A item 11 (part 4: the device plane, whose "
+             "device.hbm.headroom_frac gauge the rule reads)"),
 }
 _DATA_PLANE = "Queue A item 7 (the data plane)"
 _MULTI_DEVICE = "Queue A item 8 (multi-device)"
@@ -382,8 +423,6 @@ _PLANES = "Queue A item 11 (planes)"
 # Overriding one raises NotImplementedError naming its item; any other
 # unknown field is a typo and raises ValueError.
 _NOT_PORTED = {
-    "train.tensorboard": "Queue A item 11 (planes: TensorBoard mirror)",
-    "train.debug": "Queue A item 11 (planes: NaN debugging)",
     "data.shuffle_buffer": "Queue C (the port's train stream shuffles "
                            "the whole split; no buffer)",
     "eval.sharded": "Queue A item 8 (multi-host eval)",
@@ -397,7 +436,6 @@ _NOT_PORTED = {
          "data.grain_workers", "data.quarantine_bad_records"),
         _DATA_PLANE + " (rawshard, hbm, tiered, grain and served loaders, "
         "autotune, quarantine)"),
-    "train.profile_steps": _PLANES + " (profiler windows)",
     **dict.fromkeys(
         ("lifecycle." + f for f in (
             "enabled", "trigger_reasons", "retrain_steps",
@@ -407,18 +445,19 @@ _NOT_PORTED = {
         "Queue A item 11 (planes: the lifecycle)"),
     "ingest": _PLANES + " (the ingest service)",
     "integrity": _PLANES + " (integrity: caches, telemetry retention)",
-    # Every obs field but enabled and quality.*; obs.audit covers its
+    # The obs fields of the planes still to port; obs.audit covers its
     # own fields.
+    "obs.fault_plan": "Queue A item 11 (part 2: faults, "
+                      "obs/faultinject.py)",
+    "obs.device_enabled": "Queue A item 11 (part 4: the device plane, "
+                          "obs/device.py)",
     **dict.fromkeys(
-        ("obs.flush_every_s", "obs.trace_enabled", "obs.trace_buffer_events",
-         "obs.slow_step_factor", "obs.blackbox_events", "obs.blackbox_keep",
-         "obs.fleet_dir", "obs.fleet_role", "obs.fleet_keep_segments",
-         "obs.fleet_rules", "obs.http_port", "obs.audit", "obs.fault_plan",
-         "obs.quarantine_alert_per_s", "obs.diagnosis_enabled",
-         "obs.diagnosis_top_k", "obs.device_enabled",
-         "obs.device_hbm_headroom_alert"),
-        "Queue A item 11 (planes: telemetry export, tracing, flight "
-        "recorder, fleet, audit, faults and device)"),
+        ("obs.fleet_dir", "obs.fleet_role", "obs.fleet_keep_segments",
+         "obs.fleet_rules"),
+        "Queue A item 11 (part 5: the fleet plane, obs/fleet.py)"),
+    "obs.http_port": "Queue A item 11 (part 5: obs/httpd.py, the HTTP "
+                     "endpoint)",
+    "obs.audit": "Queue A item 11 (part 5: the audit plane, obs/audit.py)",
 }
 # Fields of this port that the JAX package's configs.py does not have.
 PORT_FIELDS = {("data", "readers")}

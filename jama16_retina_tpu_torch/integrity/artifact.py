@@ -15,6 +15,9 @@ canary or policy written by either package loads in the other:
   * every write is atomic: a temporary file in the same directory,
     fsync, ``os.replace``.
 
+Dump-grade files (blackbox dumps, Chrome traces) go through
+``write_json``, the ``.prom`` snapshot through ``atomic_write_text``.
+
 The fingerprint holds the python and numpy versions and the platform
 only (no clocks, no hosts), so two writes of one payload on one machine
 are byte-identical. A load whose digest disagrees raises
@@ -109,20 +112,38 @@ def count_corrupt(artifact: str, registry=None) -> None:
                 help="corrupt-artifact detections by class").inc()
 
 
-def atomic_write_bytes(path: str, blob: bytes) -> None:
+def atomic_write_bytes(path: str, blob: bytes, fsync: bool = True) -> None:
     """Write ``blob`` to a temporary file beside ``path``, fsync it and
     rename it over ``path``: a reader sees the old file or the new one,
-    never a torn one."""
+    never a torn one. ``fsync=False`` keeps the rename's atomicity for a
+    snapshot rewritten on every flush (``telemetry.prom``), which needs
+    to be whole, not durable."""
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
             f.write(blob)
-            f.flush()
-            os.fsync(f.fileno())
+            if fsync:
+                f.flush()
+                os.fsync(f.fileno())
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def atomic_write_text(path: str, text: str, fsync: bool = True) -> None:
+    """Atomic write of an unsealed text file (the ``.prom`` snapshot,
+    read by a scrape parser)."""
+    atomic_write_bytes(path, text.encode("utf-8"), fsync=fsync)
+
+
+def write_json(path: str, obj, indent: "int | None" = 1,
+               sort_keys: bool = False, default=None) -> None:
+    """Plain JSON write, not atomic and not sealed, for dump-grade files
+    (blackbox dumps, Chrome traces)."""
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(obj, f, indent=indent, sort_keys=sort_keys,
+                  default=default)
 
 
 def make_seal(payload: dict, schema: str, version) -> dict:

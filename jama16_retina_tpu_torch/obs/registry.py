@@ -7,7 +7,9 @@ Every op is O(1) under a per-metric lock, and a registry with
 values freeze. Histograms estimate quantiles at snapshot time by linear
 interpolation inside the bucket that holds the rank (Prometheus's
 ``histogram_quantile``); an observation above the last bound clamps to
-it. The reference's exemplars ride its tracer, which is not ported.
+it. Each histogram also keeps an exemplar: the slowest observation
+tagged with an id (a request's trace id) since the last snapshot that
+resets it, which only the telemetry flush does.
 """
 
 from __future__ import annotations
@@ -82,7 +84,7 @@ class Histogram:
     ascending, and an implicit overflow bucket takes the rest."""
 
     __slots__ = ("name", "help", "_registry", "_lock", "bounds", "_counts",
-                 "_sum", "_count")
+                 "_sum", "_count", "_ex_value", "_ex_id")
 
     def __init__(self, name: str, registry: "Registry",
                  buckets: Iterable[float] = DEFAULT_BUCKETS, help: str = ""):
@@ -96,8 +98,12 @@ class Histogram:
         self._counts = [0] * (len(self.bounds) + 1)
         self._sum = 0.0
         self._count = 0
+        # The slowest exemplar-tagged observation since the last
+        # resetting snapshot, and its id.
+        self._ex_value: "float | None" = None
+        self._ex_id = None
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, exemplar=None) -> None:
         if not self._registry.enabled:
             return
         i = bisect.bisect_left(self.bounds, v)
@@ -105,6 +111,10 @@ class Histogram:
             self._counts[i] += 1
             self._sum += v
             self._count += 1
+            if exemplar is not None and (
+                    self._ex_value is None or v > self._ex_value):
+                self._ex_value = v
+                self._ex_id = exemplar
 
     def _quantile_locked(self, q: float) -> "float | None":
         if self._count == 0:
@@ -118,21 +128,35 @@ class Histogram:
             lo = bound
         return self.bounds[-1]
 
-    def snapshot(self) -> dict:
-        """{'count', 'sum', 'mean', 'p50', 'p95', 'p99', 'buckets'}, the
-        buckets as (upper bound, cumulative count) pairs."""
+    def snapshot(self, reset_exemplar: bool = False) -> dict:
+        """{'count', 'sum', 'mean', 'p50', 'p95', 'p99', 'buckets',
+        'exemplar'}, the buckets as (upper bound, cumulative count) pairs,
+        the exemplar {'value', 'trace_id'} or None. Only the telemetry
+        flush passes ``reset_exemplar=True``: its cadence is the
+        exemplar's window, and every other reader leaves it in place."""
         with self._lock:
             counts = list(self._counts)
             total, s = self._count, self._sum
             quantiles = {f"p{int(q * 100)}": self._quantile_locked(q)
                          for q in (0.5, 0.95, 0.99)}
+            exemplar = ({"value": self._ex_value, "trace_id": self._ex_id}
+                        if self._ex_value is not None else None)
+            if reset_exemplar:
+                self._ex_value = None
+                self._ex_id = None
         cum, cum_counts = 0, []
         for c in counts[:-1]:
             cum += c
             cum_counts.append(cum)
         return {"count": total, "sum": s,
                 "mean": (s / total) if total else None, **quantiles,
-                "buckets": list(zip(self.bounds, cum_counts))}
+                "buckets": list(zip(self.bounds, cum_counts)),
+                "exemplar": exemplar}
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
 
 
 class Registry:
@@ -165,25 +189,56 @@ class Registry:
         return self._get_or_create(name, Histogram, buckets=buckets,
                                    help=help)
 
+    def peek(self, name: str):
+        """The registered metric, or None: a read that never creates, so
+        looking at another plane's metric cannot register a zero-valued
+        one when that plane is not wired."""
+        with self._lock:
+            return self._metrics.get(name)
+
     def remove(self, name: str) -> None:
         """Stop exporting ``name`` (a no-op when absent); a handle a caller
         still holds keeps counting, unexported."""
         with self._lock:
             self._metrics.pop(name, None)
 
-    def snapshot(self) -> dict:
-        """{'counters': {name: v}, 'gauges': {name: v}, 'histograms':
-        {name: Histogram.snapshot()}}."""
+    def reset(self) -> None:
+        """Zero every metric in place; handles stay valid. A train loop
+        resets at its start, so members fit one after another in one
+        process do not carry each other's counts."""
         with self._lock:
             metrics = list(self._metrics.values())
-        out: dict = {"counters": {}, "gauges": {}, "histograms": {}}
+        for m in metrics:
+            with m._lock:
+                if isinstance(m, Histogram):
+                    m._counts = [0] * (len(m.bounds) + 1)
+                    m._sum = 0.0
+                    m._count = 0
+                    m._ex_value = None
+                    m._ex_id = None
+                else:
+                    m._value = 0.0
+
+    def snapshot(self, reset_exemplars: bool = False) -> dict:
+        """{'counters': {name: v}, 'gauges': {name: v}, 'histograms':
+        {name: Histogram.snapshot()}, 'help': {name: text}}, the help map
+        holding the non-empty strings only. ``reset_exemplars=True`` is
+        the telemetry flush's: it closes every histogram's exemplar
+        window."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        out: dict = {"counters": {}, "gauges": {}, "histograms": {},
+                     "help": {}}
         for m in metrics:
             if isinstance(m, Counter):
                 out["counters"][m.name] = m.value
             elif isinstance(m, Gauge):
                 out["gauges"][m.name] = m.value
             else:
-                out["histograms"][m.name] = m.snapshot()
+                out["histograms"][m.name] = m.snapshot(
+                    reset_exemplar=reset_exemplars)
+            if m.help:
+                out["help"][m.name] = m.help
         return out
 
 
@@ -191,6 +246,12 @@ _default = Registry()
 
 
 def default_registry() -> Registry:
-    """The process-wide registry the engine and batcher record into by
-    default."""
+    """The process-wide registry every layer records into by default."""
     return _default
+
+
+def set_default_registry(reg: Registry) -> Registry:
+    """Swap the process-wide registry (tests); returns the previous one."""
+    global _default
+    prev, _default = _default, reg
+    return prev

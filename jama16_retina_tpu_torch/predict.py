@@ -41,6 +41,17 @@ monitor lives on replica 0, and the cascades pass one go-live gate. The
 router's report goes to stderr as one JSON line. ``serve.policy_from``
 applies a sealed serving policy (``serve/policy.py``) before the engines
 are built, on either path.
+
+``--obs_workdir=DIR`` writes the batch's telemetry there, as a train run
+writes its own: ``telemetry`` and ``heartbeat`` records in
+``DIR/metrics.jsonl`` at every ``obs.flush_every_s`` between blocks
+(``step`` counts the images forward-passed), ``DIR/telemetry.prom``, and
+a final flush on every exit, including a batch with nothing to score.
+The alert rules the config implies (``obs.quality.*``, the reliability
+rules) are evaluated at each flush from before the first row is scored:
+a rule that fires writes an ``alert`` record and a blackbox dump under
+``DIR/blackbox``. The router's report lands there too, as a ``router``
+record.
 """
 
 from __future__ import annotations
@@ -93,6 +104,10 @@ def _parser() -> argparse.ArgumentParser:
                    default="interactive",
                    help="router priority class of this batch (with "
                         "--replicas)")
+    p.add_argument("--obs_workdir", default="",
+                   help="write telemetry, heartbeat and alert records, "
+                        "telemetry.prom and blackbox dumps into this "
+                        "directory while the batch runs (empty: none)")
     return p
 
 
@@ -158,11 +173,32 @@ def _expand(patterns: "list[str]") -> "list[str]":
 
 def main(argv: "list[str] | None" = None) -> int:
     args = _parser().parse_args(argv)
+    snap = None
+    if args.obs_workdir:
+        from jama16_retina_tpu_torch import configs
+        from jama16_retina_tpu_torch.obs import alerts, export
+
+        cfg = configs.override(configs.get_config(args.config), args.set)
+        snap = export.Snapshotter(workdir=args.obs_workdir,
+                                  every_s=cfg.obs.flush_every_s)
+        snap.progress(0)
+        # Attached before any scoring, so a rule that must hold "for"
+        # seconds is seen holding across the batch's flushes.
+        snap.alerts = alerts.manager_for(cfg, args.obs_workdir)
+    try:
+        return _run(args, snap)
+    finally:
+        if snap is not None:
+            snap.close()  # the final telemetry, heartbeat and .prom
+
+
+def _run(args, snap) -> int:
 
     import numpy as np
 
     from jama16_retina_tpu_torch import configs
     from jama16_retina_tpu_torch.eval import metrics
+    from jama16_retina_tpu_torch.obs import trace as obs_trace
     from jama16_retina_tpu_torch.serve import host
     from jama16_retina_tpu_torch.serve.assemble import EngineSpec, assemble
     from jama16_retina_tpu_torch.serve import policy as policy_lib
@@ -207,20 +243,48 @@ def main(argv: "list[str] | None" = None) -> int:
         print(json.dumps({"image": p, "error": why}))
     if not pre.kept:
         return 1
+    n_kept = len(pre.kept)
     if args.replicas:
         router = Router(cfg, engines=engines,
                         policy_provenance=policy_prov or None)
         try:
             futs = [router.submit(pre.images[i:i + args.batch_size],
                                   priority=args.priority)
-                    for i in range(0, len(pre.kept), args.batch_size)]
-            blocks = [np.asarray(f.result()) for f in futs]
+                    for i in range(0, n_kept, args.batch_size)]
+            blocks = []
+            for bi, f in enumerate(futs):
+                blocks.append(np.asarray(f.result()))
+                if snap is not None:
+                    snap.progress(min(n_kept, (bi + 1) * args.batch_size))
+                    snap.maybe_flush()
         finally:
             router.close()
         probs = blocks[0] if len(blocks) == 1 else np.concatenate(blocks)
-        print(json.dumps({"router": router.report()}), file=sys.stderr)
+        report = router.report()
+        if snap is not None:
+            snap.write_record("router", **report)
+        print(json.dumps({"router": report}), file=sys.stderr)
     else:
-        probs = engine.probs(pre.images)
+        # One context for the batch: each block is a ``predict.block``
+        # event carrying its trace id, and the ambient context names the
+        # batch inside the engine. With --obs_workdir the blocks go one at
+        # a time so heartbeats advance during the batch (the same math:
+        # the engine cuts the same chunks).
+        tracer = obs_trace.default_tracer()
+        ctx = obs_trace.new_context()
+        step = args.batch_size if snap is not None else n_kept
+        blocks = []
+        with obs_trace.use_context(ctx):
+            for i in range(0, n_kept, step):
+                block = pre.images[i:i + step]
+                with tracer.trace("predict.block", args={
+                        "trace_id": ctx.trace_id,
+                        "rows": int(block.shape[0])}):
+                    blocks.append(engine.probs(block))
+                if snap is not None:
+                    snap.progress(i + block.shape[0])
+                    snap.maybe_flush()
+        probs = blocks[0] if len(blocks) == 1 else np.concatenate(blocks)
 
     for p, pr, qual in zip(pre.kept, probs, pre.qualities):
         if cfg.model.head != "binary":
@@ -239,6 +303,8 @@ def main(argv: "list[str] | None" = None) -> int:
             row["gradable"] = bool(qual >= args.min_quality)
         row["n_models"] = len(dirs)
         print(json.dumps(row))
+    if snap is not None:
+        snap.progress(n_kept)
     return 2 if pre.skipped and args.strict else 0
 
 

@@ -19,9 +19,14 @@ admission, serves what was queued and resolves every future.
 A row's result depends only on the row and the bucket shape it runs at,
 never on its co-riders (eval-mode forwards are row-independent); with
 one bucket every row runs at one shape, so results do not depend on
-arrival order. Pure Python on numpy. The reference's per-request trace
-segments ride its tracer, which is not ported; its counters, gauges and
-histograms are, under the same names.
+arrival order. Pure Python on numpy.
+
+Each request gets a trace id at submit (the submitter's ambient trace
+context's, when a router installed one, else a fresh one); its latency
+observation carries it as the histogram's exemplar, and with the tracer
+on its latency splits into four complete events on one monotonic clock,
+``serve.request.{queue_wait,window_fill,device,resolve}``, that sum to
+the ``serve.request_latency_s`` observation exactly.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Callable
 import numpy as np
 
 from jama16_retina_tpu_torch.obs import registry as obs_registry
+from jama16_retina_tpu_torch.obs import trace as obs_trace
 
 
 class Overloaded(RuntimeError):
@@ -49,12 +55,23 @@ class DeadlineExceeded(TimeoutError):
     submitting thread."""
 
 
+def _submit_trace_id() -> str:
+    """The request's trace id, taken on the submitting thread: the ambient
+    context's (a router's dispatch installs one), else a fresh one."""
+    ctx = obs_trace.current_context() or obs_trace.new_context()
+    return ctx.trace_id
+
+
 @dataclass
 class _Request:
     rows: np.ndarray
     # Monotonic submit time: the start of the request's latency.
     t_submit: float
     future: Future = field(default_factory=Future)
+    trace_id: str = field(default_factory=_submit_trace_id)
+    # Monotonic time the worker took it off the queue: the end of its
+    # queue wait, the start of its window fill.
+    t_pop: float = 0.0
     # Absolute monotonic deadline, or None.
     t_deadline: "float | None" = None
 
@@ -82,7 +99,8 @@ class MicroBatcher:
     ``row_shape`` / ``row_dtype`` are checked at submit, so a malformed
     request cannot fail its window's co-riders.
 
-    Metrics (``registry=None``: the process registry):
+    Metrics (``registry=None``: the process registry; ``tracer=None``: the
+    process tracer):
     ``serve.batcher.queue_depth`` and ``serve.batcher.in_flight`` gauges,
     ``serve.batcher.window_fill`` (rows / max_batch per window) and
     ``serve.request_latency_s`` (submit to resolved) histograms, and the
@@ -99,7 +117,8 @@ class MicroBatcher:
                  row_shape: "tuple[int, ...] | None" = None, row_dtype=None,
                  registry: "obs_registry.Registry | None" = None,
                  shed_queue_depth: int = 0,
-                 shed_in_flight: int = 0, default_deadline_ms: float = 0.0):
+                 shed_in_flight: int = 0, default_deadline_ms: float = 0.0,
+                 tracer: "obs_trace.Tracer | None" = None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self._infer = infer_fn
@@ -119,6 +138,8 @@ class MicroBatcher:
         self._closed = False
         reg = (registry if registry is not None
                else obs_registry.default_registry())
+        self._tracer = (tracer if tracer is not None
+                        else obs_trace.default_tracer())
         self._g_depth = reg.gauge(
             "serve.batcher.queue_depth",
             help="requests waiting to coalesce into a window")
@@ -219,6 +240,7 @@ class MicroBatcher:
             item = self._queue.get()
             if item is _STOP:
                 return
+            item.t_pop = time.monotonic()
             window = [item]
             rows = item.rows.shape[0]
             deadline = time.monotonic() + self.max_wait_s
@@ -234,6 +256,7 @@ class MicroBatcher:
                 if nxt is _STOP:
                     stop_after = True
                     break
+                nxt.t_pop = time.monotonic()
                 window.append(nxt)
                 rows += nxt.rows.shape[0]
             if stop_after:
@@ -272,6 +295,9 @@ class MicroBatcher:
                 self._g_in_flight.set(self._n_in_flight)
             return
         try:
+            for w in window:
+                if w.t_pop == 0.0:  # served by close() without a worker
+                    w.t_pop = t_flush
             flat = (window[0].rows if len(window) == 1
                     else np.concatenate([w.rows for w in window]))
             out = np.asarray(self._infer(flat))
@@ -279,16 +305,33 @@ class MicroBatcher:
                 raise RuntimeError(
                     f"infer_fn returned {out.shape[0]} rows for "
                     f"{flat.shape[0]} inputs — row contract broken")
+            t_infer_done = time.monotonic()
             self._c_batches.inc()
             self._c_rows.inc(int(flat.shape[0]))
             self._h_fill.observe(flat.shape[0] / self.max_batch)
             now = time.monotonic()
+            tr = self._tracer
             lo = 0
             for w in window:
                 hi = lo + w.rows.shape[0]
                 try:
                     w.future.set_result(out[lo:hi])
-                    self._h_latency.observe(now - w.t_submit)
+                    # The window's slowest request leaves by its trace id.
+                    self._h_latency.observe(now - w.t_submit,
+                                            exemplar=w.trace_id)
+                    if tr.enabled:
+                        # Four segments tiling [t_submit, now) on the
+                        # latency's own clock.
+                        args = {"trace_id": w.trace_id,
+                                "rows": int(w.rows.shape[0])}
+                        tr.complete("serve.request.queue_wait",
+                                    w.t_submit, w.t_pop, args)
+                        tr.complete("serve.request.window_fill",
+                                    w.t_pop, t_flush, args)
+                        tr.complete("serve.request.device",
+                                    t_flush, t_infer_done, args)
+                        tr.complete("serve.request.resolve",
+                                    t_infer_done, now, args)
                 except InvalidStateError:  # cancelled by its caller
                     pass
                 lo = hi

@@ -60,6 +60,8 @@ from jama16_retina_tpu_torch.eval import metrics
 from jama16_retina_tpu_torch.models import convert
 from jama16_retina_tpu_torch.obs import quality as quality_lib
 from jama16_retina_tpu_torch.obs import registry as obs_registry
+from jama16_retina_tpu_torch.obs import trace as obs_trace
+from jama16_retina_tpu_torch.obs.spans import span
 from jama16_retina_tpu_torch.ops import serve_preprocess
 from jama16_retina_tpu_torch.serve import host, quantize
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
@@ -211,8 +213,14 @@ class ServingEngine:
         # The monitor's artifacts load first: a wrong path or canary size
         # fails before the members load.
         if registry is None:
+            # The engine's own config decides whether the process registry
+            # records, and applies the trace knobs to the process tracer
+            # (a serving session runs no trainer to do it).
             registry = obs_registry.default_registry()
             registry.enabled = cfg.obs.enabled
+            obs_trace.default_tracer().configure(
+                enabled=cfg.obs.enabled and cfg.obs.trace_enabled,
+                buffer_events=cfg.obs.trace_buffer_events)
         self.registry = registry
         self.quality = (quality_lib.monitor_from_config(
             cfg.obs.quality, registry=registry) if cfg.obs.enabled else None)
@@ -281,12 +289,6 @@ class ServingEngine:
                  "[fleet:max]")
         # Pad-waste counters by bucket, made at a bucket's first use.
         self._bucket_counters: dict = {}
-        # The reference's span histograms (seconds): padding a chunk, its
-        # copy to the device and forward, and the results' trip back.
-        h = registry.histogram
-        self._h_pad = h("serve.engine.pad_s")
-        self._h_dispatch = h("serve.engine.dispatch_s")
-        self._h_device_get = h("serve.engine.device_get_s")
         # The skeleton keeps no weights: the int8 and the stacked forms
         # swap a member's into it for one forward (functional_call), so
         # those forwards take turns, in every generation. An fp32 or bf16
@@ -705,13 +707,20 @@ class ServingEngine:
         through every member of ``gen``: ([k, n] (or [k, n, C])
         probabilities on the device, the real rows' B4 sums or None). Call
         it under ``torch.inference_mode``."""
+        return self._score(self._pad(rows, bucket), rows.shape[0], gen)
+
+    def _pad(self, rows: np.ndarray, bucket: int) -> torch.Tensor:
+        """uint8 rows [n, S, S, 3] on the device, padded with zero rows to
+        ``bucket``."""
         size = self.cfg.model.image_size
-        n = rows.shape[0]
-        t0 = time.perf_counter()
         padded = torch.zeros((bucket, size, size, 3), dtype=torch.uint8,
                              device=self.device)
-        padded[:n].copy_(torch.from_numpy(np.ascontiguousarray(rows)))
-        self._h_pad.observe(time.perf_counter() - t0)
+        padded[:rows.shape[0]].copy_(
+            torch.from_numpy(np.ascontiguousarray(rows)))
+        return padded
+
+    def _score(self, padded: torch.Tensor, n: int, gen: _Generation
+               ) -> "tuple[torch.Tensor, torch.Tensor | None]":
         sums = None
         if self.fused:
             norm, sums = serve_preprocess.fused_serve_preprocess(padded)
@@ -753,9 +762,12 @@ class ServingEngine:
                             help="pad waste: rows this bucket shape burned "
                                  "beyond real chunk rows")
                 c_pad.inc(bucket - n)
-                t0 = time.perf_counter()
-                probs, chunk_sums = self.score_padded(chunk, bucket, gen)
-                self._h_dispatch.observe(time.perf_counter() - t0)
+                # Spans time the host: on the card the forward is queued,
+                # and its device time shows in the device_get drain.
+                with span("serve.engine.pad_s", self.registry):
+                    padded = self._pad(chunk, bucket)
+                with span("serve.engine.dispatch_s", self.registry):
+                    probs, chunk_sums = self._score(padded, n, gen)
                 outs.append(probs)
                 # The chunks' results come back together, below.
                 self._g_in_flight.set(len(outs))
@@ -763,9 +775,8 @@ class ServingEngine:
                     sums.append(chunk_sums)
                 with self._count_lock:
                     self.chunks_dispatched += 1
-            t0 = time.perf_counter()
-            probs = torch.cat(outs, dim=1).cpu().numpy()
-            self._h_device_get.observe(time.perf_counter() - t0)
+            with span("serve.engine.device_get_s", self.registry):
+                probs = torch.cat(outs, dim=1).cpu().numpy()
             self._g_in_flight.set(0)
             stats = None
             if self.fused:

@@ -21,15 +21,14 @@ mix models, and ``score_mixed`` scores them:
 
 Every row keeps its place and is attributed to its model's generation.
 The fused path bypasses ``probs_with_generation``, so ``_observe_fused``
-replays its hooks on each model's slice: the shadow sampler, the quality
-monitor (fed the slice's B4 statistics, so a tenant's drift windows are
-the same fused or not) and the canary, on the pinned generation.
+replays its hooks on each model's slice: the pinned generation's row
+counter (``serve.gen{N}.rows``), the shadow sampler, the quality monitor
+(fed the slice's B4 statistics, so a tenant's drift windows are the same
+fused or not) and the canary, on the pinned generation.
 
 A fused bin runs at the bin's bucket, not each tenant's: a tenant's rows
 can run at a larger shape than its own call would use, so bitwise
-equality with a tenant's direct rows holds at one bucket. The reference's
-per-generation row counters (``gen.c_rows``) are left out with their
-plane.
+equality with a tenant's direct rows holds at one bucket.
 """
 
 from __future__ import annotations
@@ -239,10 +238,14 @@ def _score_fused(engines_by_model, rows, spans, models, bucket, cache):
 
 def _observe_fused(engine, gen, images, scores, stats) -> None:
     """The hooks ``probs_with_generation`` would have fed, on one model's
-    slice of a fused bin: ``last_input_stats``, the shadow sampler, the
-    quality monitor with the slice's B4 statistics, and the canary,
-    scored on the same pinned generation (so canary traffic never enters
-    the drift windows and never spans a concurrent reload)."""
+    slice of a fused bin: the pinned generation's row counter,
+    ``last_input_stats``, the shadow sampler, the quality monitor with the
+    slice's B4 statistics, and the canary, scored on the same pinned
+    generation (so canary traffic never enters the drift windows and
+    never spans a concurrent reload)."""
+    c_rows = getattr(gen, "c_rows", None)
+    if c_rows is not None:
+        c_rows.inc(int(images.shape[0]))
     if stats is not None:
         engine.last_input_stats = stats
     sh = getattr(engine, "_shadow", None)

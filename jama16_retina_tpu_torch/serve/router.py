@@ -34,9 +34,16 @@ share one :class:`EscalationPool` of full-ensemble engines, which sees
 only the escalated (or speculated) rows.
 
 The counters, gauges and histograms take the reference's names and help
-strings, on the port's registry. Left out with their planes (ROADMAP
-item 11): the trace spans and contexts, the ``serve.router.dispatch``
-fault site, the latency exemplars and the ``audit`` hook.
+strings, on the port's registry. Each request carries a trace context
+from submit: a bin of one request's rows installs it as the replica
+worker's ambient context (so an escalation below it is stamped with its
+trace id), and a bin of several requests' rows names every part in one
+``serve.router.bin.parts`` event. The latency histogram's exemplar is
+the trace id, and with the tracer on a request's latency splits into
+``serve.router.request.{queue_wait,device,resolve}``; each dispatch tick
+is a ``serve.router.tick_s`` span. Left out with their planes (ROADMAP
+item 11, parts 2 and 5): the ``serve.router.dispatch`` fault site and
+the ``audit`` hook.
 """
 
 from __future__ import annotations
@@ -51,6 +58,8 @@ from concurrent.futures import Future, InvalidStateError
 import numpy as np
 
 from jama16_retina_tpu_torch.obs import registry as obs_registry
+from jama16_retina_tpu_torch.obs import trace as obs_trace
+from jama16_retina_tpu_torch.obs.spans import span
 from jama16_retina_tpu_torch.serve import scaler as scaler_lib
 from jama16_retina_tpu_torch.serve.batcher import DeadlineExceeded, Overloaded
 from jama16_retina_tpu_torch.serve.engine import resolve_buckets
@@ -88,7 +97,8 @@ class EscalationPool:
     means rows escalated with speculation on or off."""
 
     def __init__(self, engines,
-                 registry: "obs_registry.Registry | None" = None):
+                 registry: "obs_registry.Registry | None" = None,
+                 tracer: "obs_trace.Tracer | None" = None):
         if not engines:
             raise ValueError("EscalationPool needs at least one engine")
         self._engines = list(engines)
@@ -96,6 +106,8 @@ class EscalationPool:
         self._lock = threading.Lock()
         self._registry = (registry if registry is not None
                           else obs_registry.default_registry())
+        self._tracer = (tracer if tracer is not None
+                        else obs_trace.default_tracer())
         self._c_rows = self._registry.counter(
             "serve.router.escalations",
             help="rows escalated through the shared full-ensemble pool "
@@ -138,8 +150,17 @@ class EscalationPool:
             # every speculated row, and under-charging would steer other
             # escalations onto it.
             self._in_flight[idx] += n
+        # The replica worker's ambient context names the request that pays
+        # for the escalation, two layers below its submit.
+        ctx = obs_trace.current_context()
+        args = {"rows": n, "pool_member": idx}
+        if speculative:
+            args["speculative"] = True
+        if ctx is not None:
+            args["trace_id"] = ctx.trace_id
         try:
-            out = self._engines[idx].probs(images)
+            with self._tracer.trace("serve.router.escalate", args=args):
+                out = self._engines[idx].probs(images)
         finally:
             with self._lock:
                 self._in_flight[idx] -= n
@@ -222,8 +243,9 @@ class _Request:
     bins complete into."""
 
     __slots__ = ("rows", "n", "priority", "model", "future", "t_submit",
-                 "t_deadline", "offset", "parts", "parts_done", "results",
-                 "segments", "failed")
+                 "t_deadline", "ctx", "trace_id", "offset", "parts",
+                 "parts_done", "results", "segments", "failed",
+                 "t_first_score", "t_done_score")
 
     def __init__(self, rows: np.ndarray, priority: str,
                  t_deadline: "float | None", model: str = "default"):
@@ -234,12 +256,19 @@ class _Request:
         self.future: Future = Future()
         self.t_submit = time.monotonic()
         self.t_deadline = t_deadline
+        # Minted at submit; the latency exemplar and every event of the
+        # request carry its id.
+        self.ctx = obs_trace.new_context()
+        self.trace_id = self.ctx.trace_id
         self.offset = 0        # rows binned so far (router lock)
         self.parts = 0         # bins carrying this request's rows
         self.parts_done = 0
         self.results: dict = {}    # request-row offset -> scored rows
         self.segments: list = []   # attribution, in completion order
         self.failed = False
+        # Monotonic start of its first bin's scoring, end of its last.
+        self.t_first_score: "float | None" = None
+        self.t_done_score: "float | None" = None
 
 
 class _Bin:
@@ -453,7 +482,8 @@ class Router:
             help="routed end-to-end request latency: submit -> future "
                  "resolved (all bins reassembled)",
         )
-        self._h_tick = reg.histogram(
+        # Registered here with its help; the tick loop's span reuses it.
+        reg.histogram(
             "serve.router.tick_s",
             help="dispatch-tick duration: deadline sweep + re-binning "
                  "+ replica selection for one tick",
@@ -676,24 +706,25 @@ class Router:
                     self._work.wait(timeout=self._tick_s)
                 if self._closed and not self._queued_rows:
                     return
-            t_tick = time.perf_counter()
-            assignments = []
-            with self._work:
-                try:
-                    self._expire_deadlines_locked(time.monotonic())
-                    assignments = self._pack_locked(time.monotonic())
-                except Exception as e:  # noqa: BLE001 - the tick survives
-                    # A pack failure fails the queued requests and the
-                    # loop lives on: a dead tick would hang every future.
-                    _log.exception("router pack failed; failing queued "
-                                   "requests")
-                    self._fail_all_queued_locked(e)
-                self._scaler_sample_locked()
-                # Enqueued under the lock, so a replica chosen above cannot
-                # fail and drain its queue before its bin lands there.
-                for rep, b in assignments:
-                    rep.queue.put(b)
-            self._h_tick.observe(time.perf_counter() - t_tick)
+            with span("serve.router.tick_s", self.registry):
+                assignments = []
+                with self._work:
+                    try:
+                        self._expire_deadlines_locked(time.monotonic())
+                        assignments = self._pack_locked(time.monotonic())
+                    except Exception as e:  # noqa: BLE001 - tick survives
+                        # A pack failure fails the queued requests and the
+                        # loop lives on: a dead tick would hang every
+                        # future.
+                        _log.exception("router pack failed; failing "
+                                       "queued requests")
+                        self._fail_all_queued_locked(e)
+                    self._scaler_sample_locked()
+                    # Enqueued under the lock, so a replica chosen above
+                    # cannot fail and drain its queue before its bin lands
+                    # there.
+                    for rep, b in assignments:
+                        rep.queue.put(b)
             try:
                 self._maybe_scale()
             except Exception:  # noqa: BLE001 - the tick survives
@@ -902,8 +933,27 @@ class Router:
             if item is _STOP:
                 return
             b: _Bin = item
+            t0 = time.monotonic()
+            # A bin of one request's rows makes its context the worker's
+            # ambient one (an escalation below is stamped with it); a bin
+            # of several has none to claim and names its parts instead.
+            ctxs = {id(req): req.ctx for req, _lo, _hi in b.parts}
+            bin_ctx = next(iter(ctxs.values())) if len(ctxs) == 1 else None
             try:
-                out, gens = self._score_bin(rep, b)
+                t_score0 = time.perf_counter()
+                with obs_trace.use_context(bin_ctx):
+                    out, gens = self._score_bin(rep, b)
+                tr = obs_trace.default_tracer()
+                if tr.enabled and len(ctxs) > 1:
+                    tr.complete(
+                        "serve.router.bin.parts", t_score0,
+                        time.perf_counter(),
+                        args={"replica": rep.rid,
+                              "rows": int(b.rows.shape[0]),
+                              "parts": [{"trace_id": req.trace_id,
+                                         "model": req.model,
+                                         "lo": req_lo, "hi": req_hi}
+                                        for req, req_lo, req_hi in b.parts]})
                 if out.shape[0] != b.rows.shape[0]:
                     raise RuntimeError(
                         f"replica {rep.rid} returned {out.shape[0]} rows "
@@ -919,7 +969,7 @@ class Router:
                 if rep.state == FAILED:
                     return
                 continue
-            self._complete_bin(rep, b, out, gens)
+            self._complete_bin(rep, b, out, gens, t0)
 
     def _score_bin(self, rep: "_Replica",
                    b: "_Bin") -> "tuple[np.ndarray, dict]":
@@ -988,9 +1038,10 @@ class Router:
                 pass
 
     def _complete_bin(self, rep: "_Replica", b: "_Bin",
-                      out: np.ndarray, gens: dict) -> None:
+                      out: np.ndarray, gens: dict, t0: float) -> None:
         n = int(b.rows.shape[0])
         done = []
+        t_done = time.monotonic()
         with self._work:
             rep.in_flight_rows -= n
             rep.g_in_flight.set(rep.in_flight_rows)
@@ -1004,6 +1055,8 @@ class Router:
                 seg = out[lo:lo + (req_hi - req_lo)]
                 lo += req_hi - req_lo
                 req.results[req_lo] = seg
+                if req.t_first_score is None or t0 < req.t_first_score:
+                    req.t_first_score = t0
                 req.segments.append({
                     "lo": req_lo, "hi": req_hi, "model": req.model,
                     "replica": rep.rid,
@@ -1012,12 +1065,14 @@ class Router:
                 req.parts_done += 1
                 if (req.offset >= req.n and req.parts_done == req.parts
                         and not req.failed):
+                    req.t_done_score = t_done
                     done.append(req)
             self._maybe_finish_drain_locked(rep)
             self._work.notify_all()
         rep.c_rows.inc(n)
         rep.c_dispatches.inc()
         now = time.monotonic()
+        tr = obs_trace.default_tracer()
         for req in done:
             pieces = [req.results[k] for k in sorted(req.results)]
             result = pieces[0] if len(pieces) == 1 else np.concatenate(pieces)
@@ -1026,7 +1081,18 @@ class Router:
             try:
                 req.future.set_result(result)
                 lat = now - req.t_submit
-                self._h_latency.observe(lat)
+                self._h_latency.observe(lat, exemplar=req.trace_id)
+                if tr.enabled:
+                    # Three segments tiling [t_submit, now) on the
+                    # latency's own clock.
+                    args = {"trace_id": req.trace_id, "rows": req.n,
+                            "priority": req.priority}
+                    tr.complete("serve.router.request.queue_wait",
+                                req.t_submit, req.t_first_score, args)
+                    tr.complete("serve.router.request.device",
+                                req.t_first_score, req.t_done_score, args)
+                    tr.complete("serve.router.request.resolve",
+                                req.t_done_score, now, args)
                 with self._work:
                     self._window_lat.append(lat)
             except InvalidStateError:

@@ -56,6 +56,7 @@ from jama16_retina_tpu_torch import configs, models, optim
 from jama16_retina_tpu_torch.configs import ExperimentConfig, TrainConfig
 from jama16_retina_tpu_torch.data import augment
 from jama16_retina_tpu_torch.models import common, convert, init
+from jama16_retina_tpu_torch.obs import registry as obs_registry
 from jama16_retina_tpu_torch.serve.engine import ServingEngine
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
@@ -464,8 +465,13 @@ def make_eval_step(cfg: ExperimentConfig, state: TrainState,
     ``models.head_probs``. It is the serving engine's forward over one
     member, made from a snapshot of the state; padding rows are scored
     and left for the caller to trim, as in the reference."""
+    # Evals are not serving traffic: a detached registry keeps serve.*
+    # metrics out of the run's telemetry (the reference's eval step
+    # records none), and an engine handed a registry leaves the process
+    # tracer as the fit configured it.
     engine = ServingEngine(cfg, state_dicts=[eval_params(state)],
-                           device=device)
+                           device=device,
+                           registry=obs_registry.Registry(enabled=False))
     return lambda images: engine.member_probs(images)[0]
 
 
@@ -754,5 +760,6 @@ def make_ensemble_eval_step(cfg: ExperimentConfig, state: EnsembleState,
     eval_cfg = cfg.replace(serve=dataclasses.replace(
         cfg.serve, member_parallel=True, dtype="fp32"))
     engine = ServingEngine(eval_cfg, state_dicts=eval_state_dicts(state),
-                           device=device)
+                           device=device,
+                           registry=obs_registry.Registry(enabled=False))
     return engine.member_probs

@@ -21,6 +21,19 @@ are scored through them in eval mode (the plain normalize, as the
 reference's teacher normalizes), and their float32 average rides the
 batch under ``"soft"``, which ``train_lib.loss_fn`` trains against.
 
+Both fits wire the ``obs`` planes as the reference's loops do: the
+process registry and tracer are run-scoped at the start
+(``_obs_begin_run``), the ``StallClock`` feeds the ``train`` records'
+``*_sec`` fields and the ``trainer.*`` histograms and timeline, a
+``Snapshotter`` writes ``telemetry`` and ``heartbeat`` records and
+``telemetry.prom`` into the run's workdir with the alert rules the config
+implies, and a ``FlightRecorder`` watches each step's time and loss and
+dumps a blackbox on an exception or a signal (SIGTERM becomes a
+``SystemExit``, so it takes the preemption save). ``train.profile_steps``
+opens a ``torch.profiler`` window (``_ProfilerWindow``),
+``train.tensorboard`` mirrors the records into ``<workdir>/tb`` and
+``train.debug`` runs each step under autograd's anomaly mode.
+
 ``fit_synthetic`` is the in-memory form: ``train.steps`` steps on rendered
 fundus images held on the device, the eval params written as a member dir
 (``<workdir>/params.npz``). It times the step without the input stream.
@@ -45,8 +58,13 @@ from jama16_retina_tpu_torch import train_lib
 from jama16_retina_tpu_torch.data import augment, pipeline, synthetic, tfrecord
 from jama16_retina_tpu_torch.eval import metrics
 from jama16_retina_tpu_torch.models import convert, init
+from jama16_retina_tpu_torch.obs import alerts as obs_alerts
+from jama16_retina_tpu_torch.obs import export as obs_export
+from jama16_retina_tpu_torch.obs import flightrec as obs_flightrec
 from jama16_retina_tpu_torch.obs import quality as quality_lib
 from jama16_retina_tpu_torch.obs import registry as obs_registry
+from jama16_retina_tpu_torch.obs import trace as obs_trace
+from jama16_retina_tpu_torch.obs.spans import StallClock
 from jama16_retina_tpu_torch.serve.engine import ServingEngine
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 from jama16_retina_tpu_torch.utils.logging import RunLog, read_jsonl
@@ -567,43 +585,197 @@ class _ThroughputClock:
         return out
 
 
-class _StallClock:
-    """Where a log window's wall time went: ``input`` (waiting for the
-    next batch), ``dispatch`` (the step's host time), ``pause`` (eval),
-    ``save`` (checkpoint writes) and the rest, summing to ``window_sec``."""
+def _obs_begin_run(cfg: configs.ExperimentConfig) -> obs_registry.Registry:
+    """Run-scope the process registry and tracer (the reference's
+    ``_obs_begin_run``): this run's ``obs.enabled`` and trace knobs, every
+    metric zeroed in place and every ring cleared, before the stream
+    registers its metrics, so members fit one after another in one
+    process do not carry each other's counts or events. No fault plan is
+    armed (ROADMAP item 11, part 2)."""
+    reg = obs_registry.default_registry()
+    reg.enabled = cfg.obs.enabled
+    reg.reset()
+    obs_trace.default_tracer().configure(
+        enabled=cfg.obs.enabled and cfg.obs.trace_enabled,
+        buffer_events=cfg.obs.trace_buffer_events)
+    return reg
 
-    KINDS = ("input", "dispatch", "pause", "save")
 
-    def __init__(self):
-        self._window_start = time.perf_counter()
-        self._acc = dict.fromkeys(self.KINDS, 0.0)
+def _telemetry_for(cfg: configs.ExperimentConfig, log: RunLog, workdir: str,
+                   flight=None):
+    """(registry, StallClock, Snapshotter or None) of one train loop. The
+    stall clock feeds the ``trainer.*`` histograms only when obs is on;
+    the snapshotter writes into the run's own RunLog, with the alert rules
+    the config implies wired to the run's flight recorder."""
+    reg = obs_registry.default_registry()
+    stalls = StallClock(reg if cfg.obs.enabled else None)
+    snap = None
+    if cfg.obs.enabled:
+        rules = (obs_alerts.quality_rules(cfg.obs.quality)
+                 + obs_alerts.reliability_rules(cfg))
+        alerts = (obs_alerts.AlertManager(rules, registry=reg, flight=flight)
+                  if rules else None)
+        snap = obs_export.Snapshotter(reg, workdir, runlog=log,
+                                      every_s=cfg.obs.flush_every_s,
+                                      alerts=alerts)
+    return reg, stalls, snap
 
-    @contextlib.contextmanager
-    def measure(self, kind: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._acc[kind] += time.perf_counter() - t0
 
-    def add(self, kind: str, seconds: float) -> None:
-        self._acc[kind] += seconds
+def _flight_for(cfg: configs.ExperimentConfig, workdir: str,
+                profiler: "_ProfilerWindow | None" = None):
+    """The run's FlightRecorder, or None when obs is off: dumps carry this
+    run's config, and the anomaly capture goes through the run's
+    ``_ProfilerWindow``."""
+    if not cfg.obs.enabled:
+        return None
+    slow = cfg.obs.slow_step_factor
+    return obs_flightrec.FlightRecorder(
+        workdir, config=dataclasses.asdict(cfg),
+        registry=obs_registry.default_registry(),
+        tracer=obs_trace.default_tracer(),
+        blackbox_events=cfg.obs.blackbox_events,
+        slow_step_factor=(slow if slow > 0 else float("inf")),
+        profile_hook=(profiler.arm if profiler is not None else None),
+        blackbox_keep=cfg.obs.blackbox_keep,
+        diagnosis=cfg.obs.diagnosis_enabled,
+        diagnosis_top_k=cfg.obs.diagnosis_top_k)
 
-    def fields(self) -> dict:
-        now = time.perf_counter()
-        wall = now - self._window_start
-        other = max(0.0, wall - sum(self._acc.values()))
-        out = {
-            "window_sec": round(wall, 4),
-            "input_wait_sec": round(self._acc["input"], 4),
-            "dispatch_sec": round(self._acc["dispatch"], 4),
-            "pause_sec": round(self._acc["pause"], 4),
-            "save_sec": round(self._acc["save"], 4),
-            "other_sec": round(other, 4),
-        }
-        self._window_start = now
-        self._acc = dict.fromkeys(self.KINDS, 0.0)
-        return out
+
+def _start_trace(dev: torch.device):
+    """A running ``torch.profiler`` session (host and, on the card, CUDA
+    activity)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_trace(prof, path: str, dev: torch.device) -> None:
+    """Synchronize the device (the reference's ``block_until_ready``), stop
+    the session and write its Chrome trace to ``path``."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    prof.stop()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+
+
+class _ProfilerWindow:
+    """The ``torch.profiler`` capture window of both train loops (the
+    reference's ``_ProfilerWindow``), opened two ways:
+
+      * ``train.profile_steps`` > 0: planned at construction, starting 10
+        steps in when the run is long enough, clamped inside a short run,
+        a ``profile_skipped`` record when none fits;
+      * ``arm(n)``: a capture of n steps from the next step, the flight
+        recorder's hook on a NaN or slow step; refused while a capture is
+        open or another is pending.
+
+    A capture lands in ``<workdir>/profile/steps_<a>-<b>.pt.trace.json``
+    (Chrome trace) with a ``profile`` record; ``finalize`` closes one left
+    open (``steps: "truncated"``), so no session leaks into the next fit.
+    Do not open one inside another ``torch.profiler`` session."""
+
+    def __init__(self, cfg: configs.ExperimentConfig, log: RunLog,
+                 workdir: str, start_step: int,
+                 dev: "str | torch.device"):
+        self._dir = os.path.join(workdir, "profile")
+        self._steps = cfg.train.profile_steps
+        self._log = log
+        self._dev = torch.device(dev)
+        self._start, self._stop = -1, -1
+        self._prof = None
+        self._opened_at = -1
+        self._seen = start_step  # the newest step begun
+        self._fixed_done = False
+        self._arm = 0
+        self._n_capture = 0
+        self._trigger: "str | None" = None
+        if self._steps > 0:
+            remaining = cfg.train.steps - start_step
+            if remaining < self._steps:
+                log.write("profile_skipped", reason=(
+                    f"only {remaining} steps remain, profile_steps="
+                    f"{self._steps} does not fit"))
+            else:
+                self._start = min(start_step + 10,
+                                  cfg.train.steps - self._steps)
+                self._stop = self._start + self._steps
+
+    @property
+    def _tracing(self) -> bool:
+        return self._prof is not None
+
+    def arm(self, steps: int = 5) -> bool:
+        if self._tracing or self._arm > 0:
+            return False
+        self._arm = max(1, int(steps))
+        return True
+
+    def _open(self, step_i: int, n: int, trigger: "str | None") -> None:
+        self._prof = _start_trace(self._dev)
+        self._opened_at = step_i
+        self._stop = step_i + n
+        self._n_capture = n
+        self._trigger = trigger
+
+    def _close(self, last_step: int) -> None:
+        prof, self._prof = self._prof, None
+        _stop_trace(prof, os.path.join(
+            self._dir, f"steps_{self._opened_at}-{last_step}.pt.trace.json"),
+            self._dev)
+
+    def before_step(self, step_i: int) -> None:
+        self._seen = step_i
+        # The planned window opens at the first free step boundary at or
+        # after its start: an anomaly capture open then defers it.
+        if (self._start >= 0 and step_i >= self._start
+                and not self._fixed_done and not self._tracing):
+            self._fixed_done = True
+            self._open(step_i, self._steps, None)
+        elif self._arm > 0 and not self._tracing:
+            n, self._arm = self._arm, 0
+            self._open(step_i, n, "anomaly")
+
+    def after_step(self, step_i: int) -> None:
+        if self._tracing and step_i + 1 >= self._stop:
+            self._close(step_i)
+            extra = {"trigger": self._trigger} if self._trigger else {}
+            self._log.write("profile", dir=self._dir, steps=self._n_capture,
+                            **extra)
+
+    def finalize(self) -> None:
+        if self._tracing:
+            self._close(self._seen)
+            self._log.write("profile", dir=self._dir, steps="truncated")
+
+
+def _debug_step(step_fn, step: int):
+    """One step under ``train.debug``, the counterpart of the reference's
+    ``jax_debug_nans``: the step runs under autograd's anomaly mode with
+    its NaN check, the prior mode restored after; a NaN in the backward,
+    or a non-finite loss from the forward, raises ``FloatingPointError``
+    naming the step. The loss check reads the loss, so a debug step
+    synchronizes the device."""
+    prev = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+    torch.autograd.set_detect_anomaly(True, check_nan=True)
+    try:
+        loss = step_fn()
+    except RuntimeError as e:
+        if "nan" not in str(e).lower():
+            raise
+        raise FloatingPointError(
+            f"train.debug: invalid value (nan) in the backward of step "
+            f"{step}: {e}") from e
+    finally:
+        torch.autograd.set_detect_anomaly(*prev)
+    if not bool(torch.isfinite(loss).all()):
+        raise FloatingPointError(
+            f"train.debug: invalid value in the loss of step {step}: "
+            f"{loss.detach().cpu().tolist()}")
+    return loss
 
 
 def _load_or_write_run_meta(workdir: str, seed: int, cfg_name: str,
@@ -658,7 +830,8 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
     cfg = train_lib.resolve_large_batch(
         cfg.replace(train=dataclasses.replace(tc, seed=seed)))
     tc = cfg.train
-    log = RunLog(workdir, METRICS_FILE, fresh=not tc.resume)
+    log = RunLog(workdir, METRICS_FILE, tensorboard=tc.tensorboard,
+                 fresh=not tc.resume)
     log.write("config", name=cfg.name, seed=seed, n_devices=1)
     curve_gate = _DtypeCurveGate(cfg)
 
@@ -692,6 +865,7 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
 
     overlap = tc.eval_overlap
     saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
+    _obs_begin_run(cfg)  # before the stream registers its metrics
     # One batch per completed step: a resumed stream continues exactly
     # where the interrupted one stopped.
     depth = cfg.data.prefetch_batches
@@ -699,8 +873,10 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
         data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
         skip_batches=start_step, pin_memory=dev.type == "cuda" and depth == 0,
         readers=cfg.data.readers), dev, depth)
+    profiler = _ProfilerWindow(cfg, log, workdir, start_step, dev)
+    flight = _flight_for(cfg, workdir, profiler)
+    _, stalls, snap = _telemetry_for(cfg, log, workdir, flight=flight)
     clock = _ThroughputClock(cfg.data.batch_size)
-    stalls = _StallClock()
     stopped_early = False
     save_stall = [0.0]
     last_step = start_step
@@ -782,8 +958,12 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
         return out["saved"]
 
     try:
+        if flight is not None:
+            flight.install_signal_handlers()
         try:
             for step_i in range(start_step, tc.steps):
+                t_step = time.perf_counter()
+                profiler.before_step(step_i)
                 with stalls.measure("input"):
                     batch = next(stream)
                     if teacher is not None:
@@ -792,13 +972,33 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                 # interrupt inside it leaves no step's state to save.
                 in_step = True
                 with stalls.measure("dispatch"):
-                    loss = train_lib.train_step(state, batch, cfg)
+                    if tc.debug:
+                        loss = _debug_step(lambda: train_lib.train_step(
+                            state, batch, cfg), step_i + 1)
+                    else:
+                        loss = train_lib.train_step(state, batch, cfg)
                 last_step = step_i + 1
                 in_step = False
                 clock.after_step()
+                if snap is not None:
+                    snap.progress(step_i + 1)
+                # The step's time stops before a closing capture, whose
+                # device sync is a pause, not a slow step.
+                dt_step = time.perf_counter() - t_step
+                profiler.after_step(step_i)
+                if flight is not None:
+                    flight.progress(step_i + 1)
+                    flight.note_step_time(dt_step, step=step_i + 1)
                 if (step_i + 1) % tc.log_every == 0:
-                    log.write("train", step=step_i + 1, loss=float(loss),
+                    loss = float(loss)
+                    if flight is not None:
+                        # On the loss the record reads anyway: no sync of
+                        # its own.
+                        flight.note_loss(loss, step=step_i + 1)
+                    log.write("train", step=step_i + 1, loss=loss,
                               **clock.fields(), **stalls.fields())
+                    if snap is not None:
+                        snap.maybe_flush()
                 # A finished overlapped eval is collected the step after
                 # it lands: its early stop or curve refusal fires at most
                 # one step late.
@@ -842,9 +1042,12 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                     stopped_early = True
                     break
         except BaseException as e:
-            # SIGINT (and the flight recorder's SIGTERM, not ported)
-            # arrive as KeyboardInterrupt/SystemExit: the host is wanted
-            # back, and a last resume point is worth a save.
+            # The blackbox first. SIGINT, and SIGTERM through the flight
+            # recorder's handlers, arrive as KeyboardInterrupt/SystemExit:
+            # the host is wanted back, and a last resume point is worth a
+            # save.
+            if flight is not None:
+                flight.record_exception(e)
             if (isinstance(e, (SystemExit, KeyboardInterrupt))
                     and last_step > start_step):
                 # Do not wait for an overlapped eval; settle the queued
@@ -866,6 +1069,11 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                 else:
                     _preempt_save(log, last_step, preempt_save_latest)
             raise
+        finally:
+            # No capture or signal handler outlives the loop.
+            profiler.finalize()
+            if flight is not None:
+                flight.uninstall_signal_handlers()
         # The tail: an overlapped last eval and the queued saves land
         # before the run returns; their failures surface here.
         if eval_job is not None:
@@ -877,6 +1085,8 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
         if cfg.obs.quality.profile_out:
             _emit_quality_profile(cfg, data_dir, lambda: predict_val(state),
                                   log)
+        if snap is not None:
+            snap.close()  # the final telemetry and heartbeat
     finally:
         stream.close()
         if saver is not None:
@@ -1055,7 +1265,8 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
     os.makedirs(workdir, exist_ok=True)
     with open(marker, "w") as f:
         f.write("workdir written by trainer.fit_ensemble_parallel\n")
-    log = RunLog(workdir, METRICS_FILE, fresh=not tc.resume)
+    log = RunLog(workdir, METRICS_FILE, tensorboard=tc.tensorboard,
+                 fresh=not tc.resume)
     log.write("config", name=cfg.name, seed=seed, ensemble_parallel=True,
               n_members=k, n_devices=1)
     curve_gate = _DtypeCurveGate(cfg)
@@ -1090,13 +1301,16 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
 
     overlap = tc.eval_overlap
     saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
+    _obs_begin_run(cfg)
     depth = cfg.data.prefetch_batches
     stream = pipeline.DevicePrefetch(pipeline.train_batches(
         data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
         skip_batches=start_step, pin_memory=dev.type == "cuda" and depth == 0,
         readers=cfg.data.readers), dev, depth)
+    profiler = _ProfilerWindow(cfg, log, workdir, start_step, dev)
+    flight = _flight_for(cfg, workdir, profiler)
+    _, stalls, snap = _telemetry_for(cfg, log, workdir, flight=flight)
     clock = _ThroughputClock(cfg.data.batch_size)
-    stalls = _StallClock()
     stopped_early = False
     save_stall = [0.0]
     last_step = start_step
@@ -1195,23 +1409,44 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
         return out["saved"]
 
     try:
+        if flight is not None:
+            flight.install_signal_handlers()
         try:
             for step_i in range(start_step, tc.steps):
+                t_step = time.perf_counter()
+                profiler.before_step(step_i)
                 with stalls.measure("input"):
                     batch = next(stream)
                 in_step = True
                 with stalls.measure("dispatch"):
-                    losses = train_lib.ensemble_train_step(state, batch, cfg)
+                    if tc.debug:
+                        losses = _debug_step(
+                            lambda: train_lib.ensemble_train_step(
+                                state, batch, cfg), step_i + 1)
+                    else:
+                        losses = train_lib.ensemble_train_step(state, batch,
+                                                               cfg)
                 last_step = step_i + 1
                 in_step = False
                 clock.after_step()
+                if snap is not None:
+                    snap.progress(step_i + 1)
+                dt_step = time.perf_counter() - t_step
+                profiler.after_step(step_i)
+                if flight is not None:
+                    flight.progress(step_i + 1)
+                    flight.note_step_time(dt_step, step=step_i + 1)
                 if (step_i + 1) % tc.log_every == 0:
                     per = losses.detach().cpu().numpy()
+                    if flight is not None:
+                        flight.note_loss(per, step=step_i + 1)
                     log.write("train", step=step_i + 1,
                               loss=round(float(per.mean()), 6),
                               loss_per_member=[round(float(x), 6)
                                                for x in per],
                               **clock.fields(), **stalls.fields())
+                    if snap is not None:
+                        snap.maybe_flush()
                 if eval_job is not None and eval_job.done():
                     best_auc, best_step, since_best, stop = eval_job.result()
                     eval_job = None
@@ -1249,6 +1484,8 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
                     stopped_early = True
                     break
         except BaseException as e:
+            if flight is not None:
+                flight.record_exception(e)
             if (isinstance(e, (SystemExit, KeyboardInterrupt))
                     and last_step > start_step):
                 preempted.set()
@@ -1267,6 +1504,10 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
                     # Every member in lock-step, as the eval-time save.
                     _preempt_save(log, last_step, preempt_save_latest)
             raise
+        finally:
+            profiler.finalize()
+            if flight is not None:
+                flight.uninstall_signal_handlers()
         if eval_job is not None:
             best_auc, best_step, since_best, stop = eval_job.result()
             eval_job = None
@@ -1281,6 +1522,8 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
 
             with torch.no_grad():
                 _emit_quality_profile(cfg, data_dir, ensemble_predict, log)
+        if snap is not None:
+            snap.close()
     finally:
         stream.close()
         if saver is not None:

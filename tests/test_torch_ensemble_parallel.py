@@ -272,8 +272,10 @@ def test_fit_ensemble_parallel_end_to_end(data_dir, tmp_path, items):
     res = trainer.fit_ensemble(_cfg(*items), data_dir, wd, device="cpu")
     assert [r["member"] for r in res] == [0, 1]
     assert all(r["best_step"] in (2, 4) for r in res)
+    # telemetry.prom: the run's Snapshotter, as the reference's writes.
     assert sorted(os.listdir(wd)) == [".member_parallel", "member_00",
-                                      "member_01", trainer.METRICS_FILE]
+                                      "member_01", trainer.METRICS_FILE,
+                                      "telemetry.prom"]
     for m in range(2):
         mdir = ckpt_lib.member_dir(wd, m)
         with open(os.path.join(mdir, "run_meta.json")) as f:

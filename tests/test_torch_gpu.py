@@ -690,3 +690,54 @@ def test_a_fused_bin_of_two_299px_tenants_launches_b4_once(cuda):
     assert not np.array_equal(ref_a, ref_b)
     np.testing.assert_array_equal(out[:4], ref_a)
     np.testing.assert_array_equal(out[4:], ref_b)
+
+
+def _profiled_kernel_names(trace_path) -> set:
+    import json
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "kernel"}
+
+
+@pytest.mark.gpu
+def test_profiler_windows_and_telemetry_of_full_width_fits(cuda, tmp_path):
+    """Two 3-step ``eyepacs_binary`` fits at full width (Inception-v3, 299
+    px, batch 32) with the obs planes on: the fused fit's planned
+    profiler window captures B2 and B3 in its Chrome trace, the preset
+    fit's captures B1; each run writes a telemetry and a heartbeat record
+    a flush, a parseable telemetry.prom and the trainer's histograms."""
+    import json
+    import os
+    import re
+
+    from jama16_retina_tpu_torch import configs, trainer
+    from jama16_retina_tpu_torch.data import tfrecord
+
+    data = str(tmp_path / "data")
+    for split, n, seed in (("train", 96, 1), ("val", 32, 2)):
+        tfrecord.write_synthetic_split(data, split, n, 299, num_shards=2,
+                                       seed=seed)
+    want = {"fused": {"normalize_color_jitter", "adamw_kernel"},
+            "preset": {"color_jitter_kernel"}}
+    for form, extra in (("fused", ["train.use_pallas_fused=true"]),
+                        ("preset", [])):
+        wd = tmp_path / form
+        cfg = configs.override(configs.get_config("eyepacs_binary"), [
+            "train.steps=3", "train.eval_every=3", "train.log_every=1",
+            "train.profile_steps=1", "obs.flush_every_s=0",
+            "eval.batch_size=32", *extra])
+        trainer.fit(cfg, data, str(wd), device="cuda")
+        [trace] = os.listdir(wd / "profile")
+        names = _profiled_kernel_names(wd / "profile" / trace)
+        assert all(any(re.search(rf"(?<![A-Za-z0-9_]){k}", n)
+                       for n in names) for k in want[form]), (
+            form, sorted(names)[:40])
+        recs = [json.loads(line) for line in open(wd / "metrics.jsonl")]
+        kinds = [r["kind"] for r in recs]
+        assert kinds.count("telemetry") == kinds.count("heartbeat") >= 3
+        assert [r for r in recs if r["kind"] == "profile"][0]["steps"] == 1
+        tele = [r for r in recs if r["kind"] == "telemetry"][-1]
+        assert tele["histograms"]["trainer.dispatch_s"]["count"] == 3
+        prom = (wd / "telemetry.prom").read_text()
+        assert "# TYPE trainer_dispatch_s histogram" in prom

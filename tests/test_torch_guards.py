@@ -46,13 +46,17 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # train, ops/color_jitter, ops/adamw, models/init), the fit and
     # evaluate slice's (data/tfrecord, data/pipeline, utils/logging,
     # evaluate), the serving knobs' (obs, integrity, serve/quantize,
-    # serve/batcher) and the optimizer families' (optim; the ensemble
-    # code lives in train_lib and trainer) included.
-    assert int(n_modules) >= 32
+    # serve/batcher), the optimizer families' (optim; the ensemble
+    # code lives in train_lib and trainer) and the telemetry planes'
+    # (obs/trace, spans, export, criticalpath, flightrec, alerts)
+    # included.
+    assert int(n_modules) >= 38
     assert {f"jama16_retina_tpu_torch.{m}" for m in (
         "obs.registry", "obs.quality", "integrity.artifact",
         "serve.quantize", "serve.batcher", "optim", "train_lib",
-        "trainer")} <= set(names.split())
+        "trainer", "obs.trace", "obs.spans", "obs.export",
+        "obs.criticalpath", "obs.flightrec", "obs.alerts")
+        } <= set(names.split())
     assert bad.strip() == "[]"
 
 
@@ -273,8 +277,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("item,exc", [
-    ("obs.quality.alert_rules=quality.score_psi > 0.3", NotImplementedError),
-    ("obs.quality.alert_for_s=60", NotImplementedError),
+    ("obs.quarantine_alert_per_s=2", NotImplementedError),
+    ("obs.device_hbm_headroom_alert=0.2", NotImplementedError),
     ("serve.compile_cache_dir=/x", NotImplementedError),
     ("model.stem_s2d=true", NotImplementedError),
     ("model.remat_stem=true", NotImplementedError),
@@ -339,8 +343,11 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
         items[key] = str(e.value)
     # 80 until the cascade, the generations and the distillation ported
     # their 7 fields (train.distill_from was copied and refused before);
-    # 77 until the router, fusion, policy and scaler ported their 12.
-    assert len(items) >= 65
+    # 77 until the router, fusion, policy and scaler ported their 12; 65
+    # until telemetry, tracing, the flight recorder and alerts ported
+    # their 13 (and copied obs.quarantine_alert_per_s and
+    # obs.device_hbm_headroom_alert, refused away from their defaults).
+    assert len(items) >= 52
     for key, item in (("data.autotune", "item 7"),
                       ("data.quarantine_bad_records", "item 7"),
                       ("parallel.num_devices", "item 8"),
@@ -350,7 +357,7 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
                       ("ingest.socket_path", "item 11"),
                       ("integrity.cache_max_bytes", "item 11"),
                       ("obs.audit.enabled", "item 11"),
-                      ("train.profile_steps", "item 11")):
+                      ("obs.device_enabled", "item 11")):
         assert f"Queue A {item} " in items[key], (key, items[key])
     for key in ("train.optimizer", "train.gradient_clip_norm",
                 "train.lr_scale_ref_batch", "train.recipe_curve_ref",
@@ -365,7 +372,14 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
                 "serve.router_escalation_replicas", "serve.router_fusion",
                 "serve.policy_from", "serve.scaler_min_replicas",
                 "serve.scaler_max_replicas", "serve.scaler_window_s",
-                "serve.scaler_slo_p99_ms"):
+                "serve.scaler_slo_p99_ms", "obs.flush_every_s",
+                "obs.trace_enabled", "obs.trace_buffer_events",
+                "obs.slow_step_factor", "obs.blackbox_events",
+                "obs.blackbox_keep", "obs.diagnosis_enabled",
+                "obs.diagnosis_top_k", "obs.quality.psi_alert",
+                "obs.quality.input_psi_alert", "obs.quality.alert_for_s",
+                "obs.quality.alert_rules", "train.tensorboard",
+                "train.debug", "train.profile_steps"):
         assert key in ours
     lifecycle = [k for k in items if k.startswith("lifecycle.")]
     assert len(lifecycle) == 11
@@ -393,9 +407,9 @@ def test_unknown_or_malformed_overrides_raise(item):
 
 
 @pytest.mark.parametrize("item", [
-    "serve.compile_cache_dir=/x", "obs.trace_enabled=true",
-    "lifecycle.shadow_fraction=0.5", "obs.flush_every_s=1",
-    "obs.audit.enabled=true", "obs.quality.psi_alert=0.5"])
+    "serve.compile_cache_dir=/x", "obs.http_port=9090",
+    "lifecycle.shadow_fraction=0.5", "obs.fleet_dir=/x",
+    "obs.audit.enabled=true", "obs.fault_plan=/x"])
 def test_refused_serving_and_obs_knobs_name_their_roadmap_item(item):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
         configs.check_supported(

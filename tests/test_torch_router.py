@@ -836,6 +836,45 @@ def test_a_fused_bin_is_each_tenants_direct_rows(smoke, extra, bound,
     jrouter.close()
 
 
+def test_fused_bins_count_each_generations_rows_as_the_jax_fusion(smoke):
+    """Tenant a sends 4 rows and tenant b 3 within one window (one fused
+    bin), then a sends 5 alone: ``serve.gen0.rows`` of each tenant's
+    engine reads 9 and 3 in both packages. Before the repair the port's
+    fused bin counted no generation rows (a 5, b 0)."""
+    sets = ("serve.bucket_sizes=8", "serve.max_wait_ms=200",
+            "serve.router_fusion=true")
+    imgs = smoke["images"]
+    jcfg, pcfg = _configs(SMOKE + list(sets))
+    got = {}
+    for name in ("jax", "port"):
+        regs = ([JaxRegistry(), JaxRegistry()] if name == "jax"
+                else [Registry(), Registry()])
+        if name == "jax":
+            engines = [jax_engine.ServingEngine(
+                jcfg, model=smoke["j_model"],
+                state=stacked_state(smoke["flats"][s]), registry=reg)
+                for s, reg in zip((slice(0, 2), slice(2, 4)), regs)]
+            router = jax_router.Router(
+                jcfg, engines={"a": [engines[0]], "b": [engines[1]]},
+                registry=JaxRegistry())
+        else:
+            engines = [_port_engine(smoke, m, *sets, registry=reg)
+                       for m, reg in zip(((0, 1), (2, 3)), regs)]
+            router = port_router.Router(
+                pcfg, engines={"a": [engines[0]], "b": [engines[1]]},
+                registry=Registry())
+        fa = router.submit(imgs[:4], model="a")
+        fb = router.submit(imgs[4:7], model="b")
+        fa.result(timeout=120), fb.result(timeout=120)
+        router.submit(imgs[7:12], model="a").result(timeout=120)
+        fused = router.registry.snapshot()["counters"][
+            "serve.router.fused_bins"]
+        router.close()
+        got[name] = ([reg.snapshot()["counters"]["serve.gen0.rows"]
+                      for reg in regs], fused)
+    assert got["port"] == got["jax"] == ([9.0, 3.0], 1.0)
+
+
 def test_fusion_cache_is_bin_order_invariant(smoke):
     sets = ("serve.bucket_sizes=8", "serve.router_fusion=true")
     imgs = smoke["images"]
