@@ -346,6 +346,45 @@ Phases, any failure exits nonzero before the result line:
               fits, median and range) with ``obs.enabled=false`` and the
               default, in turns, and the batch-8 request (10 calls a
               turn) with the registry and tracer off and on, in turns.
+16. faults  - fault injection and bounded retries (``obs/faultinject.py``,
+              ``utils/retry.py``) at full width, on phase 6's splits and
+              phase 4's k=2 members, each path's launch counts set to 0
+              just before it and read just after; after every drill no
+              plan is armed and ``JAMA16_FAULTS`` is unset (the variable
+              is set only in a child's own env). (a) ``tfrecord.read``
+              OSError on call 3: ``train_batches`` at ``data.readers`` 1
+              and 2 yields 8 batches bitwise the unarmed stream, and an
+              8-step preset fit with the plan in ``obs.fault_plan`` ends
+              with the trainer's ``io.retries.tfrecord.read`` equal to the
+              readers' summed fires (1 at one reader; the ordinals count
+              per reader), B1 8 times. (b) An 8-step fused fit (evals every
+              4) under ``trainer.step`` RuntimeError on call 6 raises,
+              leaves one ``exception`` blackbox, no ``preempt_save`` and an
+              eval at 4 only (B2 = B3 = 5); its resume under
+              ``ckpt.restore`` OSError on call 1 retries once
+              (``io.retries.ckpt.restore`` 1), restores the step-4 tensors
+              bitwise and runs to 8 (B2 = B3 = 4). (c) A child fit with
+              ``train.async_save`` whose step-4 save is held by a
+              ``ckpt.save`` latency plan is killed with SIGKILL: ``latest/``
+              is whole at step 2 or 4 and a resume completes (B1 once a
+              step). (d) ``engine.dispatch`` RuntimeError on call 2 under
+              the micro-batcher (bf16, one bucket of 8, 12 requests of 8):
+              only the second window fails, the worker survives, the rest
+              are bitwise the unarmed engine's, B4 once a chunk. (e)
+              ``serve.router.dispatch`` error on call 2 over two replicas
+              (phase 13a's settings with one bucket of 8): one replica
+              failed, ``serve.router.retried_bins`` >= 1, no request
+              failed, every row bitwise its replica engine's. (f)
+              ``host.decode`` OSError on call 2 through ``predict.main`` on
+              the eight 299-px fixture photos, one host worker: with
+              ``--max_retries 2`` 8 rows, one ``"retried": true``,
+              ``serve.input_retried`` 1, rows and canvases bitwise the
+              unarmed run's; with ``--max_retries 0 --strict`` 7 rows, one
+              ``unreadable`` reject, exit 2. (g) ``integrity.write`` bitflip
+              on phase 13e's serve-policy save: ``load_policy`` refuses it;
+              a checksum refusal counts ``integrity.corrupt`` and fires
+              ``artifact_corrupt`` at the next flush; the file is deleted.
+              Each drill's plan counts and wall time are printed.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
@@ -4600,6 +4639,663 @@ def phase_obs(torch, seed: int, smi: str, serve: dict, data: Path) -> dict:
     return out
 
 
+# Phase 16: fault injection and bounded retries.
+FAULT_STREAM_BATCHES = 8
+FAULT_FIT_STEPS = 8
+FAULT_STEP_CALL = 6
+KILL_STEPS = 4
+KILL_EVAL_EVERY = 2
+KILL_HOLD_S = 120.0
+DISPATCH_REQUESTS = 10
+ROUTER_FAULT_REQUESTS = 16
+FAULT_READ = {"tfrecord.read": {"kind": "error", "error": "OSError",
+                                "on_calls": [3], "message": "flap"}}
+
+
+def fault_spec(plan: dict) -> str:
+    """A plan as the ``--set obs.fault_plan=...`` value."""
+    return "obs.fault_plan=" + json.dumps(plan, separators=(",", ":"))
+
+
+class FaultDrill:
+    """One drill of phase 16: times it, and on the way out checks that no
+    plan is armed and ``JAMA16_FAULTS`` is not set (a drill leaving either
+    would fire inside every later phase), then clears both."""
+
+    def __init__(self, name: str, out: dict):
+        self.name, self.out = name, out
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, *_):
+        import os
+
+        from jama16_retina_tpu_torch.obs import faultinject
+
+        leaked = faultinject.active_plan()
+        env = os.environ.pop(faultinject.ENV_VAR, None)
+        faultinject.disarm()
+        wall = time.perf_counter() - self.t0
+        self.out["wall_s"][self.name] = wall
+        if exc_type is None:
+            check(leaked is None and env is None,
+                  f"faults ({self.name}): the plan {leaked} or "
+                  f"{faultinject.ENV_VAR}={env!r} outlived the drill")
+            log(f"times: faults ({self.name}) wall {wall:.1f} s")
+        return False
+
+
+def fresh_registry():
+    """A fresh process registry; returns the previous one."""
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+
+    return obs_registry.set_default_registry(obs_registry.Registry())
+
+
+def process_counter(name: str) -> float:
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+
+    return obs_registry.default_registry().snapshot()["counters"].get(name, 0)
+
+
+def faults_read(torch, seed: int, data: Path, root: Path, out: dict) -> None:
+    """(a) ``tfrecord.read``: the stream and a preset-form fit under an
+    OSError on call 3, at one reader process and at two."""
+    from jama16_retina_tpu_torch.data import pipeline
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+
+    cfg = fit_config(FAULT_FIT_STEPS, root / "read", seed)
+
+    def stream(readers: int) -> list:
+        it = pipeline.train_batches(str(data), "train", cfg.data,
+                                    cfg.model.image_size, seed=seed,
+                                    readers=readers)
+        try:
+            return [next(it) for _ in range(FAULT_STREAM_BATCHES)]
+        finally:
+            it.close()
+
+    clean = stream(1)
+    for readers in (1, 2):
+        prev = fresh_registry()
+        try:
+            plan = faultinject.plan_from_spec(FAULT_READ)
+            faultinject.arm(plan)
+            got = stream(readers)
+            faultinject.disarm()
+            retried = process_counter("io.retries.tfrecord.read")
+        finally:
+            obs_registry.set_default_registry(prev)
+        fires = plan.counts()["tfrecord.read"]["fires"]
+        check(all(torch.equal(g[k], w[k]) for g, w in zip(got, clean)
+                  for k in w), f"faults (a): the stream at {readers} "
+              "reader(s) under the plan differs from the unarmed stream")
+        check(retried == fires and 1 <= fires <= readers
+              and (readers == 2 or fires == 1),
+              f"faults (a): stream at {readers} reader(s): retries "
+              f"{retried}, plan {plan.counts()}")
+        log(f"faults: (a) stream at data.readers={readers}: "
+            f"{FAULT_STREAM_BATCHES} batches of {cfg.data.batch_size} "
+            f"bitwise the unarmed stream; io.retries.tfrecord.read "
+            f"{retried}; counts {plan.counts()}")
+        wd = root / f"read_{readers}"
+        fcfg = fit_config(FAULT_FIT_STEPS, wd, seed,
+                          f"train.eval_every={FAULT_FIT_STEPS}",
+                          f"data.readers={readers}", fault_spec(FAULT_READ))
+        _, counts, recs = fit_run(torch, fcfg, data)
+        plan = faultinject.active_plan()  # the trainer armed it
+        check(plan is not None, "faults (a): the fit armed no plan")
+        faultinject.disarm()
+        retried = process_counter("io.retries.tfrecord.read")
+        fires = plan.counts()["tfrecord.read"]["fires"]
+        out["launches"][f"faults_read_fit_r{readers}"] = counts
+        check(counts == {"fused_color_jitter": FAULT_FIT_STEPS,
+                         "fused_normalize_color_jitter": 0,
+                         "fused_adamw_update": 0,
+                         "fused_serve_preprocess": 0},
+              f"faults (a): the fit at {readers} reader(s) launched {counts}")
+        check(max(r["step"] for r in recs if r["kind"] == "train")
+              == FAULT_FIT_STEPS, "faults (a): the fit did not finish")
+        check(retried == fires and 1 <= fires <= readers
+              and (readers == 2 or fires == 1),
+              f"faults (a): the fit at {readers} reader(s): trainer "
+              f"io.retries.tfrecord.read {retried}, plan {plan.counts()}")
+        log(f"faults: (a) {FAULT_FIT_STEPS}-step preset fit at "
+            f"data.readers={readers} under obs.fault_plan: trainer "
+            f"io.retries.tfrecord.read {retried}, plan counts "
+            f"{plan.counts()} (ordinals per reader); launches {counts}")
+        shutil.rmtree(wd, ignore_errors=True)
+
+
+def faults_step_and_restore(torch, seed: int, data: Path, root: Path,
+                            out: dict) -> None:
+    """(b) ``trainer.step`` cuts a fused fit after step 5; its resume runs
+    under a ``ckpt.restore`` OSError on call 1."""
+    import os
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch import train_lib, trainer
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    wd = root / "step"
+    step_plan = {"trainer.step": {"kind": "error", "error": "RuntimeError",
+                                  "on_calls": [FAULT_STEP_CALL],
+                                  "message": "chaos step"}}
+    cfg = fit_config(FAULT_FIT_STEPS, wd, seed, "train.use_pallas_fused=true",
+                     fault_spec(step_plan))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    try:
+        trainer.fit(cfg, str(data), str(wd), device="cuda")
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    counts = launch_counts()
+    plan = faultinject.active_plan()
+    faultinject.disarm()
+    done = FAULT_STEP_CALL - 1
+    out["launches"]["faults_step_cut"] = counts
+    recs = read_jsonl(str(wd / trainer.METRICS_FILE))
+    dumps = sorted(os.listdir(wd / "blackbox"))
+    evals = [r["step"] for r in recs if r["kind"] == "eval"]
+    check(raised is not None and "chaos step" in raised,
+          f"faults (b): the fit under trainer.step raised {raised!r}")
+    check(len(dumps) == 1 and dumps[0].endswith("exception")
+          and not any(r["kind"] == "preempt_save" for r in recs)
+          and evals == [FIT_EVAL_EVERY],
+          f"faults (b): blackboxes {dumps}, evals {evals}, preempt_save "
+          f"{[r for r in recs if r['kind'] == 'preempt_save']}")
+    check(counts["fused_normalize_color_jitter"] == done
+          and counts["fused_adamw_update"] == done
+          and counts["fused_color_jitter"] == 0,
+          f"faults (b): the cut fit launched {counts}, want B2 = B3 = {done}")
+    log(f"faults: (b) {FAULT_FIT_STEPS}-step fused fit under trainer.step "
+        f"RuntimeError on call {FAULT_STEP_CALL}: raised {raised!r}; "
+        f"blackbox {dumps}, no preempt_save, evals at {evals}; launches "
+        f"{counts}; counts {plan.counts()}")
+
+    saved = ckpt_lib.Checkpointer(str(wd)).restore(FIT_EVAL_EVERY)
+    restore_plan = {"ckpt.restore": {"kind": "error", "error": "OSError",
+                                     "on_calls": [1]}}
+    rcfg = fit_config(FAULT_FIT_STEPS, wd, seed, "train.use_pallas_fused=true",
+                      "train.resume=true", fault_spec(restore_plan))
+    real, restored = trainer._load_restored, {}
+
+    def capture(state, ckpt, step):
+        out_state = real(state, ckpt, step)
+        restored.update(train_lib.state_to_flat(state))
+        return out_state
+
+    trainer._load_restored = capture
+    try:
+        res, counts, recs = fit_run(torch, rcfg, data)
+    finally:
+        trainer._load_restored = real
+    plan = faultinject.active_plan()
+    faultinject.disarm()
+    retried = process_counter("io.retries.ckpt.restore")
+    out["launches"]["faults_restore_resume"] = counts
+    rest = FAULT_FIT_STEPS - FIT_EVAL_EVERY
+    check(retried == 1 and plan.counts()["ckpt.restore"] == {
+        "calls": 2, "fires": 1}, f"faults (b): resume io.retries.ckpt."
+          f"restore {retried}, plan {plan.counts()}")
+    check([r["step"] for r in recs if r["kind"] == "resume"]
+          == [FIT_EVAL_EVERY] and ckpt_lib.Checkpointer(
+              str(wd)).latest_step == FAULT_FIT_STEPS,
+          f"faults (b): the resume did not run from {FIT_EVAL_EVERY} to "
+          f"{FAULT_FIT_STEPS}")
+    check(counts["fused_normalize_color_jitter"] == rest
+          and counts["fused_adamw_update"] == rest,
+          f"faults (b): the resume launched {counts}, want B2 = B3 = {rest}")
+    check(set(restored) == set(saved) and all(
+        np.array_equal(restored[k], saved[k]) for k in saved),
+        "faults (b): the state restored on the card differs from the "
+        f"step-{FIT_EVAL_EVERY} checkpoint")
+    log(f"faults: (b) resume under ckpt.restore OSError on call 1: "
+        f"io.retries.ckpt.restore {retried}, counts {plan.counts()}; ran "
+        f"{FIT_EVAL_EVERY} -> {FAULT_FIT_STEPS}, best {res}; the restored "
+        f"state bitwise the step-{FIT_EVAL_EVERY} checkpoint "
+        f"({len(saved)} arrays); launches {counts}")
+    shutil.rmtree(wd, ignore_errors=True)
+
+
+def faults_kill9(torch, seed: int, data: Path, root: Path,
+                 out: dict) -> None:
+    """(c) ``ckpt.save``: a child fit with ``train.async_save`` whose
+    second eval-time save is held by a latency plan (``JAMA16_FAULTS`` in
+    the child's env only) is killed with SIGKILL, its process group with
+    it (the reader processes and their forkserver)."""
+    import os
+    import signal
+
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    wd = root / "kill9"
+    args = [f"train.steps={KILL_STEPS}", f"train.eval_every={KILL_EVAL_EVERY}",
+            "train.log_every=1", f"train.seed={seed}",
+            f"data.batch_size={TRAIN_BATCH}", "train.async_save=true"]
+    hold = {"ckpt.save": {"kind": "latency", "on_calls": [2],
+                          "delay_s": KILL_HOLD_S}}
+    env = dict(os.environ, **{faultinject.ENV_VAR: json.dumps(hold)})
+    t0 = time.perf_counter()
+    # A session of its own: its reader processes, their forkserver and its
+    # resource tracker are found by session id after the kill.
+    errlog = root / "kill9.stderr"
+    with open(errlog, "w") as errf:
+        child = subprocess.Popen(
+            [sys.executable, "-c", _SIGTERM_CHILD, str(data), str(wd),
+             *args], cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+            stderr=errf, start_new_session=True)
+    try:
+        metrics = wd / "metrics.jsonl"
+        held = False
+        while time.perf_counter() - t0 < 300 and child.poll() is None:
+            if metrics.exists() and any(
+                    r["kind"] == "eval" and r["step"] == KILL_STEPS
+                    for r in read_jsonl(str(metrics))):
+                held = True
+                break
+            time.sleep(0.1)
+        check(held and child.poll() is None,
+              f"the kill -9 child did not reach its step-{KILL_STEPS} eval "
+              f"(exit {child.poll()})")
+        time.sleep(0.5)  # the saver sleeps inside the held save now
+        child.kill()
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        reaped = reap_session(child.pid)
+    err = errlog.read_text()
+    check(child.returncode == -signal.SIGKILL,
+          f"the kill -9 child exited {child.returncode}: {err[-2000:]}")
+    ck = ckpt_lib.Checkpointer(str(wd))
+    left = ck.latest_step
+    check(left in (KILL_EVAL_EVERY, KILL_STEPS) and set(ck.restore(left)),
+          f"faults (c): latest/ after the kill is {left}")
+    cfg = fit_config(KILL_STEPS, wd, seed, f"train.eval_every={KILL_EVAL_EVERY}",
+                     "train.async_save=true", "train.resume=true")
+    res, counts, recs = fit_run(torch, cfg, data)
+    out["launches"]["faults_kill9_resume"] = counts
+    check([r["step"] for r in recs if r["kind"] == "resume"] == [left]
+          and ckpt_lib.Checkpointer(str(wd)).latest_step == KILL_STEPS
+          and counts["fused_color_jitter"] == KILL_STEPS - left,
+          f"faults (c): the resume from {left}: {res}, launches {counts}")
+    log(f"faults: (c) kill -9 of a child fit (train.async_save) while its "
+        f"step-{KILL_STEPS} save was held by a ckpt.save latency plan, after "
+        f"{time.perf_counter() - t0:.1f} s (its session's {reaped}); "
+        f"latest/ whole at step {left}; "
+        f"the resume ran {left} -> {KILL_STEPS} ({res}); launches {counts}")
+    shutil.rmtree(wd, ignore_errors=True)
+
+
+def session_members(sid: int) -> "list[int]":
+    """Live processes of session ``sid`` (from ``/proc``)."""
+    import os
+
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        # Fields after the command: state, ppid, pgrp, session, ...
+        if int(fields[3]) == sid and fields[0] != "Z":
+            pids.append(int(d))
+    return pids
+
+
+def _cmdline(pid: int) -> bytes:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read()
+    except OSError:
+        return b""
+
+
+def reap_session(sid: int) -> str:
+    """Stop what a killed session leader left: its reader processes and
+    their forkserver first (SIGKILL), then up to 10 s for its resource
+    tracker, which unlinks the shared memory they held and exits once
+    they are gone; anything left after that is killed. Returns what it
+    did, for the log."""
+    import os
+    import signal
+
+    def wait_gone(pids, seconds):
+        deadline = time.perf_counter() + seconds
+        while time.perf_counter() < deadline:
+            alive = set(session_members(sid)) & set(pids)
+            if not alive:
+                return
+            time.sleep(0.1)
+
+    helpers = [p for p in session_members(sid)
+               if b"resource_tracker" not in _cmdline(p)]
+    for p in helpers:
+        try:
+            os.kill(p, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    wait_gone(helpers, 10)
+    tracker = session_members(sid)
+    wait_gone(tracker, 10)
+    left = session_members(sid)
+    if left:
+        os.killpg(sid, signal.SIGKILL)
+    return (f"{len(helpers)} helper(s) killed, resource tracker "
+            f"{'killed' if left else 'exited by itself'}")
+
+
+def faults_dispatch(torch, seed: int, serve: dict, out: dict) -> None:
+    """(d) ``engine.dispatch`` under phase 10's micro-batcher: phase 4's
+    k=2 members, bf16, the fused preprocess, one bucket of 8."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "serve.fused_preprocess=true", "serve.max_batch=8",
+        "serve.bucket_sizes=8"])
+    reg = Registry()
+    eng = ServingEngine(cfg, serve["dirs"], device="cuda", registry=reg)
+    canv = render(seed + 900, 8 * (DISPATCH_REQUESTS + 2))
+    reqs = [canv[8 * i:8 * i + 8] for i in range(DISPATCH_REQUESTS + 2)]
+    want = [eng.probs(r) for r in reqs]
+    b = eng.make_batcher()
+    plan = faultinject.plan_from_spec({"engine.dispatch": {
+        "kind": "error", "error": "RuntimeError", "on_calls": [2],
+        "message": "chaos dispatch"}})
+    reset_counts([eng])
+    try:
+        faultinject.arm(plan)
+        got = []
+        for r in reqs:
+            try:
+                got.append(b.submit(r).result(timeout=120))
+            except RuntimeError as e:
+                got.append(str(e))
+        faultinject.disarm()
+    finally:
+        b.close()
+    counts = check_b4("faults (d)", [eng])
+    out["launches"]["faults_dispatch"] = counts
+    failed = [i for i, g in enumerate(got) if isinstance(g, str)]
+    check(failed == [1] and "chaos dispatch" in got[1]
+          and reg.counter("serve.batcher.window_errors").value == 1,
+          f"faults (d): failed requests {failed}, plan {plan.counts()}")
+    check(all(np.array_equal(got[i], want[i]) for i in range(len(reqs))
+              if i != 1), "faults (d): batcher rows after the injected "
+          "window differ from the unarmed engine's")
+    check(counts["fused_serve_preprocess"] == len(reqs) - 1,
+          f"faults (d): launches {counts}")
+    log(f"faults: (d) engine.dispatch RuntimeError on call 2 under the "
+        f"micro-batcher (bf16, bucket 8): request 1 of {len(reqs)} failed "
+        f"({got[1]!r}), serve.batcher.window_errors 1, the worker served "
+        f"the next {len(reqs) - 2} bitwise the unarmed engine; counts "
+        f"{plan.counts()}; launches {counts}")
+
+
+def faults_router(torch, seed: int, serve: dict, out: dict) -> None:
+    """(e) ``serve.router.dispatch`` kills a replica of phase 13a's router
+    (two replicas of the k=2 engine, float32, the fused preprocess, tick
+    1 ms; one bucket of 8, so every row can be held against its engine's
+    score at that bucket)."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import router as router_lib
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "model.compute_dtype=float32", "serve.fused_preprocess=true",
+        "serve.bucket_sizes=8", "serve.max_batch=8",
+        "serve.router_tick_ms=1"])
+    engines = [ServingEngine(cfg, serve["dirs"], device="cuda",
+                             registry=Registry()) for _ in range(2)]
+    canv = render(seed + 950, 8 * ROUTER_FAULT_REQUESTS)
+    # Each replica engine's score of every canvas at the one bucket.
+    tables = [np.concatenate([e.probs(canv[i:i + 8])
+                              for i in range(0, len(canv), 8)])
+              for e in engines]
+    reg = Registry()
+    router = router_lib.Router(cfg, engines=engines, registry=reg)
+    plan = faultinject.plan_from_spec({"serve.router.dispatch": {
+        "kind": "error", "error": "RuntimeError", "on_calls": [2],
+        "message": "replica died"}})
+    reset_counts(engines)
+    try:
+        faultinject.arm(plan)
+        futs = [router.submit(canv[i:i + 8]) for i in range(0, len(canv), 8)]
+        errors, wrong = [], 0
+        for lo, f in zip(range(0, len(canv), 8), futs):
+            try:
+                rows = f.result(timeout=120)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+                continue
+            for seg in f.segments:
+                a, b = seg["lo"], seg["hi"]
+                wrong += not np.array_equal(
+                    rows[a:b], tables[seg["replica"]][lo + a:lo + b])
+        faultinject.disarm()
+    finally:
+        router.close()
+    counts = check_b4("faults (e)", engines)
+    out["launches"]["faults_router"] = counts
+    c = reg.snapshot()["counters"]
+    failed = [r["replica"] for r in router.replica_states()
+              if r["state"] == router_lib.FAILED]
+    check(not errors and len(failed) == 1
+          and c.get("serve.router.replica_failures") == 1
+          and c.get("serve.router.retried_bins", 0) >= 1
+          and c.get("serve.router.request_failures", 0) == 0,
+          f"faults (e): errors {errors[:2]}, failed {failed}, counters "
+          f"{ {k: v for k, v in c.items() if 'fail' in k or 'retr' in k} }")
+    check(wrong == 0, f"faults (e): {wrong} routed segments differ from "
+          "their replica engine's rows")
+    log(f"faults: (e) serve.router.dispatch error on call 2 over 2 "
+        f"replicas: replica {failed} failed, serve.router.retried_bins "
+        f"{c.get('serve.router.retried_bins')}, {len(futs)} requests of 8 "
+        f"rows, none failed, every row bitwise the engine's; counts "
+        f"{plan.counts()}; launches {counts}")
+
+
+def faults_host(torch, serve: dict, root: Path, out: dict) -> None:
+    """(f) ``host.decode`` through ``predict.main`` on the eight 299-px
+    fixture photos, one host worker, the plan armed before the call (an
+    ``obs.fault_plan`` would be armed again, with fresh counts, by the
+    engine predict builds after its host stage, as in the reference):
+    retried with ``--max_retries 2``, a reject with ``--max_retries 0
+    --strict``."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import host
+
+    photos = [str(FIXTURES / f"fundus299_{i}.jpg") for i in range(8)]
+    plan = {"host.decode": {"kind": "error", "error": "OSError",
+                            "on_calls": [2]}}
+    base = [f"--checkpoint_dir={Path(serve['dirs'][0]).parent}",
+            f"--images={FIXTURES}/fundus299_*", "--config=eyepacs_binary",
+            "--batch_size=8", "--host_workers=1",
+            "--set", "serve.fused_preprocess=true"]
+    runs = {}
+    for name, extra in (("clean", []),
+                        ("retried", ["--max_retries=2", "--strict"]),
+                        ("strict", ["--max_retries=0", "--strict"])):
+        prev = fresh_registry()
+        try:
+            armed = (faultinject.plan_from_spec(plan) if name != "clean"
+                     else None)
+            faultinject.arm(armed)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            code, rows = predict_rows(base + extra)
+            counts = launch_counts()
+            faultinject.disarm()
+            retried = process_counter("serve.input_retried")
+        finally:
+            obs_registry.set_default_registry(prev)
+        out["launches"][f"faults_host_{name}"] = counts
+        runs[name] = (code, rows, retried, armed and armed.counts(), counts)
+    code, rows, _, _, counts = runs["clean"]
+    scored = [r for r in rows if "error" not in r]
+    check(code == 0 and len(scored) == 8, f"faults (f): clean run {rows}")
+    code, rows, retried, pc, counts = runs["retried"]
+    check(code == 0 and len(rows) == 8 and retried == 1
+          and [r.get("retried", False) for r in rows].count(True) == 1
+          and rows[1].get("retried") is True
+          and [{k: v for k, v in r.items() if k != "retried"}
+               for r in rows] == scored
+          and counts["fused_serve_preprocess"] == 1
+          and pc == {"host.decode": {"calls": 9, "fires": 1}},
+          f"faults (f): --max_retries 2: exit {code}, serve.input_retried "
+          f"{retried}, rows {rows}, launches {counts}")
+    log(f"faults: (f) predict --max_retries 2 --strict under host.decode "
+        f"OSError on call 2: exit {code}, {len(rows)} rows, one "
+        f"\"retried\": true ({Path(rows[1]['image']).name}), "
+        f"serve.input_retried {retried}, rows equal to the unarmed run's; "
+        f"counts {pc}; launches {counts}")
+    code, rows, retried, pc, counts = runs["strict"]
+    errs = [r for r in rows if "error" in r]
+    check(code == 2 and len(rows) == 8 and len(errs) == 1
+          and errs[0]["error"].startswith("unreadable")
+          and errs[0]["image"] == photos[1] and retried == 0
+          and pc == {"host.decode": {"calls": 8, "fires": 1}},
+          f"faults (f): --max_retries 0 --strict: exit {code}, rows {rows}")
+    log(f"faults: (f) predict --max_retries 0 --strict: exit {code}, "
+        f"{len(rows) - 1} scored rows and the reject {errs[0]}; counts "
+        f"{pc}; launches {counts}")
+    faultinject.arm(plan)
+    pre = host.preprocess_paths(photos, 299, workers=1, registry=Registry(),
+                                max_retries=2)
+    faultinject.disarm()
+    clean = host.preprocess_paths(photos, 299, workers=1,
+                                  registry=Registry())
+    check(pre.retried == [photos[1]] and np.array_equal(pre.images,
+                                                        clean.images),
+          "faults (f): the retried canvases differ from the unarmed ones")
+    log("faults: (f) the host stage's canvases under the plan bitwise the "
+        "unarmed ones")
+
+
+def faults_integrity(torch, smi: str, router: dict, root: Path,
+                     out: dict) -> None:
+    """(g) ``integrity.write`` bitflip on phase 13e's serve-policy save:
+    ``load_policy`` refuses the file; a checksum refusal counts
+    ``integrity.corrupt`` and fires ``artifact_corrupt`` at the next
+    flush. The damaged file is deleted."""
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.integrity.artifact import ArtifactCorrupt
+    from jama16_retina_tpu_torch.obs import alerts as obs_alerts
+    from jama16_retina_tpu_torch.obs import export as obs_export
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+    from jama16_retina_tpu_torch.serve import policy as policy_lib
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "model.compute_dtype=float32", "serve.fused_preprocess=true",
+        "serve.bucket_sizes=" + ",".join(map(str, ROUTER_BUCKETS)),
+        "serve.max_batch=64", "serve.router_tick_ms=1"])
+    pol = policy_lib.derive_policy(
+        router["policy"]["frontier"],
+        policy_lib.policy_fingerprint(cfg, n_devices=1),
+        source={"sweep": "chip_smoke.py phase 13e", "card": smi})
+    check(pol.payload() == router["policy"]["policy"],
+          "faults (g): the re-derived policy is not phase 13e's")
+    path = root / "serve_policy.json"
+    wd = root / "integrity_obs"
+    prev = fresh_registry()
+    try:
+        # rate() needs the counter in the flush before the detection.
+        counter = obs_registry.default_registry().counter("integrity.corrupt")
+        snap = obs_export.Snapshotter(workdir=str(wd), every_s=0)
+        snap.alerts = obs_alerts.manager_for(cfg, str(wd))
+        snap.flush()
+        plan = faultinject.plan_from_spec({"integrity.write": {
+            "kind": "bitflip", "on_calls": [1]}})
+        faultinject.arm(plan)
+        policy_lib.save_policy(str(path), pol)
+        faultinject.disarm()
+        try:
+            policy_lib.load_policy(str(path))
+            refused = None
+        except (ArtifactCorrupt, policy_lib.PolicyStale) as e:
+            refused = e
+        corrupt = counter.value
+        time.sleep(0.01)
+        snap.close()
+    finally:
+        obs_registry.set_default_registry(prev)
+        path.unlink(missing_ok=True)
+    alerts = [r["reason"] for r in read_jsonl(str(wd / "metrics.jsonl"))
+              if r["kind"] == "alert" and r["state"] == "firing"]
+    check(refused is not None, "faults (g): the damaged policy loaded")
+    if isinstance(refused, ArtifactCorrupt):
+        check(corrupt == 1 and alerts == ["artifact_corrupt"],
+              f"faults (g): integrity.corrupt {corrupt}, alerts {alerts}")
+    else:
+        check(corrupt == 0 and alerts == [],
+              f"faults (g): integrity.corrupt {corrupt}, alerts {alerts}")
+    check(not path.exists(), "faults (g): the damaged policy was left")
+    log(f"faults: (g) integrity.write bitflip on phase 13e's policy save: "
+        f"load_policy refused it with {type(refused).__name__} "
+        f"({str(refused)[:120]}); integrity.corrupt {corrupt}, firing "
+        f"alerts {alerts}; counts {plan.counts()}; the damaged file "
+        "deleted")
+    shutil.rmtree(wd, ignore_errors=True)
+
+
+def phase_faults(torch, seed: int, smi: str, serve: dict, router: dict,
+                 data: Path) -> dict:
+    """Fault injection and bounded retries at full width (phase 16 of the
+    docstring), on phase 6's splits and phase 4's members."""
+    t_phase = time.perf_counter()
+    root = SCRATCH / "faults"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {"launches": {}, "wall_s": {}}
+    torch.cuda.empty_cache()
+    drills = (
+        ("a", lambda: faults_read(torch, seed, data, root, out)),
+        ("b", lambda: faults_step_and_restore(torch, seed, data, root, out)),
+        ("c", lambda: faults_kill9(torch, seed, data, root, out)),
+        ("d", lambda: faults_dispatch(torch, seed, serve, out)),
+        ("e", lambda: faults_router(torch, seed, serve, out)),
+        ("f", lambda: faults_host(torch, serve, root, out)),
+        ("g", lambda: faults_integrity(torch, smi, router, root, out)))
+    for name, fn in drills:
+        with FaultDrill(name, out):
+            fn()
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"times: phase 16 (faults) wall {wall:.1f} s; by drill "
+        f"{ {k: round(v, 1) for k, v in out['wall_s'].items()} } ({smi})")
+    return out
+
+
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"jama16_retina_tpu_torch/ops/csrc/{source}",
@@ -4715,6 +5411,7 @@ def main(argv=None) -> int:
                           fit["root"])
     jpeg = phase_jpeg_host(torch, args.seed, smi, serve)
     obs = phase_obs(torch, args.seed, smi, serve, fit["data"])
+    faults = phase_faults(torch, args.seed, smi, serve, router, fit["data"])
     shutil.rmtree(fit["root"], ignore_errors=True)
     torch.cuda.empty_cache()
     for form, t in train.items():
@@ -4763,7 +5460,7 @@ def main(argv=None) -> int:
             **optimizers["launches"], **recipe["launches"],
             **ensemble["launches"], **distill["launches"],
             **cascade["launches"], **router["launches"],
-            **jpeg["launches"], **obs["launches"]}
+            **jpeg["launches"], **obs["launches"], **faults["launches"]}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

@@ -299,6 +299,11 @@ class ObsConfig:
     # backend without those metrics.
     quarantine_alert_per_s: float = 0.5
     device_hbm_headroom_alert: float = 0.1
+    # Deterministic fault-injection plan (obs/faultinject.py): a JSON spec
+    # or a path to one, armed at run start and engine construction. The
+    # JAMA16_FAULTS variable wins over it. Empty: nothing armed, and every
+    # fault seam costs one branch.
+    fault_plan: str = ""
     quality: QualityConfig = dataclasses.field(default_factory=QualityConfig)
 
 
@@ -447,8 +452,6 @@ _NOT_PORTED = {
     "integrity": _PLANES + " (integrity: caches, telemetry retention)",
     # The obs fields of the planes still to port; obs.audit covers its
     # own fields.
-    "obs.fault_plan": "Queue A item 11 (part 2: faults, "
-                      "obs/faultinject.py)",
     "obs.device_enabled": "Queue A item 11 (part 4: the device plane, "
                           "obs/device.py)",
     **dict.fromkeys(

@@ -51,7 +51,9 @@ import torch
 from jama16_retina_tpu_torch.configs import DataConfig
 from jama16_retina_tpu_torch.data import readers as readers_lib
 from jama16_retina_tpu_torch.data import tfrecord
+from jama16_retina_tpu_torch.obs import faultinject
 from jama16_retina_tpu_torch.obs import registry as obs_registry
+from jama16_retina_tpu_torch.utils import retry
 
 
 def interleave_records(paths: Sequence[str],
@@ -145,9 +147,17 @@ def train_batches(data_dir: str, split: str, cfg: DataConfig,
     thousands of times a batch. They start from a forkserver
     (``readers_lib``), so a script that trains needs the usual
     ``if __name__ == "__main__":`` guard. Closing the generator stops the
-    readers and frees the buffer."""
+    readers and frees the buffer.
+
+    The fault plan armed when the stream starts goes to every reader
+    (``tfrecord.read`` fires there), and what a batch's reader counted
+    (retries, the plan's calls and fires) is added to this process's
+    registry and plan as the batch comes out. A plan armed or disarmed
+    while the stream runs cannot reach the readers: the next batch
+    raises."""
     if readers < 1:
         raise ValueError(f"readers={readers} must be >= 1")
+    plan = faultinject.active_plan()
     order = readers_lib.TrainOrder(data_dir, split, cfg.batch_size,
                                    image_size, seed)
     shape, b = order.shape(), cfg.batch_size
@@ -160,14 +170,22 @@ def train_batches(data_dir: str, split: str, cfg: DataConfig,
         pool = concurrent.futures.ProcessPoolExecutor(
             readers, mp_context=_reader_context(),
             initializer=readers_lib.init,
-            initargs=(order, shared.name, slots))
+            initargs=(order, shared.name, slots,
+                      plan.spec() if plan is not None else None))
         try:
             pending = collections.deque(
                 pool.submit(readers_lib.read_into, skip_batches + k, k)
                 for k in range(slots))
             index = skip_batches + slots
             while True:
-                slot = pending.popleft().result()
+                slot, report = pending.popleft().result()
+                if faultinject.active_plan() is not plan:
+                    raise RuntimeError(
+                        "the fault plan changed while the train stream ran; "
+                        "its reader processes hold the plan armed when it "
+                        "started: arm or disarm before the stream starts")
+                if report is not None:
+                    _absorb(report, plan)
                 out = {"image": torch.empty(shape, dtype=torch.uint8,
                                             pin_memory=pin_memory),
                        "grade": torch.empty((b,), dtype=torch.int32,
@@ -187,6 +205,17 @@ def train_batches(data_dir: str, split: str, cfg: DataConfig,
         del images, grades
         shared.close()
         shared.unlink()
+
+
+def _absorb(report: dict, plan: "faultinject.FaultPlan | None") -> None:
+    """A reader's ``read_into`` report into this process's registry and
+    fault plan."""
+    reg = obs_registry.default_registry()
+    for name, n in report["retries"].items():
+        reg.counter(name, help=(retry.RETRIES_HELP if name == "io.retries"
+                                else retry.SITE_RETRIES_HELP)).inc(n)
+    if report["faults"]:
+        plan.absorb(report["faults"])
 
 
 class DevicePrefetch:

@@ -1,12 +1,18 @@
 """The train stream's record reading, as a function of the batch index,
 and the reader processes that run it (``pipeline.train_batches``).
 
-This module imports numpy and the port's TFRecord reader and resize
-only: the reader processes are forked from a forkserver that preloads
-it, a clean single-threaded interpreter, never from the trainer's
+This module imports numpy, the port's TFRecord reader and resize, and
+the fault plane (no torch): the reader processes are forked from a
+forkserver that preloads it, a clean single-threaded interpreter, never from the trainer's
 process, whose other threads (the prefetcher, the saver, an overlapped
 eval, CUDA's) may hold a lock at the moment of a fork. Each reader loads
 the image codec library itself (``init``).
+
+A reader does not inherit the trainer's fault plan (the forkserver may
+predate it): ``init`` arms the spec it is given, and ``read_into``
+returns, with the slot, what the batch added to the reader's retry
+counters and plan counts, for the trainer to add to its own
+(``pipeline.train_batches``). Call ordinals count per reader.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from multiprocessing import shared_memory
 import numpy as np
 
 from jama16_retina_tpu_torch.data import resize, tfrecord
+from jama16_retina_tpu_torch.obs import faultinject
+from jama16_retina_tpu_torch.obs import registry as obs_registry
 
 
 def decode(data, image_size: int) -> tfrecord.Record:
@@ -86,24 +94,53 @@ def slot_views(buf, slots: int, shape: tuple
                           offset=n).reshape(slots, shape[0]))
 
 
-# A reader process's state (``init``): its TrainOrder, its open files and
-# the shared batch buffers.
+# A reader process's state (``init``): its TrainOrder, its open files,
+# the shared batch buffers, and the retry and fault counts already
+# reported.
 _READER: dict = {}
 
 
-def init(order: TrainOrder, shared_name: str, slots: int) -> None:
+def init(order: TrainOrder, shared_name: str, slots: int,
+         fault_spec: "dict | None" = None) -> None:
     """Reader process initializer: attach the batch buffers the stream
-    owns (shared memory ``shared_name``) and open the split's files."""
+    owns (shared memory ``shared_name``), open the split's files and arm
+    ``fault_spec`` (the trainer's plan, already validated there), or
+    nothing."""
     from jama16_retina_tpu_torch.ops import image_codec
 
     image_codec.lib()  # built (once, behind its digest) and bound here
+    faultinject.arm(fault_spec, allow_unknown=True)
     shm = shared_memory.SharedMemory(name=shared_name)
     images, grades = slot_views(shm.buf, slots, order.shape())
     _READER.update(order=order, files=order.open_files(), shm=shm,
-                   images=images, grades=grades)
+                   images=images, grades=grades, retries={}, faults={})
 
 
-def read_into(index: int, slot: int) -> int:
+def _deltas(now: dict, seen: dict) -> dict:
+    """What ``now`` adds to ``seen`` ({name: number}), which takes it in."""
+    out = {k: v - seen.get(k, 0) for k, v in now.items()
+           if v != seen.get(k, 0)}
+    seen.update(now)
+    return out
+
+
+def read_into(index: int, slot: int) -> "tuple[int, dict | None]":
+    """Read batch ``index`` into ``slot``; (slot, None) or (slot, the
+    ``{"retries": {counter: n}, "faults": {site: {"calls", "fires"}}}``
+    this batch added)."""
     r = _READER
     r["order"].fill(index, r["files"], r["images"][slot], r["grades"][slot])
-    return slot
+    retries = _deltas(
+        {k: v for k, v in obs_registry.default_registry().snapshot()[
+            "counters"].items() if k.startswith("io.retries")},
+        r["retries"])
+    plan = faultinject.active_plan()
+    faults = {}
+    if plan is not None:
+        flat = _deltas({(s, k): v for s, c in plan.counts().items()
+                        for k, v in c.items()}, r["faults"])
+        for (s, k), v in flat.items():
+            faults.setdefault(s, {"calls": 0, "fires": 0})[k] = v
+    if not retries and not faults:
+        return slot, None
+    return slot, {"retries": retries, "faults": faults}

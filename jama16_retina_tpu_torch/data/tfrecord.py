@@ -42,6 +42,9 @@ from typing import Iterable, Iterator, NamedTuple, Sequence
 
 import numpy as np
 
+from jama16_retina_tpu_torch.obs import faultinject
+from jama16_retina_tpu_torch.utils import retry
+
 JPEG_ENCODE_ITEM = ("ROADMAP.md Queue A item 7, part 2 (JPEG encoding on "
                     "the card machine)")
 _POLY = 0x82F63B78  # CRC-32C (Castagnoli), reflected
@@ -200,7 +203,12 @@ def _read_header(f, path: str, index: int) -> "int | None":
 
 
 def _read_data(f, length: int, path: str, index: int) -> bytes:
-    data = _read_exact(f, length, path, index, "data")
+    return _check_data(f, _read_exact(f, length, path, index, "data"),
+                       path, index)
+
+
+def _check_data(f, data: bytes, path: str, index: int) -> bytes:
+    """``data`` after the data CRC that follows it in ``f`` is checked."""
     (want,) = struct.unpack(
         "<I", _read_exact(f, 4, path, index, "data CRC"))
     if masked_crc(data) != want:
@@ -229,10 +237,22 @@ def index_records(path: str) -> "list[RecordSpan]":
     return spans
 
 
-def read_record_at(f, span: RecordSpan, path: str, index: int) -> bytes:
-    """One record's data from an open file, its data CRC checked."""
+def _read_at(f, span: RecordSpan, path: str, index: int) -> bytes:
     f.seek(span.offset)
-    return _read_data(f, span.length, path, index)
+    data = faultinject.corrupt(
+        "tfrecord.read", _read_exact(f, span.length, path, index, "data"))
+    return _check_data(f, data, path, index)
+
+
+def read_record_at(f, span: RecordSpan, path: str, index: int) -> bytes:
+    """One record's data from an open file, its data CRC checked (the
+    reference's ``TFRecordIndex.read``). The data passes the
+    ``tfrecord.read`` fault seam, and an ``OSError`` is retried up to 3
+    times (``utils/retry.py``, counted as ``io.retries.tfrecord.read``); a
+    damaged payload fails its CRC and raises ``CorruptRecordError``,
+    which is not retried."""
+    return retry.retry_call(_read_at, f, span, path, index, attempts=4,
+                            site="tfrecord.read")
 
 
 def frame_record(data: bytes) -> bytes:
@@ -515,7 +535,11 @@ def list_split(data_dir: str, split: str) -> "list[str]":
 
 
 def count_records(paths: Sequence[str]) -> int:
-    return sum(len(index_records(p)) for p in paths)
+    """The records of ``paths``, a transient ``OSError`` retried
+    (``io.retries.tfrecord.count``)."""
+    return retry.retry_call(
+        lambda: sum(len(index_records(p)) for p in paths), attempts=3,
+        site="tfrecord.count")
 
 
 def read_quality_by_name(paths: Sequence[str]) -> "dict[bytes, float]":

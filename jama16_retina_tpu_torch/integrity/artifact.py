@@ -22,8 +22,10 @@ The fingerprint holds the python and numpy versions and the platform
 only (no clocks, no hosts), so two writes of one payload on one machine
 are byte-identical. A load whose digest disagrees raises
 :class:`ArtifactCorrupt` and counts ``integrity.corrupt`` and
-``integrity.corrupt.<artifact>``. The reference's fault-injection seams
-are not ported.
+``integrity.corrupt.<artifact>``. Every write passes the
+``integrity.write`` fault seam (a corrupt-family plan damages the blob,
+an error plan fails the write) and ``integrity.write.commit`` between
+the fsync and the rename (``obs/faultinject.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import hashlib
 import json
 import os
 import sys
+
+from jama16_retina_tpu_torch.obs import faultinject
 
 SEAL_KEY = "__seal__"
 SEAL_VERSION = 1
@@ -117,7 +121,10 @@ def atomic_write_bytes(path: str, blob: bytes, fsync: bool = True) -> None:
     rename it over ``path``: a reader sees the old file or the new one,
     never a torn one. ``fsync=False`` keeps the rename's atomicity for a
     snapshot rewritten on every flush (``telemetry.prom``), which needs
-    to be whole, not durable."""
+    to be whole, not durable. The ``integrity.write`` fault seam damages
+    or fails the blob; ``integrity.write.commit`` sits between the fsync
+    and the rename."""
+    blob = faultinject.corrupt("integrity.write", blob)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
@@ -125,6 +132,7 @@ def atomic_write_bytes(path: str, blob: bytes, fsync: bool = True) -> None:
             if fsync:
                 f.flush()
                 os.fsync(f.fileno())
+        faultinject.check("integrity.write.commit")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):

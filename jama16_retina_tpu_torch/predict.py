@@ -12,9 +12,13 @@ Each image becomes one JSON line on stdout, in input order:
 ["gradable"], "n_models"}``; for the 5-class head (``icdr5``), ``prob``
 is P(grade >= 2) and the row adds ``grade_probs`` (5, rounded to 6
 places) and ``predicted_grade`` after it. An image that cannot be read
-or holds no fundus becomes ``{"image", "error"}``. Exit codes: 0 when
-at least one image scored, 1 when none did, 2 under ``--strict`` when
-any image was skipped. Member dirs hold ``params.npz``
+or holds no fundus becomes ``{"image", "error"}``. With
+``--max_retries N`` a transient read error is retried up to N times
+(``utils/retry.py``), and an image read again and then scored carries
+``"retried": true`` before ``n_models`` (and counts into
+``serve.input_retried``). Exit codes: 0 when at least one image scored,
+1 when none did, 2 under ``--strict`` when any image was skipped (a
+retried image that scored was not). Member dirs hold ``params.npz``
 (``utils/checkpoint.py``).
 
 The engine is built from the config, so ``--set serve.dtype=bf16|int8``,
@@ -94,6 +98,14 @@ def _parser() -> argparse.ArgumentParser:
                         "\"gradable\": false (0 flags none)")
     p.add_argument("--strict", action="store_true",
                    help="exit 2 when any input image was skipped")
+    p.add_argument("--max_retries", type=int, default=0,
+                   help="per-image retries for TRANSIENT read errors (flaky "
+                        "NFS/network mounts; utils/retry.py exponential "
+                        "backoff). A retried-then-scored image is counted "
+                        "separately (serve.input_retried + a 'retried' "
+                        "field on its row) from rejects, so --strict "
+                        "semantics stay exact: only genuinely skipped "
+                        "images exit 2")
     p.add_argument("--host_workers", type=int, default=0,
                    help="fundus-normalization threads (0 = serve."
                         "host_workers, whose 0 is auto)")
@@ -198,6 +210,7 @@ def _run(args, snap) -> int:
 
     from jama16_retina_tpu_torch import configs
     from jama16_retina_tpu_torch.eval import metrics
+    from jama16_retina_tpu_torch.obs import faultinject
     from jama16_retina_tpu_torch.obs import trace as obs_trace
     from jama16_retina_tpu_torch.serve import host
     from jama16_retina_tpu_torch.serve.assemble import EngineSpec, assemble
@@ -209,6 +222,9 @@ def _run(args, snap) -> int:
     cfg = configs.override(configs.get_config(args.config), args.set)
     if args.replicas < 0:
         raise SystemExit(f"--replicas must be >= 0, got {args.replicas}")
+    # The fault plan arms before the host stage, whose host.decode seam
+    # runs ahead of any engine (JAMA16_FAULTS wins over obs.fault_plan).
+    faultinject.arm_from_env_or_config(cfg.obs.fault_plan)
     dirs = list(args.ensemble_dir)
     if not dirs:
         if not args.checkpoint_dir:
@@ -219,7 +235,9 @@ def _run(args, snap) -> int:
     pre = host.preprocess_paths(
         paths, cfg.model.image_size, ben_graham=args.ben_graham,
         workers=args.host_workers or cfg.serve.host_workers,
+        max_retries=args.max_retries,
     )
+    retried = set(pre.retried)
     if pre.kept:
         # The policy first, so the one-bucket pin below still wins on
         # shapes; a stale fingerprint refuses the batch.
@@ -301,6 +319,8 @@ def _run(args, snap) -> int:
         row["quality"] = round(float(qual), 4)
         if args.min_quality > 0:
             row["gradable"] = bool(qual >= args.min_quality)
+        if p in retried:
+            row["retried"] = True
         row["n_models"] = len(dirs)
         print(json.dumps(row))
     if snap is not None:

@@ -366,3 +366,9 @@ class MicroBatcher:
         if pending:
             self._c_close_flushed.inc()
             self._flush(pending)
+
+    def __enter__(self) -> "MicroBatcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -41,6 +41,15 @@ ride-along) on that generation. The outgoing generation stays on the
 device for ``serve.rollback_keep_s`` so that ``rollback`` is one more
 assignment. ``begin_shadow`` scores every Nth live request through a
 candidate too, for comparison only.
+
+Construction arms the fault plan (``obs/faultinject.py``; the
+``JAMA16_FAULTS`` variable, else ``obs.fault_plan``), and each chunk
+passes the ``engine.dispatch`` seam before its forward. An engine the
+port uses inside another path (a fit's eval step, the distillation
+teacher, ``evaluate_checkpoints``; the reference runs no engine there)
+is built with ``faults=False``: it arms nothing, so a fit's plan keeps
+its counts and stays the one its reader processes hold, and fires no
+seam.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from jama16_retina_tpu_torch import device as device_lib
 from jama16_retina_tpu_torch.data import augment
 from jama16_retina_tpu_torch.eval import metrics
 from jama16_retina_tpu_torch.models import convert
+from jama16_retina_tpu_torch.obs import faultinject
 from jama16_retina_tpu_torch.obs import quality as quality_lib
 from jama16_retina_tpu_torch.obs import registry as obs_registry
 from jama16_retina_tpu_torch.obs import trace as obs_trace
@@ -205,7 +215,8 @@ class ServingEngine:
                  member_dirs: "list[str] | None" = None, *,
                  state_dicts: "list[dict] | None" = None,
                  device: "str | torch.device | None" = None,
-                 registry: "obs_registry.Registry | None" = None):
+                 registry: "obs_registry.Registry | None" = None,
+                 faults: bool = True):
         self.device = device_lib.resolve(device)
         configs.check_supported(cfg)
         self.cfg = cfg
@@ -289,6 +300,12 @@ class ServingEngine:
                  "[fleet:max]")
         # Pad-waste counters by bucket, made at a bucket's first use.
         self._bucket_counters: dict = {}
+        # The fault plan arms at session start: JAMA16_FAULTS wins, then
+        # obs.fault_plan; with neither, what a caller armed stays armed.
+        # An internal engine (faults=False) neither arms nor fires.
+        self._faults = faults
+        if faults:
+            faultinject.arm_from_env_or_config(cfg.obs.fault_plan)
         # The skeleton keeps no weights: the int8 and the stacked forms
         # swap a member's into it for one forward (functional_call), so
         # those forwards take turns, in every generation. An fp32 or bf16
@@ -766,6 +783,9 @@ class ServingEngine:
                 # and its device time shows in the device_get drain.
                 with span("serve.engine.pad_s", self.registry):
                     padded = self._pad(chunk, bucket)
+                # The engine.dispatch fault seam, once a chunk.
+                if self._faults:
+                    faultinject.check("engine.dispatch")
                 with span("serve.engine.dispatch_s", self.registry):
                     probs, chunk_sums = self._score(padded, n, gen)
                 outs.append(probs)

@@ -8,7 +8,10 @@ called through ``ctypes`` (which releases the GIL), and
 (``ThreadPoolExecutor.map`` preserves it), so the output depends only on
 the path list, never on the worker count. Rejected paths are counted
 into ``serve.input_rejected`` and ``serve.input_rejected.{reason}`` as the
-reference counts them.
+reference counts them. Each file read passes the ``host.decode`` fault
+seam (``obs/faultinject.py``) and, with ``max_retries`` > 0, the bounded
+retry (``utils/retry.py``); a path read again and then scored lands in
+the ``retried`` ledger and ``serve.input_retried``, never in ``skipped``.
 
 ``prepare_images`` is the device-side preprocess of a uint8 batch: the
 fused kernel (``fused=True``, counted into ``serve.preprocess.fused_rows``)
@@ -28,9 +31,11 @@ import torch
 
 from jama16_retina_tpu_torch import device as device_lib
 from jama16_retina_tpu_torch.data import imdecode
+from jama16_retina_tpu_torch.obs import faultinject
 from jama16_retina_tpu_torch.obs import registry as obs_registry
 from jama16_retina_tpu_torch.ops import serve_preprocess
 from jama16_retina_tpu_torch.preprocess import fundus
+from jama16_retina_tpu_torch.utils import retry as retry_lib
 
 
 def reject_reason_slug(why: str) -> str:
@@ -77,6 +82,9 @@ class PreprocessResult:
     kept: list  # paths of the scored rows, aligned with images
     skipped: list  # (path, reason) pairs, input order
     qualities: list  # gradability score per kept row
+    # Paths read again after a transient error (--max_retries) and then
+    # scored: a ledger apart from ``skipped``, so --strict stays exact.
+    retried: list = dataclasses.field(default_factory=list)
 
 
 def resolve_workers(requested: int) -> int:
@@ -86,42 +94,58 @@ def resolve_workers(requested: int) -> int:
     return max(1, min(8, (os.cpu_count() or 1) - 1))
 
 
-def _load_one(path: str, image_size: int, ben_graham: bool):
-    """One path -> (error reason | None, canvas | None, quality | None).
-    Unreadable files and frames without a fundus become reasons
+def _load_one(path: str, image_size: int, ben_graham: bool,
+              max_retries: int = 0):
+    """One path -> (error reason | None, canvas | None, quality | None,
+    retried). Unreadable files and frames without a fundus become reasons
     ("unreadable" verbatim for bytes that are no image; a format the port
     recognizes but does not decode yet names itself); any other exception
-    propagates."""
-    try:
+    propagates. The read passes the ``host.decode`` seam and, with
+    ``max_retries`` > 0, up to that many retries of an ``OSError``."""
+    tries = [0]
+
+    def read() -> bytes:
+        tries[0] += 1
         with open(path, "rb") as f:
             data = f.read()
+        return faultinject.corrupt("host.decode", data)
+
+    try:
+        if max_retries > 0:
+            data = retry_lib.retry_call(read, attempts=max_retries + 1,
+                                        base_delay=0.02, site="host.decode")
+        else:
+            data = read()
     except OSError as e:
-        return f"unreadable: {e}", None, None
+        return f"unreadable: {e}", None, None, tries[0] > 1
+    retried = tries[0] > 1
     rgb, why = imdecode.read_image(data)
     if rgb is None:
         return ("unreadable" if why is None else f"unreadable: {why}",
-                None, None)
+                None, None, retried)
     try:
         canvas, q = fundus.resize_and_center_fundus(
             rgb, diameter=image_size, ben_graham=ben_graham,
             with_quality=True,
         )
     except fundus.FundusNotFound as e:
-        return f"no fundus found: {e}", None, None
-    return None, canvas, float(q["quality"])
+        return f"no fundus found: {e}", None, None, retried
+    return None, canvas, float(q["quality"]), retried
 
 
 def preprocess_paths(paths: "list[str]", image_size: int,
                      ben_graham: bool = False, workers: int = 0,
-                     registry: "obs_registry.Registry | None" = None
-                     ) -> PreprocessResult:
+                     registry: "obs_registry.Registry | None" = None,
+                     max_retries: int = 0) -> PreprocessResult:
     """Normalize ``paths`` across a thread pool; worker-count-invariant.
-    ``registry`` receives the reject counters (None: the process
-    default)."""
+    ``registry`` receives the reject and retry counters (None: the
+    process default). ``max_retries``: per-image retries of a transient
+    read error (``predict --max_retries``); a path retried and then
+    scored lands in ``retried`` and ``serve.input_retried``."""
     workers = resolve_workers(workers)
 
     def one(p):
-        return _load_one(p, image_size, ben_graham)
+        return _load_one(p, image_size, ben_graham, max_retries)
 
     if workers <= 1 or len(paths) < 2:
         rows = [one(p) for p in paths]
@@ -132,19 +156,29 @@ def preprocess_paths(paths: "list[str]", image_size: int,
                                 thread_name_prefix="serve-host") as pool:
             rows = list(pool.map(one, paths))
 
-    kept, skipped, qualities, canvases = [], [], [], []
-    for p, (why, canvas, quality) in zip(paths, rows):
+    kept, skipped, qualities, canvases, retried = [], [], [], [], []
+    for p, (why, canvas, quality, was_retried) in zip(paths, rows):
         if why is not None:
             skipped.append((p, why))
             continue
+        if was_retried:
+            retried.append(p)
         kept.append(p)
         canvases.append(canvas)
         qualities.append(quality)
     images = (np.stack(canvases) if canvases
               else np.zeros((0, image_size, image_size, 3), np.uint8))
     _count_rejects(skipped, registry)
+    if retried:
+        reg = (registry if registry is not None
+               else obs_registry.default_registry())
+        reg.counter(
+            "serve.input_retried",
+            help="images that hit a transient read error, were retried "
+                 "and then SCORED (not part of the reject ledger)",
+        ).inc(len(retried))
     return PreprocessResult(images=images, kept=kept, skipped=skipped,
-                            qualities=qualities)
+                            qualities=qualities, retried=retried)
 
 
 def _fused_rows(registry: "obs_registry.Registry | None"):

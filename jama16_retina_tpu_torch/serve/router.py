@@ -41,9 +41,11 @@ trace id), and a bin of several requests' rows names every part in one
 ``serve.router.bin.parts`` event. The latency histogram's exemplar is
 the trace id, and with the tracer on a request's latency splits into
 ``serve.router.request.{queue_wait,device,resolve}``; each dispatch tick
-is a ``serve.router.tick_s`` span. Left out with their planes (ROADMAP
-item 11, parts 2 and 5): the ``serve.router.dispatch`` fault site and
-the ``audit`` hook.
+is a ``serve.router.tick_s`` span. Each bin passes the
+``serve.router.dispatch`` fault seam (``obs/faultinject.py``) before its
+replica scores it: an injected failure marks the replica failed, and its
+bins retry on siblings. Left out with its plane (ROADMAP item 11, part
+5): the ``audit`` hook.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from concurrent.futures import Future, InvalidStateError
 
 import numpy as np
 
+from jama16_retina_tpu_torch.obs import faultinject
 from jama16_retina_tpu_torch.obs import registry as obs_registry
 from jama16_retina_tpu_torch.obs import trace as obs_trace
 from jama16_retina_tpu_torch.obs.spans import span
@@ -940,6 +943,7 @@ class Router:
             ctxs = {id(req): req.ctx for req, _lo, _hi in b.parts}
             bin_ctx = next(iter(ctxs.values())) if len(ctxs) == 1 else None
             try:
+                faultinject.check("serve.router.dispatch")
                 t_score0 = time.perf_counter()
                 with obs_trace.use_context(bin_ctx):
                     out, gens = self._score_bin(rep, b)

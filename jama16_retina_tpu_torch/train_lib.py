@@ -471,7 +471,8 @@ def make_eval_step(cfg: ExperimentConfig, state: TrainState,
     # tracer as the fit configured it.
     engine = ServingEngine(cfg, state_dicts=[eval_params(state)],
                            device=device,
-                           registry=obs_registry.Registry(enabled=False))
+                           registry=obs_registry.Registry(enabled=False),
+                           faults=False)
     return lambda images: engine.member_probs(images)[0]
 
 
@@ -761,5 +762,6 @@ def make_ensemble_eval_step(cfg: ExperimentConfig, state: EnsembleState,
         cfg.serve, member_parallel=True, dtype="fp32"))
     engine = ServingEngine(eval_cfg, state_dicts=eval_state_dicts(state),
                            device=device,
-                           registry=obs_registry.Registry(enabled=False))
+                           registry=obs_registry.Registry(enabled=False),
+                           faults=False)
     return engine.member_probs

@@ -60,6 +60,7 @@ from jama16_retina_tpu_torch.eval import metrics
 from jama16_retina_tpu_torch.models import convert, init
 from jama16_retina_tpu_torch.obs import alerts as obs_alerts
 from jama16_retina_tpu_torch.obs import export as obs_export
+from jama16_retina_tpu_torch.obs import faultinject
 from jama16_retina_tpu_torch.obs import flightrec as obs_flightrec
 from jama16_retina_tpu_torch.obs import quality as quality_lib
 from jama16_retina_tpu_torch.obs import registry as obs_registry
@@ -102,7 +103,7 @@ def _distill_teacher(cfg: configs.ExperimentConfig, dev: torch.device):
         obs=dataclasses.replace(cfg.obs, enabled=False))
     engine = ServingEngine(
         teacher_cfg, state_dicts=[restore_for_eval(cfg, d) for d in dirs],
-        device=dev, registry=obs_registry.Registry())
+        device=dev, registry=obs_registry.Registry(), faults=False)
     _log.info("distilling from %d teacher member(s) under %s", len(dirs),
               cfg.train.distill_from)
 
@@ -590,15 +591,32 @@ def _obs_begin_run(cfg: configs.ExperimentConfig) -> obs_registry.Registry:
     ``_obs_begin_run``): this run's ``obs.enabled`` and trace knobs, every
     metric zeroed in place and every ring cleared, before the stream
     registers its metrics, so members fit one after another in one
-    process do not carry each other's counts or events. No fault plan is
-    armed (ROADMAP item 11, part 2)."""
+    process do not carry each other's counts or events. Then the fault
+    plan is armed (``faultinject.arm_from_env_or_config``): the
+    ``JAMA16_FAULTS`` variable wins, then ``obs.fault_plan``; with
+    neither, a plan armed by the caller stays armed. It runs before the
+    resume restore, so the restore's seam and retry counts belong to the
+    run."""
     reg = obs_registry.default_registry()
     reg.enabled = cfg.obs.enabled
     reg.reset()
     obs_trace.default_tracer().configure(
         enabled=cfg.obs.enabled and cfg.obs.trace_enabled,
         buffer_events=cfg.obs.trace_buffer_events)
+    faultinject.arm_from_env_or_config(cfg.obs.fault_plan)
     return reg
+
+
+def _load_restored(state: train_lib.TrainState, ckpt: ckpt_lib.Checkpointer,
+                   step: int) -> train_lib.TrainState:
+    """``load_state_flat`` of ``ckpt``'s step ``step``: a saved state
+    missing a leaf, or holding one of another shape, raises
+    ``CheckpointError`` naming the directory and the step."""
+    flat = ckpt.restore(step)
+    try:
+        return train_lib.load_state_flat(state, flat)
+    except (KeyError, RuntimeError) as e:
+        raise ckpt.unreadable(step, e) from e
 
 
 def _telemetry_for(cfg: configs.ExperimentConfig, log: RunLog, workdir: str,
@@ -841,9 +859,10 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                                  max_to_keep=tc.max_to_keep)
     start_step = 0
     best_auc, best_step, since_best = -np.inf, 0, 0
+    _obs_begin_run(cfg)  # before the restore and the stream's metrics
     if tc.resume and ckpt.latest_step is not None:
         _check_ema_compat(ckpt, cfg, workdir, ckpt.latest_step)
-        train_lib.load_state_flat(state, ckpt.restore(ckpt.latest_step))
+        _load_restored(state, ckpt, ckpt.latest_step)
         start_step = state.step
         best_auc, best_step, since_best = _reconstruct_best_tracking(
             workdir, start_step, cfg, ckpt)
@@ -865,7 +884,6 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
 
     overlap = tc.eval_overlap
     saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
-    _obs_begin_run(cfg)  # before the stream registers its metrics
     # One batch per completed step: a resumed stream continues exactly
     # where the interrupted one stopped.
     depth = cfg.data.prefetch_batches
@@ -963,6 +981,7 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
         try:
             for step_i in range(start_step, tc.steps):
                 t_step = time.perf_counter()
+                faultinject.check("trainer.step")
                 profiler.before_step(step_i)
                 with stalls.measure("input"):
                     batch = next(stream)
@@ -1278,6 +1297,7 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
     best_auc = np.full((k,), -np.inf)
     best_step = np.zeros((k,), np.int64)
     since_best = np.zeros((k,), np.int64)
+    _obs_begin_run(cfg)  # before the restore and the stream's metrics
     step0 = (_restore_members(cfg, workdir, ckpts, was_member_parallel)
              if tc.resume else None)
     if step0 is None:
@@ -1287,8 +1307,7 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
         for c in ckpts:
             member = train_lib.create_state(cfg, models.build(cfg.model),
                                             "cpu")
-            members.append(train_lib.load_state_flat(member,
-                                                     c.restore(step0)))
+            members.append(_load_restored(member, c, step0))
         state = train_lib.stack_states(members, seeds, dev)
         del members
         start_step = int(step0)
@@ -1301,7 +1320,6 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
 
     overlap = tc.eval_overlap
     saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
-    _obs_begin_run(cfg)
     depth = cfg.data.prefetch_batches
     stream = pipeline.DevicePrefetch(pipeline.train_batches(
         data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
@@ -1414,6 +1432,7 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
         try:
             for step_i in range(start_step, tc.steps):
                 t_step = time.perf_counter()
+                faultinject.check("trainer.step")
                 profiler.before_step(step_i)
                 with stalls.measure("input"):
                     batch = next(stream)
@@ -1613,7 +1632,8 @@ def evaluate_checkpoints(
         obs=dataclasses.replace(cfg.obs, quality=configs.QualityConfig()))
     engine = ServingEngine(
         eval_cfg, state_dicts=[restore_for_eval(cfg, d) for d in ckpt_dirs],
-        device=dev, registry=obs_registry.Registry(enabled=False))
+        device=dev, registry=obs_registry.Registry(enabled=False),
+        faults=False)
 
     passes = [("eval", data_dir, split)]
     if threshold_split:

@@ -21,6 +21,12 @@ format: a checkpoint dir gives the eval tree of its best step;
 ``load_donor`` gives a warm start its params, batch statistics and EMA
 shadow apart. ``AsyncSaver`` runs save jobs on one background thread
 (``train.async_save``).
+
+``Checkpointer.save``/``save_latest`` pass the ``ckpt.save`` fault seam
+before they write, and ``Checkpointer.restore`` reads through the
+``ckpt.restore`` seam under a bounded retry (``utils/retry.py``); a
+restore that cannot succeed raises ``CheckpointError`` naming the
+directory and the step.
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ import threading
 
 import numpy as np
 
+from jama16_retina_tpu_torch.obs import faultinject
+from jama16_retina_tpu_torch.utils import retry
+
 PARAMS_FILE = "params.npz"
 STATE_FILE = "state.npz"
 META_FILE = "meta.json"
@@ -44,7 +53,10 @@ EMA_PREFIX = "ema/"
 
 
 class CheckpointError(RuntimeError):
-    """A checkpoint that cannot be restored, named by directory and step."""
+    """A checkpoint that cannot be restored, named by directory and step
+    (the reference's): transient I/O that outlasted its retries, or a
+    truncated or corrupted step dir. The original exception rides as
+    ``__cause__``."""
 
 
 def member_dir(checkpoint_dir: str, member: int) -> str:
@@ -258,14 +270,8 @@ class _StepDirs:
         shutil.rmtree(self.path(step), ignore_errors=True)
 
     def read(self, step: int) -> dict:
-        path = os.path.join(self.path(step), STATE_FILE)
-        try:
-            with np.load(path) as z:
-                return {k: z[k] for k in z.files}
-        except (OSError, ValueError, KeyError) as e:
-            raise CheckpointError(
-                f"checkpoint at step {step} under {self.directory!r} is "
-                f"unreadable ({type(e).__name__}: {e})") from e
+        with np.load(os.path.join(self.path(step), STATE_FILE)) as z:
+            return {k: z[k] for k in z.files}
 
 
 class Checkpointer:
@@ -311,6 +317,7 @@ class Checkpointer:
         """``latest/`` is written every time; ``best/`` only when this
         step enters the top-k by val AUC (then the worst is dropped), as
         hard links to the files just written to ``latest/``."""
+        faultinject.check("ckpt.save")
         metric = float(metrics[BEST_METRIC])
         self._write_latest(step, flat, self._meta(step, flat, metric))
         if self._enters_best(metric):
@@ -321,6 +328,7 @@ class Checkpointer:
     def save_latest(self, step: int, flat: dict) -> bool:
         """A ``latest/``-only save (no val AUC to rank it by); False, and
         nothing written, when the step is already there."""
+        faultinject.check("ckpt.save")
         if step in self._latest.steps():
             return False
         self._write_latest(step, flat, self._meta(step, flat, None))
@@ -345,13 +353,40 @@ class Checkpointer:
 
     def restore(self, step: "int | None" = None) -> dict:
         """The flat state of ``step`` if given (from whichever directory
-        has it), else of the best step, else of the latest."""
+        has it), else of the best step, else of the latest. The read
+        passes the ``ckpt.restore`` fault seam and is retried on
+        ``OSError`` (3 attempts, ``io.retries.ckpt.restore``); any
+        failure raises ``CheckpointError`` naming the directory and the
+        step (the reference's ``Checkpointer._do_restore``)."""
         dirs, step = self._pick(step)
         if step not in dirs.steps():
             raise CheckpointError(
                 f"no checkpoint at step {step} under {self.directory!r} "
                 f"(available: {sorted(self.all_steps())})")
-        return dirs.read(step)
+
+        def once() -> dict:
+            faultinject.check("ckpt.restore")
+            return dirs.read(step)
+
+        try:
+            return retry.retry_call(once, attempts=3, site="ckpt.restore")
+        except OSError as e:
+            raise CheckpointError(
+                f"checkpoint restore failed with transient I/O errors "
+                f"after retries: step {step} under {self.directory!r} "
+                f"({type(e).__name__}: {e})") from e
+        except Exception as e:
+            raise self.unreadable(step, e) from e
+
+    def unreadable(self, step: int, e: BaseException) -> CheckpointError:
+        """The error of a step whose files do not restore: a truncated
+        or corrupted step dir, or one missing a leaf."""
+        return CheckpointError(
+            f"checkpoint at step {step} under {self.directory!r} is "
+            f"unreadable ({type(e).__name__}: {e}) — the directory is "
+            "likely truncated/corrupted (torn copy, partial delete); "
+            f"restore another step (available: {sorted(self.all_steps())}) "
+            "or re-save the member")
 
     def saved_with_ema(self, step: "int | None" = None) -> "bool | None":
         """Whether the checkpoint (default: the one ``restore`` picks)

@@ -741,3 +741,95 @@ def test_profiler_windows_and_telemetry_of_full_width_fits(cuda, tmp_path):
         assert tele["histograms"]["trainer.dispatch_s"]["count"] == 3
         prom = (wd / "telemetry.prom").read_text()
         assert "# TYPE trainer_dispatch_s histogram" in prom
+
+
+@pytest.mark.gpu
+def test_an_injected_dispatch_fails_one_batcher_window_on_the_card(cuda):
+    """The ``engine.dispatch`` drill on the card (smoke members, fused
+    preprocess, bf16, one bucket of 8): the second window's future carries
+    the injected error, the worker survives, the next requests' rows are
+    bitwise the unarmed engine's, and B4 runs once a chunk."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    cfg = configs.override(configs.get_config("smoke"), [
+        "serve.max_batch=8", "serve.bucket_sizes=8",
+        "serve.fused_preprocess=true"])
+    reg = Registry()
+    eng = ServingEngine(cfg, state_dicts=_smoke_members(cfg, (0, 1)),
+                        device=cuda, registry=reg)
+    imgs = np.random.default_rng(4).integers(0, 256, (6, 64, 64, 3),
+                                             np.uint8)
+    want = [eng.probs(imgs[i:i + 1]) for i in range(len(imgs))]
+    b = eng.make_batcher()
+    eng.chunks_dispatched = 0
+    before = sp.launches
+    faultinject.arm({"engine.dispatch": {
+        "kind": "error", "error": "RuntimeError", "on_calls": [2],
+        "message": "chaos"}})
+    try:
+        out = []
+        for i in range(len(imgs)):
+            try:
+                out.append(b.submit(imgs[i:i + 1]).result(timeout=60))
+            except RuntimeError as e:
+                out.append(str(e))
+    finally:
+        faultinject.disarm()
+        b.close()
+    torch.cuda.synchronize()
+    assert out[1] == "chaos (injected, call 2)"
+    assert reg.counter("serve.batcher.window_errors").value == 1
+    for i in (0, *range(2, len(imgs))):
+        np.testing.assert_array_equal(out[i], want[i])
+    # The failed window's chunk raised before its forward.
+    assert sp.launches - before == eng.chunks_dispatched == len(imgs) - 1
+
+
+@pytest.mark.gpu
+def test_a_replica_killed_at_the_router_site_drops_no_request_on_the_card(
+        cuda):
+    """The ``serve.router.dispatch`` drill on the card: two replicas of
+    one smoke engine pair, an error on the 2nd bin: one replica is marked
+    failed, its bin retries on the other, no request fails, and every row
+    is bitwise its engine's."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import router as router_lib
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    cfg = configs.override(configs.get_config("smoke"), [
+        "model.compute_dtype=float32", "serve.max_batch=8",
+        "serve.bucket_sizes=8", "serve.fused_preprocess=true",
+        "serve.router_tick_ms=1"])
+    sds = _smoke_members(cfg, (0, 1))
+    engines = [ServingEngine(cfg, state_dicts=sds, device=cuda,
+                             registry=Registry()) for _ in range(2)]
+    imgs = np.random.default_rng(5).integers(0, 256, (8, 8, 64, 64, 3),
+                                             np.uint8)
+    want = [engines[0].probs(x) for x in imgs]
+    reg = Registry()
+    router = router_lib.Router(cfg, engines=engines, registry=reg)
+    faultinject.arm({"serve.router.dispatch": {
+        "kind": "error", "error": "RuntimeError", "on_calls": [2]}})
+    try:
+        futs = [router.submit(x) for x in imgs]
+        got = [f.result(timeout=120) for f in futs]
+    finally:
+        faultinject.disarm()
+        router.close()
+    counters = reg.snapshot()["counters"]
+    assert counters["serve.router.replica_failures"] == 1
+    assert counters["serve.router.retried_bins"] >= 1
+    assert counters.get("serve.router.request_failures", 0) == 0
+    assert sum(r["state"] == router_lib.FAILED
+               for r in router.replica_states()) == 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

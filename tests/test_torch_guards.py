@@ -48,14 +48,15 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # evaluate), the serving knobs' (obs, integrity, serve/quantize,
     # serve/batcher), the optimizer families' (optim; the ensemble
     # code lives in train_lib and trainer) and the telemetry planes'
-    # (obs/trace, spans, export, criticalpath, flightrec, alerts)
-    # included.
+    # (obs/trace, spans, export, criticalpath, flightrec, alerts) and the
+    # fault plane's (obs/faultinject, utils/retry) included.
     assert int(n_modules) >= 38
     assert {f"jama16_retina_tpu_torch.{m}" for m in (
         "obs.registry", "obs.quality", "integrity.artifact",
         "serve.quantize", "serve.batcher", "optim", "train_lib",
         "trainer", "obs.trace", "obs.spans", "obs.export",
-        "obs.criticalpath", "obs.flightrec", "obs.alerts")
+        "obs.criticalpath", "obs.flightrec", "obs.alerts",
+        "obs.faultinject", "utils.retry")
         } <= set(names.split())
     assert bad.strip() == "[]"
 
@@ -346,8 +347,9 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
     # 77 until the router, fusion, policy and scaler ported their 12; 65
     # until telemetry, tracing, the flight recorder and alerts ported
     # their 13 (and copied obs.quarantine_alert_per_s and
-    # obs.device_hbm_headroom_alert, refused away from their defaults).
-    assert len(items) >= 52
+    # obs.device_hbm_headroom_alert, refused away from their defaults); 52
+    # until faults and retries ported obs.fault_plan.
+    assert len(items) >= 51
     for key, item in (("data.autotune", "item 7"),
                       ("data.quarantine_bad_records", "item 7"),
                       ("parallel.num_devices", "item 8"),
@@ -409,7 +411,7 @@ def test_unknown_or_malformed_overrides_raise(item):
 @pytest.mark.parametrize("item", [
     "serve.compile_cache_dir=/x", "obs.http_port=9090",
     "lifecycle.shadow_fraction=0.5", "obs.fleet_dir=/x",
-    "obs.audit.enabled=true", "obs.fault_plan=/x"])
+    "obs.audit.enabled=true", "obs.device_enabled=true"])
 def test_refused_serving_and_obs_knobs_name_their_roadmap_item(item):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
         configs.check_supported(
@@ -448,3 +450,100 @@ def test_overrides_parse_like_the_jax_package():
     assert configs.get_config("eyepacs_binary_quality").eval.tta is True
     with pytest.raises(ValueError, match="unknown config preset"):
         configs.get_config("icdr7")
+
+
+# ---------------------------------------------------------------------------
+# Fault sites: the port's analog of graftlint's ``faults`` rule
+# ---------------------------------------------------------------------------
+
+
+def _fired_sites() -> "dict[str, list[str]]":
+    """{site: [file:line, ...]} of every literal site at a
+    ``faultinject.check("...")`` or ``faultinject.corrupt("...", ...)``
+    call in the port's sources and ``chip_smoke.py``; a call whose site is
+    not a literal is listed under ``None``."""
+    import ast
+
+    from jama16_retina_tpu_torch.obs import faultinject
+
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    root = os.path.join(REPO, "jama16_retina_tpu_torch")
+    for dirpath, _, names in os.walk(root):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    out: dict = {}
+    for path in files:
+        if path.endswith(os.path.join("obs", "faultinject.py")):
+            continue  # the module itself: check/corrupt take a parameter
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr in ("check", "corrupt")
+                    and isinstance(node.func.value, ast.Name)
+                    and node.func.value.id == "faultinject"):
+                continue
+            arg = node.args[0] if node.args else None
+            site = (arg.value if isinstance(arg, ast.Constant)
+                    and isinstance(arg.value, str) else None)
+            out.setdefault(site, []).append(
+                f"{os.path.relpath(path, REPO)}:{node.lineno}")
+    assert set(faultinject.PORT_SITES) | set(faultinject.UNFIRED) == set(
+        faultinject.SITES)
+    return out
+
+
+def test_fault_sites_are_the_jax_sites():
+    """The port declares the reference's sites, name for name, in its
+    order, so a plan the reference accepts parses here."""
+    from jama16_retina_tpu.obs import faultinject as jax_faultinject
+    from jama16_retina_tpu_torch.obs import faultinject
+
+    assert list(faultinject.SITES) == list(jax_faultinject.SITES)
+    assert faultinject._KINDS == jax_faultinject._KINDS
+    assert set(faultinject._ERRORS) == set(jax_faultinject._ERRORS)
+
+
+@pytest.mark.parametrize("rule", ["declared", "seamed", "refused"])
+def test_fault_site_population(rule):
+    """``declared``: every literal site at a seam is in ``SITES`` and no
+    seam passes a computed site. ``seamed``: every site the port fires
+    (``PORT_SITES``) has at least one seam. ``refused``: no site the
+    port refuses to arm (``UNFIRED``) has a seam, and each names a
+    ROADMAP item."""
+    from jama16_retina_tpu_torch.obs import faultinject
+
+    fired = _fired_sites()
+    if rule == "declared":
+        assert None not in fired, fired.get(None)
+        assert set(fired) <= set(faultinject.SITES), sorted(
+            set(fired) - set(faultinject.SITES))
+    elif rule == "seamed":
+        assert set(faultinject.PORT_SITES) <= set(fired), sorted(
+            set(faultinject.PORT_SITES) - set(fired))
+    else:
+        assert not set(faultinject.UNFIRED) & set(fired)
+        assert all(item.startswith("Queue A item ")
+                   for item in faultinject.UNFIRED.values())
+
+
+def test_obs_fault_plan_is_ported_and_an_unfired_site_names_its_item():
+    """``obs.fault_plan`` takes the JAX field's default and type; a plan in
+    it that arms a site the port cannot fire yet raises naming the item,
+    at the run's and the engine's arming point."""
+    from jama16_retina_tpu import configs as jax_configs
+    from jama16_retina_tpu_torch.obs import faultinject
+
+    assert (configs.ExperimentConfig().obs.fault_plan
+            == jax_configs.ExperimentConfig().obs.fault_plan == "")
+    spec = json.dumps({"lifecycle.gate": {"kind": "error"}})
+    cfg = configs.override(configs.get_config("smoke"),
+                           [f"obs.fault_plan={spec}"])
+    configs.check_supported(cfg)
+    try:
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md Queue A item 11 \(part 3"):
+            faultinject.arm_from_env_or_config(cfg.obs.fault_plan)
+        assert faultinject.active_plan() is None
+    finally:
+        faultinject.disarm()

@@ -7,9 +7,10 @@ router tests use) each scenario runs through both routers and gives the
 same rows, segments, counters and errors: re-binning, splitting, the
 dispatch policies, class-aware shedding, interactive-first binning,
 deadline expiry, a replica's death with zero failed requests,
-``NoReplicasLeft``, drain, tenants and the grouped mixed bin. A replica
-death is a stub that raises from its Nth call (the reference's fault
-site is not ported).
+``NoReplicasLeft``, drain, tenants and the grouped mixed bin. The
+replica's death goes through the ``serve.router.dispatch`` fault site,
+each router under its own package's plan; ``all_dead`` and
+``no_replicas_left`` keep a stub that raises from its Nth call.
 
 Over real smoke engines (``tiny_cnn``, 64 px, float32, converted
 weights, torch on one thread): the port Router is within 1e-5 of the JAX
@@ -33,12 +34,13 @@ import pytest
 
 from jama16_retina_tpu import configs as jax_configs
 from jama16_retina_tpu import models as jax_models
+from jama16_retina_tpu.obs import faultinject as jax_faultinject
 from jama16_retina_tpu.obs.registry import Registry as JaxRegistry
 from jama16_retina_tpu.serve import engine as jax_engine
 from jama16_retina_tpu.serve import router as jax_router
 from jama16_retina_tpu_torch import configs, models, predict
 from jama16_retina_tpu_torch.models import convert
-from jama16_retina_tpu_torch.obs import quality
+from jama16_retina_tpu_torch.obs import faultinject, quality
 from jama16_retina_tpu_torch.obs.registry import Registry
 from jama16_retina_tpu_torch.ops import serve_preprocess
 from jama16_retina_tpu_torch.serve import fusion
@@ -50,6 +52,8 @@ from torch_parity import random_flat, stacked_state
 
 IMPLS = {"port": (port_router, configs, Registry),
          "jax": (jax_router, jax_configs, JaxRegistry)}
+# Each router's fault plane.
+FAULTS = {port_router: faultinject, jax_router: jax_faultinject}
 
 
 def _ref(rows: np.ndarray) -> np.ndarray:
@@ -305,13 +309,18 @@ def s_deadline(lib, cfg_lib, reg_cls):
 
 
 def s_replica_death(lib, cfg_lib, reg_cls):
+    """The 3rd bin dispatched dies at the ``serve.router.dispatch`` site:
+    its replica is marked failed and its bins retry on siblings."""
+    fault = FAULTS[lib]
     reg = reg_cls()
     router = lib.Router(
         _cfg(cfg_lib, bucket_sizes=(8,), max_batch=8, max_wait_ms=1.0),
-        engines=[StubReplica(0, delay_s=0.002),
-                 FailingStub(1, 3, delay_s=0.002),
-                 StubReplica(2, delay_s=0.002),
-                 StubReplica(3, delay_s=0.002)], registry=reg)
+        engines=[StubReplica(r, delay_s=0.002) for r in range(4)],
+        registry=reg)
+    plan = fault.plan_from_spec({"serve.router.dispatch": {
+        "kind": "error", "error": "RuntimeError", "on_calls": [3],
+        "message": "replica died"}})
+    prev = fault.arm(plan)
     submitted, lock = [], threading.Lock()
 
     def storm(w):
@@ -323,25 +332,32 @@ def s_replica_death(lib, cfg_lib, reg_cls):
             with lock:
                 submitted.append((rows, f))
 
-    threads = [threading.Thread(target=storm, args=(w,)) for w in range(4)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(30)
-    ok = all(np.array_equal(f.result(timeout=30), _ref(rows))
-             and all(s["generation"] == 100 + s["replica"]
-                     for s in f.segments)
-             for rows, f in submitted)
+    try:
+        threads = [threading.Thread(target=storm, args=(w,))
+                   for w in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+        ok = all(np.array_equal(f.result(timeout=30), _ref(rows))
+                 and all(s["generation"] == 100 + s["replica"]
+                         for s in f.segments)
+                 for rows, f in submitted)
+    finally:
+        fault.arm(prev)
     states = {r["replica"]: r for r in router.replica_states()}
+    counters = reg.snapshot()["counters"]
     out = {"ok": ok, "requests": len(submitted),
-           "failed": sorted((r["replica"], r["generation"])
-                            for r in states.values()
+           "failed": sorted(r["generation"] for r in states.values()
                             if r["state"] == lib.FAILED),
            "retried_some": reg.counter("serve.router.retried_bins").value
            >= 1,
+           "fires": plan.counts()["serve.router.dispatch"]["fires"],
+           "replica_failures_by_replica": sum(
+               counters.get(f"serve.replica{r}.failures", 0)
+               for r in range(4)),
            **_counters(reg, ("serve.router.replica_failures",
-                             "serve.router.request_failures",
-                             "serve.replica1.failures"))}
+                             "serve.router.request_failures"))}
     router.close()
     return out
 
@@ -509,8 +525,9 @@ EXPECT = {
     "interactive_first": {"serve.router.dispatches": 2},
     "deadline": {"error": "DeadlineExceeded", "calls": 0,
                  "serve.router.shed.deadline": 1},
-    "replica_death": {"ok": True, "requests": 40, "failed": [(1, None)],
-                      "retried_some": True,
+    "replica_death": {"ok": True, "requests": 40, "failed": [None],
+                      "retried_some": True, "fires": 1,
+                      "replica_failures_by_replica": 1,
                       "serve.router.replica_failures": 1,
                       "serve.router.request_failures": 0},
     "all_dead": {"error": "RuntimeError"},
