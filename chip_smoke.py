@@ -385,6 +385,36 @@ Phases, any failure exits nonzero before the result line:
               a checksum refusal counts ``integrity.corrupt`` and fires
               ``artifact_corrupt`` at the next flush; the file is deleted.
               Each drill's plan counts and wall time are printed.
+17. preprocess - the reference's preprocess runners on this machine's
+              host, with no OpenCV, PIL or TensorFlow, then their records
+              on the card; launch counts set to 0 just before each path
+              and read just after. (a) ``encode_jpeg`` of every photo of
+              ``tests/data/preprocess/manifest.json``'s ``encode`` list
+              and of its 299-px canvas: the sha256 of ``cv2.imencode``'s
+              bytes (quality 92); every committed TIFF variant decoded
+              bitwise OpenCV's decode, every refused one naming item 14.
+              (b) ``python -m jama16_retina_tpu_torch.preprocess_eyepacs``
+              on 99 names (4:3 JPEG photos whose disc is downscaled at
+              299 px, grades cycling, one missing, one blank, one
+              unreadable) at ``--workers 2`` (JPEG), again at 0, and with
+              ``--encoding raw --workers 0``: the printed report and every
+              shard and ``quality_<split>.csv`` bitwise what the
+              reference's ``preprocess_eyepacs.py`` wrote. (c)
+              ``preprocess_messidor`` on the 1440 x 960 LZW TIFF under 8
+              names with a ``;`` CSV, JPEG at 2 workers and raw at 0, the
+              same bar. (d) ``trainer.fit`` of ``eyepacs_binary``
+              (Inception-v3, 299 px, batch 32, preset step) from (b)'s
+              JPEG splits for 8 steps, evals at 4 and 8: B1 8 times, B2 =
+              B3 = 0; then phase 6's card-vs-CPU evaluation of its best
+              step on (c)'s ``test`` split with thresholds from (b)'s
+              ``val``. (e) ``predict.main`` (fused preprocess, float32)
+              on the TIFF photo, two small TIFF variants, four JPEG photos
+              and a CMYK TIFF against phase 4's k=2 members: the CMYK one
+              rejected as ``decode_error`` naming item 14, B4 once a
+              chunk, canvases bitwise the manifest's, rows within 1e-4 of
+              the CPU engine. (f) Printed, not asserted: each runner's
+              photos/s at its worker count and the encoder's ms per
+              299-px canvas.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
@@ -1459,7 +1489,8 @@ def phase_fit(torch, seed: int, smi: str, step_ms: float) -> dict:
     t0 = time.perf_counter()
     for split, n, shards, split_seed in FIT_SPLITS:
         tfrecord.write_synthetic_split(str(data), split, n, 299,
-                                       num_shards=shards, seed=split_seed)
+                                       num_shards=shards, seed=split_seed,
+                                       encoding="raw")
     log(f"fit: wrote raw splits {[(s, n, k) for s, n, k, _ in FIT_SPLITS]} "
         f"(split, images, shards) at 299 px in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -3903,10 +3934,12 @@ def write_jpeg_splits(root: Path) -> "tuple[Path, Path]":
 
 
 def evaluate_card_and_cpu(cfg, data: Path, workdir: Path, root: Path,
-                          tag: str) -> float:
+                          tag: str, threshold_dir: "Path | None" = None,
+                          n_test: int = FIT_SPLITS[2][1]) -> float:
     """``evaluate_checkpoints`` of ``workdir``'s best step on ``test`` with
-    thresholds from ``val``, float32 with TF32 off, on the card and on the
-    CPU: probabilities within 1e-4 and the reports within ``reports_gap``.
+    thresholds from ``val`` (of ``threshold_dir`` when given), float32
+    with TF32 off, on the card and on the CPU: probabilities of the
+    ``n_test`` images within 1e-4 and the reports within ``reports_gap``.
     Returns the largest probability difference."""
     import numpy as np
 
@@ -3919,7 +3952,9 @@ def evaluate_card_and_cpu(cfg, data: Path, workdir: Path, root: Path,
         t0 = time.perf_counter()
         reports[dev] = report = trainer.evaluate_checkpoints(
             cfg_eval, str(data), [str(workdir)], split="test",
-            threshold_split="val", save_probs=str(csv_path), device=dev)
+            threshold_split="val", save_probs=str(csv_path), device=dev,
+            threshold_data_dir=None if threshold_dir is None
+            else str(threshold_dir))
         ops = [(round(r["threshold"], 6), r["sensitivity"], r["specificity"])
                for r in report["operating_points"]]
         moved = [(r["sensitivity"], r["specificity"])
@@ -3936,7 +3971,7 @@ def evaluate_card_and_cpu(cfg, data: Path, workdir: Path, root: Path,
         f"over {p_cpu.size} test images in the save_probs CSVs (6 "
         "decimals; atol 1e-4, TF32 off)")
     check(names == names_c and np.array_equal(grades, grades_c)
-          and p_cpu.size == FIT_SPLITS[2][1] and dev_cpu <= 1e-4,
+          and p_cpu.size == n_test and dev_cpu <= 1e-4,
           f"card and CPU evaluations disagree by {dev_cpu}")
     gap = reports_gap(reports["cuda"], reports["cpu"], p_cpu,
                       (grades >= 2).astype(int), dev_cpu)
@@ -5296,6 +5331,248 @@ def phase_faults(torch, seed: int, smi: str, serve: dict, router: dict,
     return out
 
 
+# Phase 17: the preprocess runners.
+PRE_FIXTURES = ROOT / "tests" / "data" / "preprocess"
+# What predict --images reads in (e): the Messidor-size TIFF, two small
+# TIFF variants, four JPEG photos, and a TIFF variant the port refuses.
+PRE_PREDICT = ("messidor_0.tif", "t_be_lzw_pred.tif",
+               "t_tiles_deflate_pred.tif", "eyepacs_0.jpg", "eyepacs_1.jpg",
+               "eyepacs_2.jpg", "eyepacs_3.jpg")
+PRE_REFUSED = "r_cmyk.tif"
+ENCODE_REPS = 20
+
+
+def pre_manifest() -> dict:
+    with open(PRE_FIXTURES / "manifest.json") as f:
+        return json.load(f)
+
+
+def build_runner_dir(spec: dict, out: Path) -> Path:
+    """A runner spec's photo directory (``out/images``: each name a copy
+    of its committed photo) and labels CSV; returns the CSV's path."""
+    images = out / "images"
+    images.mkdir(parents=True, exist_ok=True)
+    for name, src, _ in spec["entries"]:
+        if src is not None:
+            shutil.copyfile(ROOT / "tests" / "data" / src, images / name)
+    labels = out / spec["labels_csv"]
+    labels.write_text(spec["csv"])
+    return labels
+
+
+def file_digests(d: Path) -> dict:
+    import hashlib
+
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(d.iterdir())}
+
+
+def pre_codec(smi: str) -> dict:
+    """(a) The encoder and the TIFF decoder on this machine's host against
+    the manifest's OpenCV digests; (f) the encoder's time per canvas."""
+    import hashlib
+
+    from jama16_retina_tpu_torch.data import imdecode, jpeg
+    from jama16_retina_tpu_torch.preprocess import fundus
+
+    manifest = pre_manifest()
+    encoded = 0
+    canvas = None
+    for key, want in sorted(manifest["encode"].items()):
+        src, _, what = key.partition(":")
+        rgb = imdecode.imdecode((ROOT / "tests" / "data" / src).read_bytes())
+        check(rgb is not None, f"{src} did not decode")
+        if what:
+            rgb = canvas = fundus.resize_and_center_fundus(rgb, diameter=299)
+        got = hashlib.sha256(jpeg.encode_jpeg(rgb)).hexdigest()
+        check(got == want, f"encode_jpeg({key}) is not cv2.imencode's bytes")
+        encoded += 1
+    decoded = refused = 0
+    for name, entry in sorted(manifest["files"].items()):
+        data = (PRE_FIXTURES / name).read_bytes()
+        check(sha256(data) == entry["sha256"], f"fixture {name} changed")
+        if not name.endswith(".tif"):
+            continue
+        rgb, why = imdecode.read_image(data)
+        if "refused" in entry:
+            check(rgb is None and "item 14" in (why or "")
+                  and entry["refused"] in why, f"{name}: {why}")
+            refused += 1
+        else:
+            check(rgb is not None and sha256(rgb) == entry["cv2_rgb"],
+                  f"{name}: the decode differs from OpenCV's ({why})")
+            decoded += 1
+    jpeg.encode_jpeg(canvas)
+    t0 = time.perf_counter()
+    for _ in range(ENCODE_REPS):
+        jpeg.encode_jpeg(canvas)
+    ms = 1e3 * (time.perf_counter() - t0) / ENCODE_REPS
+    log(f"preprocess: {encoded} encodings bitwise cv2.imencode's (quality "
+        f"92, photos and their 299-px canvases), {decoded} TIFF decodes "
+        f"bitwise OpenCV's, {refused} TIFF variants refused naming item 14")
+    log(f"times: encode_jpeg of a 299-px canvas {ms:.3f} ms on the host "
+        f"(mean of {ENCODE_REPS} calls) ({smi})")
+    return {"encoded": encoded, "decoded": decoded, "refused": refused,
+            "encode_ms": ms}
+
+
+def pre_runner(spec_name: str, root: Path, smi: str,
+               extra: "dict | None" = None) -> dict:
+    """(b), (c) ``python -m jama16_retina_tpu_torch.<cli>`` on the spec's
+    directory for each of the manifest's runs (and ``extra``: another
+    worker count for a run, whose files must be that run's): the printed
+    report character for character and every file's sha256 the
+    reference's. Returns each run's output directory and photos/s."""
+    spec = pre_manifest()["runners"][spec_name]
+    labels = build_runner_dir(spec, root / spec_name)
+    runs = {r: (r, w["argv"]) for r, w in spec["runs"].items()}
+    runs.update(extra or {})
+    out = {}
+    for run, (like, argv) in runs.items():
+        want = spec["runs"][like]
+        dest = root / spec_name / run
+        cmd = [sys.executable, "-m", f"jama16_retina_tpu_torch.{spec['cli']}",
+               f"--data_dir={root / spec_name / 'images'}",
+               f"--labels_csv={labels}", f"--output_dir={dest}", *argv]
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        check(done.returncode == 0,
+              f"{spec['cli']} {argv} exited {done.returncode}: "
+              f"{done.stderr[-2000:]}")
+        check(done.stdout == want["stdout"],
+              f"{spec['cli']} {argv} printed {done.stdout}, the reference "
+              f"{want['stdout']}")
+        got = file_digests(dest)
+        bad = sorted(n for n in set(got) | set(want["files"])
+                     if got.get(n) != want["files"].get(n))
+        check(not bad, f"{spec['cli']} {argv}: files differ from the "
+                       f"reference's: {bad}")
+        rate = len(spec["entries"]) / wall
+        out[run] = {"dir": dest, "photos_per_s": rate, "wall_s": wall}
+        log(f"preprocess: {spec['cli']} {' '.join(argv)}: report and "
+            f"{len(got)} files bitwise the reference's; "
+            f"{len(spec['entries'])} photos in {wall:.2f} s, {rate:.1f} "
+            f"photos/s on the host, process start included ({smi})")
+    return out
+
+
+def pre_predict(torch, serve: dict, root: Path, smi: str, out: dict) -> None:
+    """(e) ``predict.main`` (fused preprocess, float32) on TIFF and JPEG
+    photos and a refused TIFF, against phase 4's k=2 members."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import host
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    images = root / "predict"
+    images.mkdir(parents=True)
+    for name in (*PRE_PREDICT, PRE_REFUSED):
+        shutil.copy(PRE_FIXTURES / name, images / name)
+    reg = obs_registry.default_registry()
+    m = reg._metrics.get("serve.input_rejected.decode_error")
+    before = 0.0 if m is None else m.value
+    sets = ["serve.fused_preprocess=true", "model.compute_dtype=float32"]
+    argv = [f"--checkpoint_dir={Path(serve['dirs'][0]).parent}",
+            f"--images={images}", "--config=eyepacs_binary",
+            f"--batch_size={PREDICT_BATCH}", "--threshold=0.5",
+            *[a for s in sets for a in ("--set", s)]]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    code, rows = predict_rows(argv)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    out["launches"]["preprocess_predict"] = counts
+    m = reg._metrics.get("serve.input_rejected.decode_error")
+    rejected = (0.0 if m is None else m.value) - before
+    errors = {Path(r["image"]).name: r["error"] for r in rows if "error" in r}
+    scored = [r for r in rows if "error" not in r]
+    chunks = -(-len(PRE_PREDICT) // PREDICT_BATCH)
+    log(f"preprocess: predict --images on {len(PRE_PREDICT)} TIFF and JPEG "
+        f"photos and {PRE_REFUSED}: exit {code}, {len(scored)} rows, "
+        f"skipped {errors}; launches {counts}; {wall:.2f} s")
+    check(code == 0 and len(scored) == len(PRE_PREDICT),
+          f"predict rows {rows}")
+    check(list(errors) == [PRE_REFUSED]
+          and "item 14" in errors[PRE_REFUSED] and rejected == 1,
+          f"predict skipped {errors}, decode_error moved by {rejected}")
+    check(counts["fused_serve_preprocess"] == chunks
+          and sum(counts.values()) == chunks,
+          f"predict launched {counts}, want B4 once per chunk ({chunks})")
+    files = pre_manifest()["files"]
+    paths = [str(images / n) for n in sorted(PRE_PREDICT)]
+    pre = host.preprocess_paths(paths, 299, registry=Registry())
+    check([Path(p).name for p in pre.kept]
+          == [Path(r["image"]).name for r in scored],
+          "predict scored other rows than the host stage keeps")
+    bad = [Path(p).name for p, c in zip(pre.kept, pre.images)
+           if sha256(c) != files[Path(p).name]["canvas299"]]
+    check(not bad, f"canvases differ from the manifest: {bad}")
+    cfg = configs.override(configs.get_config("eyepacs_binary"), sets + [
+        f"serve.max_batch={PREDICT_BATCH}",
+        f"serve.bucket_sizes={PREDICT_BATCH}"])
+    want = ServingEngine(cfg, serve["dirs"], device="cpu",
+                         registry=Registry()).probs(pre.images)
+    probs = np.array([r["prob"] for r in scored])
+    dev = float(np.max(np.abs(probs - want)))
+    log(f"preprocess: predict --images: {len(scored)} canvases bitwise the "
+        f"manifest's, card rows vs the CPU engine max |prob diff| "
+        f"{dev:.3e} (atol 1e-4, rows at 6 decimals, TF32 off)")
+    check(bool(np.all(np.isfinite(probs))) and dev <= 1e-4,
+          f"predict rows differ from the CPU engine by {dev}")
+
+
+def phase_preprocess(torch, seed: int, smi: str, serve: dict) -> dict:
+    """The preprocess runners on the host, then a fit from what they
+    wrote and predict --images on TIFF photos (phase 17 of the
+    docstring)."""
+    t_phase = time.perf_counter()
+    root = SCRATCH / "preprocess"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"launches": {}}
+    out["codec"] = pre_codec(smi)
+    eyepacs = pre_runner("eyepacs", root, smi, extra={
+        "jpeg_workers0": ("jpeg_workers2", ["--workers=0"])})
+    messidor = pre_runner("messidor", root, smi)
+    out["runners"] = {f"{k}_{r}": v["photos_per_s"] for k, runs in (
+        ("eyepacs", eyepacs), ("messidor", messidor))
+        for r, v in runs.items()}
+    jdir = eyepacs["jpeg_workers2"]["dir"]
+
+    # (d) eyepacs_binary from the runner's JPEG splits, evals at 4 and 8;
+    # then its best step on the Messidor split, thresholds from val.
+    cfg = fit_config(FIT_STEPS, root / "fit", seed)
+    res, counts, recs = fit_run(torch, cfg, jdir)
+    log(f"preprocess: fit from the runner's JPEG records: {res}; launches "
+        f"{counts}")
+    out["launches"]["preprocess_fit"] = counts
+    check(counts["fused_color_jitter"] == FIT_STEPS
+          and counts["fused_normalize_color_jitter"] == 0
+          and counts["fused_adamw_update"] == 0,
+          f"the fit launched {counts}, want B1 = {FIT_STEPS}")
+    evals = [r for r in recs if r["kind"] == "eval"]
+    check([r["step"] for r in evals] == [4, 8]
+          and all(0 <= r["val_auc"] <= 1 for r in evals),
+          f"the fit's evals {evals}")
+    n_test = json.loads(pre_manifest()["runners"]["messidor"]["runs"][
+        "jpeg_workers2"]["stdout"])["test"]["written"]
+    out["eval_card_vs_cpu"] = evaluate_card_and_cpu(
+        cfg, messidor["jpeg_workers2"]["dir"], root / "fit", root,
+        "preprocess", threshold_dir=jdir, n_test=n_test)
+    # (e) predict --images on TIFF and JPEG photos.
+    pre_predict(torch, serve, root, smi, out)
+    shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"times: phase 17 (preprocess) wall {out['wall_s']:.1f} s ({smi})")
+    return out
+
+
+
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"jama16_retina_tpu_torch/ops/csrc/{source}",
@@ -5412,6 +5689,7 @@ def main(argv=None) -> int:
     jpeg = phase_jpeg_host(torch, args.seed, smi, serve)
     obs = phase_obs(torch, args.seed, smi, serve, fit["data"])
     faults = phase_faults(torch, args.seed, smi, serve, router, fit["data"])
+    preprocess = phase_preprocess(torch, args.seed, smi, serve)
     shutil.rmtree(fit["root"], ignore_errors=True)
     torch.cuda.empty_cache()
     for form, t in train.items():
@@ -5460,7 +5738,8 @@ def main(argv=None) -> int:
             **optimizers["launches"], **recipe["launches"],
             **ensemble["launches"], **distill["launches"],
             **cascade["launches"], **router["launches"],
-            **jpeg["launches"], **obs["launches"], **faults["launches"]}
+            **jpeg["launches"], **obs["launches"], **faults["launches"],
+            **preprocess["launches"]}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

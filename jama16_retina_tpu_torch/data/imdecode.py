@@ -1,23 +1,37 @@
 """``imdecode``: the counterpart of ``cv2.imdecode(buf, IMREAD_COLOR)``
-for the serving host stage, returning RGB (OpenCV returns BGR) or None
-for bytes it cannot read.
+for the host stages, returning RGB (OpenCV returns BGR) or None for
+bytes it cannot read.
 
-The format is sniffed from the magic bytes: JPEG (EXIF orientation
-applied, as OpenCV does) and PNG are decoded. A format that is
-recognized but not decoded yet (TIFF, BMP, GIF, WebP, a progressive
-JPEG, an interlaced PNG) also gives None, and ``read_image`` names it
-and ``jpeg.FORMATS_ITEM``; there is no fallback to another decoder.
+The format is sniffed from the magic bytes, as OpenCV sniffs it: JPEG
+(EXIF orientation applied, as OpenCV does), PNG and TIFF are decoded. A
+format that is recognized but not decoded yet (BMP, GIF, WebP, JPEG
+2000, the PNM family, Sun raster, OpenEXR, Radiance HDR, AVIF, a
+progressive JPEG, an interlaced PNG, a TIFF variant ``data/tiff.py``
+refuses) also gives None, and ``read_image`` names it and
+``jpeg.FORMATS_ITEM``; there is no fallback to another decoder.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 
-from jama16_retina_tpu_torch.data import jpeg, png
+from jama16_retina_tpu_torch.data import jpeg, png, tiff
 
 # Magic bytes of formats OpenCV reads that the port does not decode yet.
-_OTHER = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"BM", "BMP"),
-          (b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
+_OTHER = ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
+          (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+          (b"\xff\x4f\xff\x51", "JPEG 2000"),
+          (b"\x59\xa6\x6a\x95", "Sun raster"),
+          (b"\x76\x2f\x31\x01", "OpenEXR"),
+          (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"))
+# PBM/PGM/PPM/PAM and PFM headers: "P1".."P7" or "PF"/"Pf", then white space.
+_PNM = re.compile(rb"P[1-7Ff][ \t\r\n]")
+
+
+def _not_yet(name: str) -> str:
+    return f"{name} is not decoded by the port yet; see {jpeg.FORMATS_ITEM}"
 
 
 def read_image(data) -> "tuple[np.ndarray | None, str | None]":
@@ -30,16 +44,21 @@ def read_image(data) -> "tuple[np.ndarray | None, str | None]":
             return jpeg.decode_jpeg(data, exif_orientation=True), None
         if buf.startswith(png.SIGNATURE):
             return png.decode_png(data), None
-    except (jpeg.JpegError, png.PngError) as e:
+        if buf.startswith(tiff.MAGICS) or buf[:4] in (b"II+\x00",
+                                                      b"MM\x00+"):
+            return tiff.decode_tiff(data), None
+    except (jpeg.JpegError, png.PngError, tiff.TiffError) as e:
         unsupported = getattr(e, "unsupported", False)
         return None, (str(e) if unsupported else None)
     if buf.startswith(b"RIFF") and buf[8:12] == b"WEBP":
-        return None, f"WebP is not decoded by the port yet; see " \
-                     f"{jpeg.FORMATS_ITEM}"
+        return None, _not_yet("WebP")
+    if buf[4:12] in (b"ftypavif", b"ftypavis"):
+        return None, _not_yet("AVIF")
     for magic, name in _OTHER:
         if buf.startswith(magic):
-            return None, f"{name} is not decoded by the port yet; see " \
-                         f"{jpeg.FORMATS_ITEM}"
+            return None, _not_yet(name)
+    if _PNM.match(buf):
+        return None, _not_yet("PNM")
     return None, None
 
 

@@ -1,4 +1,4 @@
-"""Baseline JPEG decoding without OpenCV, PIL or TensorFlow.
+"""Baseline JPEG decoding and encoding without OpenCV, PIL or TensorFlow.
 
 ``decode_jpeg`` returns what ``cv2.imdecode(buf, IMREAD_COLOR)[..., ::-1]``
 and ``tf.io.decode_jpeg(buf, channels=3, dct_method="INTEGER_ACCURATE")``
@@ -15,6 +15,10 @@ Sequential Huffman frames of 8-bit precision with one or three
 lossless or 12-bit frame, or an RGB or CMYK one, raises ``JpegError`` naming
 ``FORMATS_ITEM``, and so does a truncated or corrupt stream (where libjpeg
 would warn and fill the rest with grey).
+
+``encode_jpeg`` returns the bytes of ``cv2.imencode(".jpg", rgb[..., ::-1],
+[cv2.IMWRITE_JPEG_QUALITY, quality])``: what the reference's
+``tfrecord.encode_jpeg`` writes into its records.
 """
 
 from __future__ import annotations
@@ -155,3 +159,23 @@ def decode_jpeg(data, *, exif_orientation: bool) -> np.ndarray:
         if orientation != 1:
             out = apply_orientation(out, orientation)
     return out
+
+
+def encode_jpeg(image_rgb_u8: np.ndarray, quality: int = 92) -> bytes:
+    """RGB uint8 [H, W, 3] -> the bytes of ``cv2.imencode(".jpg", rgb[...,
+    ::-1], [cv2.IMWRITE_JPEG_QUALITY, quality])``: a baseline JFIF stream
+    at 4:2:0 with the standard tables, libjpeg's arithmetic term for term
+    (``ops/csrc/image_codec.c``)."""
+    image = np.ascontiguousarray(image_rgb_u8)
+    if image.ndim != 3 or image.shape[2] != 3 or image.dtype != np.uint8:
+        raise ValueError(f"expected uint8 HW3, got {image.dtype} "
+                         f"{image.shape}")
+    h, w, _ = image.shape
+    lib = image_codec.lib()
+    out = np.empty(lib.jpeg_encode_bound(w, h), np.uint8)
+    n = ctypes.c_size_t()
+    rc = lib.jpeg_encode(image_codec.ptr(image), w, h, int(quality),
+                         image_codec.ptr(out), out.size, ctypes.byref(n))
+    if rc:
+        _raise(rc)
+    return out[:n.value].tobytes()

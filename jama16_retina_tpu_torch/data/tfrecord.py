@@ -25,11 +25,11 @@ decode as ``parse_fn`` does: raw records reshape their bytes to ``[h, w,
 by default) decode bit for bit as ``tf.io.decode_jpeg(dct_method=
 "INTEGER_ACCURATE")`` does, EXIF orientation ignored (``data/jpeg.py``;
 a format it does not decode raises ``jpeg.JpegError``). The writer packs
-raw pixels (``make_raw_example``) or already-encoded JPEG bytes
-(``make_jpeg_example``); the port has no JPEG encoder (ROADMAP Queue A
-item 7, part 2). Files are sharded ``<split>-00007-of-00016.tfrecord``;
-they read back identically in both packages, though they need not be
-byte-identical to TensorFlow's.
+raw pixels (``make_raw_example``) or JPEG bytes (``make_jpeg_example``,
+with ``jpeg.encode_jpeg`` giving OpenCV's bytes), each Example serialized
+as TensorFlow's deterministic serialization writes it, so the port's
+shards are byte for byte the reference's. Files are sharded
+``<split>-00007-of-00016.tfrecord``.
 """
 
 from __future__ import annotations
@@ -45,8 +45,6 @@ import numpy as np
 from jama16_retina_tpu_torch.obs import faultinject
 from jama16_retina_tpu_torch.utils import retry
 
-JPEG_ENCODE_ITEM = ("ROADMAP.md Queue A item 7, part 2 (JPEG encoding on "
-                    "the card machine)")
 _POLY = 0x82F63B78  # CRC-32C (Castagnoli), reflected
 _MASK_DELTA = 0xA282EAD8
 # Below this many bytes a record is checked byte by byte; above it, in
@@ -504,24 +502,27 @@ def write_example_shards(examples: Iterable[bytes], out_dir: str, split: str,
 def write_synthetic_split(out_dir: str, split: str, n: int,
                           image_size: "int | None" = None,
                           num_shards: int = 4, seed: int = 0,
-                          encoding: str = "raw") -> "list[str]":
-    """Synthetic fundus images (``data/synthetic.py``) as raw TFRecord
-    shards, named ``<split>_<seed>_<i>`` as the reference names them; the
-    same arguments write the same records in both packages."""
-    from jama16_retina_tpu_torch.data import synthetic
+                          encoding: str = "jpeg") -> "list[str]":
+    """Synthetic fundus images (``data/synthetic.py``) as TFRecord shards,
+    JPEG-encoded at quality 92 (``encoding="jpeg"``, the reference's
+    default) or raw, named ``<split>_<seed>_<i>`` as the reference names
+    them; the same arguments write the same bytes in both packages."""
+    from jama16_retina_tpu_torch.data import jpeg, synthetic
 
-    if encoding != "raw":
-        raise NotImplementedError(
-            f"encoding={encoding!r}: the port has no JPEG encoder and writes "
-            f"raw records only (it reads JPEG records); see "
-            f"{JPEG_ENCODE_ITEM}")
+    if encoding not in ("jpeg", "raw"):
+        raise ValueError(f"encoding must be jpeg|raw, got {encoding!r}")
     images, grades = synthetic.make_dataset(
         n, synthetic.SynthConfig(
             image_size=299 if image_size is None else image_size), seed=seed)
-    return write_example_shards(
-        (make_raw_example(images[i], int(grades[i]),
-                          f"{split}_{seed}_{i:05d}") for i in range(n)),
-        out_dir, split, num_shards)
+
+    def example(i: int) -> bytes:
+        name, grade = f"{split}_{seed}_{i:05d}", int(grades[i])
+        if encoding == "raw":
+            return make_raw_example(images[i], grade, name)
+        return make_jpeg_example(jpeg.encode_jpeg(images[i]), grade, name)
+
+    return write_example_shards((example(i) for i in range(n)), out_dir,
+                                split, num_shards)
 
 
 def list_split(data_dir: str, split: str) -> "list[str]":

@@ -1,5 +1,8 @@
 /* Host-side image codec of the port: baseline JPEG decode as libjpeg
- * (libjpeg-turbo) decodes it by default, and PNG row unfiltering.
+ * (libjpeg-turbo) decodes it by default, baseline JPEG encode as
+ * cv2.imencode encodes it (see "JPEG: the baseline encoder"), PNG row
+ * unfiltering, and the TIFF strip and tile unpacking of libtiff (LZW,
+ * PackBits, the horizontal predictor).
  *
  * JPEG: sequential Huffman frames (SOF0/SOF1) of 8-bit precision with one
  * or three components, interleaved or not, with or without restart
@@ -1014,5 +1017,602 @@ int resize_cubic_u8(const uint8_t *src, int h, int w, int c,
   }
   free(across);
   free(done);
+  return CODEC_OK;
+}
+
+/* ------------------------------------------------------------------ */
+/* JPEG: the baseline encoder                                          */
+/* ------------------------------------------------------------------ */
+
+/* What libjpeg (libjpeg-turbo) writes for an RGB image after
+ * jpeg_set_defaults and jpeg_set_quality(quality, force_baseline=TRUE),
+ * as cv2.imencode(".jpg") calls it: JFIF APP0, one DQT per table, SOF0 of
+ * three components at 4:2:0, the four standard Huffman tables, one
+ * interleaved scan, no restart markers, no optimized tables. The
+ * arithmetic is libjpeg's, term for term:
+ *   - rgb_ycc_convert's 16-bit fixed point (the Cb/Cr rounding fudge of
+ *     0.5 - epsilon included);
+ *   - the prep controller's edge padding: the last column replicated to
+ *     the components' block width (for chroma, at full resolution before
+ *     downsampling), the last row to an even row count, then the last
+ *     output row to the iMCU height;
+ *   - h2v2_downsample: the mean of each 2x2 cell with the bias 1, 2, 1, 2
+ *     along each row;
+ *   - the accurate integer FDCT jpeg_fdct_islow (CONST_BITS 13,
+ *     PASS1_BITS 2, outputs scaled by 8);
+ *   - libjpeg-turbo's quantization by reciprocal multiplication
+ *     (compute_reciprocal of each divisor q * 8);
+ *   - the coefficient controller's dummy blocks past the image's block
+ *     width and height: zero AC, the DC of the block before them in the
+ *     MCU;
+ *   - encode_one_block with the standard tables, 0xFF bytes stuffed, the
+ *     last byte filled with ones. */
+
+static const uint8_t std_quant[2][64] = {
+    {16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+     14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+     18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99},
+    {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99}};
+
+/* Code counts by length: DC luma, AC luma, DC chroma, AC chroma. */
+static const uint8_t std_bits[4][16] = {
+    {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+    {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+    {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},
+    {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+
+static const uint8_t std_dc_vals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+
+static const uint8_t std_ac_luma_vals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+static const uint8_t std_ac_chroma_vals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+typedef struct {
+  uint16_t code[256];
+  uint8_t size[256];
+} huff_code;
+
+static void make_codes(const uint8_t bits[16], const uint8_t *vals,
+                       huff_code *t) {
+  memset(t, 0, sizeof *t);
+  int code = 0, k = 0;
+  for (int len = 1; len <= 16; len++) {
+    for (int i = 0; i < bits[len - 1]; i++, k++) {
+      t->code[vals[k]] = (uint16_t)code++;
+      t->size[vals[k]] = (uint8_t)len;
+    }
+    code <<= 1;
+  }
+}
+
+typedef struct {
+  uint8_t *out;
+  size_t cap, n;
+  uint64_t acc; /* pending bits, the newest lowest */
+  int nbits;
+  int overflow;
+} bit_writer;
+
+static inline void put_byte(bit_writer *w, uint8_t b) {
+  if (w->n < w->cap)
+    w->out[w->n++] = b;
+  else
+    w->overflow = 1;
+}
+
+static void put_bytes(bit_writer *w, const uint8_t *b, size_t n) {
+  for (size_t i = 0; i < n; i++) put_byte(w, b[i]);
+}
+
+static inline void put_bits(bit_writer *w, uint32_t bits, int n) {
+  w->acc = (w->acc << n) | (bits & ((1u << n) - 1u));
+  w->nbits += n;
+  while (w->nbits >= 8) {
+    uint8_t b = (uint8_t)(w->acc >> (w->nbits - 8));
+    put_byte(w, b);
+    if (b == 0xFF) put_byte(w, 0);
+    w->nbits -= 8;
+  }
+}
+
+/* Quantization by reciprocal: libjpeg-turbo's compute_reciprocal for a
+ * divisor of at least 2 (here q * 8). */
+typedef struct {
+  uint32_t recip[64], corr[64];
+  int shift[64];
+} divisors;
+
+static void make_divisors(const uint8_t q[64], divisors *dv) {
+  for (int i = 0; i < 64; i++) {
+    uint32_t d = (uint32_t)q[i] << 3;
+    int b = 0;
+    while ((d >> (b + 1)) != 0) b++;
+    int r = 16 + b;
+    uint32_t fq = (1u << r) / d, fr = (1u << r) % d, c = d / 2;
+    if (fr == 0) {
+      fq >>= 1;
+      r--;
+    } else if (fr <= d / 2) {
+      c++;
+    } else {
+      fq++;
+    }
+    dv->recip[i] = fq;
+    dv->corr[i] = c;
+    dv->shift[i] = r;
+  }
+}
+
+#define FDESCALE(x, n) (((x) + ((int64_t)1 << ((n)-1))) >> (n))
+
+/* jpeg_fdct_islow in place on samples centred on 0. */
+static void fdct_islow(int32_t *data) {
+  int64_t tmp0, tmp1, tmp2, tmp3, tmp4, tmp5, tmp6, tmp7;
+  int64_t tmp10, tmp11, tmp12, tmp13, z1, z2, z3, z4, z5;
+  for (int pass = 0; pass < 2; pass++) {
+    /* Pass 0 runs along rows, pass 1 along columns. */
+    const int step = pass ? 8 : 1, next = pass ? 1 : 8;
+    const int shift = pass ? 13 + 2 : 13 - 2;
+    int32_t *p = data;
+    for (int k = 0; k < 8; k++, p += next) {
+      tmp0 = p[0] + p[7 * step];
+      tmp7 = p[0] - p[7 * step];
+      tmp1 = p[step] + p[6 * step];
+      tmp6 = p[step] - p[6 * step];
+      tmp2 = p[2 * step] + p[5 * step];
+      tmp5 = p[2 * step] - p[5 * step];
+      tmp3 = p[3 * step] + p[4 * step];
+      tmp4 = p[3 * step] - p[4 * step];
+      tmp10 = tmp0 + tmp3;
+      tmp13 = tmp0 - tmp3;
+      tmp11 = tmp1 + tmp2;
+      tmp12 = tmp1 - tmp2;
+      if (pass) {
+        p[0] = (int32_t)FDESCALE(tmp10 + tmp11, 2);
+        p[4 * step] = (int32_t)FDESCALE(tmp10 - tmp11, 2);
+      } else {
+        p[0] = (int32_t)((tmp10 + tmp11) * 4);
+        p[4 * step] = (int32_t)((tmp10 - tmp11) * 4);
+      }
+      z1 = (tmp12 + tmp13) * 4433;
+      p[2 * step] = (int32_t)FDESCALE(z1 + tmp13 * 6270, shift);
+      p[6 * step] = (int32_t)FDESCALE(z1 + tmp12 * -15137, shift);
+      z1 = tmp4 + tmp7;
+      z2 = tmp5 + tmp6;
+      z3 = tmp4 + tmp6;
+      z4 = tmp5 + tmp7;
+      z5 = (z3 + z4) * 9633;
+      tmp4 = tmp4 * 2446;
+      tmp5 = tmp5 * 16819;
+      tmp6 = tmp6 * 25172;
+      tmp7 = tmp7 * 12299;
+      z1 = z1 * -7373;
+      z2 = z2 * -20995;
+      z3 = z3 * -16069;
+      z4 = z4 * -3196;
+      z3 += z5;
+      z4 += z5;
+      p[7 * step] = (int32_t)FDESCALE(tmp4 + z1 + z3, shift);
+      p[5 * step] = (int32_t)FDESCALE(tmp5 + z2 + z4, shift);
+      p[3 * step] = (int32_t)FDESCALE(tmp6 + z2 + z3, shift);
+      p[step] = (int32_t)FDESCALE(tmp7 + z1 + z4, shift);
+    }
+  }
+}
+
+/* One 8x8 block of a plane: centre, FDCT, quantize (natural order). */
+static void forward_block(const uint8_t *plane, size_t stride,
+                          const divisors *dv, int16_t out[64]) {
+  int32_t ws[64];
+  for (int r = 0; r < 8; r++)
+    for (int c = 0; c < 8; c++)
+      ws[r * 8 + c] = (int32_t)plane[(size_t)r * stride + (size_t)c] - 128;
+  fdct_islow(ws);
+  for (int i = 0; i < 64; i++) {
+    int32_t t = ws[i];
+    uint32_t a = (uint32_t)(t < 0 ? -t : t);
+    uint32_t q = (uint32_t)(((uint64_t)(a + dv->corr[i]) * dv->recip[i]) >>
+                            dv->shift[i]);
+    out[i] = (int16_t)(t < 0 ? -(int32_t)q : (int32_t)q);
+  }
+}
+
+static void encode_block(bit_writer *w, const int16_t blk[64], int *last_dc,
+                         const huff_code *dc, const huff_code *ac) {
+  int temp = blk[0] - *last_dc, temp2 = temp;
+  *last_dc = blk[0];
+  if (temp < 0) {
+    temp = -temp;
+    temp2--;
+  }
+  int nbits = 0;
+  while (temp) {
+    nbits++;
+    temp >>= 1;
+  }
+  put_bits(w, dc->code[nbits], dc->size[nbits]);
+  if (nbits) put_bits(w, (uint32_t)temp2, nbits);
+  int run = 0;
+  for (int k = 1; k < 64; k++) {
+    temp = blk[natural_order[k]];
+    if (temp == 0) {
+      run++;
+      continue;
+    }
+    while (run > 15) {
+      put_bits(w, ac->code[0xF0], ac->size[0xF0]);
+      run -= 16;
+    }
+    temp2 = temp;
+    if (temp < 0) {
+      temp = -temp;
+      temp2--;
+    }
+    nbits = 1;
+    while ((temp >>= 1)) nbits++;
+    int sym = (run << 4) + nbits;
+    put_bits(w, ac->code[sym], ac->size[sym]);
+    put_bits(w, (uint32_t)temp2, nbits);
+    run = 0;
+  }
+  if (run > 0) put_bits(w, ac->code[0], ac->size[0]);
+}
+
+static void put_marker_u16(bit_writer *w, int marker, int length) {
+  uint8_t b[4] = {0xFF, (uint8_t)marker, (uint8_t)(length >> 8),
+                  (uint8_t)length};
+  put_bytes(w, b, 4);
+}
+
+/* The headers libjpeg's write_file_header, write_frame_header and
+ * write_scan_header emit for this encoder's one configuration. */
+static void write_headers(bit_writer *w, const uint8_t qt[2][64], int width,
+                          int height) {
+  static const uint8_t jfif[18] = {0xFF, 0xD8, 0xFF, 0xE0, 0, 16,  'J',
+                                   'F',  'I',  'F',  0,    1, 1,   0,
+                                   0,    1,    0,    1};
+  put_bytes(w, jfif, sizeof jfif);
+  put_bytes(w, (const uint8_t[2]){0, 0}, 2);
+  for (int t = 0; t < 2; t++) {
+    put_marker_u16(w, 0xDB, 67);
+    put_byte(w, (uint8_t)t);
+    for (int k = 0; k < 64; k++) put_byte(w, qt[t][natural_order[k]]);
+  }
+  put_marker_u16(w, 0xC0, 17);
+  const uint8_t sof[15] = {8,    (uint8_t)(height >> 8), (uint8_t)height,
+                           (uint8_t)(width >> 8), (uint8_t)width, 3,
+                           1,    0x22, 0, 2, 0x11, 1, 3, 0x11, 1};
+  put_bytes(w, sof, sizeof sof);
+  for (int t = 0; t < 4; t++) {
+    const uint8_t *vals = (t & 1) ? (t == 1 ? std_ac_luma_vals
+                                            : std_ac_chroma_vals)
+                                  : std_dc_vals;
+    int nsym = 0;
+    for (int k = 0; k < 16; k++) nsym += std_bits[t][k];
+    put_marker_u16(w, 0xC4, 2 + 1 + 16 + nsym);
+    put_byte(w, (uint8_t)(((t & 1) << 4) | (t >> 1)));
+    put_bytes(w, std_bits[t], 16);
+    put_bytes(w, vals, (size_t)nsym);
+  }
+  static const uint8_t sos[14] = {0xFF, 0xDA, 0, 12, 3, 1,    0x00,
+                                  2,    0x11, 3, 0x11, 0, 0x3F, 0};
+  put_bytes(w, sos, sizeof sos);
+}
+
+/* The most bytes jpeg_encode can write for a width x height image. */
+size_t jpeg_encode_bound(int width, int height) {
+  if (width <= 0 || height <= 0) return 0;
+  size_t mcus = (size_t)((width + 15) / 16) * (size_t)((height + 15) / 16);
+  /* 6 blocks an MCU; a block is at most 16 + 11 bits of DC and 63 AC
+   * symbols of at most 16 + 10 bits: under 216 bytes, twice that with
+   * every byte stuffed. */
+  return 1024 + mcus * 6 * 432;
+}
+
+/* Encodes rgb, uint8 [height, width, 3], into out (cap bytes, at least
+ * jpeg_encode_bound); *written gets the stream's length. */
+int jpeg_encode(const uint8_t *rgb, int width, int height, int quality,
+                uint8_t *out, size_t cap, size_t *written) {
+  if (rgb == NULL || out == NULL || written == NULL || width <= 0 ||
+      height <= 0 || width > 65535 || height > 65535)
+    return ERR_BAD_ARGS;
+  if ((int64_t)width * height > MAX_PIXELS) return ERR_TOO_LARGE;
+  if (quality <= 0) quality = 1;
+  if (quality > 100) quality = 100;
+  const int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  uint8_t qt[2][64];
+  divisors dv[2];
+  for (int t = 0; t < 2; t++) {
+    for (int i = 0; i < 64; i++) {
+      long v = ((long)std_quant[t][i] * scale + 50L) / 100L;
+      qt[t][i] = (uint8_t)(v <= 0 ? 1 : (v > 255 ? 255 : v));
+    }
+    make_divisors(qt[t], &dv[t]);
+  }
+  huff_code dc[2], ac[2];
+  make_codes(std_bits[0], std_dc_vals, &dc[0]);
+  make_codes(std_bits[1], std_ac_luma_vals, &ac[0]);
+  make_codes(std_bits[2], std_dc_vals, &dc[1]);
+  make_codes(std_bits[3], std_ac_chroma_vals, &ac[1]);
+
+  const int mx = (width + 15) / 16, my = (height + 15) / 16;
+  const int wb = (width + 7) / 8, hb = (height + 7) / 8; /* luma blocks */
+  const size_t pw = (size_t)mx * 16, ph = (size_t)my * 16;
+  const size_t cw = (size_t)mx * 8, ch = (size_t)my * 8;
+  const size_t h2 = (size_t)height + (height & 1);
+  uint8_t *luma = malloc(pw * ph);
+  uint8_t *full = malloc(2 * pw * h2); /* Cb, Cr at full resolution */
+  uint8_t *chroma = malloc(2 * cw * ch);
+  if (luma == NULL || full == NULL || chroma == NULL) {
+    free(luma);
+    free(full);
+    free(chroma);
+    return ERR_NOMEM;
+  }
+  /* Colour conversion, right edges replicated: luma to its block width,
+   * chroma (at full resolution) to twice its block width. */
+  for (size_t y = 0; y < (size_t)height; y++) {
+    const uint8_t *px = rgb + y * (size_t)width * 3;
+    uint8_t *yr = luma + y * pw, *cb = full + y * pw,
+            *cr = full + (h2 + y) * pw;
+    for (size_t x = 0; x < (size_t)width; x++, px += 3) {
+      const int32_t r = px[0], g = px[1], b = px[2];
+      yr[x] = (uint8_t)((19595 * r + 38470 * g + 7471 * b + 32768) >> 16);
+      cb[x] = (uint8_t)((-11059 * r - 21709 * g + 32768 * b +
+                         (128 << 16) + 32767) >> 16);
+      cr[x] = (uint8_t)((32768 * r - 27439 * g - 5329 * b + (128 << 16) +
+                         32767) >> 16);
+    }
+    for (size_t x = (size_t)width; x < pw; x++) {
+      yr[x] = yr[width - 1];
+      cb[x] = cb[width - 1];
+      cr[x] = cr[width - 1];
+    }
+  }
+  for (size_t y = (size_t)height; y < ph; y++)
+    memcpy(luma + y * pw, luma + (size_t)(height - 1) * pw, pw);
+  if (height & 1)
+    for (int c = 0; c < 2; c++)
+      memcpy(full + (c * h2 + (size_t)height) * pw,
+             full + (c * h2 + (size_t)height - 1) * pw, pw);
+  /* h2v2 downsampling, then the last chroma row to the iMCU height. */
+  for (int c = 0; c < 2; c++) {
+    uint8_t *plane = chroma + (size_t)c * cw * ch;
+    for (size_t y = 0; y < h2 / 2; y++) {
+      const uint8_t *i0 = full + (c * h2 + 2 * y) * pw, *i1 = i0 + pw;
+      uint8_t *o = plane + y * cw;
+      int bias = 1;
+      for (size_t x = 0; x < cw; x++, i0 += 2, i1 += 2) {
+        o[x] = (uint8_t)((i0[0] + i0[1] + i1[0] + i1[1] + bias) >> 2);
+        bias ^= 3;
+      }
+    }
+    for (size_t y = h2 / 2; y < ch; y++)
+      memcpy(plane + y * cw, plane + (h2 / 2 - 1) * cw, cw);
+  }
+  free(full);
+
+  bit_writer w = {out, cap, 0, 0, 0, 0};
+  write_headers(&w, (const uint8_t(*)[64])qt, width, height);
+  int last[3] = {0, 0, 0};
+  int16_t blk[6][64];
+  for (int my_i = 0; my_i < my; my_i++) {
+    for (int mx_i = 0; mx_i < mx; mx_i++) {
+      for (int b = 0; b < 4; b++) {
+        const int by = 2 * my_i + (b >> 1), bx = 2 * mx_i + (b & 1);
+        if (by >= hb || bx >= wb) {
+          memset(blk[b], 0, sizeof blk[b]);
+          blk[b][0] = blk[b - 1][0];
+        } else {
+          forward_block(luma + (size_t)by * 8 * pw + (size_t)bx * 8, pw,
+                        &dv[0], blk[b]);
+        }
+      }
+      for (int c = 0; c < 2; c++)
+        forward_block(chroma + (size_t)c * cw * ch +
+                          (size_t)my_i * 8 * cw + (size_t)mx_i * 8,
+                      cw, &dv[1], blk[4 + c]);
+      for (int b = 0; b < 4; b++)
+        encode_block(&w, blk[b], &last[0], &dc[0], &ac[0]);
+      encode_block(&w, blk[4], &last[1], &dc[1], &ac[1]);
+      encode_block(&w, blk[5], &last[2], &dc[1], &ac[1]);
+    }
+  }
+  free(luma);
+  free(chroma);
+  if (w.nbits > 0) put_bits(&w, 0x7F, 7);
+  put_bytes(&w, (const uint8_t[2]){0xFF, 0xD9}, 2);
+  if (w.overflow) return ERR_BAD_ARGS;
+  *written = w.n;
+  return CODEC_OK;
+}
+
+/* ------------------------------------------------------------------ */
+/* TIFF: LZW and PackBits unpacking, the horizontal predictor          */
+/* ------------------------------------------------------------------ */
+
+/* The strip or tile decoders of libtiff that data/tiff.py needs, each
+ * filling exactly `need` bytes or failing: where libtiff would decode a
+ * damaged chunk in part (and leave the rest of the image zero), these
+ * stop. */
+
+#define LZW_CLEAR 256
+#define LZW_EOI 257
+#define LZW_FIRST 258
+#define LZW_CSIZE (4095 + 1024) /* libtiff's CSIZE: MAXCODE(12) + 1024 */
+
+/* New-style TIFF LZW as libtiff's LZWDecode reads it: MSB-first codes of
+ * 9 to 12 bits, the width growing once the next free entry reaches
+ * 2^bits - 1 (one early), a stream that starts with Clear; an undefined
+ * code is an error, and the data's end stands for EOI. A string that
+ * overruns the output is cut, as libtiff cuts it. */
+int tiff_lzw_decode(const uint8_t *src, size_t n, uint8_t *out,
+                    size_t need) {
+  if ((src == NULL && n) || (out == NULL && need)) return ERR_BAD_ARGS;
+  uint16_t *prefix = malloc(LZW_CSIZE * sizeof *prefix);
+  uint16_t *length = calloc(LZW_CSIZE, sizeof *length);
+  uint8_t *first = malloc(LZW_CSIZE), *last = malloc(LZW_CSIZE);
+  if (prefix == NULL || length == NULL || first == NULL || last == NULL) {
+    free(prefix);
+    free(length);
+    free(first);
+    free(last);
+    return ERR_NOMEM;
+  }
+  for (int i = 0; i < 256; i++) {
+    length[i] = 1;
+    first[i] = last[i] = (uint8_t)i;
+  }
+  const uint64_t total = (uint64_t)n * 8;
+  uint64_t bit = 0;
+  int nbits = 9, free_ent = LZW_FIRST, old = -1, rc = CODEC_OK;
+  size_t o = 0;
+#define LZW_NEXT(code)                                              \
+  do {                                                              \
+    if (bit + (uint64_t)nbits > total) {                            \
+      (code) = LZW_EOI;                                             \
+    } else {                                                        \
+      int v_ = 0;                                                   \
+      for (int k_ = 0; k_ < nbits; k_++, bit++)                     \
+        v_ = (v_ << 1) | ((src[bit >> 3] >> (7 - (bit & 7))) & 1); \
+      (code) = v_;                                                  \
+    }                                                               \
+  } while (0)
+  while (o < need) {
+    int code;
+    LZW_NEXT(code);
+    if (code == LZW_EOI) break;
+    if (code == LZW_CLEAR) {
+      do {
+        free_ent = LZW_FIRST;
+        nbits = 9;
+        memset(length + LZW_FIRST, 0,
+               (LZW_CSIZE - LZW_FIRST) * sizeof *length);
+        LZW_NEXT(code);
+      } while (code == LZW_CLEAR);
+      if (code == LZW_EOI) break;
+      if (code > LZW_CLEAR) {
+        rc = ERR_CORRUPT;
+        break;
+      }
+      out[o++] = (uint8_t)code;
+      old = code;
+      continue;
+    }
+    if (old < 0 || free_ent >= LZW_CSIZE) {
+      rc = ERR_CORRUPT;
+      break;
+    }
+    prefix[free_ent] = (uint16_t)old;
+    first[free_ent] = first[old];
+    length[free_ent] = (uint16_t)(length[old] + 1);
+    last[free_ent] = code < free_ent ? first[code] : first[old];
+    if (++free_ent > (1 << nbits) - 2 && nbits < 12) nbits++;
+    old = code;
+    const size_t len = length[code];
+    if (len == 0) {
+      rc = ERR_CORRUPT;
+      break;
+    }
+    const size_t room = need - o;
+    int c = code;
+    for (size_t k = len; k-- > 0;) {
+      if (k < room) out[o + k] = last[c];
+      c = prefix[c];
+    }
+    o += len < room ? len : room;
+  }
+#undef LZW_NEXT
+  free(prefix);
+  free(length);
+  free(first);
+  free(last);
+  if (rc == CODEC_OK && o < need) rc = ERR_TRUNCATED;
+  return rc;
+}
+
+/* PackBits as libtiff's PackBitsDecode reads it: a run or a literal that
+ * overruns the output is cut, -128 is a no-op. */
+int tiff_packbits_decode(const uint8_t *src, size_t n, uint8_t *out,
+                         size_t need) {
+  if ((src == NULL && n) || (out == NULL && need)) return ERR_BAD_ARGS;
+  size_t i = 0, o = 0;
+  while (i < n && o < need) {
+    int h = (int8_t)src[i++];
+    if (h == -128) continue;
+    if (h < 0) {
+      size_t run = (size_t)(1 - h);
+      if (i >= n) break;
+      if (run > need - o) run = need - o;
+      memset(out + o, src[i++], run);
+      o += run;
+    } else {
+      size_t lit = (size_t)h + 1;
+      if (lit > need - o) lit = need - o;
+      if (lit > n - i) break;
+      memcpy(out + o, src + i, lit);
+      o += lit;
+      i += lit;
+    }
+  }
+  return o < need ? ERR_TRUNCATED : CODEC_OK;
+}
+
+/* Undoes Predictor 2 (horizontal differencing) in place on rows of
+ * row_samples samples of 1 or 2 bytes (native order): each sample adds
+ * the one `stride` samples before it, modulo 2^bits. */
+int tiff_unpredict(uint8_t *buf, size_t rows, size_t row_samples,
+                   uint32_t stride, uint32_t bytes) {
+  if (buf == NULL || stride == 0 || (bytes != 1 && bytes != 2) ||
+      row_samples % stride)
+    return ERR_BAD_ARGS;
+  for (size_t r = 0; r < rows; r++) {
+    if (bytes == 1) {
+      uint8_t *p = buf + r * row_samples;
+      for (size_t i = stride; i < row_samples; i++)
+        p[i] = (uint8_t)(p[i] + p[i - stride]);
+    } else {
+      uint8_t *p = buf + r * row_samples * 2;
+      for (size_t i = stride; i < row_samples; i++) {
+        uint16_t a, b;
+        memcpy(&a, p + 2 * i, 2);
+        memcpy(&b, p + 2 * (i - stride), 2);
+        a = (uint16_t)(a + b);
+        memcpy(p + 2 * i, &a, 2);
+      }
+    }
+  }
   return CODEC_OK;
 }

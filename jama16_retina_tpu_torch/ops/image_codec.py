@@ -1,9 +1,10 @@
 """``ctypes`` binding of the host-side image codec,
-``csrc/image_codec.c``: the JPEG decoder (``data/jpeg.py``), the PNG
-unfilter (``data/png.py``) and the resize loops
-(``preprocess/imgproc.py``). The library is built by the host C compiler
-at first use (``build.py``); every call releases Python's interpreter
-lock, so the host stage's threads run in parallel."""
+``csrc/image_codec.c``: the JPEG decoder and encoder (``data/jpeg.py``),
+the PNG unfilter (``data/png.py``), the TIFF unpacking (``data/tiff.py``)
+and the resize loops (``preprocess/imgproc.py``). The library is built
+by the host C compiler at first use (``build.py``); every call releases
+Python's interpreter lock, so the host stage's threads run in
+parallel."""
 
 from __future__ import annotations
 
@@ -34,8 +35,19 @@ def lib() -> ctypes.CDLL:
             u8p, i, i, i, i32p, f32p, u8p, i, i32p, f32p, u8p, i, i, i, u8p]
         lib.resize_cubic_u8.argtypes = [u8p, i, i, i, i32p, i32p, i32p,
                                         i32p, i, i, i, u8p]
-        for fn in (lib.jpeg_header, lib.jpeg_decode, lib.png_unfilter,
-                   lib.resize_area_table, lib.resize_cubic_u8):
+        lib.jpeg_encode_bound.argtypes = [i, i]
+        lib.jpeg_encode_bound.restype = ctypes.c_size_t
+        lib.jpeg_encode.argtypes = [u8p, i, i, i, u8p, ctypes.c_size_t,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+        for name in ("tiff_lzw_decode", "tiff_packbits_decode"):
+            getattr(lib, name).argtypes = [u8p, ctypes.c_size_t, u8p,
+                                           ctypes.c_size_t]
+        lib.tiff_unpredict.argtypes = [u8p, ctypes.c_size_t, ctypes.c_size_t,
+                                       ctypes.c_uint32, ctypes.c_uint32]
+        for fn in (lib.jpeg_header, lib.jpeg_decode, lib.jpeg_encode,
+                   lib.png_unfilter, lib.resize_area_table,
+                   lib.resize_cubic_u8, lib.tiff_lzw_decode,
+                   lib.tiff_packbits_decode, lib.tiff_unpredict):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

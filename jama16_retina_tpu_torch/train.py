@@ -18,8 +18,7 @@ and writes ``metrics.jsonl``,
 ``--synthetic=N`` and no train split in ``--data_dir``, it first writes
 synthetic fundus splits there, as the reference's CLI does: train N, val
 and test max(N/2, 8) images, seeds 1/2/3, 4 shards each, but raw-encoded
-where the reference writes JPEG (the port decodes JPEG records but has no
-JPEG encoder). With
+where the reference writes JPEG. With
 ``--synthetic=N`` and no ``--data_dir``, it trains ``train.steps`` steps
 on N rendered images held in memory (``trainer.fit_synthetic``) and
 writes the trained member as ``<workdir>/params.npz``.
@@ -87,7 +86,7 @@ def main(argv: "list[str] | None" = None) -> int:
                                         ("test", max(n // 2, 8), 3)):
                     tfrecord.write_synthetic_split(
                         data_dir, split, ns, cfg.model.image_size,
-                        num_shards=4, seed=seed)
+                        num_shards=4, seed=seed, encoding="raw")
         if cfg.train.ensemble_size > 1:
             results = trainer.fit_ensemble(cfg, data_dir, workdir,
                                            device=args.device)

@@ -228,7 +228,7 @@ def data_dir(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("ens") / "data")
     for split, n, seed in (("train", 16, 1), ("val", 8, 2)):
         tfrecord.write_synthetic_split(d, split, n, 64, num_shards=2,
-                                       seed=seed)
+                                       seed=seed, encoding="raw")
     return d
 
 

@@ -366,9 +366,9 @@ def split(tmp_path_factory):
     """16 raw 32 px train records in 2 shards (the port's writer)."""
     root = str(tmp_path_factory.mktemp("fault_split"))
     tfrecord.write_synthetic_split(root, "train", RECORDS, SIZE,
-                                   num_shards=2, seed=1)
+                                   num_shards=2, seed=1, encoding="raw")
     tfrecord.write_synthetic_split(root, "val", 8, SIZE, num_shards=1,
-                                   seed=2)
+                                   seed=2, encoding="raw")
     return root
 
 

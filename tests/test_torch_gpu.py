@@ -299,7 +299,7 @@ def test_fit_and_resume_on_the_card(cuda, tmp_path):
     data, wd = str(tmp_path / "data"), str(tmp_path / "wd")
     for split, n, seed in (("train", 24, 1), ("val", 12, 2)):
         tfrecord.write_synthetic_split(data, split, n, 64, num_shards=2,
-                                       seed=seed)
+                                       seed=seed, encoding="raw")
     base = ["data.use_pallas=true", "train.eval_every=2", "train.log_every=1"]
     cfg = configs.override(configs.get_config("smoke"),
                            base + ["train.steps=4"])
@@ -328,7 +328,7 @@ def _smoke_split(root, n=12, size=64):
     from jama16_retina_tpu_torch.data import tfrecord
 
     tfrecord.write_synthetic_split(str(root), "train", n, size, num_shards=3,
-                                   seed=4)
+                                   seed=4, encoding="raw")
     return str(root)
 
 
@@ -717,7 +717,7 @@ def test_profiler_windows_and_telemetry_of_full_width_fits(cuda, tmp_path):
     data = str(tmp_path / "data")
     for split, n, seed in (("train", 96, 1), ("val", 32, 2)):
         tfrecord.write_synthetic_split(data, split, n, 299, num_shards=2,
-                                       seed=seed)
+                                       seed=seed, encoding="raw")
     want = {"fused": {"normalize_color_jitter", "adamw_kernel"},
             "preset": {"color_jitter_kernel"}}
     for form, extra in (("fused", ["train.use_pallas_fused=true"]),

@@ -49,14 +49,17 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # serve/batcher), the optimizer families' (optim; the ensemble
     # code lives in train_lib and trainer) and the telemetry planes'
     # (obs/trace, spans, export, criticalpath, flightrec, alerts) and the
-    # fault plane's (obs/faultinject, utils/retry) included.
-    assert int(n_modules) >= 38
+    # fault plane's (obs/faultinject, utils/retry) and the preprocess
+    # runners' (data/tiff, preprocess/datasets and both entry points)
+    # included.
+    assert int(n_modules) >= 42
     assert {f"jama16_retina_tpu_torch.{m}" for m in (
         "obs.registry", "obs.quality", "integrity.artifact",
         "serve.quantize", "serve.batcher", "optim", "train_lib",
         "trainer", "obs.trace", "obs.spans", "obs.export",
         "obs.criticalpath", "obs.flightrec", "obs.alerts",
-        "obs.faultinject", "utils.retry")
+        "obs.faultinject", "utils.retry", "data.tiff",
+        "preprocess.datasets", "preprocess_eyepacs", "preprocess_messidor")
         } <= set(names.split())
     assert bad.strip() == "[]"
 

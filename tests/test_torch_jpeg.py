@@ -10,6 +10,7 @@ OpenCV returns; a JPEG split streams exactly as the JAX pipeline streams
 it, resized as it resizes. Fixtures: ``tests/data/jpeg`` (written by
 ``tests/make_torch_fixtures.py``), checked against their manifest too."""
 
+import functools
 import hashlib
 import io
 import json
@@ -120,10 +121,19 @@ def test_png_palette_and_depths_decode_bitwise_as_opencv(mode, bits):
 
 
 def test_interlaced_png_and_other_formats_are_refused():
+    """(A TIFF that ``data/tiff.py`` decodes is not refused since the
+    preprocess runners' slice: it decodes as OpenCV decodes it; a CMYK
+    one still is.)"""
+    from PIL import Image
+
     img = np.zeros((8, 8, 3), np.uint8)
     ok, tiff = cv2.imencode(".tiff", img)
+    np.testing.assert_array_equal(imdecode.imdecode(tiff.tobytes()),
+                                  _cv2_rgb(tiff.tobytes()))
+    cmyk = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(cmyk, format="TIFF")
     ok, bmp = cv2.imencode(".bmp", img)
-    for data, what in ((tiff.tobytes(), "TIFF"), (bmp.tobytes(), "BMP")):
+    for data, what in ((cmyk.getvalue(), "TIFF"), (bmp.tobytes(), "BMP")):
         rgb, why = imdecode.read_image(data)
         assert rgb is None and why.startswith(what) and "item 14" in why
     assert imdecode.read_image(b"not an image at all") == (None, None)
@@ -402,3 +412,69 @@ def test_the_codec_library_is_named_after_its_compiler(monkeypatch,
     assert build.host_cc() == str(other)
     assert build.library_path("image_codec") != here
     assert build.library_path("image_codec").parent == here.parent
+
+
+# The encoder: cv2.imencode's bytes. Sizes cross the MCU (16 px) and block
+# (8 px) edges every way: one pixel, under one block, odd sizes, the
+# model's size, a render's, and an odd size near 1000 px.
+ENCODE_SIZES = [(1, 1), (7, 9), (37, 53), (299, 299), (317, 317),
+                (997, 1003)]
+
+
+@functools.lru_cache(maxsize=None)
+def _encode_input(kind: str, h: int, w: int) -> np.ndarray:
+    if kind == "random":
+        return np.random.default_rng(h * 7919 + w).integers(
+            0, 256, (h, w, 3), dtype=np.uint8)
+    from jama16_retina_tpu.data import synthetic
+
+    size = max(h, w)
+    disc = synthetic.render_fundus(np.random.default_rng(size), 3,
+                                   synthetic.SynthConfig(image_size=size))
+    return np.ascontiguousarray(disc[:h, :w])
+
+
+def _cv2_jpeg(rgb: np.ndarray, quality: int) -> bytes:
+    ok, buf = cv2.imencode(".jpg", rgb[..., ::-1],
+                           [int(cv2.IMWRITE_JPEG_QUALITY), quality])
+    assert ok
+    return buf.tobytes()
+
+
+@pytest.mark.parametrize("kind", ["random", "rendered"])
+@pytest.mark.parametrize("h,w", ENCODE_SIZES)
+def test_encode_jpeg_is_opencvs_bytes(h, w, kind):
+    rgb = _encode_input(kind, h, w)
+    assert jpeg.encode_jpeg(rgb) == _cv2_jpeg(rgb, 92)
+    assert jpeg.encode_jpeg(rgb, quality=92) == jpeg.encode_jpeg(rgb)
+
+
+@pytest.mark.parametrize("quality", [50, 75, 100])
+@pytest.mark.parametrize("h,w", ENCODE_SIZES)
+def test_encode_jpeg_is_opencvs_bytes_at_other_qualities(h, w, quality):
+    for kind in ("random", "rendered"):
+        rgb = _encode_input(kind, h, w)
+        assert jpeg.encode_jpeg(rgb, quality) == _cv2_jpeg(rgb, quality)
+
+
+def test_encode_jpeg_decodes_back_and_refuses_other_arrays():
+    rgb = _encode_input("rendered", 64, 64)
+    data = jpeg.encode_jpeg(rgb)
+    np.testing.assert_array_equal(
+        jpeg.decode_jpeg(data, exif_orientation=False), _cv2_rgb(data))
+    for bad in (rgb[..., :2], rgb.astype(np.float32), rgb[..., 0]):
+        with pytest.raises(ValueError, match="uint8 HW3"):
+            jpeg.encode_jpeg(bad)
+
+
+def test_write_synthetic_split_jpeg_is_the_references_bytes(tmp_path):
+    """The default encoding is the reference's, and the shards are its
+    bytes (framing, Examples and JPEG streams)."""
+    for root, writer in ((tmp_path / "jax", jax_tfrecord),
+                         (tmp_path / "port", tfrecord)):
+        writer.write_synthetic_split(str(root), "val", 7, 48, num_shards=3,
+                                     seed=4)
+    for name in sorted(os.listdir(tmp_path / "jax")):
+        assert (tmp_path / "jax" / name).read_bytes() == \
+            (tmp_path / "port" / name).read_bytes(), name
+    assert len(os.listdir(tmp_path / "port")) == 3

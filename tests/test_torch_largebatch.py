@@ -117,7 +117,7 @@ def test_recipe_fit_scales_the_rate_passes_its_own_curve_and_refuses_a_shift(
     data = str(tmp_path / "data")
     for split, n, seed in (("train", 16, 1), ("val", 8, 2)):
         tfrecord.write_synthetic_split(data, split, n, 64, num_shards=2,
-                                       seed=seed)
+                                       seed=seed, encoding="raw")
     base = ["train.optimizer=lamb", "train.lr_scale_ref_batch=2",
             "train.lr_schedule=warmup_cosine", "train.warmup_steps=1",
             "train.steps=4", "train.eval_every=2", "train.log_every=2"]

@@ -353,7 +353,7 @@ def test_fit_writes_its_end_of_fit_profile(tmp_path):
     data = str(tmp_path / "data")
     for split, n, seed in (("train", 8, 1), ("val", 6, 2)):
         tfrecord.write_synthetic_split(data, split, n, 32, num_shards=2,
-                                       seed=seed)
+                                       seed=seed, encoding="raw")
     out = str(tmp_path / "profiles" / "end.json")
     cfg = configs.override(configs.get_config("smoke"), [
         "model.image_size=32", "train.steps=2", "train.eval_every=2",

@@ -91,7 +91,8 @@ def _tf_decode(paths):
 
 def test_port_written_shards_read_back_through_the_reference(tmp_path):
     paths = tfrecord.write_synthetic_split(str(tmp_path), "train", 7, SIZE,
-                                           num_shards=3, seed=5)
+                                           num_shards=3, seed=5,
+                                           encoding="raw")
     assert paths == tfrecord.list_split(str(tmp_path), "train")
     assert tfrecord.count_records(paths) == 7
     got = _tf_decode(paths)
@@ -110,7 +111,7 @@ def test_both_writers_write_the_same_records(tmp_path):
     jax_tfrecord.write_synthetic_split(str(tmp_path / "j"), "val", 6, SIZE,
                                        num_shards=2, seed=3, encoding="raw")
     tfrecord.write_synthetic_split(str(tmp_path / "p"), "val", 6, SIZE,
-                                   num_shards=2, seed=3)
+                                   num_shards=2, seed=3, encoding="raw")
     for jp, pp in zip(tfrecord.list_split(str(tmp_path / "j"), "val"),
                       tfrecord.list_split(str(tmp_path / "p"), "val")):
         for jd, pd in zip(tfrecord.read_records(jp),
@@ -129,7 +130,7 @@ def test_crc32c_lanes_match_the_byte_loop(n):
 @pytest.mark.parametrize("where,what", [(-7, "data"), (3, "length")])
 def test_a_flipped_byte_raises_a_crc_error(tmp_path, where, what):
     (path,) = tfrecord.write_synthetic_split(str(tmp_path), "val", 3, SIZE,
-                                             num_shards=1)
+                                             num_shards=1, encoding="raw")
     spans = tfrecord.index_records(path)
     blob = bytearray(open(path, "rb").read())
     # Byte `where` of record 2's data (counted from its end), or of its
@@ -145,7 +146,7 @@ def test_a_flipped_byte_raises_a_crc_error(tmp_path, where, what):
 
 def test_a_truncated_file_raises(tmp_path):
     (path,) = tfrecord.write_synthetic_split(str(tmp_path), "val", 2, SIZE,
-                                             num_shards=1)
+                                             num_shards=1, encoding="raw")
     blob = open(path, "rb").read()
     open(path, "wb").write(blob[:-5])
     with pytest.raises(tfrecord.CorruptRecordError, match="record 1"):
@@ -155,8 +156,8 @@ def test_a_truncated_file_raises(tmp_path):
 def test_jpeg_records_raise_naming_their_item(tmp_path):
     """JPEG records decode (tests/test_torch_jpeg.py); one the port cannot
     decode raises ``JpegError``, naming item 14 for a recognized format
-    (progressive), and the writer refuses JPEG naming item 7, part 2 (no
-    encoder)."""
+    (progressive); the synthetic writer writes JPEG records (the default)
+    or raw ones and refuses any other encoding."""
     import cv2
 
     from jama16_retina_tpu_torch.data import jpeg
@@ -176,9 +177,14 @@ def test_jpeg_records_raise_naming_their_item(tmp_path):
         tfrecord.parse_record(progressive)
     with pytest.raises(jpeg.JpegError):
         list(pipeline.eval_batches(str(tmp_path), "test", BATCH, SIZE))
-    with pytest.raises(NotImplementedError, match="Queue A item 7, part 2"):
-        tfrecord.write_synthetic_split(str(tmp_path), "x", 1, SIZE,
-                                       encoding="jpeg")
+    (path,) = tfrecord.write_synthetic_split(str(tmp_path), "x", 1, SIZE,
+                                             num_shards=1)
+    (record,) = tfrecord.read_records(path)
+    assert tfrecord.parse_example(record)["image/encoded"][1][0][:3] == \
+        b"\xff\xd8\xff"
+    with pytest.raises(ValueError, match="jpeg|raw"):
+        tfrecord.write_synthetic_split(str(tmp_path), "y", 1, SIZE,
+                                       encoding="png")
 
 
 def test_records_of_another_size_raise(jax_splits):

@@ -372,7 +372,7 @@ def knob_data(tmp_path_factory):
     data = str(root / "data")
     for split, n, seed in (("train", 16, 1), ("val", 8, 2)):
         tfrecord.write_synthetic_split(data, split, n, 64, num_shards=2,
-                                       seed=seed)
+                                       seed=seed, encoding="raw")
     donor = str(root / "donor")
     with torch_threads(1):
         trainer.fit(configs.override(configs.get_config("smoke"), [

@@ -44,7 +44,7 @@ def data_dir(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("knob_splits"))
     for split, n, seed in (("train", 16, 1), ("val", 8, 2)):
         tfrecord.write_synthetic_split(root, split, n, 64, num_shards=2,
-                                       seed=seed)
+                                       seed=seed, encoding="raw")
     return root
 
 
@@ -583,7 +583,7 @@ def small_split(tmp_path_factory):
     """10 records of 16 px in 3 files: batches of 4 run across epochs."""
     root = str(tmp_path_factory.mktemp("small_split"))
     tfrecord.write_synthetic_split(root, "train", 10, 16, num_shards=3,
-                                   seed=4)
+                                   seed=4, encoding="raw")
     return root
 
 
@@ -727,7 +727,7 @@ def test_fit_follows_the_jax_val_auc_trajectory(tmp_path, monkeypatch):
     data_dir = str(tmp_path / "data")
     for split, n, seed in (("train", 16, 1), ("val", 32, 2)):
         tfrecord.write_synthetic_split(data_dir, split, n, 64,
-                                       num_shards=2, seed=seed)
+                                       num_shards=2, seed=seed, encoding="raw")
     items = [*PARITY, "model.compute_dtype=float32", "train.steps=6",
              "train.eval_every=2", "train.log_every=2"]
     cfg = configs.override(configs.get_config("smoke"), items)
