@@ -95,8 +95,8 @@ Phases, any failure exits nonzero before the result line:
 7. times    - kernel and plain-version device time (``torch.profiler``;
               a kernel's time is the mean of its traced events times its
               launches a call; every trace's events are counted, a short
-              one taken again up to three times, then kept with its count
-              printed, and a kernel trace with under half its events fails
+              one taken again once, then kept with its count printed,
+              and a kernel trace with under half its events fails
               the run; ``BELOW_BOUND`` printed beside a time under its
               bound, which would be a measurement fault) beside each
               kernel's bound, B3's library yardstick
@@ -121,8 +121,9 @@ Phases, any failure exits nonzero before the result line:
               launch no kernel; fused: B2 = steps, B3 = steps x
               ceil(leaves / 400)), finite losses and every parameter leaf
               moved (but EfficientNet's ``project_bn`` biases, whose true
-              gradient is 0); step time, images/s, idle share and peak
-              memory per form; and the float64 card-vs-CPU forward and
+              gradient is 0); step time (median of 5 after 3 warm),
+              images/s, idle share and peak memory per form; and the
+              float64 card-vs-CPU forward and
               backward of phase 5 on the same augmented batch (dropout
               and stochastic depth 0): loss within 1e-6 and every leaf
               within 1e-6 relative L2 (a leaf whose CPU gradient is below
@@ -135,8 +136,7 @@ Phases, any failure exits nonzero before the result line:
               ``window_sec`` and ``input_wait_sec``): unprefetched
               (``data.prefetch_batches=0``, ``data.readers=1``),
               prefetched from one reader process (2, 1, the default),
-              prefetched from two (2, 2), then the same three the other
-              way round. bf16
+              prefetched from two (2, 2), then unprefetched again. bf16
               master weights: a fused step with ``train.dtype=bf16`` and
               one with float32 params from one init on one batch, losses
               within 0.05 and not equal, every master and moment still
@@ -221,7 +221,7 @@ Phases, any failure exits nonzero before the result line:
               member's update within 8 % relative L2 and cosine >= 0.995
               (the float32 card-vs-CPU gradient bar of phase 5); and the
               stacked step timed against k member steps in turns
-              (stacked, in turn, in turn, stacked; bf16, batch 32, adamw):
+              (stacked, then in turn; bf16, batch 32, adamw):
               median ms, member images/s, peak memory and the ratio.
 12. cascade  - after phase 11, on the fit phase's splits. (a) Ten random
               ``eyepacs_binary`` members (``ensemble10``'s k) as the
@@ -239,7 +239,7 @@ Phases, any failure exits nonzero before the result line:
               ``ensemble.probs(images[mask])``, counters equal the mask's;
               speculative against serial within 1e-6; cascade, speculative,
               ensemble and student requests at batch 8 and 64 (median and
-              range of 10 after 2 warm). (c) ``assemble(go_live=True)`` of
+              range of 5 after 2 warm). (c) ``assemble(go_live=True)`` of
               a band covering [0, 1] passes against a canary pinned from
               the ensemble's scores (and ``auc_floor`` on the 64 graded
               canvases); a student with head bias +20 at band 0 raises
@@ -415,11 +415,46 @@ Phases, any failure exits nonzero before the result line:
               the CPU engine. (f) Printed, not asserted: each runner's
               photos/s at its worker count and the encoder's ms per
               299-px canvas.
+18. hbm     - the card-resident ``hbm`` loader (``data/hbm_pipeline.py``)
+              alone first, then a fit from it, at full width
+              (``eyepacs_binary``: 299 px, batch 32, bf16); each part
+              prints a start and an end line. (a) A raw train split of
+              4,096 records (1.10 GB resident), written by 8
+              ``write_synthetic_split`` processes at once (seeds 1-8, 2
+              shards each), and 32 val: ``load_split_numpy`` at 1 decode
+              thread and at the automatic count, bitwise equal; rows
+              decoded a second at each, the upload's ms and the card
+              bytes it took (``memory_allocated``), the gather's ms a
+              batch. (b) ``train_batches`` from step 0 across the epoch
+              boundary (130 batches) and from a skip past it (4 batches),
+              each bitwise the host's numpy gather of the decoded rows by
+              the epoch's threefry permutation. (c) ``load_split_numpy``
+              of phase 14's JPEG splits (the 317-px records through
+              INTER_LINEAR) at 1 thread and the automatic count, bitwise
+              ``tests/data/jpeg/hbm_load.json``, recorded from the
+              reference's cv2 decode. (d) ``trainer.fit`` with
+              ``data.loader=hbm`` (cuDNN deterministic): 8 preset steps,
+              evals at 4 and 8 from the val cache, B1 = 8 (counts set to 0
+              just before each fit and read just after); the same run
+              cut by ``trainer.step`` at call 5 (B1 = 4) and resumed from
+              4 (B1 = 4), its step-8 state digest equal to the
+              uninterrupted run's; 4 fused steps, B2 = B3 = 4; the val
+              eval of the step-8 state streamed, filling the cache and
+              from it, bitwise, with each one's ms. (e) A ``tfrecord.read``
+              corrupt plan on call 7 at one decode thread:
+              ``data.quarantined.decode_error`` 1, an epoch of batches
+              bitwise the host reference with record 6 replaced by record
+              7, the ``data_quarantine`` alert firing at
+              ``obs.quarantine_alert_per_s=0.001``; with
+              ``data.quarantine_bad_records=false`` the load raises. (f)
+              ``data.hbm_budget_bytes=1000000`` refuses the val split with
+              the reference's message.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
-record (with each kernel's launches on every path, ``launches_by_phase``)
-and the run's seconds. Scratch files go under ``build/chip_smoke``
+record (B1-B3's ``launches`` from phase 18's fits, B4's from phase 4,
+and each kernel's launches on every path, ``launches_by_phase``) and the
+run's seconds. Scratch files go under ``build/chip_smoke``
 (git-ignored). Without a CUDA card, or run outside a checkout of the
 repository (no ``jama16_retina_tpu_torch`` to import), it exits 1 before
 printing any result.
@@ -466,7 +501,7 @@ ICDR5_STEPS = 4
 # the train stream's (prefetch depth, reader processes) in turns.
 KNOB_STEPS = 6
 ACCUM = (1, 2, 4)
-STREAM_TURNS = ((0, 1), (2, 1), (2, 2), (2, 2), (2, 1), (0, 1))
+STREAM_TURNS = ((0, 1), (2, 1), (2, 2), (0, 1))
 STREAM_STEPS = 10
 # The last BatchNorm of a residual branch (ResNet-50's bn3, EfficientNet's
 # project_bn): random members draw its scale in [0.05, 0.15].
@@ -580,8 +615,8 @@ def device_ms(fn, reps: int, kernel: "str | None" = None,
     a time under the kernel's bound. A kernel's trace should hold ``reps``
     x ``launches`` events, a plain version's (whose operations a call
     cannot be told in advance) a multiple of ``reps``. A short trace is
-    taken again, up to three times, half a second apart. After that the
-    fullest is kept, its count printed: a kernel's time is a mean over the
+    taken again once; then the fuller is kept, its count printed (the
+    profiler has been seen to drop the same one event every time): a kernel's time is a mean over the
     events seen, so a lost event does not bias it, and a plain version's
     hundreds of operations a call move by well under 1 % for one event.
     A kernel's trace that kept under half its events fails the run. With
@@ -596,9 +631,8 @@ def device_ms(fn, reps: int, kernel: "str | None" = None,
     torch.cuda.synchronize()
     want = reps * launches
     n, us = 0, 0.0
-    for attempt in range(4 if strict else 1):
-        if attempt:
-            time.sleep(0.5)
+    attempts = 2 if strict else 1
+    for attempt in range(attempts):
         got = _device_events(fn, reps, match)
         whole = (got[0] == want if kernel
                  else got[0] > 0 and got[0] % reps == 0)
@@ -610,10 +644,11 @@ def device_ms(fn, reps: int, kernel: "str | None" = None,
         log(f"times: a trace of {reps} calls held {got[0]} events of "
             f"{kernel or 'the device'}, "
             f"{want if kernel else f'a multiple of {reps}'} expected"
-            + ("; taken again" if attempt < 3
+            + ("; taken again" if attempt < attempts - 1
                else f"; the fullest ({n}) kept"))
     if kernel is None:
-        check(n > 0, f"four traces of {reps} calls held no device event")
+        check(n > 0, f"{attempts} trace(s) of {reps} calls held no device "
+              f"event")
         return us / reps / 1e3
     check(2 * n >= want, f"a trace of {reps} calls kept {n} of its {want} "
           f"events of {kernel}")
@@ -1287,9 +1322,10 @@ def phase_train_agreement(torch, seed: int, batch: dict,
 
 
 def train_step_times(torch, seed: int, smi: str,
-                     preset: str = "eyepacs_binary") -> dict:
+                     preset: str = "eyepacs_binary", timed: int = 10
+                     ) -> dict:
     """Per step form: train step time (host clock around a synchronized
-    step; median of 10 after 3 warm), images/s, and the device's busy
+    step; median of ``timed`` after 3 warm), images/s, and the device's busy
     time per step (profiler, 3 steps), whose complement is its idle
     share."""
     from jama16_retina_tpu_torch import models, train_lib
@@ -1312,7 +1348,7 @@ def train_step_times(torch, seed: int, smi: str,
             train_lib.train_step(state, batch, cfg)
 
         times = []
-        for i in range(13):
+        for i in range(3 + timed):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             step(i)
@@ -2341,7 +2377,7 @@ ENSEMBLE_KS = (ENSEMBLE_K, 8, 6, 4, 2)
 ENSEMBLE_STEPS = 4
 ENSEMBLE_EVAL_EVERY = 2
 AGREE_BATCH = 8
-RATIO_TURNS = ("stacked", "sequential", "sequential", "stacked")
+RATIO_TURNS = ("stacked", "sequential")
 RATIO_STEPS = 3
 
 
@@ -2792,6 +2828,8 @@ def phase_ensemble(torch, seed: int, smi: str, root: Path, data: Path
 
 # Phase 12: the distilled cascade and serving generations.
 CASCADE_K = 10
+# Timed calls of each cascade request form.
+CASCADE_TIMED = 5
 DISTILL_STEPS = 4
 DISTILL_EVAL_EVERY = 2
 SOFT_CHECK_BATCH = 8
@@ -3016,7 +3054,8 @@ def phase_cascade(torch, seed: int, smi: str, root: Path,
                          ("speculative", spec.probs),
                          ("ensemble", ensemble.probs),
                          ("student", student.probs)):
-            times[f"{name}_b{b}"] = request_ms(torch, lambda: fn(xb))
+            times[f"{name}_b{b}"] = request_ms(torch, lambda: fn(xb),
+                                               timed=CASCADE_TIMED)
         share = float(cascade.escalation_mask(s[:b]).mean())
         log(f"times: cascade request batch {b} ({100 * share:.0f} % "
             f"escalated): cascade {fmt_ms(times[f'cascade_b{b}'])}; "
@@ -4932,16 +4971,21 @@ def faults_kill9(torch, seed: int, data: Path, root: Path,
     try:
         metrics = wd / "metrics.jsonl"
         held = False
+        # The kill lands once the step-4 save is held and the step-2 save
+        # (queued before it on the one saver thread) has landed: on a slow
+        # disk the step-2 write can outlast the steps and eval after it.
         while time.perf_counter() - t0 < 300 and child.poll() is None:
             if metrics.exists() and any(
                     r["kind"] == "eval" and r["step"] == KILL_STEPS
-                    for r in read_jsonl(str(metrics))):
+                    for r in read_jsonl(str(metrics))) and ckpt_lib.\
+                    Checkpointer(str(wd)).latest_step == KILL_EVAL_EVERY:
                 held = True
                 break
             time.sleep(0.1)
         check(held and child.poll() is None,
               f"the kill -9 child did not reach its step-{KILL_STEPS} eval "
-              f"(exit {child.poll()})")
+              f"with its step-{KILL_EVAL_EVERY} save landed (exit "
+              f"{child.poll()})")
         time.sleep(0.5)  # the saver sleeps inside the held save now
         child.kill()
         child.wait(timeout=60)
@@ -5573,6 +5617,460 @@ def phase_preprocess(torch, seed: int, smi: str, serve: dict) -> dict:
 
 
 
+HBM_RECORDS = 4096
+HBM_WRITERS = 8
+HBM_VAL = 32
+HBM_STEPS = 8
+HBM_FUSED_STEPS = 4
+HBM_CUT_CALL = 5
+HBM_GATHER_REPS = 100
+HBM_POISON_CALL = 7
+HBM_JPEG_LOAD = FIXTURES / "hbm_load.json"
+
+
+class HbmPart:
+    """One part of phase 18: a start line, and an end line with its wall
+    time, so that a failed run's log names the part."""
+
+    def __init__(self, name: str, what: str, out: dict):
+        self.name, self.what, self.out = name, what, out
+
+    def __enter__(self):
+        log(f"hbm: ({self.name}) start: {self.what}")
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, *_):
+        wall = time.perf_counter() - self.t0
+        self.out["wall_s"][self.name] = wall
+        if exc_type is None:
+            log(f"hbm: ({self.name}) end: {wall:.1f} s")
+        return False
+
+
+_HBM_WRITER = r"""
+import sys
+from jama16_retina_tpu_torch.data import tfrecord
+tfrecord.write_synthetic_split(sys.argv[1], "train", int(sys.argv[2]), 299,
+                               num_shards=2, seed=int(sys.argv[3]),
+                               encoding="raw")
+"""
+
+
+def write_hbm_train(data: Path) -> float:
+    """The 4,096-record raw 299-px train split, written by ``HBM_WRITERS``
+    processes at once, each ``write_synthetic_split`` of its share (seeds
+    1-8) into 2 shards, renamed into one split of 16; -> seconds."""
+    t0 = time.perf_counter()
+    per = HBM_RECORDS // HBM_WRITERS
+    parts = [data / f"part{w}" for w in range(HBM_WRITERS)]
+    procs = [subprocess.Popen([sys.executable, "-c", _HBM_WRITER, str(p),
+                               str(per), str(w + 1)], cwd=ROOT)
+             for w, p in enumerate(parts)]
+    codes = [p.wait() for p in procs]
+    check(codes == [0] * HBM_WRITERS, f"hbm: split writers exited {codes}")
+    shards = 2 * HBM_WRITERS
+    for w, part in enumerate(parts):
+        for j, f in enumerate(sorted(part.glob("train-*.tfrecord"))):
+            f.rename(data / f"train-{2 * w + j:05d}-of-{shards:05d}.tfrecord")
+        part.rmdir()
+    return time.perf_counter() - t0
+
+
+def hbm_reference_batch(images, grades, seed: int, step: int):
+    """The host's numpy gather of batch ``step``: the rows of the epoch
+    permutation's slice."""
+    from jama16_retina_tpu_torch.data import threefry
+
+    n = len(images)
+    epoch, pos = divmod(step, n // TRAIN_BATCH)
+    idx = threefry.epoch_permutation(seed, epoch, n)[
+        pos * TRAIN_BATCH:(pos + 1) * TRAIN_BATCH]
+    return images[idx], grades[idx]
+
+
+def hbm_batches_match(torch, stream, images, grades, seed: int,
+                      steps) -> int:
+    n = 0
+    for step in steps:
+        got = next(stream)
+        want_i, want_g = hbm_reference_batch(images, grades, seed, step)
+        check(got["image"].device.type == "cuda"
+              and torch.equal(got["image"].cpu(), torch.from_numpy(want_i))
+              and torch.equal(got["grade"].cpu(), torch.from_numpy(want_g)),
+              f"hbm: batch {step} differs from the host reference")
+        n += 1
+    return n
+
+
+def hbm_load_and_upload(torch, data: Path, smi: str, out: dict):
+    """(a) The split decoded at 1 and at the automatic worker count, and
+    uploaded alone -> (images, grades)."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch.data import grain_pipeline, hbm_pipeline
+
+    loads = []
+    for workers in (1, 0):
+        resolved = grain_pipeline.resolve_decode_workers(workers)
+        t0 = time.perf_counter()
+        loads.append(hbm_pipeline.load_split_numpy(
+            str(data), "train", 299, workers=resolved))
+        dt = time.perf_counter() - t0
+        out["decode_rows_per_s"][str(resolved)] = HBM_RECORDS / dt
+        log(f"hbm: (a) load_split_numpy at decode_workers={workers} "
+            f"({resolved} thread(s)): {HBM_RECORDS} raw 299-px records in "
+            f"{dt:.3f} s, {HBM_RECORDS / dt:.1f} rows/s on the host ({smi})")
+    (images, grades), (images2, grades2) = loads
+    check(np.array_equal(images, images2) and np.array_equal(grades, grades2),
+          "hbm: (a) the split decoded at 1 and at the automatic worker "
+          "count differ")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    get_batch = hbm_pipeline.make_batch_fn(images, grades, TRAIN_BATCH, 0,
+                                           device="cuda")
+    torch.cuda.synchronize()
+    upload_ms = 1e3 * (time.perf_counter() - t0)
+    took = torch.cuda.memory_allocated() - before
+    want = HBM_RECORDS * hbm_pipeline.row_bytes(299)
+    check(took >= want, f"hbm: (a) the upload took {took} card bytes, "
+          f"want at least {want}")
+    get_batch(0)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for step in range(1, 1 + HBM_GATHER_REPS):
+        get_batch(step)
+    end.record()
+    end.synchronize()
+    gather_ms = start.elapsed_time(end) / HBM_GATHER_REPS
+    del get_batch
+    torch.cuda.empty_cache()
+    out.update(upload_ms=upload_ms, card_bytes=took, gather_ms=gather_ms)
+    log(f"hbm: (a) upload of {images.nbytes + grades.nbytes} bytes "
+        f"{upload_ms:.1f} ms ({(images.nbytes + grades.nbytes) / upload_ms / 1e6:.2f} "
+        f"GB/s, pageable host memory); card bytes "
+        f"{took} (memory_allocated before {before}); gather {gather_ms:.4f} "
+        f"ms a batch of {TRAIN_BATCH} (mean of {HBM_GATHER_REPS} within an "
+        f"epoch, CUDA events) ({smi})")
+    return images, grades
+
+
+def hbm_fits(torch, seed: int, data: Path, root: Path, smi: str,
+             out: dict) -> None:
+    """(d) Eight preset steps with evals at 4 and 8 and the val cache; the
+    same run cut at step 5 and resumed; four fused steps; the cached val
+    eval against the streamed one."""
+    import hashlib
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch import models, train_lib, trainer
+    from jama16_retina_tpu_torch.models import init
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    def digest(wd: Path, step: int) -> str:
+        flat = ckpt_lib.Checkpointer(str(wd)).restore(step)
+        h = hashlib.sha256()
+        for k in sorted(flat):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(flat[k]).tobytes())
+        return h.hexdigest()
+
+    hbm = ("data.loader=hbm",)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        cfg_a = fit_config(HBM_STEPS, root / "a", seed, *hbm)
+        res_a, counts_a, recs_a = fit_run(torch, cfg_a, data)
+        out["launches"]["hbm_fit"] = counts_a
+        check(counts_a == {"fused_color_jitter": HBM_STEPS,
+                           "fused_normalize_color_jitter": 0,
+                           "fused_adamw_update": 0,
+                           "fused_serve_preprocess": 0},
+              f"hbm: (d) the preset fit launched {counts_a}, want B1 = "
+              f"{HBM_STEPS}")
+        evals = [r for r in recs_a if r["kind"] == "eval"]
+        check([r["step"] for r in evals] == [4, 8]
+              and all(0 <= r["val_auc"] <= 1 for r in evals),
+              f"hbm: (d) the fit's evals {evals}")
+        train_a = {r["step"]: r for r in recs_a if r["kind"] == "train"}
+        step_ms = statistics.median(
+            1e3 * r["window_sec"] for s, r in train_a.items()
+            if s > 1 and r["pause_sec"] == 0 and r["save_sec"] == 0)
+        input_ms = statistics.median(
+            1e3 * r["input_wait_sec"] for s, r in train_a.items() if s > 1)
+        out.update(step_ms=step_ms, input_wait_ms=input_ms,
+                   first_input_s=train_a[1]["input_wait_sec"])
+        log(f"hbm: (d) {HBM_STEPS}-step preset fit from the card-resident "
+            f"split: {res_a}; launches {counts_a}; step median "
+            f"{step_ms:.3f} ms (input wait {input_ms:.3f} ms; step 1's "
+            f"input wait, the decode and upload, "
+            f"{train_a[1]['input_wait_sec']:.2f} s) ({smi})")
+
+        cut = {"trainer.step": {"kind": "error", "error": "RuntimeError",
+                                "on_calls": [HBM_CUT_CALL],
+                                "message": "hbm cut"}}
+        cfg_b = fit_config(HBM_STEPS, root / "b", seed, *hbm,
+                           fault_spec(cut))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        try:
+            trainer.fit(cfg_b, str(data), str(root / "b"), device="cuda")
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        counts_b1 = launch_counts()
+        faultinject.disarm()
+        check(raised is not None and "hbm cut" in raised
+              and counts_b1["fused_color_jitter"] == HBM_CUT_CALL - 1,
+              f"hbm: (d) the cut run raised {raised!r}, launched {counts_b1}")
+        _, counts_b, recs_b = fit_run(torch, fit_config(
+            HBM_STEPS, root / "b", seed, *hbm, "train.resume=true"), data)
+        out["launches"]["hbm_fit_cut"] = counts_b1
+        out["launches"]["hbm_fit_resume"] = counts_b
+        check([r["step"] for r in recs_b if r["kind"] == "resume"] == [4]
+              and counts_b["fused_color_jitter"] == HBM_STEPS - 4,
+              f"hbm: (d) the resume launched {counts_b}")
+        da, db = digest(root / "a", HBM_STEPS), digest(root / "b", HBM_STEPS)
+        check(da == db, f"hbm: (d) the resumed run's step-{HBM_STEPS} state "
+              f"{db[:16]} differs from the uninterrupted run's {da[:16]}")
+        log(f"hbm: (d) the run cut by trainer.step at call {HBM_CUT_CALL} "
+            f"(launches {counts_b1}) and resumed from 4 (launches "
+            f"{counts_b}): the step-{HBM_STEPS} state digest {da[:16]} "
+            "equals the uninterrupted run's (cuDNN deterministic)")
+
+        cfg_f = fit_config(HBM_FUSED_STEPS, root / "f", seed, *hbm,
+                           "train.use_pallas_fused=true")
+        res_f, counts_f, _ = fit_run(torch, cfg_f, data)
+        out["launches"]["hbm_fit_fused"] = counts_f
+        check(counts_f == {"fused_color_jitter": 0,
+                           "fused_normalize_color_jitter": HBM_FUSED_STEPS,
+                           "fused_adamw_update": HBM_FUSED_STEPS,
+                           "fused_serve_preprocess": 0},
+              f"hbm: (d) the fused fit launched {counts_f}, want B2 = B3 = "
+              f"{HBM_FUSED_STEPS}")
+        log(f"hbm: (d) {HBM_FUSED_STEPS}-step fused fit: {res_f}; launches "
+            f"{counts_f}")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+    flat = ckpt_lib.Checkpointer(str(root / "a")).restore(HBM_STEPS)
+    state = train_lib.load_state_flat(train_lib.create_state(
+        cfg_a, init.init_flax_default(models.build(cfg_a.model), seed),
+        "cuda"), flat)
+    step = train_lib.make_eval_step(cfg_a, state, "cuda")
+
+    def fn(images):
+        return step(images)[None]
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = trainer.predict_split(cfg_a, fn, str(data), "val", **kw)
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    with torch.no_grad():
+        streamed, stream_ms = timed()
+        cache = trainer._eval_cache_for(cfg_a, str(data), "val",
+                                        device="cuda")
+        check(cache == [], f"hbm: (d) the val cache was refused: {cache}")
+        filled, fill_ms = timed(cache=cache, device="cuda")
+        cached, cached_ms = timed(cache=cache, device="cuda")
+        again, again_ms = timed()
+    for got in (filled, cached, again):
+        check(all(np.array_equal(g, w) for g, w in zip(got, streamed)),
+              "hbm: (d) a cached val eval differs from the streamed one")
+    out.update(eval_streamed_ms=again_ms, eval_first_ms=stream_ms,
+               eval_fill_ms=fill_ms, eval_cached_ms=cached_ms)
+    log(f"hbm: (d) val eval of {HBM_VAL} images from the step-{HBM_STEPS} "
+        f"state: streamed {stream_ms:.1f} ms (the first eval of this "
+        f"engine), filling the cache {fill_ms:.1f} ms, from the cache "
+        f"{cached_ms:.1f} ms, streamed again {again_ms:.1f} ms; cached "
+        f"probabilities bitwise the streamed ones ({smi})")
+    del state, step, cache
+    torch.cuda.empty_cache()
+
+
+def hbm_poison(torch, data: Path, root: Path, images, grades,
+               out: dict) -> None:
+    """(e) A ``tfrecord.read`` corrupt plan on one call at one decode
+    thread: one ``decode_error``, the substitute rows resident, the
+    ``data_quarantine`` alert; without the quarantine the load raises."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.data import hbm_pipeline
+    from jama16_retina_tpu_torch.obs import alerts as obs_alerts
+    from jama16_retina_tpu_torch.obs import export as obs_export
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    plan_spec = {"tfrecord.read": {"kind": "corrupt",
+                                   "on_calls": [HBM_POISON_CALL]}}
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        "data.loader=hbm", "data.decode_workers=1",
+        f"data.batch_size={TRAIN_BATCH}", "obs.quarantine_alert_per_s=0.001"])
+    bad = HBM_POISON_CALL - 1
+    want_i, want_g = images.copy(), grades.copy()
+    want_i[bad], want_g[bad] = images[bad + 1], grades[bad + 1]
+    wd = root / "poison_obs"
+    prev = fresh_registry()
+    try:
+        reg = obs_registry.default_registry()
+        # rate() needs the counter in the flush before the quarantine.
+        reg.counter("data.quarantined")
+        snap = obs_export.Snapshotter(workdir=str(wd), every_s=0)
+        snap.alerts = obs_alerts.manager_for(cfg, str(wd))
+        snap.flush()
+        plan = faultinject.plan_from_spec(plan_spec)
+        faultinject.arm(plan)
+        stream = hbm_pipeline.train_batches(str(data), "train", cfg.data,
+                                            299, seed=0, device="cuda")
+        try:
+            checked = hbm_batches_match(torch, stream, want_i, want_g, 0,
+                                        range(HBM_RECORDS // TRAIN_BATCH))
+        finally:
+            stream.close()
+            faultinject.disarm()
+        counters = reg.snapshot()["counters"]
+        time.sleep(0.01)
+        snap.close()
+    finally:
+        obs_registry.set_default_registry(prev)
+    alerts = [r["reason"] for r in read_jsonl(str(wd / "metrics.jsonl"))
+              if r["kind"] == "alert" and r["state"] == "firing"]
+    got = {k: counters.get(k, 0) for k in (
+        "data.quarantined", "data.quarantined.decode_error",
+        "data.quarantined.read_error")}
+    check(got == {"data.quarantined": 1,
+                  "data.quarantined.decode_error": 1,
+                  "data.quarantined.read_error": 0},
+          f"hbm: (e) quarantine counters {got}")
+    check(alerts == ["data_quarantine"], f"hbm: (e) firing alerts {alerts}")
+    log(f"hbm: (e) tfrecord.read corrupt on call {HBM_POISON_CALL} at one "
+        f"decode thread: {got}; record {bad} replaced by record {bad + 1}, "
+        f"and all {checked} batches of an epoch bitwise the host reference "
+        f"with that substitute; firing alerts {alerts}; counts "
+        f"{plan.counts()}")
+    out["poison"] = got
+    strict = configs.override(cfg, ["data.quarantine_bad_records=false"])
+    faultinject.arm(faultinject.plan_from_spec(plan_spec))
+    try:
+        next(hbm_pipeline.train_batches(str(data), "train", strict.data,
+                                        299, device="cuda"))
+        raised = None
+    except Exception as e:  # noqa: BLE001 - the check reads it
+        raised = e
+    finally:
+        faultinject.disarm()
+    check(raised is not None and not isinstance(raised, OSError),
+          f"hbm: (e) without the quarantine the load raised {raised!r}")
+    log(f"hbm: (e) data.quarantine_bad_records=false: the load raised "
+        f"{type(raised).__name__}: {str(raised)[:80]}")
+    shutil.rmtree(wd, ignore_errors=True)
+
+
+def phase_hbm(torch, seed: int, smi: str) -> dict:
+    """The card-resident ``hbm`` loader alone first, then a fit from it
+    (phase 18 of the docstring)."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.data import grain_pipeline, hbm_pipeline
+    from jama16_retina_tpu_torch.data import tfrecord
+
+    t_phase = time.perf_counter()
+    root = SCRATCH / "hbm"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    out = {"launches": {}, "wall_s": {}, "decode_rows_per_s": {}}
+    with HbmPart("a", "decode and upload, alone", out):
+        write_s = write_hbm_train(data)
+        tfrecord.write_synthetic_split(str(data), "val", HBM_VAL, 299,
+                                       num_shards=2, seed=2, encoding="raw")
+        out["write_s"] = write_s
+        log(f"hbm: (a) wrote {HBM_RECORDS} raw 299-px train records in "
+            f"{2 * HBM_WRITERS} shards ({HBM_WRITERS} writer processes) in "
+            f"{write_s:.1f} s ({HBM_RECORDS * hbm_pipeline.row_bytes(299)} "
+            f"resident bytes) and {HBM_VAL} val ({smi})")
+        images, grades = hbm_load_and_upload(torch, data, smi, out)
+    with HbmPart("b", "batches across an epoch boundary", out):
+        cfg = configs.override(configs.get_config("eyepacs_binary"), [
+            "data.loader=hbm", f"data.batch_size={TRAIN_BATCH}"])
+        per_epoch = HBM_RECORDS // TRAIN_BATCH
+        for skip, steps in ((0, range(per_epoch + 2)),
+                            (per_epoch + 2, range(per_epoch + 2,
+                                                  per_epoch + 6))):
+            stream = hbm_pipeline.train_batches(
+                str(data), "train", cfg.data, 299, seed=seed,
+                skip_batches=skip, device="cuda")
+            try:
+                n = hbm_batches_match(torch, stream, images, grades, seed,
+                                      steps)
+            finally:
+                stream.close()
+            torch.cuda.empty_cache()
+            log(f"hbm: (b) skip {skip}: {n} batches (steps {steps.start}-"
+                f"{steps.stop - 1}; {per_epoch} a epoch) bitwise the host "
+                "reference")
+    with HbmPart("c", "the JPEG records of the committed fixtures", out):
+        with open(HBM_JPEG_LOAD) as f:
+            want = json.load(f)
+        jdir, _ = write_jpeg_splits(root / "jpeg")
+        for split, entry in sorted(want.items()):
+            rates = {}
+            for workers in (1, 0):
+                resolved = grain_pipeline.resolve_decode_workers(workers)
+                t0 = time.perf_counter()
+                j_images, j_grades = hbm_pipeline.load_split_numpy(
+                    str(jdir), split, entry["image_size"], workers=resolved)
+                rates[resolved] = entry["n"] / (time.perf_counter() - t0)
+                check(sha256(j_images) == entry["images"]
+                      and sha256(j_grades) == entry["grades"],
+                      f"hbm: (c) {split} at {resolved} thread(s) differs "
+                      "from the reference's recorded load")
+            out["jpeg_rows_per_s"] = {str(k): v for k, v in rates.items()}
+            log(f"hbm: (c) {split}: {entry['n']} JPEG records (the 317-px "
+                "ones through INTER_LINEAR) bitwise the reference's "
+                "load_split_numpy digests; rows/s by decode threads "
+                f"{ {k: round(v, 1) for k, v in rates.items()} } ({smi})")
+    with HbmPart("d", "fit from the resident split", out):
+        hbm_fits(torch, seed, data, root, smi, out)
+    with HbmPart("e", "poison drill", out):
+        hbm_poison(torch, data, root, images, grades, out)
+    del images, grades
+    with HbmPart("f", "size gate", out):
+        tiny = configs.override(configs.get_config("eyepacs_binary"), [
+            "data.loader=hbm", "data.hbm_budget_bytes=1000000"])
+        try:
+            next(hbm_pipeline.train_batches(str(data), "val", tiny.data, 299,
+                                            device="cuda"))
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        n_val = HBM_VAL * hbm_pipeline.row_bytes(299)
+        want_msg = (
+            f"val split ({n_val / 1e9:.1f} GB over 1 chip(s)) exceeds the "
+            f"HBM-resident budget ({600000 / 1e9:.1f} GB/chip); use the "
+            "tfdata or grain loader for datasets this size, or set "
+            "data.hbm_budget_bytes if this chip's true memory limit is "
+            "larger than the assumed base")
+        check(refused == want_msg, f"hbm: (f) the gate said {refused!r}")
+        log(f"hbm: (f) data.hbm_budget_bytes=1000000: refused with the "
+            f"reference's message: {refused}")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"jama16_retina_tpu_torch/ops/csrc/{source}",
@@ -5627,15 +6125,26 @@ def main(argv=None) -> int:
             f"{cj.b2_max_active_clusters(plan)} clusters resident "
             "(cudaOccupancyMaxActiveClusters)")
 
+    marks = [time.perf_counter()]
+
+    def mark(what: str) -> None:
+        """The wall time of the phases since the last mark."""
+        marks.append(time.perf_counter())
+        log(f"times: {what} wall {marks[-1] - marks[-2]:.1f} s (at "
+            f"{marks[-1] - t_start:.1f} s) ({smi})")
+
     max_err = phase_kernels(torch, sp, dev, args.seed)
     jitter_err = phase_jitter_kernels(torch, dev, args.seed)
     adamw_err = phase_adamw_kernel(torch, dev, args.seed)
+    mark("phase 3 (kernels)")
     serve = phase_serve(torch, args.seed)
     log(f"serve: peak device memory {torch.cuda.max_memory_allocated()} "
         f"bytes ({smi})")
+    mark("phase 4 (serve)")
     train = phase_train(torch, args.seed, TRAIN_STEPS)
     batch = augmented_batch(torch, args.seed)
     phase_train_agreement(torch, args.seed, batch)
+    mark("phase 5 (train, agreement)")
 
     timing = {b: kernel_times(torch, sp, dev, b) for b in (8, 16, 64)}
     for t in timing.values():
@@ -5669,8 +6178,10 @@ def main(argv=None) -> int:
         f"% of the bound; two pass {b2['two_pass_ms']:.5f} ms; yardstick "
         f"images.to(float32) {b2['yardstick_ms']:.5f} ms ({smi})")
     request_times(torch, serve, smi)
+    mark("phase 7 (kernel and request times)")
     knobs_serve = phase_serve_knobs(torch, args.seed, smi, serve)
     steps = train_step_times(torch, args.seed, smi)
+    mark("phase 10 (serving knobs) and the train step times")
     fit = phase_fit(torch, args.seed, smi, steps["preset"]["step_ms"])
     knobs = phase_knobs(torch, args.seed, smi, fit)
     t_phase = time.perf_counter()
@@ -5691,6 +6202,10 @@ def main(argv=None) -> int:
     faults = phase_faults(torch, args.seed, smi, serve, router, fit["data"])
     preprocess = phase_preprocess(torch, args.seed, smi, serve)
     shutil.rmtree(fit["root"], ignore_errors=True)
+    mark("phases 6, 9 and 11-17")
+    hbm = phase_hbm(torch, args.seed, smi)
+    mark(f"phase 18 (hbm; by part "
+         f"{ {k: round(v, 1) for k, v in hbm['wall_s'].items()} })")
     torch.cuda.empty_cache()
     for form, t in train.items():
         log(f"times: train {form}: peak device memory {t['peak']} bytes "
@@ -5707,11 +6222,12 @@ def main(argv=None) -> int:
         for form, t in phase_train(torch, args.seed, MODEL_STEPS,
                                    preset).items():
             model_runs[f"train_{preset}_{form}"] = t["launches"]
-        train_step_times(torch, args.seed, smi, preset)
+        train_step_times(torch, args.seed, smi, preset, timed=5)
         phase_train_agreement(torch, args.seed, batch, preset, ("float64",))
         torch.cuda.empty_cache()
         log(f"times: {preset} serve, train and agreement wall "
             f"{time.perf_counter() - t_model:.1f} s ({smi})")
+    mark("phase 8 (resnet50, efficientnet_b4, icdr5)")
     if args.profile:
         profile_request(torch, serve, args.profile)
         profile_train(torch, steps, args.profile)
@@ -5724,9 +6240,10 @@ def main(argv=None) -> int:
         max_err, {**main_row, "library_ms": None})
     b4.update({"max_abs_diff": max_err, "timed_shape": main_row["shape"],
                "by_batch": {str(b): t for b, t in timing.items()}})
+    # B1-B3 on this slice's path: the hbm loader's preset and fused fits.
     launches = {"fused_color_jitter":
-                train["preset"]["launches"]["fused_color_jitter"],
-                **{k: train["fused"]["launches"][k] for k in (
+                hbm["launches"]["hbm_fit"]["fused_color_jitter"],
+                **{k: hbm["launches"]["hbm_fit_fused"][k] for k in (
                     "fused_normalize_color_jitter", "fused_adamw_update")}}
     # Each path's counts, all four set to 0 just before it ran and read
     # just after.
@@ -5739,7 +6256,7 @@ def main(argv=None) -> int:
             **ensemble["launches"], **distill["launches"],
             **cascade["launches"], **router["launches"],
             **jpeg["launches"], **obs["launches"], **faults["launches"],
-            **preprocess["launches"]}
+            **preprocess["launches"], **hbm["launches"]}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

@@ -45,8 +45,22 @@ class DataConfig:
     test_dir: str = ""
     batch_size: int = 32
     # Train-stream loader: "tfdata" names the TFRecord stream
-    # (data/pipeline.py); the reference's other loaders are not ported.
+    # (data/pipeline.py); "hbm" decodes the split once and keeps it on the
+    # card (data/hbm_pipeline.py). The reference's other loaders are not
+    # ported.
     loader: str = "tfdata"
+    # Memory-limit override (bytes, before the 0.6 budget fraction) for
+    # the hbm loader's size gate and the eval caches; 0 = the card's total
+    # memory (hbm_pipeline.hbm_budget_bytes; 8 GB assumed on the CPU).
+    hbm_budget_bytes: int = 0
+    # Host decode threads for the hbm loader's one-time load
+    # (grain_pipeline.ParallelDecoder); 0 = one per core up to 8, leaving
+    # one. Batches do not depend on it.
+    decode_workers: int = 0
+    # A record that fails to read or decode in the hbm loader is counted
+    # (data.quarantined{,.reason}) and replaced by the next decodable
+    # record; False raises instead.
+    quarantine_bad_records: bool = True
     # Augmentation (data/augment.py): flips and the square-only transpose,
     # brightness, contrast about the per-image mean, YIQ saturation/hue.
     augment: bool = True
@@ -293,11 +307,12 @@ class ObsConfig:
     # this many slowest waterfalls of each kind.
     diagnosis_enabled: bool = True
     diagnosis_top_k: int = 3
-    # Thresholds of two reliability rules whose metrics the port does not
-    # publish yet (data.quarantined, device.hbm.headroom_frac): their
-    # rules are installed and stay inactive, as the reference's do on a
-    # backend without those metrics.
+    # The data_quarantine rule: rate(data.quarantined) above this many a
+    # second (the hbm loader's poison quarantine); <= 0 disables it.
     quarantine_alert_per_s: float = 0.5
+    # The hbm_pressure rule's threshold; the port does not publish its
+    # metric (device.hbm.headroom_frac) yet, so the rule stays inactive,
+    # as the reference's does on a backend without it.
     device_hbm_headroom_alert: float = 0.1
     # Deterministic fault-injection plan (obs/faultinject.py): a JSON spec
     # or a path to one, armed at run start and engine construction. The
@@ -414,9 +429,6 @@ _UNIMPLEMENTED = {
     ("model", "remat_stem"): (False, "Queue A item 2 (remat_stem)"),
     ("serve", "compile_cache_dir"): (
         "", "Queue A item 9 (compile cache / CUDA graphs)"),
-    ("obs", "quarantine_alert_per_s"): (
-        0.5, "Queue A item 7 (part 2: data.quarantine_bad_records, whose "
-             "data.quarantined counter the rule reads)"),
     ("obs", "device_hbm_headroom_alert"): (
         0.1, "Queue A item 11 (part 4: the device plane, whose "
              "device.hbm.headroom_frac gauge the rule reads)"),
@@ -435,12 +447,11 @@ _NOT_PORTED = {
                                   "of a member-parallel mesh)",
     "parallel": _MULTI_DEVICE + " (meshes)",
     **dict.fromkeys(
-        ("data.autotune", "data.hbm_budget_bytes", "data.rawshard_dir",
-         "data.decode_workers", "data.stage_depth",
+        ("data.autotune", "data.rawshard_dir", "data.stage_depth",
          "data.tiered_resident_bytes", "data.stage_per_shard",
-         "data.grain_workers", "data.quarantine_bad_records"),
-        _DATA_PLANE + " (rawshard, hbm, tiered, grain and served loaders, "
-        "autotune, quarantine)"),
+         "data.grain_workers"),
+        _DATA_PLANE + " (the tiered, rawshard, grain and served loaders, "
+        "autotune)"),
     **dict.fromkeys(
         ("lifecycle." + f for f in (
             "enabled", "trigger_reasons", "retrain_steps",
@@ -464,9 +475,10 @@ _NOT_PORTED = {
 }
 # Fields of this port that the JAX package's configs.py does not have.
 PORT_FIELDS = {("data", "readers")}
-# data.loader values: the TFRecord stream is ported, the others are not.
-_LOADERS = ("tfdata",)
-_LOADER_ITEM = ("Queue A item 7 (rawshard, hbm, tiered, grain and served "
+# data.loader values: the TFRecord stream and the card-resident split are
+# ported, the others are not.
+_LOADERS = ("tfdata", "hbm")
+_LOADER_ITEM = ("Queue A item 7 (the tiered, rawshard, grain and served "
                 "loaders)")
 _ARCHS = ("inception_v3", "resnet50", "efficientnet_b4", "tiny_cnn")
 _HEADS = ("binary", "multi")

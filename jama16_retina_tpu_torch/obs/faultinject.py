@@ -52,9 +52,12 @@ _log = logging.getLogger(__name__)
 # The reference's declared sites, with where each seam sits in the port
 # (or which reference module holds it, for the sites in ``UNFIRED``).
 SITES = {
-    "tfrecord.read": "one record's data read, under retry "
-                     "(data/tfrecord.read_record_at, in the train "
-                     "stream's reader processes)",
+    "tfrecord.read": "one record's data read, under retry: "
+                     "data/tfrecord.read_record_at in the tfdata train "
+                     "stream's reader processes (CRC checked), and "
+                     "data/grain_pipeline.TFRecordIndex.read on the hbm "
+                     "loader's decode threads (no CRC, as the reference's "
+                     "index; a damaged payload that still parses is kept)",
     "host.decode": "serve/host per-image file read before the decode and "
                    "fundus normalization",
     "ckpt.restore": "Checkpointer.restore, under retry "

@@ -13,6 +13,12 @@
   (the integer path, shifted by 22, for a row's tail). OpenCV's default
   dispatch runs another path that differs from it by at most 1 level in
   a few percent of values (ROADMAP Queue C, parity gaps by design).
+- ``resize_linear``: ``cv2.resize(img, (w, h),
+  interpolation=cv2.INTER_LINEAR)`` for uint8, bit for bit (OpenCV 5.0's
+  default dispatch and ``setUseOptimized(False)`` alike): 11-bit
+  coefficients, an integer horizontal pass and the SIMD vertical pass
+  over the whole row; an exact 2x downscale is ``INTER_AREA``'s, as
+  OpenCV routes it.
 - ``rgb2gray``: ``COLOR_RGB2GRAY`` (15-bit fixed point), bit for bit.
 - ``laplacian_f32``: ``cv2.Laplacian(gray, cv2.CV_32F)`` (ksize 1,
   reflect-101 border), bit for bit.
@@ -220,6 +226,58 @@ def resize_cubic(image: np.ndarray, fx: float) -> np.ndarray:
         if rc:
             raise RuntimeError(f"resize_cubic_u8 failed ({rc})")
     return out
+
+
+def _linear_axis(n_in: int, n_out: int
+                 ) -> "tuple[np.ndarray, np.ndarray, np.ndarray]":
+    """(first source index, its int16 weight, the next index's weight)
+    per output position: ``fx = float32((d + 0.5) * scale - 0.5)``, its
+    floor and fraction, the weights ``round((1 - f) * 2048)`` and
+    ``round(f * 2048)``, each rounded on its own. The index is not
+    clamped: the caller clamps as OpenCV does on its axis."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    frac = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    w0 = np.rint((np.float32(1) - frac) * np.float32(2048)).astype(np.int64)
+    w1 = np.rint(frac * np.float32(2048)).astype(np.int64)
+    return s, w0, w1
+
+
+def resize_linear(image: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """uint8 [H, W, C] -> [out_h, out_w, C], as ``cv2.resize(image,
+    (out_w, out_h), interpolation=cv2.INTER_LINEAR)``.
+
+    Across (``HResizeLinear``), a source index below 0 or at the last
+    column and beyond is clamped with its fraction set to 0, and each
+    output value is ``S[x] * w0 + S[x + 1] * w1`` in integers. Down
+    (``VResizeLinearVec_32s8u``), the two source rows are clamped into
+    the image (the weights are kept) and combined as the SIMD lanes do:
+    ``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16)``, then ``+ 2 >>
+    2``, saturated to uint8."""
+    src = np.asarray(image)
+    h, w, c = src.shape
+    if out_h <= 0 or out_w <= 0:
+        raise ValueError(f"resize to ({out_w}, {out_h}) is empty")
+    if (out_h, out_w) == (h, w):
+        return src.copy()
+    scale_x, scale_y = 1.0 / (out_w / w), 1.0 / (out_h / h)
+    if (abs(scale_x - 2) < _DBL_EPSILON and abs(scale_y - 2) < _DBL_EPSILON):
+        return _area_fast(src, 2, out_h, out_w)
+    sx, a0, a1 = _linear_axis(w, out_w)
+    edge = (sx < 0) | (sx >= w - 1)
+    a0, a1 = np.where(edge, 2048, a0), np.where(edge, 0, a1)
+    sx = np.clip(sx, 0, w - 1)
+    x = src.astype(np.int64)
+    across = (x[:, sx] * a0[None, :, None]
+              + x[:, np.minimum(sx + 1, w - 1)] * a1[None, :, None])
+    sy, b0, b1 = _linear_axis(h, out_h)
+    s0 = across[np.clip(sy, 0, h - 1)] >> 4
+    s1 = across[np.clip(sy + 1, 0, h - 1)] >> 4
+    out = (((s0 * b0[:, None, None]) >> 16)
+           + ((s1 * b1[:, None, None]) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def rgb2gray(image_rgb: np.ndarray) -> np.ndarray:

@@ -726,14 +726,16 @@ class ServingEngine:
         it under ``torch.inference_mode``."""
         return self._score(self._pad(rows, bucket), rows.shape[0], gen)
 
-    def _pad(self, rows: np.ndarray, bucket: int) -> torch.Tensor:
+    def _pad(self, rows: "np.ndarray | torch.Tensor", bucket: int
+             ) -> torch.Tensor:
         """uint8 rows [n, S, S, 3] on the device, padded with zero rows to
-        ``bucket``."""
+        ``bucket``. Rows already on the device are copied there."""
         size = self.cfg.model.image_size
         padded = torch.zeros((bucket, size, size, 3), dtype=torch.uint8,
                              device=self.device)
-        padded[:rows.shape[0]].copy_(
-            torch.from_numpy(np.ascontiguousarray(rows)))
+        if not isinstance(rows, torch.Tensor):
+            rows = torch.from_numpy(np.ascontiguousarray(rows))
+        padded[:rows.shape[0]].copy_(rows)
         return padded
 
     def _score(self, padded: torch.Tensor, n: int, gen: _Generation
@@ -747,17 +749,29 @@ class ServingEngine:
         # NHWC float32 seen as NCHW: a channels_last view, no copy.
         return self._forward(norm.permute(0, 3, 1, 2), gen)[:, :n], sums
 
-    def _member_probs(self, images: np.ndarray, gen: _Generation
-                      ) -> "tuple[np.ndarray, dict | None]":
+    def _member_probs(self, images: "np.ndarray | torch.Tensor",
+                      gen: _Generation) -> "tuple[np.ndarray, dict | None]":
         """Every chunk of the request on ``gen``: (member probabilities,
-        the real rows' INPUT_STATS on the fused path, else None)."""
-        images = np.asarray(images)
+        the real rows' INPUT_STATS on the fused path, else None). A uint8
+        tensor already on the engine's device (an eval cache's batch)
+        skips the upload; its producer orders it before this stream."""
+        if isinstance(images, torch.Tensor):
+            on = images.device
+            if images.dtype != torch.uint8 or on.type != self.device.type or (
+                    None not in (on.index, self.device.index)
+                    and on.index != self.device.index):
+                raise TypeError(
+                    f"expected a uint8 tensor on {self.device}, got "
+                    f"{images.dtype} on {images.device}")
+        else:
+            images = np.asarray(images)
+            if images.dtype != np.uint8:
+                raise TypeError(f"expected uint8 images, got {images.dtype}")
         size = self.cfg.model.image_size
-        if images.ndim != 4 or images.shape[1:] != (size, size, 3):
+        if images.ndim != 4 or tuple(images.shape[1:]) != (size, size, 3):
             raise ValueError(
-                f"expected images [n, {size}, {size}, 3], got {images.shape}")
-        if images.dtype != np.uint8:
-            raise TypeError(f"expected uint8 images, got {images.dtype}")
+                f"expected images [n, {size}, {size}, 3], got "
+                f"{tuple(images.shape)}")
         if images.shape[0] == 0:
             raise ValueError("empty request: no rows to score")
         outs, sums = [], []

@@ -2,7 +2,9 @@
 ``jama16_retina_tpu/trainer.py``).
 
 ``fit`` is the reference's single-model loop: the train stream of a
-TFRecord ``train`` split (``data/pipeline.train_batches``) through
+TFRecord ``train`` split (``data/pipeline.train_batches``, or under
+``data.loader=hbm`` the split resident on the card,
+``data/hbm_pipeline.train_batches``) through
 ``train_lib.train_step``; every ``train.eval_every`` steps and at the last
 step, the val AUC of the eval params, best/``min_delta``/patience
 tracking and early stopping, and a checkpoint (``utils/checkpoint``:
@@ -55,7 +57,8 @@ import torch
 from jama16_retina_tpu_torch import configs, models
 from jama16_retina_tpu_torch import device as device_lib
 from jama16_retina_tpu_torch import train_lib
-from jama16_retina_tpu_torch.data import augment, pipeline, synthetic, tfrecord
+from jama16_retina_tpu_torch.data import (augment, hbm_pipeline, pipeline,
+                                          synthetic, tfrecord)
 from jama16_retina_tpu_torch.eval import metrics
 from jama16_retina_tpu_torch.models import convert, init
 from jama16_retina_tpu_torch.obs import alerts as obs_alerts
@@ -194,24 +197,114 @@ def _referable(probs: np.ndarray, head: str) -> np.ndarray:
             else metrics.referable_probs_from_multiclass(probs))
 
 
+def _cache_upload(images: np.ndarray, dev: torch.device) -> tuple:
+    """An eval batch's images on the device, and on the card the event
+    recorded after the copy on the stream that made it (None on the
+    CPU)."""
+    t = torch.from_numpy(images).to(dev)
+    if dev.type != "cuda":
+        return t, None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(dev))
+    return t, event
+
+
+def _cache_ready(images: torch.Tensor, event, dev: torch.device
+                 ) -> torch.Tensor:
+    """A cached batch made ready for the current stream: the stream waits
+    on the copy's event (the cache may have been filled by another
+    thread's stream: an overlapped eval), and the allocator is told the
+    stream reads it."""
+    if event is not None:
+        current = torch.cuda.current_stream(dev)
+        current.wait_event(event)
+        images.record_stream(current)
+    return images
+
+
 def predict_split(cfg: configs.ExperimentConfig, member_probs_fn,
-                  data_dir: str, split: str
+                  data_dir: str, split: str, cache: "list | None" = None,
+                  device: "str | torch.device | None" = None
                   ) -> "tuple[np.ndarray, np.ndarray, np.ndarray]":
     """The eval stream of ``split`` (no augmentation) through
     ``member_probs_fn(images) -> [k, B]`` (or [k, B, C]) probabilities,
     padding rows trimmed by the batches' mask -> (grades [n], probs [k, n]
     or [k, n, C], names [n]; names are the records' ``image/name``
-    bytes)."""
+    bytes).
+
+    ``cache`` (from ``_eval_cache_for``): one list across repeated evals
+    of a split keeps its batches on ``device`` between them. The first
+    call fills it with each batch's images, uploaded once, and its kept
+    grades, names and mask; later calls score those tensors and skip the
+    re-read and re-upload. The probabilities are the streamed ones: the
+    same rows go through the same forward."""
+    dev = None if cache is None else device_lib.resolve(device)
+
+    def batches():
+        """(images, kept grades, kept names, keep) per batch: from the
+        cache, or read (and, with a cache, uploaded and kept once the
+        whole split has been read)."""
+        if cache:
+            for images, event, grades, names, keep in cache:
+                yield _cache_ready(images, event, dev), grades, names, keep
+            return
+        filled = []
+        for batch in pipeline.eval_batches(data_dir, split,
+                                           cfg.eval.batch_size,
+                                           cfg.model.image_size):
+            keep = batch["mask"] > 0
+            row = (batch["image"], batch["grade"][keep], batch["name"][keep],
+                   keep)
+            if cache is not None:
+                images, event = _cache_upload(batch["image"], dev)
+                filled.append((images, event, *row[1:]))
+                row = (_cache_ready(images, event, dev), *row[1:])
+            yield row
+        if cache is not None:
+            cache.extend(filled)
+
     grades_all, probs_all, names_all = [], [], []
-    for batch in pipeline.eval_batches(data_dir, split, cfg.eval.batch_size,
-                                       cfg.model.image_size):
-        probs = np.asarray(member_probs_fn(batch["image"]))
-        keep = batch["mask"] > 0
-        grades_all.append(batch["grade"][keep])
+    for images, grades, names, keep in batches():
+        probs = np.asarray(member_probs_fn(images))
+        grades_all.append(grades)
         probs_all.append(probs[:, keep])
-        names_all.append(batch["name"][keep])
+        names_all.append(names)
     return (np.concatenate(grades_all), np.concatenate(probs_all, axis=1),
             np.concatenate(names_all))
+
+
+def _eval_cache_bytes(cfg: configs.ExperimentConfig, data_dir: str,
+                      split: str) -> int:
+    """Device bytes an eval cache of ``split`` holds: batches are padded
+    to ``eval.batch_size``, so ceil(n / B) * B rows."""
+    n = tfrecord.count_records(tfrecord.list_split(data_dir, split))
+    b = cfg.eval.batch_size
+    return -(-n // b) * b * cfg.model.image_size ** 2 * 3
+
+
+def _eval_cache_for(cfg: configs.ExperimentConfig, data_dir: str,
+                    split: str, reserved_bytes: int = 0,
+                    device: "str | torch.device | None" = None
+                    ) -> "list | None":
+    """A device-resident eval-batch cache (a list to share across evals),
+    or None: only under the ``hbm`` loader (the ``tiered`` and
+    ``rawshard`` loaders, which the reference also admits, are not ported
+    yet), and only while all caches together (``reserved_bytes`` holds
+    those already admitted) stay within 10 % of the budget
+    (``hbm_pipeline.hbm_budget_bytes``); an oversized split is logged and
+    streamed."""
+    if cfg.data.loader != "hbm":
+        return None
+    split_bytes = _eval_cache_bytes(cfg, data_dir, split)
+    budget = hbm_pipeline.hbm_budget_bytes(
+        budget_base_bytes=cfg.data.hbm_budget_bytes, device=device)
+    if reserved_bytes + split_bytes <= 0.1 * budget:
+        return []
+    _log.warning(
+        "%s split (%.1f MB + %.1f MB already cached) exceeds 10%% of the "
+        "HBM budget; evals stream from host instead of caching "
+        "device-resident", split, split_bytes / 1e6, reserved_bytes / 1e6)
+    return None
 
 
 def _emit_quality_profile(cfg: configs.ExperimentConfig, data_dir: str,
@@ -817,6 +910,30 @@ def _load_or_write_run_meta(workdir: str, seed: int, cfg_name: str,
     return seed
 
 
+def _train_stream(cfg: configs.ExperimentConfig, data_dir: str, seed: int,
+                  skip_batches: int, dev: torch.device):
+    """The train batches of ``data.loader`` on ``dev``, from batch
+    ``skip_batches`` on (the reference's ``_train_stream``). ``tfdata``:
+    the TFRecord stream read by ``data.readers`` processes and staged
+    ``data.prefetch_batches`` ahead by ``pipeline.DevicePrefetch``.
+    ``hbm``: batches gathered on the card from the resident split
+    (``hbm_pipeline.train_batches``), on the consumer's current stream,
+    the step's: they never pass the prefetcher's pinned host buffers, and
+    ``data.readers`` and ``data.prefetch_batches`` do nothing. Either way
+    the stream has ``close()``. ``configs.check_supported`` has refused
+    every other loader."""
+    if cfg.data.loader == "hbm":
+        return hbm_pipeline.train_batches(
+            data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
+            skip_batches=skip_batches, device=dev)
+    depth = cfg.data.prefetch_batches
+    return pipeline.DevicePrefetch(pipeline.train_batches(
+        data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
+        skip_batches=skip_batches,
+        pin_memory=dev.type == "cuda" and depth == 0,
+        readers=cfg.data.readers), dev, depth)
+
+
 def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
         seed: "int | None" = None,
         device: "str | torch.device | None" = None) -> dict:
@@ -824,9 +941,11 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
     ``val``; returns ``{'best_auc', 'best_step', 'stopped_early'}``
     (``best_auc`` None when no eval ran).
 
-    The train stream is staged ``data.prefetch_batches`` ahead on the
-    device (``pipeline.DevicePrefetch``), read by ``data.readers``
-    processes. ``train.init_from`` warm-starts a fresh run from a donor
+    The train stream is ``data.loader``'s (``_train_stream``): the
+    TFRecord stream staged ``data.prefetch_batches`` ahead on the device,
+    read by ``data.readers`` processes, or the card-resident split
+    (``hbm``), whose val batches then also stay on the card between evals
+    (``_eval_cache_for``). ``train.init_from`` warm-starts a fresh run from a donor
     (a resume that finds a checkpoint wins). ``train.async_save`` hands
     each save, from a device snapshot of the state, to one background
     writer; ``train.eval_overlap`` (which implies it) runs the whole eval
@@ -886,11 +1005,10 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
     saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
     # One batch per completed step: a resumed stream continues exactly
     # where the interrupted one stopped.
-    depth = cfg.data.prefetch_batches
-    stream = pipeline.DevicePrefetch(pipeline.train_batches(
-        data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
-        skip_batches=start_step, pin_memory=dev.type == "cuda" and depth == 0,
-        readers=cfg.data.readers), dev, depth)
+    stream = _train_stream(cfg, data_dir, seed, start_step, dev)
+    # The val batches stay on the card between evals under the hbm loader
+    # (budget-gated; None streams every eval).
+    val_cache = _eval_cache_for(cfg, data_dir, "val", device=dev)
     profiler = _ProfilerWindow(cfg, log, workdir, start_step, dev)
     flight = _flight_for(cfg, workdir, profiler)
     _, stalls, snap = _telemetry_for(cfg, log, workdir, flight=flight)
@@ -927,7 +1045,8 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
     def predict_val(eval_state: train_lib.TrainState):
         eval_step = train_lib.make_eval_step(cfg, eval_state, dev)
         grades, probs, _ = predict_split(
-            cfg, lambda images: eval_step(images)[None], data_dir, "val")
+            cfg, lambda images: eval_step(images)[None], data_dir, "val",
+            cache=val_cache, device=dev)
         return grades, probs[0]
 
     def submit_eval(step_now: int) -> _BgJob:
@@ -1162,12 +1281,15 @@ def fit_ensemble(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
 
 def _predict_split_members(cfg: configs.ExperimentConfig,
                            state: train_lib.EnsembleState, data_dir: str,
-                           split: str, device: torch.device
+                           split: str, device: torch.device,
+                           cache: "list | None" = None
                            ) -> "tuple[np.ndarray, np.ndarray]":
     """``predict_split`` of a stacked state: one vmapped forward scores
-    all k members per batch -> (grades [n], probs [k, n] or [k, n, C])."""
+    all k members per batch -> (grades [n], probs [k, n] or [k, n, C]);
+    ``cache`` as in ``predict_split``."""
     step = train_lib.make_ensemble_eval_step(cfg, state, device)
-    grades, probs, _ = predict_split(cfg, step, data_dir, split)
+    grades, probs, _ = predict_split(cfg, step, data_dir, split,
+                                     cache=cache, device=device)
     return grades, probs
 
 
@@ -1320,11 +1442,9 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
 
     overlap = tc.eval_overlap
     saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
-    depth = cfg.data.prefetch_batches
-    stream = pipeline.DevicePrefetch(pipeline.train_batches(
-        data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
-        skip_batches=start_step, pin_memory=dev.type == "cuda" and depth == 0,
-        readers=cfg.data.readers), dev, depth)
+    # The stacked step reads the same global batches as one fit.
+    stream = _train_stream(cfg, data_dir, seed, start_step, dev)
+    val_cache = _eval_cache_for(cfg, data_dir, "val", device=dev)
     profiler = _ProfilerWindow(cfg, log, workdir, start_step, dev)
     flight = _flight_for(cfg, workdir, profiler)
     _, stalls, snap = _telemetry_for(cfg, log, workdir, flight=flight)
@@ -1355,7 +1475,7 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
         (``attribute``: its save time goes to the ``save`` stall), or on
         the overlap thread over a snapshot (``stable``)."""
         grades, probs = _predict_split_members(cfg, eval_state, data_dir,
-                                               "val", dev)
+                                               "val", dev, cache=val_cache)
         labels = (grades >= 2).astype(np.float64)
         member_probs = [_referable(p, cfg.model.head) for p in probs]
         aucs = np.array([metrics.roc_auc(labels, p) for p in member_probs])
@@ -1535,8 +1655,8 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
             saver.close()
         if cfg.obs.quality.profile_out:
             def ensemble_predict():
-                grades, probs = _predict_split_members(cfg, state, data_dir,
-                                                       "val", dev)
+                grades, probs = _predict_split_members(
+                    cfg, state, data_dir, "val", dev, cache=val_cache)
                 return grades, metrics.ensemble_average(list(probs))
 
             with torch.no_grad():
@@ -1640,9 +1760,22 @@ def evaluate_checkpoints(
         passes.append(("tune", tune_dir, threshold_split))
     member_probs, grades_by = {}, {}
     eval_names = None
+    # One device-resident cache per (dir, split) pass under the hbm
+    # loader, admitted against the caches already held (their joint
+    # footprint, not each split's alone). The engine scores every member
+    # on each cached batch, so no batch is read or uploaded twice.
+    eval_caches: "dict[tuple, list | None]" = {}
+    cached_bytes = 0
     for key, from_dir, s in passes:
+        if (from_dir, s) not in eval_caches:
+            cache = _eval_cache_for(cfg, from_dir, s,
+                                    reserved_bytes=cached_bytes, device=dev)
+            if cache is not None:
+                cached_bytes += _eval_cache_bytes(cfg, from_dir, s)
+            eval_caches[(from_dir, s)] = cache
         grades_by[key], member_probs[key], names = predict_split(
-            cfg, engine.member_probs, from_dir, s)
+            cfg, engine.member_probs, from_dir, s,
+            cache=eval_caches[(from_dir, s)], device=dev)
         if key == "eval":
             eval_names = names
 

@@ -1,7 +1,7 @@
 """Writes the image fixtures of the port's codec tests into
 ``tests/data/jpeg/`` with their ``manifest.json``.
 
-    python tests/make_torch_fixtures.py [jpeg] [preprocess]
+    python tests/make_torch_fixtures.py [jpeg] [preprocess] [hbm]
 
 It needs the JAX package's synthetic renderer, OpenCV and TensorFlow, so
 it runs where the reference runs, not on the card machine. The manifest
@@ -23,6 +23,12 @@ canvas at quality 92, the runners' directory specs (names, the photo
 each name copies, grades) and, for each spec and run, the sha256 of
 every file the reference's ``preprocess_eyepacs.py`` or
 ``preprocess_messidor.py`` wrote and the JSON report it printed.
+
+``hbm`` writes ``tests/data/jpeg/hbm_load.json``: for each split of the
+JPEG records ``chip_smoke.write_jpeg_splits`` packs from the fixtures
+above, the sha256 of the images and grades that the reference's
+``hbm_pipeline.load_split_numpy`` decodes from it at 299 px (OpenCV's
+JPEG decode with EXIF applied, its INTER_LINEAR for the 317-px records).
 """
 
 from __future__ import annotations
@@ -613,13 +619,41 @@ def write_preprocess_fixtures() -> None:
     print(f"{len(made)} files, {total} bytes in {PRE_OUT}")
 
 
+HBM_LOAD = os.path.join(OUT, "hbm_load.json")
+HBM_SIZE = 299
+
+
+def write_hbm_fixtures() -> None:
+    from pathlib import Path
+
+    import chip_smoke
+    from jama16_retina_tpu.data import hbm_pipeline
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jdir, _ = chip_smoke.write_jpeg_splits(Path(tmp))
+        for split, n, _ in chip_smoke.JPEG_SPLITS:
+            images, grades = hbm_pipeline.load_split_numpy(
+                str(jdir), split, HBM_SIZE)
+            assert images.shape == (n, HBM_SIZE, HBM_SIZE, 3)
+            out[split] = {"images": sha(images), "grades": sha(grades),
+                          "n": n, "image_size": HBM_SIZE}
+    with open(HBM_LOAD, "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"{len(out)} splits in {HBM_LOAD}")
+
+
 def main(argv: "list[str] | None" = None) -> int:
     which = (argv if argv is not None else sys.argv[1:]) or ["jpeg",
-                                                             "preprocess"]
+                                                             "preprocess",
+                                                             "hbm"]
     if "jpeg" in which:
         write_jpeg_fixtures()
     if "preprocess" in which:
         write_preprocess_fixtures()
+    if "hbm" in which:
+        write_hbm_fixtures()
     return 0
 
 

@@ -833,3 +833,125 @@ def test_a_replica_killed_at_the_router_site_drops_no_request_on_the_card(
                for r in router.replica_states()) == 1
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skip", [0, 4])
+def test_hbm_batches_on_the_card_are_the_host_reference(cuda, tmp_path,
+                                                        skip):
+    """Three epochs of the card-resident loader's batches (12 records,
+    batch 4, from step ``skip``) bitwise the host's numpy gather of the
+    same decoded rows by the same epoch permutations, while the
+    consumer's stream is kept busy."""
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.data import hbm_pipeline, threefry
+
+    root = _smoke_split(tmp_path)
+    cfg = configs.DataConfig(batch_size=4, loader="hbm", decode_workers=2)
+    images, grades = hbm_pipeline.load_split_numpy(root, "train", 64)
+    per_epoch = len(images) // 4
+    stream = hbm_pipeline.train_batches(root, "train", cfg, 64, seed=5,
+                                        skip_batches=skip, device=cuda)
+    busy = torch.randn((2048, 2048), device=cuda)
+    for step in range(skip, 3 * per_epoch):
+        got = next(stream)
+        for _ in range(4):
+            busy = busy @ busy / busy.norm()
+        epoch, pos = divmod(step, per_epoch)
+        idx = threefry.epoch_permutation(5, epoch, len(images))[
+            pos * 4:(pos + 1) * 4]
+        assert got["image"].device.type == "cuda"
+        assert torch.equal(got["image"].cpu(), torch.from_numpy(images[idx]))
+        assert torch.equal(got["grade"].cpu(), torch.from_numpy(grades[idx]))
+    stream.close()
+
+
+@pytest.mark.gpu
+def test_cached_eval_on_the_card_is_the_streamed_one_across_threads(
+        cuda, tmp_path):
+    """A val cache filled on an overlapped-eval thread's side stream (as
+    ``fit`` runs it under ``train.eval_overlap``) and read on the main
+    thread and on another thread's side stream, with the card kept busy
+    in between: every read bitwise the streamed eval."""
+    import threading
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, models, train_lib, trainer
+    from jama16_retina_tpu_torch.data import tfrecord
+    from jama16_retina_tpu_torch.models import init
+
+    tfrecord.write_synthetic_split(str(tmp_path), "val", 10, 64,
+                                   num_shards=2, seed=6, encoding="raw")
+    cfg = configs.override(configs.get_config("smoke"),
+                           ["data.loader=hbm"])
+    state = train_lib.create_state(
+        cfg, init.init_flax_default(models.build(cfg.model), 0), cuda)
+    step = train_lib.make_eval_step(cfg, state, cuda)
+
+    def fn(images):
+        return step(images)[None]
+
+    want = trainer.predict_split(cfg, fn, str(tmp_path), "val")
+    cache = trainer._eval_cache_for(cfg, str(tmp_path), "val", device=cuda)
+    assert cache == []
+    got = []
+
+    def on_side_stream():
+        with trainer._stream_context(cuda), torch.no_grad():
+            busy = torch.randn((4096, 4096), device=cuda)
+            for _ in range(8):
+                busy = busy @ busy / busy.norm()
+            got.append(trainer.predict_split(cfg, fn, str(tmp_path), "val",
+                                             cache=cache, device=cuda))
+
+    for run in (on_side_stream, None, on_side_stream):
+        if run is None:
+            got.append(trainer.predict_split(cfg, fn, str(tmp_path), "val",
+                                             cache=cache, device=cuda))
+            continue
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+    assert len(cache) == 2 and len(got) == 3
+    for g in got:
+        for a, b in zip(g, want):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_hbm_fit_with_overlapped_evals_on_the_card(cuda, tmp_path):
+    """``fit`` under ``data.loader=hbm`` (cuDNN deterministic): the
+    overlapped evals, reading the val cache on their own threads, log the
+    blocking run's eval records, and the final checkpoints are bitwise
+    equal."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, trainer
+    from jama16_retina_tpu_torch.data import tfrecord
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    root = _smoke_split(tmp_path / "data", n=16)
+    tfrecord.write_synthetic_split(root, "val", 10, 64, num_shards=2,
+                                   seed=6, encoding="raw")
+    records = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for overlap in (False, True):
+            wd = str(tmp_path / f"overlap{int(overlap)}")
+            cfg = configs.override(configs.get_config("smoke"), [
+                "data.loader=hbm", "train.steps=6", "train.eval_every=2",
+                "train.log_every=2", f"train.eval_overlap={str(overlap).lower()}"])
+            trainer.fit(cfg, root, wd, device=cuda)
+            records[overlap] = [
+                (r["step"], r["val_auc"]) for r in read_jsonl(
+                    f"{wd}/metrics.jsonl") if r["kind"] == "eval"]
+            records[(overlap, "ckpt")] = ckpt_lib.Checkpointer(wd).restore(6)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert [s for s, _ in records[False]] == [2, 4, 6]
+    assert records[True] == records[False]
+    a, b = records[(False, "ckpt")], records[(True, "ckpt")]
+    assert all(np.array_equal(a[k], b[k]) for k in a)

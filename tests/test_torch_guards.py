@@ -50,16 +50,18 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # code lives in train_lib and trainer) and the telemetry planes'
     # (obs/trace, spans, export, criticalpath, flightrec, alerts) and the
     # fault plane's (obs/faultinject, utils/retry) and the preprocess
-    # runners' (data/tiff, preprocess/datasets and both entry points)
-    # included.
-    assert int(n_modules) >= 42
+    # runners' (data/tiff, preprocess/datasets and both entry points) and
+    # the hbm loader's (data/grain_pipeline, data/hbm_pipeline,
+    # data/threefry) included.
+    assert int(n_modules) >= 45
     assert {f"jama16_retina_tpu_torch.{m}" for m in (
         "obs.registry", "obs.quality", "integrity.artifact",
         "serve.quantize", "serve.batcher", "optim", "train_lib",
         "trainer", "obs.trace", "obs.spans", "obs.export",
         "obs.criticalpath", "obs.flightrec", "obs.alerts",
         "obs.faultinject", "utils.retry", "data.tiff",
-        "preprocess.datasets", "preprocess_eyepacs", "preprocess_messidor")
+        "preprocess.datasets", "preprocess_eyepacs", "preprocess_messidor",
+        "data.grain_pipeline", "data.hbm_pipeline", "data.threefry")
         } <= set(names.split())
     assert bad.strip() == "[]"
 
@@ -281,7 +283,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("item,exc", [
-    ("obs.quarantine_alert_per_s=2", NotImplementedError),
+    ("data.loader=tiered", NotImplementedError),
     ("obs.device_hbm_headroom_alert=0.2", NotImplementedError),
     ("serve.compile_cache_dir=/x", NotImplementedError),
     ("model.stem_s2d=true", NotImplementedError),
@@ -289,8 +291,11 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 ])
 def test_unported_knobs_raise(item, exc):
     cfg = configs.override(configs.get_config("smoke"), [item])
+    # The loader is read only when training; the other knobs are refused
+    # on the serve and eval path as well.
     with pytest.raises(exc, match="ROADMAP"):
-        configs.check_supported(cfg)
+        configs.check_supported(
+            cfg, training=item.startswith("data.loader"))
 
 
 @pytest.mark.parametrize("item", [
@@ -351,10 +356,12 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
     # until telemetry, tracing, the flight recorder and alerts ported
     # their 13 (and copied obs.quarantine_alert_per_s and
     # obs.device_hbm_headroom_alert, refused away from their defaults); 52
-    # until faults and retries ported obs.fault_plan.
-    assert len(items) >= 51
+    # until faults and retries ported obs.fault_plan; 51 until the hbm
+    # loader ported data.hbm_budget_bytes, data.decode_workers and
+    # data.quarantine_bad_records.
+    assert len(items) >= 48
     for key, item in (("data.autotune", "item 7"),
-                      ("data.quarantine_bad_records", "item 7"),
+                      ("data.tiered_resident_bytes", "item 7"),
                       ("parallel.num_devices", "item 8"),
                       ("train.ensemble_manual_data", "item 8"),
                       ("eval.sharded", "item 8"),
@@ -384,7 +391,9 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
                 "obs.diagnosis_top_k", "obs.quality.psi_alert",
                 "obs.quality.input_psi_alert", "obs.quality.alert_for_s",
                 "obs.quality.alert_rules", "train.tensorboard",
-                "train.debug", "train.profile_steps"):
+                "train.debug", "train.profile_steps",
+                "data.hbm_budget_bytes", "data.decode_workers",
+                "data.quarantine_bad_records", "obs.quarantine_alert_per_s"):
         assert key in ours
     lifecycle = [k for k in items if k.startswith("lifecycle.")]
     assert len(lifecycle) == 11
