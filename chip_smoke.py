@@ -5,6 +5,11 @@ trains.
 
     python3 chip_smoke.py [--seed 0] [--profile DIR]
 
+Every phase builds its members' initial weights through a memo of
+``models.init.init_flax_default`` (``memoize_init``): a (seed, layout)
+drawn before is copied, and its first reuse is drawn afresh and held
+bitwise against the copy.
+
 Phases, any failure exits nonzero before the result line:
 
 1. device   - a CUDA card is required; prints its name, count, power limit.
@@ -115,13 +120,15 @@ Phases, any failure exits nonzero before the result line:
               random members (the scale of a residual branch's last BN
               drawn small; ResNet-50's and EfficientNet-B4's BN statistics
               calibrated on 16 rendered canvases), B4 once per chunk, the
-              5-class rows summing to 1 within 1e-6, card vs CPU 1e-4;
+              5-class rows summing to 1 within 1e-6, card vs CPU 1e-4
+              on the 1- and 13-row requests (the 8-row one on the card
+              alone, for the time limit);
               bf16 request latency at k=2, batch 8 and 64; phase 5's
-              ``fit_synthetic`` for 4 steps per form (the preset forms
+              ``fit_synthetic`` for 2 steps per form (the preset forms
               launch no kernel; fused: B2 = steps, B3 = steps x
               ceil(leaves / 400)), finite losses and every parameter leaf
               moved (but EfficientNet's ``project_bn`` biases, whose true
-              gradient is 0); step time (median of 5 after 3 warm),
+              gradient is 0); step time (median of 3 after 3 warm),
               images/s, idle share and peak memory per form; and the
               float64 card-vs-CPU forward and
               backward of phase 5 on the same augmented batch (dropout
@@ -132,7 +139,7 @@ Phases, any failure exits nonzero before the result line:
 
 9. knobs    - the trainer's run knobs at full width (``eyepacs_binary``,
               299 px, batch 32), after phase 6 and on its splits. The
-              train stream in turns (10-step fits, steps 3-9's median
+              train stream in turns (6-step fits, steps 3-5's median
               ``window_sec`` and ``input_wait_sec``): unprefetched
               (``data.prefetch_batches=0``, ``data.readers=1``),
               prefetched from one reader process (2, 1, the default),
@@ -225,7 +232,7 @@ Phases, any failure exits nonzero before the result line:
               median ms, member images/s, peak memory and the ratio.
 12. cascade  - after phase 11, on the fit phase's splits. (a) Ten random
               ``eyepacs_binary`` members (``ensemble10``'s k) as the
-              teacher: its float32 soft targets of 8 canvases on the card
+              teacher: its float32 soft targets of 4 canvases on the card
               against the CPU within 1e-4 (TF32 off); a 4-step student fit
               with ``train.distill_from`` (bf16 masters, fused form, batch
               32, constant learning rate, evals every 2, cuDNN
@@ -239,7 +246,7 @@ Phases, any failure exits nonzero before the result line:
               ``ensemble.probs(images[mask])``, counters equal the mask's;
               speculative against serial within 1e-6; cascade, speculative,
               ensemble and student requests at batch 8 and 64 (median and
-              range of 5 after 2 warm). (c) ``assemble(go_live=True)`` of
+              range of 3 after 2 warm). (c) ``assemble(go_live=True)`` of
               a band covering [0, 1] passes against a canary pinned from
               the ensemble's scores (and ``auc_floor`` on the 64 graded
               canvases); a student with head bias +20 at band 0 raises
@@ -282,7 +289,7 @@ Phases, any failure exits nonzero before the result line:
               replica factory (``scaler_min_replicas`` 1, max 3, window
               0.5 s): a 3 s burst scales up, quiet drains; the ledger
               printed. (e) A frontier swept through the router (buckets 8,
-              16, 32, 64 x concurrency 1, 4, 1 s each), ``derive_policy``
+              16, 32, 64 x concurrency 1, 4, 0.6 s each), ``derive_policy``
               -> ``save_policy`` -> ``load_policy`` ->
               ``maybe_apply_policy`` on a fresh config, and a router built
               from it; the derived knobs printed beside the card.
@@ -342,7 +349,7 @@ Phases, any failure exits nonzero before the result line:
               after 2 warm, with tracing on: the request's wall time split
               per thread and segment from the trace (the caller, the tick
               thread's ticks, the replica worker's engine spans). (e) The
-              planes' cost: the fused step's window (steps 3-12 of 12-step
+              planes' cost: the fused step's window (steps 3-8 of 8-step
               fits, median and range) with ``obs.enabled=false`` and the
               default, in turns, and the batch-8 request (10 calls a
               turn) with the registry and tracer off and on, in turns.
@@ -450,9 +457,44 @@ Phases, any failure exits nonzero before the result line:
               ``data.hbm_budget_bytes=1000000`` refuses the val split with
               the reference's message.
 
+19. tiered  - the ``tiered`` loader (``data/tiered_pipeline.py``), the
+              ``rawshard`` transcode and loader (``data/rawshard.py``,
+              ``python -m jama16_retina_tpu_torch.transcode_shards``) and
+              the ingest autotuner (``data/autotune.py``), alone first,
+              then in fits, on phase 18's splits (removed after it); each
+              part prints a start and an end line. Half the split's bytes
+              are the budget (2,048 rows): 128 steps an epoch, 16
+              resident and 16 streamed rows a batch. (a) The plan; the
+              resident tier decoded and uploaded alone (ms, card bytes);
+              the streamed tier alone (residency 0, 10 batches); then 134
+              batches at skips 0 and 130 (each across an epoch
+              boundary) at 1 and 7 decode threads, each bitwise
+              ``host_reference_batches``, with ``data.tiered.decode_batch_s``
+              p50. (b) The transcode CLI in a subprocess (seconds,
+              rows/s), run again reusing every shard; the rawshard
+              loader's 134 batches bitwise the tiered loader's, and its
+              decode p50 against (a)'s. (c) From each loader (cuDNN
+              deterministic, the tuner's pessimal knobs set by hand: 1
+              decode thread, stage depth 1, prefetch 1): 8 preset steps,
+              evals at 4 and 8 from the val cache, B1 = 8; the same run
+              cut by ``trainer.step`` at call 5 (B1 = 4) and resumed (B1
+              = 4) to an equal step-8 state digest; 4 fused steps, B2 =
+              B3 = 4; the val eval of the step-8 state streamed and from
+              the cache, bitwise. (d) (c)'s tiered preset fit with
+              ``data.autotune=true``: losses and AUCs bitwise the
+              hand-set fit's; the tuner's adjustments and knobs. (e) A
+              ``tfrecord.read`` corrupt plan aimed at batch 0's third
+              streamed record (the loader's call 2,051, the host
+              reference's call 19): quarantined and substituted, 4
+              batches bitwise the poisoned reference; then shard 8
+              (records 2,048-2,303) damaged in a copy of (b)'s shards:
+              every streamed read of it quarantined and replaced by
+              record 2,304, 4 batches bitwise the shard rows so.
+
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
-record (B1-B3's ``launches`` from phase 18's fits, B4's from phase 4,
+record (B1-B3's ``launches`` from phase 19's tiered fits, B4's from
+phase 4, each phase's launches on a line of its own (18 and 19),
 and each kernel's launches on every path, ``launches_by_phase``) and the
 run's seconds. Scratch files go under ``build/chip_smoke``
 (git-ignored). Without a CUDA card, or run outside a checkout of the
@@ -494,15 +536,15 @@ FIT_STEPS = 8
 FIT_EVAL_EVERY = 4
 # Presets of phase 8, and the presets whose leaf sets B3 is held over.
 MODEL_PRESETS = ("resnet50", "efficientnet_b4", "icdr5")
-MODEL_STEPS = 4
+MODEL_STEPS = 2
 B3_PRESETS = ("eyepacs_binary", "resnet50", "efficientnet_b4", "icdr5")
 ICDR5_STEPS = 4
 # Phase 9: timed steps per form after 2 warm, the accumulation counts, and
 # the train stream's (prefetch depth, reader processes) in turns.
-KNOB_STEPS = 6
+KNOB_STEPS = 4
 ACCUM = (1, 2, 4)
 STREAM_TURNS = ((0, 1), (2, 1), (2, 2), (0, 1))
-STREAM_STEPS = 10
+STREAM_STEPS = 6
 # The last BatchNorm of a residual branch (ResNet-50's bn3, EfficientNet's
 # project_bn): random members draw its scale in [0.05, 0.15].
 RESIDUAL_LAST_BN = (".bn3.scale", ".project_bn.scale")
@@ -621,12 +663,13 @@ def device_ms(fn, reps: int, kernel: "str | None" = None,
     hundreds of operations a call move by well under 1 % for one event.
     A kernel's trace that kept under half its events fails the run. With
     ``strict`` off (whole steps and requests, whose thousands of kernels
-    vary by a few from call to call) one trace is taken, unchecked."""
+    vary by a few from call to call) one trace is taken, unchecked, after
+    one warm call (their callers have run them warm already)."""
     import torch
 
     match = ((lambda key: True) if kernel is None else re.compile(
         rf"(?<![A-Za-z0-9_]){re.escape(kernel)}\b").search)
-    for i in range(3):
+    for i in range(3 if strict else 1):
         fn(i)
     torch.cuda.synchronize()
     want = reps * launches
@@ -1003,12 +1046,13 @@ def render(seed: int, n: int):
                      for i in range(n)])
 
 
-def phase_serve(torch, seed: int, preset: str = "eyepacs_binary") -> dict:
+def phase_serve(torch, seed: int, preset: str = "eyepacs_binary",
+                cpu_rows: tuple = REQUESTS) -> dict:
     """k=2 random members of the preset's model as member dirs; a float32
     engine with the fused preprocess answers requests of ``REQUESTS``
     canvases on the card (launch counts set to 0 just before, read just
-    after), held against the same engine on the CPU; the preset's bf16
-    engine is compared with it (reported)."""
+    after), those of ``cpu_rows`` held against the same engine on the
+    CPU; the preset's bf16 engine is compared with it (reported)."""
     from jama16_retina_tpu_torch import configs, models
     from jama16_retina_tpu_torch.models import convert
     from jama16_retina_tpu_torch.ops import serve_preprocess as sp
@@ -1075,9 +1119,10 @@ def phase_serve(torch, seed: int, preset: str = "eyepacs_binary") -> dict:
     cpu = ServingEngine(cfg, dirs, device="cpu")
     dev_cpu = max(float(np.max(np.abs(cpu.member_probs(r)
                                       - engine.member_probs(r))))
-                  for r in requests)
+                  for r in requests if len(r) in cpu_rows)
     log(f"serve {preset}: float32 card vs CPU max |member prob diff| "
-        f"{dev_cpu:.3e} (atol 1e-4, TF32 off)")
+        f"{dev_cpu:.3e} over requests of {list(cpu_rows)} rows (atol 1e-4, "
+        "TF32 off)")
     check(dev_cpu <= 1e-4, f"card and CPU disagree by {dev_cpu}")
     del cpu
 
@@ -1098,7 +1143,7 @@ def request_times(torch, serve: dict, card: str, name: str = "",
                   dtypes=("float32", "bfloat16"), ks=(1, 2)) -> None:
     """Host-clock request latency around a synchronizing ``probs`` call,
     per dtype, batch 8 and 64, k = 1 and 2 (medians of 10 after 2 warm),
-    and the device's busy time per request (profiler, 3 requests), whose
+    and the device's busy time per request (profiler, 1 request), whose
     complement is the share of the request the card sat idle."""
     from jama16_retina_tpu_torch.serve.engine import ServingEngine
     import numpy as np
@@ -1122,7 +1167,7 @@ def request_times(torch, serve: dict, card: str, name: str = "",
                     if i >= 2:
                         times.append((time.perf_counter() - t0) * 1e3)
                 med = statistics.median(times)
-                busy = device_ms(lambda i: engine.probs(imgs), 3,
+                busy = device_ms(lambda i: engine.probs(imgs), 1,
                                  strict=False)
                 log(f"times: request {name}{dtype} k={k} batch={batch}: "
                     f"median {med:.3f} ms, min {min(times):.3f}, max "
@@ -1326,7 +1371,7 @@ def train_step_times(torch, seed: int, smi: str,
                      ) -> dict:
     """Per step form: train step time (host clock around a synchronized
     step; median of ``timed`` after 3 warm), images/s, and the device's busy
-    time per step (profiler, 3 steps), whose complement is its idle
+    time per step (profiler, 1 step), whose complement is its idle
     share."""
     from jama16_retina_tpu_torch import models, train_lib
     from jama16_retina_tpu_torch.data import synthetic
@@ -1356,7 +1401,7 @@ def train_step_times(torch, seed: int, smi: str,
             if i >= 3:
                 times.append((time.perf_counter() - t0) * 1e3)
         med = statistics.median(times)
-        busy = device_ms(step, 3, strict=False)
+        busy = device_ms(step, 1, strict=False)
         peak = torch.cuda.max_memory_allocated()
         out[form] = {"step_ms": med, "min_ms": min(times),
                      "max_ms": max(times), "busy_ms": busy,
@@ -2378,7 +2423,7 @@ ENSEMBLE_STEPS = 4
 ENSEMBLE_EVAL_EVERY = 2
 AGREE_BATCH = 8
 RATIO_TURNS = ("stacked", "sequential")
-RATIO_STEPS = 3
+RATIO_STEPS = 2
 
 
 def phase_optimizers(torch, seed: int, smi: str) -> dict:
@@ -2622,6 +2667,7 @@ def phase_ensemble(torch, seed: int, smi: str, root: Path, data: Path
 
     out = {"launches": {}, "oom": []}
     dev = torch.device("cuda")
+    t_fits = time.perf_counter()
     flags = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
@@ -2713,6 +2759,8 @@ def phase_ensemble(torch, seed: int, smi: str, root: Path, data: Path
                 differ.append(m)
         check(not differ, f"resumed members {differ} differ from the "
               "uninterrupted run at the last step")
+        log(f"times: ensemble fits and resume wall "
+            f"{time.perf_counter() - t_fits:.1f} s")
         log(f"ensemble: k={k} cut at step {ENSEMBLE_EVAL_EVERY} and resumed "
             f"to {ENSEMBLE_STEPS}: all {k} members' step-{ENSEMBLE_STEPS} "
             "checkpoints bitwise the uninterrupted run's (cuDNN "
@@ -2768,6 +2816,8 @@ def phase_ensemble(torch, seed: int, smi: str, root: Path, data: Path
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
             flags)
 
+    log(f"times: ensemble fits, resume and agreement wall "
+        f"{time.perf_counter() - t_fits:.1f} s")
     # The card's ratio: the stacked step against k member steps, in turns,
     # preset form (bf16 compute, B1, adamw), batch 32 in memory.
     cfg = ensemble_config(k, 1000, root, seed)
@@ -2829,10 +2879,10 @@ def phase_ensemble(torch, seed: int, smi: str, root: Path, data: Path
 # Phase 12: the distilled cascade and serving generations.
 CASCADE_K = 10
 # Timed calls of each cascade request form.
-CASCADE_TIMED = 5
+CASCADE_TIMED = 3
 DISTILL_STEPS = 4
 DISTILL_EVAL_EVERY = 2
-SOFT_CHECK_BATCH = 8
+SOFT_CHECK_BATCH = 4
 CASCADE_CANVASES = 64
 # The band is set to escalate this share of the 64 canvases.
 CASCADE_ESCALATE = 0.3
@@ -2961,8 +3011,8 @@ def phase_distill(torch, seed: int, smi: str, root: Path, data: Path
 
 def phase_cascade(torch, seed: int, smi: str, root: Path,
                   distill: dict) -> dict:
-    """Phase 12b-d: the cascade of the distilled student and the ten
-    teacher members (float32, fused preprocess); its gate; the
+    """Phase 12b-d: the cascade of the distilled student and the
+    ``CASCADE_K`` teacher members (float32, fused preprocess); its gate; the
     ensemble's generations under the micro-batcher's load. Launch counts
     are set to 0 before the path and read after it."""
     import gc
@@ -3003,6 +3053,7 @@ def phase_cascade(torch, seed: int, smi: str, root: Path,
     torch.cuda.synchronize()
     reset_launch_counts()
 
+    t_b = time.perf_counter()
     # (b) The cascade.
     student = engine_lib.ServingEngine(cfg, [student_dir], device="cuda",
                                        registry=Registry())
@@ -3065,6 +3116,8 @@ def phase_cascade(torch, seed: int, smi: str, root: Path,
     spec.close()
     out["times"] = times
 
+    log(f"times: cascade (b) wall {time.perf_counter() - t_b:.1f} s")
+    t_c = time.perf_counter()
     # (c) The gate.
     canary = quality.save_canary(str(root / "canary"), canv[:8],
                                  ensemble.probs(canv[:8]))
@@ -3113,6 +3166,8 @@ def phase_cascade(torch, seed: int, smi: str, root: Path,
     gc.collect()
     torch.cuda.empty_cache()
 
+    log(f"times: cascade (c) wall {time.perf_counter() - t_c:.1f} s")
+    t_d = time.perf_counter()
     # (d) Generations under load.
     lcfg = configs.override(cfg, qsets + [
         "obs.quality.canary_atol=1.0", f"serve.max_batch={LOAD_BUCKET}",
@@ -3239,6 +3294,7 @@ def phase_cascade(torch, seed: int, smi: str, root: Path,
         f"({exact} of {len(responses)} bitwise); reload to {CASCADE_K} "
         f"other members (load, warm-up, canary) {reload_ms:.1f} ms, "
         f"rollback {rollback_ms:.3f} ms ({smi})")
+    log(f"times: cascade (d) wall {time.perf_counter() - t_d:.1f} s")
     log(f"generations: memory_allocated before the reload {mem['before']}, "
         f"with a generation retained {mem['retained']} (peak during the "
         f"reload {mem['peak_during_reload']}), after release_retained "
@@ -3267,7 +3323,7 @@ FUSED_VMAP_TOL = 1e-5
 SCALER_WINDOW_S = 0.5
 SCALER_BURST_S = 3.0
 # The policy's frontier: seconds per (bucket, concurrency) point.
-SWEEP_S = 1.0
+SWEEP_S = 0.6
 SWEEP_CONCURRENCY = (1, 4)
 
 
@@ -3481,11 +3537,11 @@ def router_replicas(torch, seed, smi, cfg, dirs, canv) -> dict:
     router, reps, reg = start()
     x8 = canv[:8]
     routed = request_ms(torch, lambda: router.submit(x8).result())
-    busy_r = device_ms(lambda i: router.submit(x8).result(), 3,
+    busy_r = device_ms(lambda i: router.submit(x8).result(), 1,
                        strict=False)
     router.close()
     direct = request_ms(torch, lambda: engines[0].probs(x8))
-    busy_d = device_ms(lambda i: engines[0].probs(x8), 3, strict=False)
+    busy_d = device_ms(lambda i: engines[0].probs(x8), 1, strict=False)
     out["idle"] = {"routed": routed, "routed_busy": busy_r,
                    "direct": direct, "direct_busy": busy_d}
     log(f"times: batch-8 request (float32, k=2, fused preprocess): routed "
@@ -4053,8 +4109,8 @@ def decode_rates(jdir: Path, rdir: Path, smi: str) -> dict:
 def jpeg_stream_turns(torch, seed: int, smi: str, jdir: Path, rdir: Path,
                       root: Path, out: dict) -> dict:
     """(c) The stream step from the JPEG splits against the same pixels
-    written raw, in turns, at ``data.readers`` 1 and 2 (10-step fits,
-    steps 3-9's median ``window_sec`` and ``input_wait_sec``)."""
+    written raw, in turns, at ``data.readers`` 1 and 2 (6-step fits,
+    steps 3-5's median ``window_sec`` and ``input_wait_sec``)."""
     streams = {}
     for turn, (kind, readers) in enumerate(JPEG_STREAM_TURNS):
         cfg = fit_config(STREAM_STEPS, root / f"stream{turn}", seed,
@@ -4269,7 +4325,7 @@ OBS_PROFILE_STEPS = 3
 SLOW_STEPS = 24
 SIGTERM_STEPS = 400
 SIGTERM_AFTER_STEP = 3
-OVERHEAD_STEPS = 12
+OVERHEAD_STEPS = 8
 OVERHEAD_TURNS = (False, True, True, False)
 # The request's turns and timed calls a turn (it costs ~50 ms a call).
 OVERHEAD_REQUEST_TURNS = (False, True, True, False, False, True)
@@ -4702,14 +4758,22 @@ def phase_obs(torch, seed: int, smi: str, serve: dict, data: Path) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     out = {"launches": {}}
     torch.cuda.empty_cache()
+    marks = [time.perf_counter()]
     fit_wd = obs_fit_phase(torch, seed, smi, root, data, out)
+    marks.append(time.perf_counter())
     obs_drills(torch, seed, smi, root, data, out)
+    marks.append(time.perf_counter())
     obs_predict(torch, smi, root, fit_wd, out)
+    marks.append(time.perf_counter())
     obs_lone_request(torch, seed, smi, serve, out)
+    marks.append(time.perf_counter())
     obs_overhead(torch, seed, smi, root, data, serve, out)
+    marks.append(time.perf_counter())
     shutil.rmtree(root, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
-    log(f"times: phase 15 (obs) wall {out['wall_s']:.1f} s ({smi})")
+    parts = [round(b - a, 1) for a, b in zip(marks, marks[1:])]
+    log(f"times: phase 15 (obs) wall {out['wall_s']:.1f} s (fit, drills, "
+        f"predict, lone request, overhead: {parts}) ({smi})")
     return out
 
 
@@ -5629,14 +5693,17 @@ HBM_JPEG_LOAD = FIXTURES / "hbm_load.json"
 
 
 class HbmPart:
-    """One part of phase 18: a start line, and an end line with its wall
-    time, so that a failed run's log names the part."""
+    """One part of phase 18 (or, with ``prefix``, of another phase): a
+    start line, and an end line with its wall time, so that a failed
+    run's log names the part."""
 
-    def __init__(self, name: str, what: str, out: dict):
+    def __init__(self, name: str, what: str, out: dict,
+                 prefix: str = "hbm"):
         self.name, self.what, self.out = name, what, out
+        self.prefix = prefix
 
     def __enter__(self):
-        log(f"hbm: ({self.name}) start: {self.what}")
+        log(f"{self.prefix}: ({self.name}) start: {self.what}")
         self.t0 = time.perf_counter()
         return self
 
@@ -5644,7 +5711,7 @@ class HbmPart:
         wall = time.perf_counter() - self.t0
         self.out["wall_s"][self.name] = wall
         if exc_type is None:
-            log(f"hbm: ({self.name}) end: {wall:.1f} s")
+            log(f"{self.prefix}: ({self.name}) end: {wall:.1f} s")
         return False
 
 
@@ -5757,28 +5824,75 @@ def hbm_load_and_upload(torch, data: Path, smi: str, out: dict):
     return images, grades
 
 
+def state_digest(wd: Path, step: int) -> str:
+    """sha256 over a checkpoint's leaves, by name."""
+    import hashlib
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    flat = ckpt_lib.Checkpointer(str(wd)).restore(step)
+    h = hashlib.sha256()
+    for k in sorted(flat):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(flat[k]).tobytes())
+    return h.hexdigest()
+
+
+def cached_val_eval(torch, cfg, wd: Path, data: Path, step_at: int,
+                    what: str) -> dict:
+    """The val eval of a fit's step-``step_at`` state streamed, filling
+    the card cache and from it, and streamed again: bitwise, each one's
+    ms -> {eval_first_ms, eval_fill_ms, eval_cached_ms,
+    eval_streamed_ms}."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import models, train_lib, trainer
+    from jama16_retina_tpu_torch.models import init
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    flat = ckpt_lib.Checkpointer(str(wd)).restore(step_at)
+    state = train_lib.load_state_flat(train_lib.create_state(
+        cfg, init.init_flax_default(models.build(cfg.model),
+                                    cfg.train.seed), "cuda"), flat)
+    step = train_lib.make_eval_step(cfg, state, "cuda")
+
+    def fn(images):
+        return step(images)[None]
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = trainer.predict_split(cfg, fn, str(data), "val", **kw)
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    with torch.no_grad():
+        streamed, stream_ms = timed()
+        cache = trainer._eval_cache_for(cfg, str(data), "val",
+                                        device="cuda")
+        check(cache == [], f"{what}: the val cache was refused: {cache}")
+        filled, fill_ms = timed(cache=cache, device="cuda")
+        cached, cached_ms = timed(cache=cache, device="cuda")
+        again, again_ms = timed()
+    for got in (filled, cached, again):
+        check(all(np.array_equal(g, w) for g, w in zip(got, streamed)),
+              f"{what}: a cached val eval differs from the streamed one")
+    del state, step, cache
+    torch.cuda.empty_cache()
+    return {"eval_first_ms": stream_ms, "eval_fill_ms": fill_ms,
+            "eval_cached_ms": cached_ms, "eval_streamed_ms": again_ms}
+
+
 def hbm_fits(torch, seed: int, data: Path, root: Path, smi: str,
              out: dict) -> None:
     """(d) Eight preset steps with evals at 4 and 8 and the val cache; the
     same run cut at step 5 and resumed; four fused steps; the cached val
     eval against the streamed one."""
-    import hashlib
-
-    import numpy as np
-
-    from jama16_retina_tpu_torch import models, train_lib, trainer
-    from jama16_retina_tpu_torch.models import init
+    from jama16_retina_tpu_torch import trainer
     from jama16_retina_tpu_torch.obs import faultinject
-    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
-    def digest(wd: Path, step: int) -> str:
-        flat = ckpt_lib.Checkpointer(str(wd)).restore(step)
-        h = hashlib.sha256()
-        for k in sorted(flat):
-            h.update(k.encode())
-            h.update(np.ascontiguousarray(flat[k]).tobytes())
-        return h.hexdigest()
-
+    digest = state_digest
     hbm = ("data.loader=hbm",)
     flags = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
@@ -5860,41 +5974,15 @@ def hbm_fits(torch, seed: int, data: Path, root: Path, smi: str,
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = flags
 
-    flat = ckpt_lib.Checkpointer(str(root / "a")).restore(HBM_STEPS)
-    state = train_lib.load_state_flat(train_lib.create_state(
-        cfg_a, init.init_flax_default(models.build(cfg_a.model), seed),
-        "cuda"), flat)
-    step = train_lib.make_eval_step(cfg_a, state, "cuda")
-
-    def fn(images):
-        return step(images)[None]
-
-    def timed(**kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = trainer.predict_split(cfg_a, fn, str(data), "val", **kw)
-        return res, 1e3 * (time.perf_counter() - t0)
-
-    with torch.no_grad():
-        streamed, stream_ms = timed()
-        cache = trainer._eval_cache_for(cfg_a, str(data), "val",
-                                        device="cuda")
-        check(cache == [], f"hbm: (d) the val cache was refused: {cache}")
-        filled, fill_ms = timed(cache=cache, device="cuda")
-        cached, cached_ms = timed(cache=cache, device="cuda")
-        again, again_ms = timed()
-    for got in (filled, cached, again):
-        check(all(np.array_equal(g, w) for g, w in zip(got, streamed)),
-              "hbm: (d) a cached val eval differs from the streamed one")
-    out.update(eval_streamed_ms=again_ms, eval_first_ms=stream_ms,
-               eval_fill_ms=fill_ms, eval_cached_ms=cached_ms)
+    ev = cached_val_eval(torch, cfg_a, root / "a", data, HBM_STEPS,
+                         "hbm: (d)")
+    out.update(ev)
     log(f"hbm: (d) val eval of {HBM_VAL} images from the step-{HBM_STEPS} "
-        f"state: streamed {stream_ms:.1f} ms (the first eval of this "
-        f"engine), filling the cache {fill_ms:.1f} ms, from the cache "
-        f"{cached_ms:.1f} ms, streamed again {again_ms:.1f} ms; cached "
-        f"probabilities bitwise the streamed ones ({smi})")
-    del state, step, cache
-    torch.cuda.empty_cache()
+        f"state: streamed {ev['eval_first_ms']:.1f} ms (the first eval of "
+        f"this engine), filling the cache {ev['eval_fill_ms']:.1f} ms, from "
+        f"the cache {ev['eval_cached_ms']:.1f} ms, streamed again "
+        f"{ev['eval_streamed_ms']:.1f} ms; cached probabilities bitwise the "
+        f"streamed ones ({smi})")
 
 
 def hbm_poison(torch, data: Path, root: Path, images, grades,
@@ -6065,10 +6153,573 @@ def phase_hbm(torch, seed: int, smi: str) -> dict:
         check(refused == want_msg, f"hbm: (f) the gate said {refused!r}")
         log(f"hbm: (f) data.hbm_budget_bytes=1000000: refused with the "
             f"reference's message: {refused}")
-    shutil.rmtree(root, ignore_errors=True)
+    # Phase 19 reads the same splits and removes them.
+    shutil.rmtree(root / "jpeg", ignore_errors=True)
+    out["root"], out["data"] = root, data
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     return out
+
+
+TIERED_ROWS = HBM_RECORDS // 2
+TIERED_BATCHES = 134
+TIERED_SKIPS = (0, 130)
+TIERED_THREADS = (1, 7)
+TIERED_STREAMED = 10
+TIERED_KNOBS = ("data.decode_workers=1", "data.stage_depth=1",
+                "data.prefetch_batches=1")
+TIERED_POISON_BATCHES = 4
+TIERED_DAMAGED_SHARD = 8
+TIERED_TRANSCODE = ("-m", "jama16_retina_tpu_torch.transcode_shards",
+                    "--splits", "train", "--image_size", "299")
+
+
+def tiered_budget() -> str:
+    """The override that keeps half the split resident."""
+    from jama16_retina_tpu_torch.data import hbm_pipeline
+
+    return (f"data.tiered_resident_bytes="
+            f"{TIERED_ROWS * hbm_pipeline.row_bytes(299)}")
+
+
+def tiered_config(seed: int, *extra):
+    """``eyepacs_binary`` at batch 32 with half the split resident."""
+    from jama16_retina_tpu_torch import configs
+
+    return configs.override(configs.get_config("eyepacs_binary"), [
+        f"data.batch_size={TRAIN_BATCH}", f"train.seed={seed}",
+        tiered_budget(), *extra])
+
+
+def tiered_match(torch, stream, ref, n: int, what: str) -> int:
+    """``n`` batches of a loader on the card bitwise those of ``ref``
+    (host numpy batches, or card batches of another loader)."""
+    for i in range(n):
+        got, want = next(stream), next(ref)
+        for k in ("image", "grade"):
+            w = want[k]
+            w = w.cpu() if isinstance(w, torch.Tensor) else torch.from_numpy(w)
+            check(got[k].device.type == "cuda" and torch.equal(got[k].cpu(), w),
+                  f"tiered: {what}: batch {i} ({k}) differs")
+    return n
+
+
+def decode_p50_ms(reg) -> float:
+    h = reg.snapshot()["histograms"].get("data.tiered.decode_batch_s")
+    return 1e3 * h["p50"] if h and h["p50"] is not None else float("nan")
+
+
+def tiered_alone(torch, seed: int, data: Path, smi: str, out: dict) -> None:
+    """(a) The plan, the resident upload alone, the streamed tier alone,
+    then the batches at partial residency from two skips at 1 and 7
+    decode threads, each bitwise ``host_reference_batches``."""
+    from jama16_retina_tpu_torch.data import (grain_pipeline, hbm_pipeline,
+                                              tfrecord, tiered_pipeline)
+
+    plan = tiered_pipeline._TierPlan(HBM_RECORDS, TRAIN_BATCH, TIERED_ROWS,
+                                     seed)
+    got = (plan.steps, plan.res_pb, plan.str_pb, plan.n_res)
+    check(got == (128, 16, 16, TIERED_ROWS), f"tiered: (a) the plan {got}")
+    log(f"tiered: (a) plan for {HBM_RECORDS} records at batch {TRAIN_BATCH} "
+        f"with {TIERED_ROWS} rows' budget: {plan.steps} steps an epoch, "
+        f"{plan.res_pb} resident + {plan.str_pb} streamed rows a batch, "
+        f"{plan.n_res} rows resident")
+    index = grain_pipeline.TFRecordIndex(tfrecord.list_split(str(data),
+                                                             "train"))
+    decoder = grain_pipeline.ParallelDecoder(
+        index, 299, workers=grain_pipeline.resolve_decode_workers(0))
+    try:
+        t0 = time.perf_counter()
+        images, grades = decoder.decode_range(0, TIERED_ROWS)
+        decode_s = time.perf_counter() - t0
+    finally:
+        decoder.close()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    resident = tiered_pipeline._place_resident(images, grades, "cuda")
+    torch.cuda.synchronize()
+    upload_ms = 1e3 * (time.perf_counter() - t0)
+    took = torch.cuda.memory_allocated() - before
+    want = TIERED_ROWS * hbm_pipeline.row_bytes(299)
+    check(took >= want, f"tiered: (a) the resident upload took {took} card "
+          f"bytes, want at least {want}")
+    del resident, images, grades
+    torch.cuda.empty_cache()
+    out.update(resident_upload_ms=upload_ms, resident_bytes=took,
+               resident_decode_s=decode_s)
+    log(f"tiered: (a) resident tier alone: {TIERED_ROWS} rows decoded in "
+        f"{decode_s:.3f} s, uploaded in {upload_ms:.1f} ms "
+        f"({want / upload_ms / 1e6:.2f} GB/s, pageable host memory), "
+        f"{took} card bytes ({smi})")
+    cfg = tiered_config(seed)
+    stream = tiered_pipeline.streamed_batches(str(data), "train", cfg.data,
+                                              299, seed=seed, device="cuda")
+    ref = tiered_pipeline.host_reference_batches(str(data), "train", cfg.data,
+                                                 299, seed=seed)
+    try:
+        n = tiered_match(torch, stream, ref, TIERED_STREAMED, "(a) streamed")
+    finally:
+        stream.close()
+        ref.close()
+    log(f"tiered: (a) the streamed tier alone (residency 0): {n} batches of "
+        f"{TRAIN_BATCH} host-decoded rows uploaded behind the consumer, "
+        "bitwise the host reference")
+    for workers in TIERED_THREADS:
+        for skip in TIERED_SKIPS:
+            prev = fresh_registry()
+            try:
+                c = tiered_config(seed, f"data.decode_workers={workers}")
+                stream = tiered_pipeline.train_batches(
+                    str(data), "train", c.data, 299, seed=seed,
+                    skip_batches=skip, device="cuda")
+                ref = tiered_pipeline.host_reference_batches(
+                    str(data), "train", c.data, 299, seed=seed,
+                    skip_batches=skip, capacity_rows=TIERED_ROWS)
+                t0 = time.perf_counter()
+                try:
+                    n = tiered_match(torch, stream, ref, TIERED_BATCHES,
+                                     f"(a) {workers} thread(s), skip {skip}")
+                finally:
+                    stream.close()
+                    ref.close()
+                wall = time.perf_counter() - t0
+                p50 = decode_p50_ms(obs_registry_default())
+            finally:
+                restore_registry(prev)
+            out["decode_batch_p50_ms"][f"{workers}/{skip}"] = p50
+            log(f"tiered: (a) {workers} decode thread(s), skip {skip}: {n} "
+                f"batches (steps {skip}-{skip + n - 1}, an epoch boundary "
+                f"at {plan.steps * ((skip + n) // plan.steps)}) bitwise "
+                f"host_reference_batches in {wall:.2f} s with the reference's "
+                f"own decode; data.tiered.decode_batch_s p50 {p50:.3f} ms "
+                f"for {plan.str_pb} streamed rows ({smi})")
+            torch.cuda.empty_cache()
+
+
+def obs_registry_default():
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+
+    return obs_registry.default_registry()
+
+
+def restore_registry(prev) -> None:
+    from jama16_retina_tpu_torch.obs import registry as obs_registry
+
+    obs_registry.set_default_registry(prev)
+
+
+def rawshard_alone(torch, seed: int, data: Path, smi: str,
+                   out: dict) -> Path:
+    """(b) The split transcoded by the CLI in a subprocess, twice (the
+    second run reuses every shard), then the rawshard loader's batches
+    bitwise the tiered loader's at (a)'s plan -> the shard dir."""
+    from jama16_retina_tpu_torch.data import (grain_pipeline, rawshard,
+                                              tiered_pipeline)
+
+    shard_dir = Path(rawshard.default_shard_dir(str(data), 299))
+    cmd = [sys.executable, *TIERED_TRANSCODE, "--data_dir", str(data)]
+    runs = []
+    for attempt in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        dt = time.perf_counter() - t0
+        check(proc.returncode == 0, f"tiered: (b) the transcode exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        mtimes = {f.name: f.stat().st_mtime_ns
+                  for f in sorted(shard_dir.glob("*.npy"))}
+        runs.append((dt, line, mtimes))
+    (dt, line, mtimes), (dt2, line2, mtimes2) = runs
+    check(line == line2 and line["num_records"] == HBM_RECORDS
+          and line["num_shards"] == HBM_RECORDS // 256
+          and len(mtimes) == 2 * line["num_shards"],
+          f"tiered: (b) the transcode printed {line} then {line2}")
+    check(mtimes == mtimes2, "tiered: (b) the second transcode rewrote "
+          "shards instead of reusing them")
+    nbytes = sum(f.stat().st_size for f in shard_dir.glob("*.npy"))
+    out.update(transcode_s=dt, transcode_again_s=dt2,
+               transcode_rows_per_s=HBM_RECORDS / dt, shard_bytes=nbytes)
+    log(f"tiered: (b) python -m jama16_retina_tpu_torch.transcode_shards: "
+        f"{HBM_RECORDS} records into {line['num_shards']} shard pairs "
+        f"({nbytes} bytes) in {dt:.2f} s ({HBM_RECORDS / dt:.1f} rows/s, "
+        f"the subprocess's start included); again: every shard reused, "
+        f"{dt2:.2f} s; printed {line} ({smi})")
+    prev = fresh_registry()
+    try:
+        cfg = tiered_config(seed)
+        stream = rawshard.train_batches(str(data), "train", cfg.data, 299,
+                                        seed=seed, device="cuda")
+        ref = tiered_pipeline.train_batches(str(data), "train", cfg.data,
+                                            299, seed=seed, device="cuda")
+        try:
+            n = tiered_match(torch, stream, ref, TIERED_BATCHES,
+                             "(b) rawshard vs tiered")
+        finally:
+            stream.close()
+            ref.close()
+        # Both loaders observed into one registry: the rawshard one's
+        # decode alone.
+        prev2 = fresh_registry()
+        try:
+            stream = rawshard.train_batches(str(data), "train", cfg.data,
+                                            299, seed=seed, device="cuda")
+            for _ in range(TIERED_BATCHES):
+                next(stream)
+            stream.close()
+            p50 = decode_p50_ms(obs_registry_default())
+        finally:
+            restore_registry(prev2)
+    finally:
+        restore_registry(prev)
+    auto = grain_pipeline.resolve_decode_workers(0)
+    out["rawshard_decode_batch_p50_ms"] = p50
+    at_a = out["decode_batch_p50_ms"].get(f"{auto}/0", float("nan"))
+    log(f"tiered: (b) {n} rawshard batches (memory-mapped shards) bitwise "
+        f"the tiered loader's at the same plan; data.tiered.decode_batch_s "
+        f"p50 {p50:.3f} ms for a batch's streamed rows at the automatic "
+        f"{auto} thread(s), "
+        f"vs {at_a:.3f} ms decoding the records in (a) at {auto} "
+        f"thread(s) from step 0 ({smi})")
+    torch.cuda.empty_cache()
+    return shard_dir
+
+
+def tiered_fits(torch, seed: int, data: Path, root: Path, smi: str,
+                out: dict, loader: str, hbm_step_ms: float) -> list:
+    """(c) Eight preset steps (the tuner's pessimal start knobs, set by
+    hand) with evals at 4 and 8; the same run cut at step 5 and resumed;
+    four fused steps; the cached val eval against the streamed one ->
+    the first run's records."""
+    from jama16_retina_tpu_torch import trainer
+    from jama16_retina_tpu_torch.obs import faultinject
+
+    items = (f"data.loader={loader}",
+             tiered_budget(),
+             *TIERED_KNOBS)
+    cfg_a = fit_config(HBM_STEPS, root / f"{loader}_a", seed, *items)
+    res_a, counts_a, recs_a = fit_run(torch, cfg_a, data)
+    p50 = decode_p50_ms(obs_registry_default())
+    out["launches"][f"{loader}_fit"] = counts_a
+    check(counts_a == {"fused_color_jitter": HBM_STEPS,
+                       "fused_normalize_color_jitter": 0,
+                       "fused_adamw_update": 0,
+                       "fused_serve_preprocess": 0},
+          f"tiered: (c) the {loader} preset fit launched {counts_a}, want "
+          f"B1 = {HBM_STEPS}")
+    evals = [r for r in recs_a if r["kind"] == "eval"]
+    check([r["step"] for r in evals] == [4, 8]
+          and all(0 <= r["val_auc"] <= 1 for r in evals),
+          f"tiered: (c) the {loader} fit's evals {evals}")
+    train_a = {r["step"]: r for r in recs_a if r["kind"] == "train"}
+    step_ms = statistics.median(
+        1e3 * r["window_sec"] for s, r in train_a.items()
+        if s > 1 and r["pause_sec"] == 0 and r["save_sec"] == 0)
+    input_ms = statistics.median(
+        1e3 * r["input_wait_sec"] for s, r in train_a.items() if s > 1)
+    out["fits"][loader] = {"step_ms": step_ms, "input_wait_ms": input_ms,
+                           "decode_batch_p50_ms": p50,
+                           "first_input_s": train_a[1]["input_wait_sec"]}
+    log(f"tiered: (c) {HBM_STEPS}-step {loader} preset fit ({TIERED_ROWS} "
+        f"rows resident, 16 streamed a batch; {', '.join(TIERED_KNOBS)}): "
+        f"{res_a}; launches {counts_a}; step median {step_ms:.3f} ms (input "
+        f"wait {input_ms:.3f} ms, decode_batch_s p50 {p50:.3f} ms; phase "
+        f"18's hbm step {hbm_step_ms:.3f} ms); step 1's input wait, the "
+        f"resident load, {train_a[1]['input_wait_sec']:.2f} s ({smi})")
+
+    cut = {"trainer.step": {"kind": "error", "error": "RuntimeError",
+                            "on_calls": [HBM_CUT_CALL],
+                            "message": f"{loader} cut"}}
+    wd_b = root / f"{loader}_b"
+    cfg_b = fit_config(HBM_STEPS, wd_b, seed, *items, fault_spec(cut))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    try:
+        trainer.fit(cfg_b, str(data), str(wd_b), device="cuda")
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    counts_b1 = launch_counts()
+    faultinject.disarm()
+    check(raised is not None and f"{loader} cut" in raised
+          and counts_b1["fused_color_jitter"] == HBM_CUT_CALL - 1,
+          f"tiered: (c) the cut {loader} run raised {raised!r}, launched "
+          f"{counts_b1}")
+    _, counts_b, recs_b = fit_run(torch, fit_config(
+        HBM_STEPS, wd_b, seed, *items, "train.resume=true"), data)
+    out["launches"][f"{loader}_fit_cut"] = counts_b1
+    out["launches"][f"{loader}_fit_resume"] = counts_b
+    check([r["step"] for r in recs_b if r["kind"] == "resume"] == [4]
+          and counts_b["fused_color_jitter"] == HBM_STEPS - 4,
+          f"tiered: (c) the {loader} resume launched {counts_b}")
+    da = state_digest(root / f"{loader}_a", HBM_STEPS)
+    db = state_digest(wd_b, HBM_STEPS)
+    check(da == db, f"tiered: (c) the resumed {loader} run's step-{HBM_STEPS}"
+          f" state {db[:16]} differs from the uninterrupted run's {da[:16]}")
+    log(f"tiered: (c) the {loader} run cut by trainer.step at call "
+        f"{HBM_CUT_CALL} (launches {counts_b1}) and resumed from 4 (launches "
+        f"{counts_b}): the step-{HBM_STEPS} state digest {da[:16]} equals the "
+        "uninterrupted run's (cuDNN deterministic)")
+
+    cfg_f = fit_config(HBM_FUSED_STEPS, root / f"{loader}_f", seed, *items,
+                       "train.use_pallas_fused=true")
+    res_f, counts_f, _ = fit_run(torch, cfg_f, data)
+    out["launches"][f"{loader}_fit_fused"] = counts_f
+    check(counts_f == {"fused_color_jitter": 0,
+                       "fused_normalize_color_jitter": HBM_FUSED_STEPS,
+                       "fused_adamw_update": HBM_FUSED_STEPS,
+                       "fused_serve_preprocess": 0},
+          f"tiered: (c) the {loader} fused fit launched {counts_f}, want B2 "
+          f"= B3 = {HBM_FUSED_STEPS}")
+    log(f"tiered: (c) {HBM_FUSED_STEPS}-step {loader} fused fit: {res_f}; "
+        f"launches {counts_f}")
+    ev = cached_val_eval(torch, cfg_a, root / f"{loader}_a", data, HBM_STEPS,
+                         f"tiered: (c) {loader}")
+    out["fits"][loader].update(ev)
+    log(f"tiered: (c) {loader} val eval of {HBM_VAL} images from the "
+        f"step-{HBM_STEPS} state: streamed {ev['eval_streamed_ms']:.1f} ms, "
+        f"filling the cache {ev['eval_fill_ms']:.1f} ms, from the cache "
+        f"{ev['eval_cached_ms']:.1f} ms; cached probabilities bitwise the "
+        f"streamed ones ({smi})")
+    for wd in ("a", "b", "f"):
+        shutil.rmtree(root / f"{loader}_{wd}", ignore_errors=True)
+    return recs_a
+
+
+def tiered_autotune(torch, seed: int, data: Path, root: Path, smi: str,
+                    out: dict, hand_set: list) -> None:
+    """(d) (c)'s tiered preset fit again with ``data.autotune=true`` from
+    the same pessimal knobs: the same losses and AUCs."""
+    items = ("data.loader=tiered",
+             tiered_budget(),
+             *TIERED_KNOBS, "data.autotune=true")
+    cfg = fit_config(HBM_STEPS, root / "tiered_tuned", seed, *items)
+    res, counts, recs = fit_run(torch, cfg, data)
+    snap = obs_registry_default().snapshot()
+    out["launches"]["tiered_fit_autotune"] = counts
+    check(counts["fused_color_jitter"] == HBM_STEPS,
+          f"tiered: (d) the autotuned fit launched {counts}")
+
+    def curves(rs):
+        return ({r["step"]: r["loss"] for r in rs if r["kind"] == "train"},
+                {r["step"]: r["val_auc"] for r in rs if r["kind"] == "eval"})
+
+    check(curves(recs) == curves(hand_set) and curves(recs)[1],
+          f"tiered: (d) the autotuned fit's curves {curves(recs)} differ "
+          f"from the hand-set fit's {curves(hand_set)}")
+    adj = {k: v for k, v in snap["counters"].items()
+           if k.startswith("data.autotune.")}
+    knobs = {k: v for k, v in snap["gauges"].items()
+             if k.startswith("data.autotune.")}
+    out["autotune"] = {"adjustments": adj, "knobs": knobs}
+    log(f"tiered: (d) autotuned tiered fit from {', '.join(TIERED_KNOBS)}: "
+        f"{res}; launches {counts}; losses and val AUCs bitwise the hand-set "
+        f"fit's; adjustments {adj}; knobs at the end {knobs}")
+    shutil.rmtree(root / "tiered_tuned", ignore_errors=True)
+
+
+def tiered_poison(torch, seed: int, data: Path, root: Path, shard_dir: Path,
+                  out: dict) -> None:
+    """(e) A ``tfrecord.read`` corrupt plan aimed at a streamed record, in
+    the loader and in the host reference; then a damaged shard in a copy
+    of (b)'s shards."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch.data import rawshard, tiered_pipeline
+    from jama16_retina_tpu_torch.obs import faultinject
+
+    cfg = tiered_config(seed, "data.decode_workers=1")
+    plan = tiered_pipeline._TierPlan(HBM_RECORDS, TRAIN_BATCH, TIERED_ROWS,
+                                     seed)
+    # One decode thread: the resident tier reads records 0-2047 as calls
+    # 1-2048, then batch 0's streamed rows; the reference reads batch 0's
+    # resident rows, then its streamed ones.
+    calls = {"loader": TIERED_ROWS + 3, "reference": plan.res_pb + 3}
+    batches, counts = {}, {}
+    for who, call in calls.items():
+        prev = fresh_registry()
+        faultinject.arm({"tfrecord.read": {"kind": "corrupt",
+                                           "on_calls": [call]}})
+        try:
+            if who == "loader":
+                it = tiered_pipeline.train_batches(str(data), "train",
+                                                   cfg.data, 299, seed=seed,
+                                                   device="cuda")
+            else:
+                it = tiered_pipeline.host_reference_batches(
+                    str(data), "train", cfg.data, 299, seed=seed,
+                    capacity_rows=TIERED_ROWS)
+            try:
+                batches[who] = [
+                    {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                         else v) for k, v in next(it).items()}
+                    for _ in range(TIERED_POISON_BATCHES)]
+            finally:
+                it.close()
+            counts[who] = {k: v for k, v in obs_registry_default().snapshot()[
+                "counters"].items() if k.startswith("data.quarantined")}
+        finally:
+            faultinject.disarm()
+            restore_registry(prev)
+    clean = tiered_pipeline.host_reference_batches(
+        str(data), "train", cfg.data, 299, seed=seed,
+        capacity_rows=TIERED_ROWS)
+    first = next(clean)
+    clean.close()
+    bad = plan.res_pb + 2
+    differs = [j for j in range(TRAIN_BATCH) if not np.array_equal(
+        batches["loader"][0]["image"][j], first["image"][j])]
+    check(all(np.array_equal(a[k], b[k]) for a, b in zip(
+        batches["loader"], batches["reference"]) for k in a)
+          and differs == [bad],
+          f"tiered: (e) the poisoned loader differs from the poisoned host "
+          f"reference, or batch 0 differs from the clean one in rows "
+          f"{differs} (want [{bad}])")
+    want = {"data.quarantined": 1, "data.quarantined.decode_error": 1}
+    check(counts["loader"] == counts["reference"] == want,
+          f"tiered: (e) quarantine counters {counts}")
+    rec = plan.batch_indices(0)[1][2]
+    log(f"tiered: (e) tfrecord.read corrupt on the loader's call "
+        f"{calls['loader']} and the reference's call {calls['reference']} "
+        f"(both streamed record {rec}, row {bad} of batch 0): {want}; "
+        f"{TIERED_POISON_BATCHES} batches bitwise the poisoned host "
+        f"reference, record {rec} replaced by record {rec + 1}")
+    out["poison"] = counts["loader"]
+
+    # A damaged shard: the images file of shard 8 (records 2048-2303, the
+    # streamed tier) with a header claiming another shape at the same
+    # size; the other files linked from (b)'s shards.
+    damaged = root / "shards_damaged"
+    shutil.rmtree(damaged, ignore_errors=True)
+    damaged.mkdir()
+    split = rawshard.RawShardSplit(str(shard_dir), "train", image_size=299)
+    entry = split._entries[TIERED_DAMAGED_SHARD]
+    for f in shard_dir.iterdir():
+        if f.name == entry["images"]:
+            raw = f.read_bytes()
+            torn = raw.replace(b"(256, 299, 299, 3), }",
+                               b"(128, 598, 299, 3), }")
+            check(torn != raw and len(torn) == len(raw),
+                  "tiered: (e) the shard header was not rewritten")
+            (damaged / f.name).write_bytes(torn)
+        elif f.suffix == ".json":
+            shutil.copy(f, damaged / f.name)
+        else:
+            (damaged / f.name).symlink_to(f)
+    lo, hi = entry["start"], entry["start"] + entry["records"]
+    prev = fresh_registry()
+    try:
+        c = tiered_config(seed, "data.decode_workers=1",
+                          f"data.rawshard_dir={damaged}")
+        it = rawshard.train_batches(str(data), "train", c.data, 299,
+                                    seed=seed, device="cuda")
+        try:
+            hit = 0
+            for step in range(TIERED_POISON_BATCHES):
+                got = next(it)
+                ids = np.concatenate(plan.batch_indices(step))
+                subs = [hi % HBM_RECORDS if lo <= i < hi else int(i)
+                        for i in ids]
+                hit += sum(lo <= i < hi for i in ids)
+                want_i = np.stack([split.row(i)["image"] for i in subs])
+                check(torch.equal(got["image"].cpu(),
+                                  torch.from_numpy(want_i)),
+                      f"tiered: (e) damaged-shard batch {step} differs")
+        finally:
+            it.close()
+        counters = obs_registry_default().snapshot()["counters"]
+    finally:
+        restore_registry(prev)
+    depth = tiered_pipeline.resolve_stage_depth(c.data)
+    read = sum(lo <= i < hi for step in range(TIERED_POISON_BATCHES + depth)
+               for i in plan.batch_indices(step)[1])
+    check(hit > 0 and counters.get("data.quarantined.decode_error") == read,
+          f"tiered: (e) {hit} damaged rows in the batches, {read} read, "
+          f"counters {counters}")
+    log(f"tiered: (e) shard {TIERED_DAMAGED_SHARD} (records {lo}-{hi - 1}) "
+        f"damaged in a copy of (b)'s shards: {read} streamed reads "
+        f"quarantined (data.quarantined.decode_error "
+        f"{counters['data.quarantined.decode_error']}, data.quarantined "
+        f"{counters['data.quarantined']} with the forward scan), each "
+        f"replaced by record {hi}; {TIERED_POISON_BATCHES} batches bitwise "
+        f"the shard rows with that substitute ({hit} rows)")
+    out["damaged_shard"] = {"reads": read, "rows": hit,
+                            "decode_error": counters[
+                                "data.quarantined.decode_error"]}
+    shutil.rmtree(damaged, ignore_errors=True)
+
+
+def phase_tiered(torch, seed: int, smi: str, hbm: dict) -> dict:
+    """The tiered and rawshard loaders alone first, then fits from them
+    (phase 19 of the docstring), on phase 18's splits, which it removes."""
+    t_phase = time.perf_counter()
+    root, data = hbm["root"], hbm["data"]
+    out = {"launches": {}, "wall_s": {}, "decode_batch_p50_ms": {},
+           "fits": {}}
+    try:
+        with HbmPart("a", "the tiered loader alone", out, "tiered"):
+            tiered_alone(torch, seed, data, smi, out)
+        with HbmPart("b", "the rawshard transcode and loader alone", out,
+                     "tiered"):
+            shard_dir = rawshard_alone(torch, seed, data, smi, out)
+        with HbmPart("c", "fits from each loader", out, "tiered"):
+            hand_set = tiered_fits(torch, seed, data, root, smi, out,
+                                   "tiered", hbm["step_ms"])
+            tiered_fits(torch, seed, data, root, smi, out, "rawshard",
+                        hbm["step_ms"])
+        with HbmPart("d", "the autotuned fit", out, "tiered"):
+            tiered_autotune(torch, seed, data, root, smi, out, hand_set)
+        with HbmPart("e", "poison drills", out, "tiered"):
+            tiered_poison(torch, seed, data, root, shard_dir, out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def memoize_init() -> None:
+    """Draw each member init once. For the whole run,
+    ``models.init.init_flax_default`` is replaced by a memo of it: the
+    phases build their members through it (the fits, the stacked
+    ensemble's members, the agreement twins, the cascade's teachers),
+    many with the same layout and seed, and it draws every value in
+    ``state_dict`` order from a generator seeded with the seed alone, so a
+    later call with the same layout and seed gets a copy of the first
+    call's values, the same bits without the second of CPU draws an
+    Inception-v3 costs. The first reuse of each (seed, layout) draws
+    afresh all the same and fails the run unless that draw is bitwise the
+    memo's, so an init that came to depend on more than layout and seed
+    would show here."""
+    import torch
+
+    from jama16_retina_tpu_torch.models import init
+
+    draw, drawn, checked = init.init_flax_default, {}, set()
+
+    def init_flax_default(model, seed):
+        state = model.state_dict()
+        key = (int(seed), tuple((k, tuple(v.shape), v.dtype, v.device.type)
+                                for k, v in state.items()))
+        if key not in drawn:
+            draw(model, seed)
+            drawn[key] = {k: v.detach().clone() for k, v in state.items()}
+            return model
+        if key not in checked:
+            draw(model, seed)
+            check(all(torch.equal(v, drawn[key][k]) for k, v in state.items()),
+                  f"init_flax_default drew other values for seed {seed} "
+                  "and the same layout: memoize_init's memo no longer "
+                  "holds")
+            checked.add(key)
+            return model
+        with torch.no_grad():
+            for k, v in state.items():
+                v.copy_(drawn[key][k])
+        return model
+
+    init.init_flax_default = init_flax_default
 
 
 def kernel_record(name, source, replaces, launches, err, t) -> dict:
@@ -6113,6 +6764,7 @@ def main(argv=None) -> int:
         f"{torch.__version__} CUDA {torch.version.cuda}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    memoize_init()
 
     t0 = time.perf_counter()
     for src, out in build.build_all(ptxas_verbose=True).items():
@@ -6186,15 +6838,21 @@ def main(argv=None) -> int:
     knobs = phase_knobs(torch, args.seed, smi, fit)
     t_phase = time.perf_counter()
     optimizers = phase_optimizers(torch, args.seed, smi)
+    t_11 = [time.perf_counter()]
     recipe = phase_recipe(torch, args.seed, smi, fit["root"], fit["data"])
+    t_11.append(time.perf_counter())
     ensemble = phase_ensemble(torch, args.seed, smi, fit["root"], fit["data"])
     log(f"times: phase 11 (optimizers, recipe, ensemble) wall "
-        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+        f"{time.perf_counter() - t_phase:.1f} s (by part "
+        f"{t_11[0] - t_phase:.1f}, {t_11[1] - t_11[0]:.1f}, "
+        f"{time.perf_counter() - t_11[1]:.1f}) ({smi})")
     t_phase = time.perf_counter()
     distill = phase_distill(torch, args.seed, smi, fit["root"], fit["data"])
+    t_12 = time.perf_counter()
     cascade = phase_cascade(torch, args.seed, smi, fit["root"], distill)
     log(f"times: phase 12 (distill, cascade, generations) wall "
-        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+        f"{time.perf_counter() - t_phase:.1f} s (distill "
+        f"{t_12 - t_phase:.1f}) ({smi})")
     router = phase_router(torch, args.seed, smi, serve, distill, cascade,
                           fit["root"])
     jpeg = phase_jpeg_host(torch, args.seed, smi, serve)
@@ -6206,27 +6864,39 @@ def main(argv=None) -> int:
     hbm = phase_hbm(torch, args.seed, smi)
     mark(f"phase 18 (hbm; by part "
          f"{ {k: round(v, 1) for k, v in hbm['wall_s'].items()} })")
+    tiered = phase_tiered(torch, args.seed, smi, hbm)
+    mark(f"phase 19 (tiered, rawshard, autotune; by part "
+         f"{ {k: round(v, 1) for k, v in tiered['wall_s'].items()} })")
     torch.cuda.empty_cache()
     for form, t in train.items():
         log(f"times: train {form}: peak device memory {t['peak']} bytes "
             f"({smi})")
     model_runs = {}
     for preset in MODEL_PRESETS:
-        t_model = time.perf_counter()
-        srv = phase_serve(torch, args.seed, preset)
+        t_model = [time.perf_counter()]
+        # 1 row and 13 (the partial chunk) against the CPU; the time
+        # limit leaves the 8-row request to the card alone here.
+        srv = phase_serve(torch, args.seed, preset, cpu_rows=(1, 13))
+        t_model.append(time.perf_counter())
         request_times(torch, srv, smi, f"{preset} ", dtypes=("bfloat16",),
                       ks=(2,))
+        t_model.append(time.perf_counter())
         model_runs[f"serve_{preset}"] = srv["launches"]
         del srv
         torch.cuda.empty_cache()
         for form, t in phase_train(torch, args.seed, MODEL_STEPS,
                                    preset).items():
             model_runs[f"train_{preset}_{form}"] = t["launches"]
-        train_step_times(torch, args.seed, smi, preset, timed=5)
+        t_model.append(time.perf_counter())
+        train_step_times(torch, args.seed, smi, preset, timed=3)
+        t_model.append(time.perf_counter())
         phase_train_agreement(torch, args.seed, batch, preset, ("float64",))
         torch.cuda.empty_cache()
+        t_model.append(time.perf_counter())
+        parts = [round(b - a, 1) for a, b in zip(t_model, t_model[1:])]
         log(f"times: {preset} serve, train and agreement wall "
-            f"{time.perf_counter() - t_model:.1f} s ({smi})")
+            f"{t_model[-1] - t_model[0]:.1f} s (serve, requests, train, "
+            f"step times, agreement: {parts}) ({smi})")
     mark("phase 8 (resnet50, efficientnet_b4, icdr5)")
     if args.profile:
         profile_request(torch, serve, args.profile)
@@ -6240,11 +6910,14 @@ def main(argv=None) -> int:
         max_err, {**main_row, "library_ms": None})
     b4.update({"max_abs_diff": max_err, "timed_shape": main_row["shape"],
                "by_batch": {str(b): t for b, t in timing.items()}})
-    # B1-B3 on this slice's path: the hbm loader's preset and fused fits.
+    # B1-B3 on this slice's path: the tiered loader's preset and fused
+    # fits; phase 18's hbm fits beside them.
     launches = {"fused_color_jitter":
-                hbm["launches"]["hbm_fit"]["fused_color_jitter"],
-                **{k: hbm["launches"]["hbm_fit_fused"][k] for k in (
+                tiered["launches"]["tiered_fit"]["fused_color_jitter"],
+                **{k: tiered["launches"]["tiered_fit_fused"][k] for k in (
                     "fused_normalize_color_jitter", "fused_adamw_update")}}
+    for ph, runs_of in (("18", hbm), ("19", tiered)):
+        log(f"launches: phase {ph}: {runs_of['launches']}")
     # Each path's counts, all four set to 0 just before it ran and read
     # just after.
     runs = {"serve": serve["launches"],
@@ -6256,7 +6929,8 @@ def main(argv=None) -> int:
             **ensemble["launches"], **distill["launches"],
             **cascade["launches"], **router["launches"],
             **jpeg["launches"], **obs["launches"], **faults["launches"],
-            **preprocess["launches"], **hbm["launches"]}
+            **preprocess["launches"], **hbm["launches"],
+            **tiered["launches"]}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

@@ -46,19 +46,46 @@ class DataConfig:
     batch_size: int = 32
     # Train-stream loader: "tfdata" names the TFRecord stream
     # (data/pipeline.py); "hbm" decodes the split once and keeps it on the
-    # card (data/hbm_pipeline.py). The reference's other loaders are not
-    # ported.
+    # card (data/hbm_pipeline.py); "tiered" keeps as many rows on the card
+    # as the budget admits and streams the rest through the host decode
+    # (data/tiered_pipeline.py); "rawshard" is "tiered" reading shards
+    # transcoded ahead of time (data/rawshard.py). The reference's grain
+    # and served loaders are not ported.
     loader: str = "tfdata"
+    # Closed-loop ingest autotuner (data/autotune.py): the train loops
+    # observe their own stall attribution over tumbling log windows and
+    # adjust decode_workers / stage_depth / prefetch depth ONLINE
+    # (hill-climb with hysteresis, HBM-budget clamped). Every tunable knob
+    # is content-invariant, so a tuned run's batches — and final eval
+    # metrics — are bit-identical to the same seed with hand-set knobs.
+    # Off by default (the hand-set values below then apply verbatim).
+    autotune: bool = False
     # Memory-limit override (bytes, before the 0.6 budget fraction) for
     # the hbm loader's size gate and the eval caches; 0 = the card's total
     # memory (hbm_pipeline.hbm_budget_bytes; 8 GB assumed on the CPU).
     hbm_budget_bytes: int = 0
-    # Host decode threads for the hbm loader's one-time load
-    # (grain_pipeline.ParallelDecoder); 0 = one per core up to 8, leaving
-    # one. Batches do not depend on it.
+    # Directory of ahead-of-time transcoded raw shards for
+    # data.loader=rawshard. Empty = <data_dir>/rawshard<image_size>,
+    # the default python -m jama16_retina_tpu_torch.transcode_shards
+    # writes to.
+    rawshard_dir: str = ""
+    # Host decode threads for the tiered loader's streamed tier and the
+    # hbm/tiered one-time resident load (grain_pipeline.ParallelDecoder);
+    # 0 = one per core up to 8, leaving one. Batches do not depend on it.
     decode_workers: int = 0
-    # A record that fails to read or decode in the hbm loader is counted
-    # (data.quarantined{,.reason}) and replaced by the next decodable
+    # Tiered loader only: how many batches the loader keeps decoded +
+    # dispatched AHEAD of consumption (its internal staging queue, on
+    # top of prefetch_batches). 0 = auto: max(2, prefetch_batches).
+    stage_depth: int = 0
+    # Tiered loader only: TOTAL bytes of card memory the resident tier
+    # may pin. -1 = auto-derive from the card's budget
+    # (hbm_pipeline.hbm_budget_bytes); 0 = pin nothing (pure streamed
+    # mode — bit-identical batch sequence to
+    # tiered_pipeline.streamed_batches); >0 = explicit cap (what the
+    # tests use for reproducible partial residency).
+    tiered_resident_bytes: int = -1
+    # A record that fails to read or decode in the hbm, tiered or rawshard
+    # loader (or the transcode) is counted (data.quarantined{,.reason}) and replaced by the next decodable
     # record; False raises instead.
     quarantine_bad_records: bool = True
     # Augmentation (data/augment.py): flips and the square-only transpose,
@@ -446,12 +473,9 @@ _NOT_PORTED = {
     "train.ensemble_manual_data": _MULTI_DEVICE + " (the manual data axis "
                                   "of a member-parallel mesh)",
     "parallel": _MULTI_DEVICE + " (meshes)",
-    **dict.fromkeys(
-        ("data.autotune", "data.rawshard_dir", "data.stage_depth",
-         "data.tiered_resident_bytes", "data.stage_per_shard",
-         "data.grain_workers"),
-        _DATA_PLANE + " (the tiered, rawshard, grain and served loaders, "
-        "autotune)"),
+    "data.grain_workers": _DATA_PLANE + " (the grain loader)",
+    "data.stage_per_shard": _MULTI_DEVICE + " (per-shard staging of the "
+                            "stream over a mesh's devices)",
     **dict.fromkeys(
         ("lifecycle." + f for f in (
             "enabled", "trigger_reasons", "retrain_steps",
@@ -475,11 +499,11 @@ _NOT_PORTED = {
 }
 # Fields of this port that the JAX package's configs.py does not have.
 PORT_FIELDS = {("data", "readers")}
-# data.loader values: the TFRecord stream and the card-resident split are
-# ported, the others are not.
-_LOADERS = ("tfdata", "hbm")
-_LOADER_ITEM = ("Queue A item 7 (the tiered, rawshard, grain and served "
-                "loaders)")
+# data.loader values: the TFRecord stream, the card-resident split and
+# the tiered loader over records or transcoded shards are ported, the
+# others are not.
+_LOADERS = ("tfdata", "hbm", "tiered", "rawshard")
+_LOADER_ITEM = "Queue A item 7 (the grain and served loaders)"
 _ARCHS = ("inception_v3", "resnet50", "efficientnet_b4", "tiny_cnn")
 _HEADS = ("binary", "multi")
 _DTYPES = ("float32", "bfloat16")

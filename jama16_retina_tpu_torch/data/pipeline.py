@@ -26,10 +26,12 @@ the batches still come out in the stream's order.
 
 ``DevicePrefetch`` (the reference's ``device_prefetch``) stages any
 stream of host batches on the device ahead of the step: a thread copies
-each batch into one of ``size + 1`` pinned host buffers and from there to
-the card on a side stream, ``size`` batches ahead of the consumer, and
-publishes how many are staged ahead in the ``data.prefetch.depth`` gauge
-of the process registry, as the reference does.
+each batch into one of a ring of pinned host buffers and from there to
+the card on a side stream, ``size`` (or the live ``knobs.prefetch_depth``)
+batches ahead of the consumer, and publishes how many are staged ahead in
+the ``data.prefetch.depth`` gauge of the process registry, as the
+reference does. Its ring is ``PinnedRing``, which the tiered loader's
+streamed rows also go through.
 
 Records may be raw or JPEG-encoded (``tfrecord.parse_record``); a record
 that is not at ``model.image_size`` is resized as the reference resizes
@@ -218,67 +220,32 @@ def _absorb(report: dict, plan: "faultinject.FaultPlan | None") -> None:
         plan.absorb(report["faults"])
 
 
-class DevicePrefetch:
-    """Host batches -> device batches, ``size`` ahead of the consumer.
+class PinnedRing:
+    """Host arrays -> the card through a ring of pinned host buffers.
 
-    A thread takes each batch from ``batches``, copies it into one of a
-    ring of ``size + 1`` pinned host buffers and issues the non-blocking
-    copy to the card on a side stream, recording an event there;
-    ``next()`` makes the consumer's current stream wait on that event,
-    so the step never reads a batch before its copy is done. A buffer is
-    refilled only after the event of the copy that last read it has
-    completed: with ``size`` batches queued and one being filled, the
-    buffer of the batch the consumer took ``size + 1`` batches ago is the
-    one reused. On the CPU the "copy" is a clone and no buffer is kept.
+    ``put`` copies a batch's arrays into the next slot's pinned buffers
+    and from there ``non_blocking`` to the card on a side stream,
+    recording an event after the copy. A slot's buffers are refilled only
+    after the event of the copy that last read them has completed, so a
+    ring of any length is safe: a ring too short only makes ``put`` wait.
+    ``grow`` lengthens the ring, never shortens it. The consumer reads a
+    batch through ``wait_staged``. CUDA only: nothing touches the card
+    before the first ``put``."""
 
-    Batches come out in the stream's order. An exception raised by the
-    stream (or in staging) is re-raised by the ``next()`` that reaches
-    its place in the order, and by every later one; the end of the
-    stream is a ``StopIteration`` there. ``close()`` stops the thread and
-    closes the stream. ``size == 0`` runs no thread: ``next()`` reads the
-    batch and copies it itself.
-    """
-
-    def __init__(self, batches: Iterable[dict],
-                 device: "str | torch.device", size: int = 2):
-        if size < 0:
-            raise ValueError(f"prefetch size {size} must be >= 0")
-        self._it = iter(batches)
+    def __init__(self, device: "str | torch.device", slots: int):
         self._dev = torch.device(device)
-        self._size = int(size)
-        self._closed = False
-        self._error: "BaseException | None" = None
-        self._thread: "threading.Thread | None" = None
-        self._g_depth = obs_registry.default_registry().gauge(
-            "data.prefetch.depth",
-            help="batches staged ahead of the one being yielded in "
-                 "device_prefetch (the effective run-ahead config)")
-        if self._size == 0:
-            return
-        self._cond = threading.Condition()
-        self._ready: collections.deque = collections.deque()
-        self._stop = False
-        # (pinned host buffers, event of the copy that read them).
-        self._slots: list = [None] * (self._size + 1)
+        # (pinned host buffers by key, event of the copy that read them).
+        self._slots: list = [None] * max(1, slots)
+        self._count = 0
         self._side: "torch.cuda.Stream | None" = None
-        self._thread = threading.Thread(target=self._run,
-                                        name="train-prefetch", daemon=True)
-        self._thread.start()
 
-    def __iter__(self):
-        return self
+    def grow(self, slots: int) -> None:
+        self._slots.extend([None] * (slots - len(self._slots)))
 
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
-
-    def _stage(self, batch: dict, slot: int) -> tuple:
-        """(device batch, its copy's event or None)."""
-        if self._dev.type != "cuda":
-            return ({k: torch.as_tensor(v).to(self._dev, copy=True)
-                     for k, v in batch.items()}, None)
+    def put(self, batch: dict) -> tuple:
+        """-> (the batch's tensors on the card, its copy's event)."""
+        slot = self._count % len(self._slots)
+        self._count += 1
         held = self._slots[slot]
         host = held[0] if held is not None else {}
         if held is not None:
@@ -293,12 +260,100 @@ class DevicePrefetch:
         if self._side is None:
             self._side = torch.cuda.Stream(self._dev)
         with torch.cuda.stream(self._side):
-            out = {k: t.to(self._dev, non_blocking=True)
-                   for k, t in host.items()}
+            out = {k: host[k].to(self._dev, non_blocking=True)
+                   for k in batch}
             event = torch.cuda.Event()
             event.record(self._side)
         self._slots[slot] = (host, event)
         return out, event
+
+
+def wait_staged(out: dict, event, device: "str | torch.device") -> dict:
+    """A staged batch made safe to read on the consumer's current stream:
+    that stream waits on the copy's ``event`` (None: nothing to wait
+    for), and the tensors, allocated on the side stream, are
+    ``record_stream``ed to it."""
+    if event is not None:
+        current = torch.cuda.current_stream(torch.device(device))
+        current.wait_event(event)
+        for t in out.values():
+            t.record_stream(current)
+    return out
+
+
+class DevicePrefetch:
+    """Host batches -> device batches, ``size`` ahead of the consumer.
+
+    A thread takes each batch from ``batches``, copies it into one of a
+    ring of pinned host buffers (``size + 1`` of them) and issues the
+    non-blocking copy to the card on a side stream, recording an event
+    there; ``next()`` makes the consumer's current stream wait on that
+    event, so the step never reads a batch before its copy is done. A
+    buffer is refilled only after the event of the copy that last read it
+    has completed: with ``size`` batches queued and one being filled, the
+    buffer of the batch the consumer took ``size + 1`` batches ago is the
+    one reused. On the CPU the "copy" is a clone and no buffer is kept.
+
+    With ``knobs`` (``data/autotune.Knobs``) the depth is the live
+    ``knobs.prefetch_depth``, read by the thread before each batch it
+    stages: a raise lets it stage further ahead (the ring grows to the
+    new depth + 1), a cut lets the queue drain to the new depth. Order
+    and contents do not change.
+
+    Batches come out in the stream's order. An exception raised by the
+    stream (or in staging) is re-raised by the ``next()`` that reaches
+    its place in the order, and by every later one; the end of the
+    stream is a ``StopIteration`` there. ``close()`` stops the thread and
+    closes the stream. ``size == 0`` runs no thread: ``next()`` reads the
+    batch and copies it itself.
+    """
+
+    def __init__(self, batches: Iterable[dict],
+                 device: "str | torch.device", size: int = 2,
+                 knobs=None):
+        if size < 0:
+            raise ValueError(f"prefetch size {size} must be >= 0")
+        self._it = iter(batches)
+        self._dev = torch.device(device)
+        self._knobs = knobs
+        self._size = int(size) if knobs is None else self._depth()
+        self._closed = False
+        self._error: "BaseException | None" = None
+        self._thread: "threading.Thread | None" = None
+        self._g_depth = obs_registry.default_registry().gauge(
+            "data.prefetch.depth",
+            help="batches staged ahead of the one being yielded in "
+                 "device_prefetch (the effective run-ahead config)")
+        if self._size == 0:
+            return
+        self._cond = threading.Condition()
+        self._ready: collections.deque = collections.deque()
+        self._stop = False
+        self._ring = PinnedRing(self._dev, self._size + 1)
+        self._thread = threading.Thread(target=self._run,
+                                        name="train-prefetch", daemon=True)
+        self._thread.start()
+
+    def _depth(self) -> int:
+        if self._knobs is None:
+            return self._size
+        return max(1, self._knobs.prefetch_depth)
+
+    def __iter__(self):
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _stage(self, batch: dict) -> tuple:
+        """(device batch, its copy's event or None)."""
+        if self._dev.type != "cuda":
+            return ({k: torch.as_tensor(v).to(self._dev, copy=True)
+                     for k, v in batch.items()}, None)
+        return self._ring.put(batch)
 
     def _put(self, item: tuple) -> None:
         with self._cond:
@@ -306,11 +361,11 @@ class DevicePrefetch:
             self._cond.notify_all()
 
     def _run(self) -> None:
-        count = 0
         try:
             while True:
                 with self._cond:
-                    while len(self._ready) >= self._size and not self._stop:
+                    while (len(self._ready) >= self._depth()
+                           and not self._stop):
                         self._cond.wait()
                     if self._stop:
                         return
@@ -319,8 +374,9 @@ class DevicePrefetch:
                 except StopIteration:
                     self._put(("end", None))
                     return
-                staged = self._stage(batch, count % (self._size + 1))
-                count += 1
+                # A raised depth grows the ring.
+                self._ring.grow(self._depth() + 1)
+                staged = self._stage(batch)
                 self._put(("batch", staged))
         except BaseException as e:  # noqa: BLE001 - re-raised in next()
             self._put(("error", e))
@@ -360,13 +416,7 @@ class DevicePrefetch:
             raise item
         if kind == "end":
             raise StopIteration
-        out, event = item
-        if event is not None:
-            current = torch.cuda.current_stream(self._dev)
-            current.wait_event(event)
-            for t in out.values():
-                t.record_stream(current)
-        return out
+        return wait_staged(*item, self._dev)
 
     def close(self) -> None:
         """Stop the thread (after the batch it is reading, if any) and

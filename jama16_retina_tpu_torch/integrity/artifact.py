@@ -49,6 +49,8 @@ REBUILD = {
               "obs/quality.save_canary on the served checkpoint",
     "policy": "re-derive with serve/policy.derive_policy over a fresh "
               "serve_frontier sweep, then save_policy",
+    "rawshard": "re-run python -m jama16_retina_tpu_torch.transcode_shards "
+                "(it resumes from the last durable shard)",
 }
 
 

@@ -55,9 +55,10 @@ SITES = {
     "tfrecord.read": "one record's data read, under retry: "
                      "data/tfrecord.read_record_at in the tfdata train "
                      "stream's reader processes (CRC checked), and "
-                     "data/grain_pipeline.TFRecordIndex.read on the hbm "
-                     "loader's decode threads (no CRC, as the reference's "
-                     "index; a damaged payload that still parses is kept)",
+                     "data/grain_pipeline.TFRecordIndex.read on the "
+                     "decode threads of the hbm and tiered loaders and the "
+                     "rawshard transcode (no CRC, as the reference's index; "
+                     "a damaged payload that still parses is kept)",
     "host.decode": "serve/host per-image file read before the decode and "
                    "fundus normalization",
     "ckpt.restore": "Checkpointer.restore, under retry "

@@ -2,9 +2,11 @@
 ``jama16_retina_tpu/trainer.py``).
 
 ``fit`` is the reference's single-model loop: the train stream of a
-TFRecord ``train`` split (``data/pipeline.train_batches``, or under
+TFRecord ``train`` split (``data/pipeline.train_batches``; under
 ``data.loader=hbm`` the split resident on the card,
-``data/hbm_pipeline.train_batches``) through
+``data/hbm_pipeline.train_batches``; under ``tiered`` or ``rawshard`` the
+rows the budget admits resident and the rest streamed,
+``data/tiered_pipeline.py`` and ``data/rawshard.py``) through
 ``train_lib.train_step``; every ``train.eval_every`` steps and at the last
 step, the val AUC of the eval params, best/``min_delta``/patience
 tracking and early stopping, and a checkpoint (``utils/checkpoint``:
@@ -58,7 +60,8 @@ from jama16_retina_tpu_torch import configs, models
 from jama16_retina_tpu_torch import device as device_lib
 from jama16_retina_tpu_torch import train_lib
 from jama16_retina_tpu_torch.data import (augment, hbm_pipeline, pipeline,
-                                          synthetic, tfrecord)
+                                          rawshard, synthetic, tfrecord,
+                                          tiered_pipeline)
 from jama16_retina_tpu_torch.eval import metrics
 from jama16_retina_tpu_torch.models import convert, init
 from jama16_retina_tpu_torch.obs import alerts as obs_alerts
@@ -287,13 +290,12 @@ def _eval_cache_for(cfg: configs.ExperimentConfig, data_dir: str,
                     device: "str | torch.device | None" = None
                     ) -> "list | None":
     """A device-resident eval-batch cache (a list to share across evals),
-    or None: only under the ``hbm`` loader (the ``tiered`` and
-    ``rawshard`` loaders, which the reference also admits, are not ported
-    yet), and only while all caches together (``reserved_bytes`` holds
-    those already admitted) stay within 10 % of the budget
-    (``hbm_pipeline.hbm_budget_bytes``); an oversized split is logged and
-    streamed."""
-    if cfg.data.loader != "hbm":
+    or None: only under the loaders that keep train rows on the card
+    (``hbm``, ``tiered``, ``rawshard``), and only while all caches together
+    (``reserved_bytes`` holds those already admitted) stay within 10 % of
+    the budget (``hbm_pipeline.hbm_budget_bytes``); an oversized split is
+    logged and streamed."""
+    if cfg.data.loader not in ("hbm", "tiered", "rawshard"):
         return None
     split_bytes = _eval_cache_bytes(cfg, data_dir, split)
     budget = hbm_pipeline.hbm_budget_bytes(
@@ -911,27 +913,54 @@ def _load_or_write_run_meta(workdir: str, seed: int, cfg_name: str,
 
 
 def _train_stream(cfg: configs.ExperimentConfig, data_dir: str, seed: int,
-                  skip_batches: int, dev: torch.device):
+                  skip_batches: int, dev: torch.device, knobs=None):
     """The train batches of ``data.loader`` on ``dev``, from batch
     ``skip_batches`` on (the reference's ``_train_stream``). ``tfdata``:
     the TFRecord stream read by ``data.readers`` processes and staged
     ``data.prefetch_batches`` ahead by ``pipeline.DevicePrefetch``.
     ``hbm``: batches gathered on the card from the resident split
     (``hbm_pipeline.train_batches``), on the consumer's current stream,
-    the step's: they never pass the prefetcher's pinned host buffers, and
-    ``data.readers`` and ``data.prefetch_batches`` do nothing. Either way
-    the stream has ``close()``. ``configs.check_supported`` has refused
-    every other loader."""
-    if cfg.data.loader == "hbm":
+    the step's: they never pass the prefetcher's pinned host buffers.
+    ``tiered`` / ``rawshard``: batches combined on the card from the
+    resident rows and the streamed ones (``tiered_pipeline``,
+    ``rawshard``), the streamed rows decoded on the step's thread and
+    uploaded behind it, ``data.stage_depth`` batches ahead; as ``hbm``'s
+    they skip the prefetcher (the reference also queues
+    ``data.prefetch_batches`` of them: ROADMAP Queue C). ``data.readers``
+    does nothing under these three loaders. ``knobs`` (``data.autotune``):
+    the live decode workers and stage depth the tiered and rawshard
+    loaders poll, and the prefetch depth ``tfdata``'s prefetcher polls. The stream has ``close()``.
+    ``configs.check_supported`` has refused every other loader."""
+    loader, size = cfg.data.loader, cfg.model.image_size
+    if loader == "hbm":
         return hbm_pipeline.train_batches(
-            data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
+            data_dir, "train", cfg.data, size, seed=seed,
             skip_batches=skip_batches, device=dev)
+    if loader in ("tiered", "rawshard"):
+        lib = tiered_pipeline if loader == "tiered" else rawshard
+        return lib.train_batches(
+            data_dir, "train", cfg.data, size, seed=seed,
+            skip_batches=skip_batches, knobs=knobs, device=dev)
     depth = cfg.data.prefetch_batches
+    # The prefetcher's thread runs whenever knobs are given (their depth
+    # is at least 1), and then copies through its own pinned buffers.
     return pipeline.DevicePrefetch(pipeline.train_batches(
-        data_dir, "train", cfg.data, cfg.model.image_size, seed=seed,
+        data_dir, "train", cfg.data, size, seed=seed,
         skip_batches=skip_batches,
-        pin_memory=dev.type == "cuda" and depth == 0,
-        readers=cfg.data.readers), dev, depth)
+        pin_memory=dev.type == "cuda" and depth == 0 and knobs is None,
+        readers=cfg.data.readers), dev, depth, knobs=knobs)
+
+
+def _autotune_for(cfg: configs.ExperimentConfig, dev: torch.device):
+    """(knobs, tuner) when ``data.autotune`` is on, else (None, None).
+    Built after ``_obs_begin_run`` (the tuner's metrics belong to the
+    run) and before the stream (the loaders take the knobs at
+    construction)."""
+    if not cfg.data.autotune:
+        return None, None
+    from jama16_retina_tpu_torch.data import autotune as autotune_lib
+
+    return autotune_lib.for_config(cfg, device=dev)
 
 
 def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
@@ -943,9 +972,12 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
 
     The train stream is ``data.loader``'s (``_train_stream``): the
     TFRecord stream staged ``data.prefetch_batches`` ahead on the device,
-    read by ``data.readers`` processes, or the card-resident split
-    (``hbm``), whose val batches then also stay on the card between evals
-    (``_eval_cache_for``). ``train.init_from`` warm-starts a fresh run from a donor
+    read by ``data.readers`` processes; the card-resident split
+    (``hbm``); or the resident and streamed tiers (``tiered``,
+    ``rawshard``). Under the last three the val batches also stay on the
+    card between evals (``_eval_cache_for``), and ``data.autotune`` tunes
+    the stream's timing knobs at every log boundary (``_autotune_for``).
+    ``train.init_from`` warm-starts a fresh run from a donor
     (a resume that finds a checkpoint wins). ``train.async_save`` hands
     each save, from a device snapshot of the state, to one background
     writer; ``train.eval_overlap`` (which implies it) runs the whole eval
@@ -1003,11 +1035,14 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
 
     overlap = tc.eval_overlap
     saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
+    # The ingest autotuner's live knobs (data.autotune), adjusted at every
+    # log boundary from the window's stall attribution.
+    knobs, tuner = _autotune_for(cfg, dev)
     # One batch per completed step: a resumed stream continues exactly
     # where the interrupted one stopped.
-    stream = _train_stream(cfg, data_dir, seed, start_step, dev)
-    # The val batches stay on the card between evals under the hbm loader
-    # (budget-gated; None streams every eval).
+    stream = _train_stream(cfg, data_dir, seed, start_step, dev, knobs)
+    # The val batches stay on the card between evals under the loaders
+    # that keep train rows there (budget-gated; None streams every eval).
     val_cache = _eval_cache_for(cfg, data_dir, "val", device=dev)
     profiler = _ProfilerWindow(cfg, log, workdir, start_step, dev)
     flight = _flight_for(cfg, workdir, profiler)
@@ -1133,8 +1168,13 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                         # On the loss the record reads anyway: no sync of
                         # its own.
                         flight.note_loss(loss, step=step_i + 1)
+                    stall_fields = stalls.fields()
                     log.write("train", step=step_i + 1, loss=loss,
-                              **clock.fields(), **stalls.fields())
+                              **clock.fields(), **stall_fields)
+                    if tuner is not None:
+                        # One tuner window per log window.
+                        tuner.observe(stall_fields["window_sec"],
+                                      stall_fields["input_wait_sec"])
                     if snap is not None:
                         snap.maybe_flush()
                 # A finished overlapped eval is collected the step after
@@ -1442,8 +1482,9 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
 
     overlap = tc.eval_overlap
     saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
+    knobs, tuner = _autotune_for(cfg, dev)
     # The stacked step reads the same global batches as one fit.
-    stream = _train_stream(cfg, data_dir, seed, start_step, dev)
+    stream = _train_stream(cfg, data_dir, seed, start_step, dev, knobs)
     val_cache = _eval_cache_for(cfg, data_dir, "val", device=dev)
     profiler = _ProfilerWindow(cfg, log, workdir, start_step, dev)
     flight = _flight_for(cfg, workdir, profiler)
@@ -1579,11 +1620,15 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
                     per = losses.detach().cpu().numpy()
                     if flight is not None:
                         flight.note_loss(per, step=step_i + 1)
+                    stall_fields = stalls.fields()
                     log.write("train", step=step_i + 1,
                               loss=round(float(per.mean()), 6),
                               loss_per_member=[round(float(x), 6)
                                                for x in per],
-                              **clock.fields(), **stalls.fields())
+                              **clock.fields(), **stall_fields)
+                    if tuner is not None:
+                        tuner.observe(stall_fields["window_sec"],
+                                      stall_fields["input_wait_sec"])
                     if snap is not None:
                         snap.maybe_flush()
                 if eval_job is not None and eval_job.done():
@@ -1760,8 +1805,8 @@ def evaluate_checkpoints(
         passes.append(("tune", tune_dir, threshold_split))
     member_probs, grades_by = {}, {}
     eval_names = None
-    # One device-resident cache per (dir, split) pass under the hbm
-    # loader, admitted against the caches already held (their joint
+    # One device-resident cache per (dir, split) pass under the hbm,
+    # tiered and rawshard loaders, admitted against the caches already held (their joint
     # footprint, not each split's alone). The engine scores every member
     # on each cached batch, so no batch is read or uploaded twice.
     eval_caches: "dict[tuple, list | None]" = {}

@@ -955,3 +955,105 @@ def test_hbm_fit_with_overlapped_evals_on_the_card(cuda, tmp_path):
     assert records[True] == records[False]
     a, b = records[(False, "ckpt")], records[(True, "ckpt")]
     assert all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _tiered_cfg(**kw):
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.data import hbm_pipeline
+
+    # 12 records, batch 4: 3 steps an epoch; 6 rows resident, so 2
+    # resident and 2 streamed rows a batch.
+    return configs.DataConfig(
+        batch_size=4, decode_workers=2,
+        tiered_resident_bytes=6 * hbm_pipeline.row_bytes(64), **kw)
+
+
+def _busy(busy):
+    for _ in range(4):
+        busy = busy @ busy / busy.norm()
+    return busy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skip", [0, 4])
+def test_tiered_batches_on_the_card_are_the_host_reference(cuda, tmp_path,
+                                                           skip):
+    """Three epochs of the tiered loader at partial residency, from step
+    ``skip``, bitwise ``host_reference_batches``, while the consumer's
+    stream is kept busy."""
+    from jama16_retina_tpu_torch.data import tiered_pipeline
+
+    root = _smoke_split(tmp_path)
+    cfg = _tiered_cfg()
+    stream = tiered_pipeline.train_batches(root, "train", cfg, 64, seed=5,
+                                           skip_batches=skip, device=cuda)
+    ref = tiered_pipeline.host_reference_batches(
+        root, "train", cfg, 64, seed=5, skip_batches=skip, capacity_rows=6)
+    busy = torch.randn((2048, 2048), device=cuda)
+    for _ in range(skip, 9):
+        got, want = next(stream), next(ref)
+        busy = _busy(busy)
+        assert got["image"].device.type == "cuda"
+        assert torch.equal(got["image"].cpu(), torch.from_numpy(want["image"]))
+        assert torch.equal(got["grade"].cpu(), torch.from_numpy(want["grade"]))
+    stream.close()
+    ref.close()
+
+
+@pytest.mark.gpu
+def test_tiered_pinned_ring_wrapping_keeps_the_batches(cuda, tmp_path):
+    """Stage depth 1 (a ring of 3 pinned buffers) over 36 batches, the
+    streamed tier alone and mixed, the ring wrapping 12 times with the
+    consumer's stream busy and every batch held until the end: each is
+    still the host reference's."""
+    import dataclasses
+
+    from jama16_retina_tpu_torch.data import tiered_pipeline
+
+    root = _smoke_split(tmp_path)
+    for cfg, cap in ((_tiered_cfg(stage_depth=1), 6),
+                     (dataclasses.replace(_tiered_cfg(stage_depth=1),
+                                          tiered_resident_bytes=0), 0)):
+        stream = tiered_pipeline.train_batches(root, "train", cfg, 64, seed=8,
+                                               device=cuda)
+        ref = tiered_pipeline.host_reference_batches(root, "train", cfg, 64,
+                                                     seed=8, capacity_rows=cap)
+        busy = torch.randn((2048, 2048), device=cuda)
+        held = []
+        for _ in range(36):
+            held.append(next(stream))
+            busy = _busy(busy)
+        torch.cuda.synchronize()
+        for got in held:
+            want = next(ref)
+            assert torch.equal(got["image"].cpu(),
+                               torch.from_numpy(want["image"]))
+            assert torch.equal(got["grade"].cpu(),
+                               torch.from_numpy(want["grade"]))
+        stream.close()
+        ref.close()
+
+
+@pytest.mark.gpu
+def test_rawshard_batches_on_the_card_are_the_tiered_ones(cuda, tmp_path):
+    """The split transcoded to shards: the rawshard loader's batches on the
+    card bitwise the tiered loader's over the records, across an epoch."""
+    import dataclasses
+
+    from jama16_retina_tpu_torch.data import rawshard, tiered_pipeline
+
+    root = _smoke_split(tmp_path)
+    rawshard.transcode_split(root, "train", image_size=64, shard_records=5)
+    for cfg in (_tiered_cfg(), dataclasses.replace(
+            _tiered_cfg(), tiered_resident_bytes=0)):
+        a = rawshard.train_batches(root, "train", cfg, 64, seed=9,
+                                   device=cuda)
+        b = tiered_pipeline.train_batches(root, "train", cfg, 64, seed=9,
+                                          device=cuda)
+        for _ in range(7):
+            x, y = next(a), next(b)
+            assert x["image"].device.type == "cuda"
+            assert torch.equal(x["image"], y["image"])
+            assert torch.equal(x["grade"], y["grade"])
+        a.close()
+        b.close()

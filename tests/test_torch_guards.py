@@ -52,8 +52,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # fault plane's (obs/faultinject, utils/retry) and the preprocess
     # runners' (data/tiff, preprocess/datasets and both entry points) and
     # the hbm loader's (data/grain_pipeline, data/hbm_pipeline,
-    # data/threefry) included.
-    assert int(n_modules) >= 45
+    # data/threefry) and the tiered loader's (data/tiered_pipeline,
+    # data/autotune, data/rawshard, transcode_shards) included.
+    assert int(n_modules) >= 49
     assert {f"jama16_retina_tpu_torch.{m}" for m in (
         "obs.registry", "obs.quality", "integrity.artifact",
         "serve.quantize", "serve.batcher", "optim", "train_lib",
@@ -61,7 +62,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
         "obs.criticalpath", "obs.flightrec", "obs.alerts",
         "obs.faultinject", "utils.retry", "data.tiff",
         "preprocess.datasets", "preprocess_eyepacs", "preprocess_messidor",
-        "data.grain_pipeline", "data.hbm_pipeline", "data.threefry")
+        "data.grain_pipeline", "data.hbm_pipeline", "data.threefry",
+        "data.tiered_pipeline", "data.autotune", "data.rawshard",
+        "transcode_shards")
         } <= set(names.split())
     assert bad.strip() == "[]"
 
@@ -283,7 +286,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("item,exc", [
-    ("data.loader=tiered", NotImplementedError),
+    ("data.loader=grain", NotImplementedError),
     ("obs.device_hbm_headroom_alert=0.2", NotImplementedError),
     ("serve.compile_cache_dir=/x", NotImplementedError),
     ("model.stem_s2d=true", NotImplementedError),
@@ -358,10 +361,12 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
     # obs.device_hbm_headroom_alert, refused away from their defaults); 52
     # until faults and retries ported obs.fault_plan; 51 until the hbm
     # loader ported data.hbm_budget_bytes, data.decode_workers and
-    # data.quarantine_bad_records.
-    assert len(items) >= 48
-    for key, item in (("data.autotune", "item 7"),
-                      ("data.tiered_resident_bytes", "item 7"),
+    # data.quarantine_bad_records; 48 until the tiered and rawshard
+    # loaders and the autotuner ported data.autotune, data.rawshard_dir,
+    # data.stage_depth and data.tiered_resident_bytes.
+    assert len(items) >= 44
+    for key, item in (("data.grain_workers", "item 7"),
+                      ("data.stage_per_shard", "item 8"),
                       ("parallel.num_devices", "item 8"),
                       ("train.ensemble_manual_data", "item 8"),
                       ("eval.sharded", "item 8"),
@@ -393,7 +398,9 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
                 "obs.quality.alert_rules", "train.tensorboard",
                 "train.debug", "train.profile_steps",
                 "data.hbm_budget_bytes", "data.decode_workers",
-                "data.quarantine_bad_records", "obs.quarantine_alert_per_s"):
+                "data.quarantine_bad_records", "obs.quarantine_alert_per_s",
+                "data.autotune", "data.rawshard_dir", "data.stage_depth",
+                "data.tiered_resident_bytes"):
         assert key in ours
     lifecycle = [k for k in items if k.startswith("lifecycle.")]
     assert len(lifecycle) == 11
