@@ -128,7 +128,7 @@ Phases, any failure exits nonzero before the result line:
               launch no kernel; fused: B2 = steps, B3 = steps x
               ceil(leaves / 400)), finite losses and every parameter leaf
               moved (but EfficientNet's ``project_bn`` biases, whose true
-              gradient is 0); step time (median of 3 after 3 warm),
+              gradient is 0); step time (median of 2 after 3 warm),
               images/s, idle share and peak memory per form; and the
               float64 card-vs-CPU forward and
               backward of phase 5 on the same augmented batch (dropout
@@ -217,8 +217,9 @@ Phases, any failure exits nonzero before the result line:
               (``train.ensemble_parallel`` + ``_force``, B1, constant
               learning rate, cuDNN deterministic): B1 bitwise at the
               stacked shape [k x 32, 299, 299, 3]; a 4-step fit with
-              evals every 2 at k = 10, or the largest of 8, 6, 4, 2 that
-              fits (each out-of-memory error printed with the free
+              evals every 2 at k = 4 (``ensemble10``'s ten members cut
+              to four for the time limit), or at k = 2 if 4 does not
+              fit (each out-of-memory error printed with the free
               bytes): B1 once a stacked step, every ``member_NN/{best,
               latest}`` and ``run_meta`` seed, per-member and ensemble
               val AUCs; the same run cut at step 2 and resumed to 4 ends
@@ -230,16 +231,16 @@ Phases, any failure exits nonzero before the result line:
               stacked step timed against k member steps in turns
               (stacked, then in turn; bf16, batch 32, adamw):
               median ms, member images/s, peak memory and the ratio.
-12. cascade  - after phase 11, on the fit phase's splits. (a) Ten random
-              ``eyepacs_binary`` members (``ensemble10``'s k) as the
-              teacher: its float32 soft targets of 4 canvases on the card
+12. cascade  - after phase 11, on the fit phase's splits. (a) Four random
+              ``eyepacs_binary`` members (``ensemble10``'s, cut from ten
+              for the time limit) as the teacher: its float32 soft targets of 4 canvases on the card
               against the CPU within 1e-4 (TF32 off); a 4-step student fit
               with ``train.distill_from`` (bf16 masters, fused form, batch
               32, constant learning rate, evals every 2, cuDNN
               deterministic): its ``distill`` record, B2 = B3 = 4, and the
               same fit cut at step 2 and resumed bitwise the uninterrupted
               one. (b) The cascade of that student (its best step) and the
-              ten members (float32 compute, fused preprocess) over 64
+              four members (float32 compute, fused preprocess) over 64
               canvases, threshold at the median student score and a band
               escalating about 30 %: student rows bitwise
               ``student.probs``, escalated rows bitwise
@@ -252,7 +253,7 @@ Phases, any failure exits nonzero before the result line:
               canvases); a student with head bias +20 at band 0 raises
               ``CascadeRejected``. (d) The ensemble engine under the
               micro-batcher (one bucket of 32, 4 closed-loop clients):
-              ``reload`` to ten other members and ``rollback`` mid-run,
+              ``reload`` to four other members and ``rollback`` mid-run,
               no request failing, every response's rows those of the
               generation ``probs_with_generation`` named (float32 bar
               1e-4), reload and rollback ms, ``memory_allocated`` before,
@@ -261,7 +262,7 @@ Phases, any failure exits nonzero before the result line:
               at 0.25 samples every 4th request. Launch counts are set to
               0 before (b) and read after (d): B4 once a chunk.
 13. router   - after phase 12, on phase 4's k=2 members and phase 12's
-              student, ten members and 64 canvases (``eyepacs_binary``,
+              student, four members and 64 canvases (``eyepacs_binary``,
               Inception-v3, 299 px, aux head, float32 compute, TF32 off,
               ``serve.fused_preprocess``, buckets 8, 16, 32, 64); launch
               counts set to 0 just before each part and read just after:
@@ -282,7 +283,7 @@ Phases, any failure exits nonzero before the result line:
               rows bitwise each tenant's direct rows with members in turn
               and within 1e-5 under ``serve.member_parallel``; fused vs
               grouped ms. (c) Two student ``CascadeEngine`` replicas over
-              one ``EscalationPool`` of the ten members: rows bitwise
+              one ``EscalationPool`` of the four members: rows bitwise
               phase 12's serial and speculative cascades,
               ``serve.router.escalations`` = 2 x the mask's sum both ways,
               ``serve.router.speculations`` = the speculated rows. (d) A
@@ -297,8 +298,9 @@ Phases, any failure exits nonzero before the result line:
               (a) Every fixture of ``tests/data/jpeg`` decoded on this
               machine's host, bitwise its ``manifest.json`` digests: the
               host path (EXIF applied) OpenCV's, the records path (EXIF
-              ignored) TensorFlow's; the progressive JPEG refused naming
-              item 14. (b) JPEG TFRecord splits packed from the fixtures
+              ignored) TensorFlow's, the progressive ones among them; an
+              arithmetic-coded JPEG (a baseline fixture with its frame
+              marked SOF9) refused naming item 14. (b) JPEG TFRecord splits packed from the fixtures
               with ``make_jpeg_example`` (train 64 / val 32 / test 32 in 4
               / 2 / 2 shards; train the eight 299-px renders repeated with
               grades cycling, every fourth val and test record a 317-px
@@ -311,13 +313,15 @@ Phases, any failure exits nonzero before the result line:
               process (JPEG and raw at 299 px, the 1024-px fixture with and
               without the resize), and the stream step from the JPEG
               splits against the same pixels written raw, in turns, at
-              ``data.readers`` 1 and 2. (d) ``predict.main`` with
+              ``data.readers`` 1 (phase 9 drives 2 readers). (d) ``predict.main`` with
               ``serve.fused_preprocess=true`` (float32 compute) on the
-              fixture photos, the EXIF-rotated one, a junk file and a
-              progressive JPEG against phase 4's k=2 members: junk skipped
-              as ``unreadable``, ``serve.input_rejected.decode_error`` up
-              by 2, B4 once per chunk, the quality monitor on (a profile
-              with input histograms) and ``serve.preprocess.fused_rows``
+              fixture photos, the EXIF-rotated one, the progressive one, a
+              junk file and the arithmetic-coded JPEG against phase 4's k=2
+              members: junk skipped as ``unreadable``, the arithmetic one
+              naming item 14, ``serve.input_rejected.decode_error`` up
+              by 2, the progressive photo kept, B4 once per chunk, the
+              quality monitor on (a profile with input histograms) and
+              ``serve.preprocess.fused_rows``
               the kept rows it read, the kept canvases bitwise the
               manifest's, rows within 1e-4 of the same engine on the
               CPU. (e) The host stage's wall time per batch of 1, 8 and
@@ -351,8 +355,8 @@ Phases, any failure exits nonzero before the result line:
               thread's ticks, the replica worker's engine spans). (e) The
               planes' cost: the fused step's window (steps 3-8 of 8-step
               fits, median and range) with ``obs.enabled=false`` and the
-              default, in turns, and the batch-8 request (10 calls a
-              turn) with the registry and tracer off and on, in turns.
+              default, one fit each, and the batch-8 request (10 calls a
+              turn) with the registry and tracer off, on, on, off.
 16. faults  - fault injection and bounded retries (``obs/faultinject.py``,
               ``utils/retry.py``) at full width, on phase 6's splits and
               phase 4's k=2 members, each path's launch counts set to 0
@@ -491,10 +495,42 @@ Phases, any failure exits nonzero before the result line:
               every streamed read of it quarantined and replaced by
               record 2,304, 4 batches bitwise the shard rows so.
 
+20. grain   - the ``grain`` loader (``data/grain_index.py``,
+              ``data/grain_pipeline.py``, the trainer's worker-mode resume)
+              alone first, then in fits, on phase 6's splits (64 train
+              records, batch 32: 2 batches an epoch), then progressive
+              JPEG; each part prints a start and an end line. (a)
+              ``IndexSampler``'s first 2 epochs at seeds 0 and 42 (grain's
+              ``index_shuffle`` of each), bitwise the digests recorded
+              from grain in ``tests/data/grain_order.json`` (this machine has no grain).
+              (b) ``train_batches`` at seed 42 in process and with 2 worker
+              processes for 130 batches, each bitwise the host reference
+              (the order worked out apart from the iterator, rows decoded
+              once by ``_decode_example``), the ``get_state()`` bytes after
+              batches 3 and 130 bitwise the reference's digests; 4 batches
+              from ``skip_batches=3`` (in process) and from the state after
+              batch 3 through ``set_state`` (both), past the epoch
+              boundary, bitwise and with the uninterrupted run's state. (c)
+              Per worker count (0, 2; cuDNN deterministic): 8 preset steps,
+              evals at 4 and 8, B1 = 8 (counts set to 0 just before, read
+              just after); the same run cut by ``trainer.step`` at call 5
+              (B1 = 4) and resumed (B1 = 4), in process through
+              ``state_at_step`` and with workers from ``grain_state/4.json``
+              (bitwise the uninterrupted run's file), to an equal step-8
+              state digest; then 4 fused steps in process, B2 = B3 = 4.
+              (d) Every progressive fixture bitwise its manifest digests
+              on the host path, the records path (``parse_record``) and,
+              for the square one, ``_decode_example``; each cut in half
+              refused as truncated; ``predict --images`` with
+              ``serve.fused_preprocess=true`` on the progressive photo and
+              a baseline one against phase 4's members: both kept, B4 once
+              per chunk, canvases bitwise the manifest's, rows within 1e-4
+              of the CPU engine.
+
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
-record (B1-B3's ``launches`` from phase 19's tiered fits, B4's from
-phase 4, each phase's launches on a line of its own (18 and 19),
+record (B1-B3's ``launches`` from phase 20's grain fits, B4's from
+phase 4, each phase's launches on a line of its own (18-20),
 and each kernel's launches on every path, ``launches_by_phase``) and the
 run's seconds. Scratch files go under ``build/chip_smoke``
 (git-ignored). Without a CUDA card, or run outside a checkout of the
@@ -539,6 +575,19 @@ MODEL_PRESETS = ("resnet50", "efficientnet_b4", "icdr5")
 MODEL_STEPS = 2
 B3_PRESETS = ("eyepacs_binary", "resnet50", "efficientnet_b4", "icdr5")
 ICDR5_STEPS = 4
+# Phase 20: the grain loader over phase 6's train split (records, batch,
+# image size), at a fixed seed, in-process and with 2 worker processes:
+# 130 batches from 0, the state digests after batches 3 and 130
+# (tests/data/grain_order.json, recorded from the reference), a skip and
+# a restored state past the epoch boundary, 4 batches each.
+GRAIN_RECORDS = 64
+GRAIN_BATCH = 32
+GRAIN_SIZE = 299
+GRAIN_SEED = 42
+GRAIN_WORKERS = (0, 2)
+GRAIN_BATCHES = 130
+GRAIN_STATE_AT = (3, GRAIN_BATCHES)
+GRAIN_RESUMED = 4
 # Phase 9: timed steps per form after 2 warm, the accumulation counts, and
 # the train stream's (prefetch depth, reader processes) in turns.
 KNOB_STEPS = 4
@@ -746,17 +795,25 @@ def jitter_inputs(torch, dev, shape, gen):
 def device_ops(torch, fn, warm: bool = True) -> list:
     """(name, count) of every device operation (kernel, memset, copy) that
     one ``fn()`` call issues, from a CUDA-only ``torch.profiler`` trace
-    (after one untraced call when ``warm``)."""
+    (after one untraced call when ``warm``). The call sits between
+    sentinel kernels, not counted, as in ``_device_events``: a trace of
+    one call was seen to come back empty."""
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
+        for _ in range(2):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
     return [(e.key, e.count) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
+            if e.self_device_time_total > 0 and "spin_kernel" not in e.key]
 
 
 def phase_jitter_kernels(torch, dev, seed: int) -> dict:
@@ -872,7 +929,7 @@ def kernel_times(torch, sp, dev, batch: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     sets = [torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
                           generator=gen) for _ in range(n_sets)]
-    reps = 100
+    reps = 50
 
     def kernel(i):
         sp.fused_serve_preprocess(sets[i % n_sets])
@@ -2416,9 +2473,9 @@ OPT_STEPS = 4
 OPT_BOUND = {"lamb": 1e-5}
 OPT_BOUND_DEFAULT = 1e-6
 RECIPE_REF_BATCH = 8
-ENSEMBLE_K = 10
+ENSEMBLE_K = 4
 # Tried in turn when a k runs out of device memory.
-ENSEMBLE_KS = (ENSEMBLE_K, 8, 6, 4, 2)
+ENSEMBLE_KS = (ENSEMBLE_K, 2)
 ENSEMBLE_STEPS = 4
 ENSEMBLE_EVAL_EVERY = 2
 AGREE_BATCH = 8
@@ -2877,7 +2934,7 @@ def phase_ensemble(torch, seed: int, smi: str, root: Path, data: Path
 
 
 # Phase 12: the distilled cascade and serving generations.
-CASCADE_K = 10
+CASCADE_K = 4
 # Timed calls of each cascade request form.
 CASCADE_TIMED = 3
 DISTILL_STEPS = 4
@@ -2923,7 +2980,7 @@ def distill_config(steps: int, workdir: Path, seed: int, teacher: Path,
 
 def phase_distill(torch, seed: int, smi: str, root: Path, data: Path
                   ) -> dict:
-    """Phase 12a: ten random teacher members; their float32 soft targets
+    """Phase 12a: ``CASCADE_K`` random teacher members; their float32 soft targets
     on the card against the CPU; a 4-step distill fit on the fit phase's
     splits, and the same fit cut at step 2 and resumed (cuDNN
     deterministic)."""
@@ -3947,7 +4004,7 @@ FIXTURES = ROOT / "tests" / "data" / "jpeg"
 # (split, records, shards) of the JPEG splits, and the share of val and
 # test records drawn from the 317-px fixtures (the resize path).
 JPEG_SPLITS = (("train", 64, 4), ("val", 32, 2), ("test", 32, 2))
-JPEG_STREAM_TURNS = (("jpeg", 1), ("raw", 1), ("raw", 2), ("jpeg", 2))
+JPEG_STREAM_TURNS = (("jpeg", 1), ("raw", 1))
 HOST_BATCHES = (1, 8, 64)
 PREDICT_BATCH = 8
 
@@ -3968,19 +4025,18 @@ def sha256(a) -> str:
 def phase_fixture_decode() -> dict:
     """(a) Every committed fixture decoded on this machine's host: the
     host path (EXIF applied) bitwise OpenCV's decode, the records path
-    (EXIF ignored) bitwise TensorFlow's, by the manifest's digests."""
+    (EXIF ignored) bitwise TensorFlow's, by the manifest's digests; an
+    arithmetic-coded JPEG refused naming item 14."""
     from jama16_retina_tpu_torch.data import imdecode, jpeg
 
     manifest = fixture_manifest()
     n_checked = 0
+    rgb, why = imdecode.read_image(arithmetic_jpeg())
+    check(rgb is None and "item 14" in (why or ""),
+          f"arithmetic-coded JPEG: {why}")
     for name, entry in sorted(manifest.items()):
         data = (FIXTURES / name).read_bytes()
         check(sha256(data) == entry["sha256"], f"fixture {name} changed")
-        if name == "progressive.jpg":
-            rgb, why = imdecode.read_image(data)
-            check(rgb is None and "item 14" in (why or ""),
-                  f"progressive JPEG: {why}")
-            continue
         host = imdecode.imdecode(data)
         check(host is not None and sha256(host) == entry["cv2_rgb"],
               f"{name}: the host decode differs from OpenCV's")
@@ -3992,7 +4048,8 @@ def phase_fixture_decode() -> dict:
             n_checked += 1
     log(f"jpeg: {n_checked} decodes of {len(manifest)} fixtures bitwise "
         "their manifest digests (OpenCV with EXIF applied, TensorFlow "
-        "without); the progressive JPEG refused naming item 14")
+        "without), the progressive ones among them; an arithmetic-coded "
+        "JPEG refused naming item 14")
     return {"checked": n_checked}
 
 
@@ -4109,7 +4166,7 @@ def decode_rates(jdir: Path, rdir: Path, smi: str) -> dict:
 def jpeg_stream_turns(torch, seed: int, smi: str, jdir: Path, rdir: Path,
                       root: Path, out: dict) -> dict:
     """(c) The stream step from the JPEG splits against the same pixels
-    written raw, in turns, at ``data.readers`` 1 and 2 (6-step fits,
+    written raw, in turns (``JPEG_STREAM_TURNS``) (6-step fits,
     steps 3-5's median ``window_sec`` and ``input_wait_sec``)."""
     streams = {}
     for turn, (kind, readers) in enumerate(JPEG_STREAM_TURNS):
@@ -4131,7 +4188,7 @@ def jpeg_stream_turns(torch, seed: int, smi: str, jdir: Path, rdir: Path,
             f"step median {step:.3f} ms, input wait {wait:.3f} ms (steps "
             f"3-{STREAM_STEPS - 1}) ({smi})")
         shutil.rmtree(root / f"stream{turn}", ignore_errors=True)
-    for readers in (1, 2):
+    for readers in sorted({r for _, r in JPEG_STREAM_TURNS}):
         j = streams[("jpeg", readers)][0][0]
         r = streams[("raw", readers)][0][0]
         log(f"jpeg: stream step at data.readers={readers}: JPEG {j:.3f} ms "
@@ -4156,8 +4213,8 @@ def predict_rows(argv) -> "tuple[int, list]":
 def phase_predict_images(torch, serve: dict, root: Path, smi: str,
                          out: dict) -> None:
     """(d) ``predict.main`` with ``serve.fused_preprocess=true`` on the
-    fixture photos, the EXIF-rotated one, a junk file and a progressive
-    JPEG, against phase 4's k=2 members, with the quality monitor reading
+    fixture photos, the EXIF-rotated one, the progressive one, a junk file
+    and an arithmetic-coded JPEG, against phase 4's k=2 members, with the quality monitor reading
     B4's statistics (so ``serve.preprocess.fused_rows`` counts the rows,
     as the reference's monitor counts them)."""
     import numpy as np
@@ -4177,6 +4234,7 @@ def phase_predict_images(torch, serve: dict, root: Path, smi: str,
     for name in photos:
         shutil.copy(FIXTURES / name, images / name)
     (images / "junk.jpg").write_bytes(b"not a jpeg")
+    (images / "arithmetic.jpg").write_bytes(arithmetic_jpeg())
     reg = obs_registry.default_registry()
 
     def counter(name):
@@ -4206,13 +4264,13 @@ def phase_predict_images(torch, serve: dict, root: Path, smi: str,
     delta = {k: counter(k) - v for k, v in before.items()}
     errors = {Path(r["image"]).name: r["error"] for r in rows if "error" in r}
     scored = [r for r in rows if "error" not in r]
-    kept = len(photos) - 1
+    kept = len(photos)
     chunks = -(-kept // PREDICT_BATCH)
     log(f"jpeg: predict --images: exit {code}, {len(scored)} rows, skipped "
         f"{errors}; launches {counts}; counters {delta}; {wall:.2f} s")
     check(code == 0 and len(scored) == kept, f"predict rows {rows}")
     check(errors.get("junk.jpg") == "unreadable"
-          and "item 14" in errors.get("progressive.jpg", ""),
+          and "item 14" in errors.get("arithmetic.jpg", ""),
           f"predict skipped {errors}")
     check(delta["serve.input_rejected"] == 2
           and delta["serve.input_rejected.decode_error"] == 2,
@@ -4228,7 +4286,7 @@ def phase_predict_images(torch, serve: dict, root: Path, smi: str,
     # The kept canvases against the manifest, and the rows against the
     # same engine on the CPU.
     manifest = fixture_manifest()
-    paths = [str(images / n) for n in sorted(photos) if n != "progressive.jpg"]
+    paths = [str(images / n) for n in sorted(photos)]
     pre = host.preprocess_paths(paths, 299, registry=Registry())
     check([Path(p).name for p in pre.kept]
           == [Path(r["image"]).name for r in scored],
@@ -4326,9 +4384,9 @@ SLOW_STEPS = 24
 SIGTERM_STEPS = 400
 SIGTERM_AFTER_STEP = 3
 OVERHEAD_STEPS = 8
-OVERHEAD_TURNS = (False, True, True, False)
+OVERHEAD_TURNS = (False, True)
 # The request's turns and timed calls a turn (it costs ~50 ms a call).
-OVERHEAD_REQUEST_TURNS = (False, True, True, False, False, True)
+OVERHEAD_REQUEST_TURNS = (False, True, True, False)
 OVERHEAD_REQUEST_CALLS = 10
 LONE_REQUESTS = 10
 B1_KERNEL = "color_jitter_kernel"
@@ -6679,6 +6737,382 @@ def phase_tiered(torch, seed: int, smi: str, hbm: dict) -> dict:
     return out
 
 
+# Phase 20: the grain loader, and progressive JPEG.
+GRAIN_ORDER = ROOT / "tests" / "data" / "grain_order.json"
+GRAIN_FUSED_STEPS = 4
+GRAIN_CUT_CALL = 5
+# A still-refused JPEG: a baseline fixture with its frame marked
+# arithmetic-coded (SOF9).
+ARITHMETIC_SOURCE = "fundus299_0.jpg"
+
+
+def arithmetic_jpeg() -> bytes:
+    data = (FIXTURES / ARITHMETIC_SOURCE).read_bytes()
+    return data.replace(b"\xff\xc0", b"\xff\xc9", 1)
+
+
+def grain_reference_keys(sampler, workers: int, start: int,
+                         count: int) -> list:
+    """Record keys of batches ``start`` .. ``start + count - 1`` of a grain
+    stream from its beginning, worked out apart from the iterator: in
+    process batch b holds positions b*B ..; with W workers it is worker b
+    % W's batch b // W, whose slice positions j are local positions w +
+    j*W."""
+    import numpy as np
+
+    keys = []
+    for b in range(start, start + count):
+        if workers:
+            w, k = b % workers, b // workers
+            j = np.arange(k * GRAIN_BATCH, (k + 1) * GRAIN_BATCH)
+            pos = w + j * workers
+        else:
+            pos = np.arange(b * GRAIN_BATCH, (b + 1) * GRAIN_BATCH)
+        keys.append(sampler.record_keys(pos))
+    return keys
+
+
+def grain_match(it, rows, grades, keys, what: str,
+                states: "dict | None" = None, at0: int = 0) -> dict:
+    """``it``'s next batches bitwise the host rows gathered by ``keys``;
+    the state bytes after each batch whose ordinal (from ``at0``) is in
+    ``states`` -> {ordinal: state bytes}."""
+    import numpy as np
+
+    seen = {}
+    for b, k in enumerate(keys, start=at0 + 1):
+        batch = next(it)
+        ok = (np.array_equal(batch["image"], rows[k])
+              and np.array_equal(batch["grade"], grades[k]))
+        check(ok, f"grain: (b) {what}: batch {b} differs from the host "
+              "reference")
+        if states is not None and b in states:
+            seen[b] = it.get_state()
+    return seen
+
+
+def grain_alone(data: Path, smi: str, out: dict) -> None:
+    """(a) the order alone, (b) the batches alone."""
+    import hashlib
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.data import grain_index, grain_pipeline
+
+    with open(GRAIN_ORDER) as f:
+        want = json.load(f)
+
+    def digest(a) -> str:
+        return hashlib.sha256(bytes(a)).hexdigest()
+
+    with HbmPart("a", "the order alone", out, "grain"):
+        for seed, d in sorted(want["order_2_epochs"].items()):
+            keys = grain_index.IndexSampler(
+                GRAIN_RECORDS, grain_index.ShardOptions(0, 1, True),
+                int(seed)).record_keys(np.arange(2 * GRAIN_RECORDS))
+            check(digest(keys.astype(np.int64)) == d,
+                  f"grain: (a) the sampler's 2 epochs at seed {seed} differ "
+                  "from grain's")
+        log(f"grain: (a) IndexSampler's first 2 epochs of {GRAIN_RECORDS} "
+            "records at seeds 0 and 42 (grain's index_shuffle of each "
+            "epoch): bitwise the digests recorded from grain")
+
+    with HbmPart("b", "batches alone", out, "grain"):
+        cfg = configs.override(configs.get_config("eyepacs_binary"), [
+            f"data.batch_size={GRAIN_BATCH}"])
+        source = grain_pipeline.FundusSource(str(data), "train", GRAIN_SIZE)
+        check(len(source) == GRAIN_RECORDS == want["records"],
+              f"grain: (b) the split holds {len(source)} records")
+        t0 = time.perf_counter()
+        decoded = [source[i] for i in range(len(source))]
+        rows = np.stack([r["image"] for r in decoded])
+        grades = np.array([r["grade"] for r in decoded], np.int32)
+        host_s = time.perf_counter() - t0
+        sampler = grain_index.IndexSampler(
+            GRAIN_RECORDS, grain_index.ShardOptions(0, 1, True), GRAIN_SEED)
+        rates = {}
+        for workers in GRAIN_WORKERS:
+            keys = grain_reference_keys(sampler, workers, 0, GRAIN_BATCHES)
+            it = grain_pipeline.train_batches(
+                str(data), "train", cfg.data, GRAIN_SIZE, seed=GRAIN_SEED,
+                worker_count=workers)
+            t0 = time.perf_counter()
+            try:
+                states = grain_match(
+                    it, rows, grades, keys, f"{workers} workers",
+                    states=set(GRAIN_STATE_AT) | {GRAIN_STATE_AT[0]
+                                                  + GRAIN_RESUMED})
+            finally:
+                it.close()
+            rates[workers] = GRAIN_BATCHES * GRAIN_BATCH / (
+                time.perf_counter() - t0)
+            for b in GRAIN_STATE_AT:
+                check(digest(states[b]) == want["states"][str(workers)][
+                    str(b)], f"grain: (b) {workers} workers: the state after "
+                    f"batch {b} differs from the reference's")
+            at = GRAIN_STATE_AT[0]
+            tail = grain_reference_keys(sampler, workers, at, GRAIN_RESUMED)
+            starts = [("set_state", states[at])]
+            if workers == 0:
+                starts.append(("skip_batches", None))
+            for how, state in starts:
+                it = grain_pipeline.train_batches(
+                    str(data), "train", cfg.data, GRAIN_SIZE,
+                    seed=GRAIN_SEED, worker_count=workers,
+                    skip_batches=at if state is None else 0,
+                    initial_state=state)
+                try:
+                    after = grain_match(
+                        it, rows, grades, tail,
+                        f"{workers} workers from {how} at {at}",
+                        states={at + GRAIN_RESUMED}, at0=at)
+                finally:
+                    it.close()
+                check(after[at + GRAIN_RESUMED]
+                      == states[at + GRAIN_RESUMED],
+                      f"grain: (b) {workers} workers from {how}: the state "
+                      "differs from the uninterrupted stream's")
+        out["records_per_s"] = {str(k): v for k, v in rates.items()}
+        log(f"grain: (b) {GRAIN_BATCHES} batches of {GRAIN_BATCH} "
+            f"({GRAIN_BATCHES * GRAIN_BATCH // GRAIN_RECORDS} epochs) at "
+            f"workers {list(GRAIN_WORKERS)}, each bitwise the host reference "
+            f"(the port's order, {GRAIN_RECORDS} records decoded once by "
+            f"_decode_example in {host_s:.2f} s); state bytes after batches "
+            f"{list(GRAIN_STATE_AT)} bitwise the reference's digests; "
+            f"{GRAIN_RESUMED} batches from skip_batches (in process) and "
+            f"from set_state at {GRAIN_STATE_AT[0]}, past the epoch "
+            f"boundary, bitwise and with the uninterrupted states; records "
+            f"a second by workers { {k: round(v, 1) for k, v in rates.items()} }"
+            f" ({smi})")
+
+
+def grain_fits(torch, seed: int, data: Path, root: Path, smi: str,
+               out: dict) -> None:
+    """(c) Per worker count: 8 preset steps, the same run cut at step 5
+    and resumed; then 4 fused steps."""
+    from jama16_retina_tpu_torch import trainer
+    from jama16_retina_tpu_torch.obs import faultinject
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    zero = {"fused_color_jitter": 0, "fused_normalize_color_jitter": 0,
+            "fused_adamw_update": 0, "fused_serve_preprocess": 0}
+    try:
+        for workers in GRAIN_WORKERS:
+            grain = ("data.loader=grain", f"data.grain_workers={workers}")
+            tag = f"w{workers}"
+            wd_a = root / f"a{workers}"
+            res_a, counts_a, recs_a = fit_run(
+                torch, fit_config(FIT_STEPS, wd_a, seed, *grain), data)
+            out["launches"][f"grain_fit_{tag}"] = counts_a
+            check(counts_a == {**zero, "fused_color_jitter": FIT_STEPS},
+                  f"grain: (c) the {workers}-worker preset fit launched "
+                  f"{counts_a}, want B1 = {FIT_STEPS}")
+            evals = [r for r in recs_a if r["kind"] == "eval"]
+            check([r["step"] for r in evals] == [4, 8]
+                  and all(0 <= r["val_auc"] <= 1 for r in evals),
+                  f"grain: (c) the fit's evals {evals}")
+            train_a = {r["step"]: r for r in recs_a if r["kind"] == "train"}
+            step_ms = statistics.median(
+                1e3 * r["window_sec"] for s, r in train_a.items()
+                if s > 1 and r["pause_sec"] == 0 and r["save_sec"] == 0)
+            input_ms = statistics.median(
+                1e3 * r["input_wait_sec"] for s, r in train_a.items()
+                if s > 1)
+            out["fits"][tag] = {"step_ms": step_ms, "input_wait_ms": input_ms,
+                                "first_input_s": train_a[1][
+                                    "input_wait_sec"]}
+            log(f"grain: (c) {FIT_STEPS}-step preset fit at {workers} "
+                f"workers: {res_a}; launches {counts_a}; step median "
+                f"{step_ms:.3f} ms, input wait median "
+                f"{input_ms:.3f} ms (step 1: "
+                f"{train_a[1]['input_wait_sec']:.2f} s) ({smi})")
+
+            cut = {"trainer.step": {"kind": "error", "error": "RuntimeError",
+                                    "on_calls": [GRAIN_CUT_CALL],
+                                    "message": "grain cut"}}
+            wd_b = root / f"b{workers}"
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            try:
+                trainer.fit(fit_config(FIT_STEPS, wd_b, seed, *grain,
+                                       fault_spec(cut)),
+                            str(data), str(wd_b), device="cuda")
+                raised = None
+            except RuntimeError as e:
+                raised = str(e)
+            counts_b1 = launch_counts()
+            faultinject.disarm()
+            check(raised is not None and "grain cut" in raised
+                  and counts_b1["fused_color_jitter"] == GRAIN_CUT_CALL - 1,
+                  f"grain: (c) the cut run raised {raised!r}, launched "
+                  f"{counts_b1}")
+            state_file = wd_b / "grain_state" / "4.json"
+            check(state_file.exists() == (workers > 0),
+                  f"grain: (c) {workers} workers: grain_state/4.json "
+                  f"exists: {state_file.exists()}")
+            if workers:
+                check(state_file.read_bytes()
+                      == (wd_a / "grain_state" / "4.json").read_bytes(),
+                      "grain: (c) the cut run's step-4 state differs from "
+                      "the uninterrupted run's")
+            _, counts_b, recs_b = fit_run(torch, fit_config(
+                FIT_STEPS, wd_b, seed, *grain, "train.resume=true"), data)
+            out["launches"][f"grain_fit_{tag}_cut"] = counts_b1
+            out["launches"][f"grain_fit_{tag}_resume"] = counts_b
+            check([r["step"] for r in recs_b if r["kind"] == "resume"] == [4]
+                  and counts_b["fused_color_jitter"] == FIT_STEPS - 4,
+                  f"grain: (c) the resume launched {counts_b}")
+            da, db = (state_digest(wd_a, FIT_STEPS),
+                      state_digest(wd_b, FIT_STEPS))
+            check(da == db, f"grain: (c) {workers} workers: the resumed "
+                  f"run's step-{FIT_STEPS} state {db[:16]} differs from the "
+                  f"uninterrupted run's {da[:16]}")
+            how = ("grain_state/4.json" if workers
+                   else "state_at_step (no state file)")
+            log(f"grain: (c) {workers} workers: the run cut by trainer.step "
+                f"at call {GRAIN_CUT_CALL} (launches {counts_b1}) and "
+                f"resumed from 4 through {how} (launches {counts_b}): the "
+                f"step-{FIT_STEPS} state digest {da[:16]} equals the "
+                "uninterrupted run's (cuDNN deterministic)")
+            shutil.rmtree(wd_b, ignore_errors=True)
+
+        res_f, counts_f, _ = fit_run(torch, fit_config(
+            GRAIN_FUSED_STEPS, root / "f", seed, "data.loader=grain",
+            "train.use_pallas_fused=true"), data)
+        out["launches"]["grain_fit_fused"] = counts_f
+        check(counts_f == {**zero,
+                           "fused_normalize_color_jitter": GRAIN_FUSED_STEPS,
+                           "fused_adamw_update": GRAIN_FUSED_STEPS},
+              f"grain: (c) the fused fit launched {counts_f}, want B2 = B3 "
+              f"= {GRAIN_FUSED_STEPS}")
+        log(f"grain: (c) {GRAIN_FUSED_STEPS}-step fused fit: {res_f}; "
+            f"launches {counts_f}")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def progressive_decodes(out: dict) -> None:
+    """(d) Every progressive fixture on the host path, the records path
+    (a record's encoded image through ``tfrecord.parse_record``) and the
+    grain loader's ``_decode_example``, bitwise its manifest digests; a
+    truncated one refused."""
+    from jama16_retina_tpu_torch.data import (grain_pipeline, imdecode, jpeg,
+                                              tfrecord)
+
+    manifest = fixture_manifest()
+    names = sorted(n for n in manifest if n.startswith("progressive"))
+    for name in names:
+        data = (FIXTURES / name).read_bytes()
+        entry = manifest[name]
+        host = imdecode.imdecode(data)
+        check(host is not None and sha256(host) == entry["cv2_rgb"],
+              f"grain: (d) {name}: the host decode differs from OpenCV's")
+        payload = tfrecord.make_jpeg_example(data, 1, name)
+        rec = tfrecord.parse_record(payload)
+        check(sha256(rec.image) == entry["tf_rgb"],
+              f"grain: (d) {name}: the records decode differs from "
+              "TensorFlow's")
+        h, w = entry["cv2_shape"][:2]
+        if h == w:
+            row = grain_pipeline._decode_example(payload, h)
+            check(sha256(row["image"]) == entry["cv2_rgb"],
+                  f"grain: (d) {name}: _decode_example differs from "
+                  "OpenCV's")
+        try:
+            jpeg.decode_jpeg(data[:len(data) // 2], exif_orientation=False)
+            refused = None
+        except jpeg.JpegError as e:
+            refused = e.code
+        check(refused == -2, f"grain: (d) {name} cut in half: {refused}")
+    out["progressive_fixtures"] = len(names)
+    log(f"grain: (d) {len(names)} progressive fixtures ({names}) bitwise "
+        "their manifest digests on the host path, the records path and "
+        "(the square one) _decode_example; each cut in half refused as "
+        "truncated")
+
+
+def predict_progressive(torch, serve: dict, root: Path, smi: str,
+                        out: dict) -> None:
+    """(d) ``predict --images`` with ``serve.fused_preprocess=true`` on the
+    progressive photo and a baseline one: B4 once per chunk, canvases
+    bitwise the manifest's, rows against the CPU engine."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve import host
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    images = root / "images"
+    images.mkdir(parents=True)
+    photos = ["progressive.jpg", "fundus299_1.jpg"]
+    for name in photos:
+        shutil.copy(FIXTURES / name, images / name)
+    sets = ["serve.fused_preprocess=true", "model.compute_dtype=float32"]
+    argv = [f"--checkpoint_dir={Path(serve['dirs'][0]).parent}",
+            f"--images={images}", "--config=eyepacs_binary",
+            f"--batch_size={PREDICT_BATCH}", "--threshold=0.5",
+            *[a for s in sets for a in ("--set", s)]]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    code, rows = predict_rows(argv)
+    counts = launch_counts()
+    out["launches"]["grain_predict_progressive"] = counts
+    chunks = -(-len(photos) // PREDICT_BATCH)
+    check(code == 0 and [Path(r["image"]).name for r in rows]
+          == sorted(photos) and all("error" not in r for r in rows),
+          f"grain: (d) predict rows {rows}")
+    check(counts["fused_serve_preprocess"] == chunks
+          and sum(counts.values()) == chunks,
+          f"grain: (d) predict launched {counts}, want B4 once per chunk "
+          f"({chunks})")
+    manifest = fixture_manifest()
+    paths = [str(images / n) for n in sorted(photos)]
+    pre = host.preprocess_paths(paths, 299, registry=Registry())
+    bad = [Path(p).name for p, c in zip(pre.kept, pre.images)
+           if sha256(c) != manifest[Path(p).name]["canvas299"]]
+    check(len(pre.kept) == len(photos) and not bad,
+          f"grain: (d) canvases differ from the manifest: {bad}")
+    cfg = configs.override(configs.get_config("eyepacs_binary"), sets + [
+        f"serve.max_batch={PREDICT_BATCH}",
+        f"serve.bucket_sizes={PREDICT_BATCH}"])
+    want = ServingEngine(cfg, serve["dirs"], device="cpu",
+                         registry=Registry()).probs(pre.images)
+    dev = float(np.max(np.abs(np.array([r["prob"] for r in rows]) - want)))
+    out["predict_cpu_dev"] = dev
+    check(dev <= 1e-4, f"grain: (d) predict rows differ from the CPU engine "
+          f"by {dev}")
+    log(f"grain: (d) predict --images on {photos}: launches {counts}; both "
+        f"canvases bitwise the manifest's; card rows vs the CPU engine max "
+        f"|prob diff| {dev:.3e} (atol 1e-4, TF32 off) ({smi})")
+
+
+def phase_grain(torch, seed: int, smi: str, serve: dict, data: Path) -> dict:
+    """The grain loader alone first, then fits from it, then progressive
+    JPEG (phase 20 of the docstring), on phase 6's splits ``data``."""
+    t_phase = time.perf_counter()
+    root = SCRATCH / "grain"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"launches": {}, "wall_s": {}, "fits": {}}
+    try:
+        grain_alone(data, smi, out)
+        with HbmPart("c", "fits from the grain loader", out, "grain"):
+            grain_fits(torch, seed, data, root, smi, out)
+        with HbmPart("d", "progressive JPEG", out, "grain"):
+            progressive_decodes(out)
+            predict_progressive(torch, serve, root, smi, out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def memoize_init() -> None:
     """Draw each member init once. For the whole run,
     ``models.init.init_flax_default`` is replaced by a memo of it: the
@@ -6859,8 +7293,11 @@ def main(argv=None) -> int:
     obs = phase_obs(torch, args.seed, smi, serve, fit["data"])
     faults = phase_faults(torch, args.seed, smi, serve, router, fit["data"])
     preprocess = phase_preprocess(torch, args.seed, smi, serve)
-    shutil.rmtree(fit["root"], ignore_errors=True)
     mark("phases 6, 9 and 11-17")
+    grain = phase_grain(torch, args.seed, smi, serve, fit["data"])
+    shutil.rmtree(fit["root"], ignore_errors=True)
+    mark(f"phase 20 (grain, progressive JPEG; by part "
+         f"{ {k: round(v, 1) for k, v in grain['wall_s'].items()} })")
     hbm = phase_hbm(torch, args.seed, smi)
     mark(f"phase 18 (hbm; by part "
          f"{ {k: round(v, 1) for k, v in hbm['wall_s'].items()} })")
@@ -6888,7 +7325,7 @@ def main(argv=None) -> int:
                                    preset).items():
             model_runs[f"train_{preset}_{form}"] = t["launches"]
         t_model.append(time.perf_counter())
-        train_step_times(torch, args.seed, smi, preset, timed=3)
+        train_step_times(torch, args.seed, smi, preset, timed=2)
         t_model.append(time.perf_counter())
         phase_train_agreement(torch, args.seed, batch, preset, ("float64",))
         torch.cuda.empty_cache()
@@ -6910,13 +7347,13 @@ def main(argv=None) -> int:
         max_err, {**main_row, "library_ms": None})
     b4.update({"max_abs_diff": max_err, "timed_shape": main_row["shape"],
                "by_batch": {str(b): t for b, t in timing.items()}})
-    # B1-B3 on this slice's path: the tiered loader's preset and fused
-    # fits; phase 18's hbm fits beside them.
+    # B1-B3 on this slice's path: the grain loader's preset and fused
+    # fits; phases 18 and 19's fits beside them.
     launches = {"fused_color_jitter":
-                tiered["launches"]["tiered_fit"]["fused_color_jitter"],
-                **{k: tiered["launches"]["tiered_fit_fused"][k] for k in (
+                grain["launches"]["grain_fit_w0"]["fused_color_jitter"],
+                **{k: grain["launches"]["grain_fit_fused"][k] for k in (
                     "fused_normalize_color_jitter", "fused_adamw_update")}}
-    for ph, runs_of in (("18", hbm), ("19", tiered)):
+    for ph, runs_of in (("18", hbm), ("19", tiered), ("20", grain)):
         log(f"launches: phase {ph}: {runs_of['launches']}")
     # Each path's counts, all four set to 0 just before it ran and read
     # just after.
@@ -6930,7 +7367,7 @@ def main(argv=None) -> int:
             **cascade["launches"], **router["launches"],
             **jpeg["launches"], **obs["launches"], **faults["launches"],
             **preprocess["launches"], **hbm["launches"],
-            **tiered["launches"]}
+            **tiered["launches"], **grain["launches"]}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

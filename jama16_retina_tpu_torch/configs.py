@@ -49,9 +49,17 @@ class DataConfig:
     # card (data/hbm_pipeline.py); "tiered" keeps as many rows on the card
     # as the budget admits and streams the rest through the host decode
     # (data/tiered_pipeline.py); "rawshard" is "tiered" reading shards
-    # transcoded ahead of time (data/rawshard.py). The reference's grain
-    # and served loaders are not ported.
+    # transcoded ahead of time (data/rawshard.py); "grain" is the
+    # reference's grain loader, its order and iterator state bitwise
+    # (data/grain_pipeline.py). The reference's served loader is not
+    # ported.
     loader: str = "tfdata"
+    # Grain loader only: worker processes that decode and batch (0 = in
+    # the trainer's process). With workers a resume restores the iterator
+    # state persisted beside each checkpoint (grain_state/<step>.json),
+    # not the (seed, step) derivation, which has no closed form across
+    # workers (data/grain_pipeline.state_at_step).
+    grain_workers: int = 0
     # Closed-loop ingest autotuner (data/autotune.py): the train loops
     # observe their own stall attribution over tumbling log windows and
     # adjust decode_workers / stage_depth / prefetch depth ONLINE
@@ -460,7 +468,6 @@ _UNIMPLEMENTED = {
         0.1, "Queue A item 11 (part 4: the device plane, whose "
              "device.hbm.headroom_frac gauge the rule reads)"),
 }
-_DATA_PLANE = "Queue A item 7 (the data plane)"
 _MULTI_DEVICE = "Queue A item 8 (multi-device)"
 _PLANES = "Queue A item 11 (planes)"
 # JAX-package fields (or whole sections) this port has no copy of yet.
@@ -473,7 +480,6 @@ _NOT_PORTED = {
     "train.ensemble_manual_data": _MULTI_DEVICE + " (the manual data axis "
                                   "of a member-parallel mesh)",
     "parallel": _MULTI_DEVICE + " (meshes)",
-    "data.grain_workers": _DATA_PLANE + " (the grain loader)",
     "data.stage_per_shard": _MULTI_DEVICE + " (per-shard staging of the "
                             "stream over a mesh's devices)",
     **dict.fromkeys(
@@ -499,11 +505,11 @@ _NOT_PORTED = {
 }
 # Fields of this port that the JAX package's configs.py does not have.
 PORT_FIELDS = {("data", "readers")}
-# data.loader values: the TFRecord stream, the card-resident split and
-# the tiered loader over records or transcoded shards are ported, the
-# others are not.
-_LOADERS = ("tfdata", "hbm", "tiered", "rawshard")
-_LOADER_ITEM = "Queue A item 7 (the grain and served loaders)"
+# data.loader values: the TFRecord stream, the card-resident split, the
+# tiered loader over records or transcoded shards and the grain loader
+# are ported; the served loader comes with the ingest service.
+_LOADERS = ("tfdata", "hbm", "tiered", "rawshard", "grain")
+_LOADER_ITEM = "Queue A item 11, part 5 (the served loader)"
 _ARCHS = ("inception_v3", "resnet50", "efficientnet_b4", "tiny_cnn")
 _HEADS = ("binary", "multi")
 _DTYPES = ("float32", "bfloat16")

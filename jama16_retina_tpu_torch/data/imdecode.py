@@ -3,10 +3,11 @@ for the host stages, returning RGB (OpenCV returns BGR) or None for
 bytes it cannot read.
 
 The format is sniffed from the magic bytes, as OpenCV sniffs it: JPEG
-(EXIF orientation applied, as OpenCV does), PNG and TIFF are decoded. A
+(sequential or progressive, EXIF orientation applied, as OpenCV does),
+PNG and TIFF are decoded. A
 format that is recognized but not decoded yet (BMP, GIF, WebP, JPEG
-2000, the PNM family, Sun raster, OpenEXR, Radiance HDR, AVIF, a
-progressive JPEG, an interlaced PNG, a TIFF variant ``data/tiff.py``
+2000, the PNM family, Sun raster, OpenEXR, Radiance HDR, AVIF, an
+arithmetic-coded JPEG, an interlaced PNG, a TIFF variant ``data/tiff.py``
 refuses) also gives None, and ``read_image`` names it and
 ``jpeg.FORMATS_ITEM``; there is no fallback to another decoder.
 """

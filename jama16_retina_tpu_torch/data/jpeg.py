@@ -1,4 +1,4 @@
-"""Baseline JPEG decoding and encoding without OpenCV, PIL or TensorFlow.
+"""JPEG decoding and baseline encoding without OpenCV, PIL or TensorFlow.
 
 ``decode_jpeg`` returns what ``cv2.imdecode(buf, IMREAD_COLOR)[..., ::-1]``
 and ``tf.io.decode_jpeg(buf, channels=3, dct_method="INTEGER_ACCURATE")``
@@ -10,11 +10,13 @@ applies it and TensorFlow ignores it, so the caller chooses
 (``exif_orientation``): the host stage applies it, the records path does
 not.
 
-Sequential Huffman frames of 8-bit precision with one or three
-(YCbCr) components are decoded; a progressive, arithmetic-coded,
-lossless or 12-bit frame, or an RGB or CMYK one, raises ``JpegError`` naming
-``FORMATS_ITEM``, and so does a truncated or corrupt stream (where libjpeg
-would warn and fill the rest with grey).
+Sequential and progressive Huffman frames of 8-bit precision with one or
+three (YCbCr) components are decoded; an arithmetic-coded, lossless or
+12-bit frame, an RGB or CMYK one, or a progressive one whose last scan
+leaves its low coefficients short of full precision (libjpeg smooths
+those blocks), raises ``JpegError`` naming ``FORMATS_ITEM``, and so does
+a truncated or corrupt stream (where libjpeg would warn and fill the rest
+with grey).
 
 ``encode_jpeg`` returns the bytes of ``cv2.imencode(".jpg", rgb[..., ::-1],
 [cv2.IMWRITE_JPEG_QUALITY, quality])``: what the reference's
@@ -36,7 +38,6 @@ FORMATS_ITEM = ("ROADMAP.md Queue A item 14 (image formats the port does "
 _ERRORS = {
     -1: "corrupt JPEG data",
     -2: "truncated JPEG data",
-    -3: f"progressive JPEG is not decoded by the port yet; see {FORMATS_ITEM}",
     -4: f"arithmetic-coded JPEG is not decoded by the port yet; see "
         f"{FORMATS_ITEM}",
     -5: f"JPEG of a precision other than 8 bits is not decoded by the port "
@@ -51,9 +52,12 @@ _ERRORS = {
     -11: "bad arguments to the JPEG decoder",
     -12: f"JPEG in RGB (no YCbCr transform) is not decoded by the port yet; "
          f"see {FORMATS_ITEM}",
+    -13: f"progressive JPEG whose scans leave coefficients 1-9 short of full "
+         f"precision (libjpeg's block smoothing) is not decoded by the port "
+         f"yet; see {FORMATS_ITEM}",
 }
 # Codes of a stream the port recognizes but does not decode.
-UNSUPPORTED = (-3, -4, -5, -6, -9, -12)
+UNSUPPORTED = (-4, -5, -6, -9, -12, -13)
 
 
 class JpegError(ValueError):

@@ -4,9 +4,15 @@
  * unfiltering, and the TIFF strip and tile unpacking of libtiff (LZW,
  * PackBits, the horizontal predictor).
  *
- * JPEG: sequential Huffman frames (SOF0/SOF1) of 8-bit precision with one
- * or three components, interleaved or not, with or without restart
- * intervals. The arithmetic is libjpeg's, term for term:
+ * JPEG: sequential and progressive Huffman frames (SOF0/SOF1/SOF2) of
+ * 8-bit precision with one or three components, interleaved or not, with
+ * or without restart intervals. The arithmetic is libjpeg's, term for
+ * term:
+ *   - a progressive frame's coefficients gathered over its scans as
+ *     jdphuff.c does (DC first and refine, AC first with end-of-band runs
+ *     and AC refine; spectral selection and successive approximation),
+ *     each component's quantization table latched at its first scan
+ *     (latch_quant_tables), then the same IDCT as a sequential frame;
  *   - dequantization into JCOEF (short) coefficients, the accurate
  *     integer IDCT `jpeg_idct_islow` (CONST_BITS 13, PASS1_BITS 2) and its
  *     post-IDCT range limit table;
@@ -17,14 +23,18 @@
  *     `fullsize` at 1:1;
  *   - `ycc_rgb_convert` with its 16-bit fixed-point tables; one component
  *     (grey) is replicated to RGB.
- * Progressive, lossless, hierarchical and arithmetic-coded frames, other
+ * Lossless, hierarchical and arithmetic-coded frames, other
  * precisions, 2 or 4 components, a 3-component frame that libjpeg takes
  * as RGB (an Adobe marker with transform 0, or component ids 'R', 'G',
  * 'B' with no JFIF or Adobe marker), non-integral sampling factors and a
  * height given by a DNL marker are refused with a code, and so is every
  * stream that is truncated or corrupt: where libjpeg would warn and fill
- * with zeros, this decoder stops. No input can make it read or write out
- * of bounds.
+ * with zeros, this decoder stops. A progressive stream whose first ten
+ * coefficients are not refined to full precision by its last scan is
+ * refused too: libjpeg smooths such blocks (jdcoefct.c,
+ * decompress_smooth_data), and a complete stream never needs it. So is
+ * a bogus progression (a refinement before its first scan), where
+ * libjpeg warns. No input can make it read or write out of bounds.
  *
  * PNG: the five row filters (None, Sub, Up, Average, Paeth) of a
  * non-interlaced image; inflating and pixel unpacking are the caller's.
@@ -48,7 +58,7 @@ enum {
   CODEC_OK = 0,
   ERR_CORRUPT = -1,
   ERR_TRUNCATED = -2,
-  ERR_PROGRESSIVE = -3,
+  /* -3, a progressive frame, is decoded since the progressive path. */
   ERR_ARITHMETIC = -4,
   ERR_PRECISION = -5,
   ERR_COMPONENTS = -6,
@@ -57,7 +67,8 @@ enum {
   ERR_FRAME = -9,      /* lossless, hierarchical, DNL */
   ERR_TOO_LARGE = -10,
   ERR_BAD_ARGS = -11,
-  ERR_RGB = -12
+  ERR_RGB = -12,
+  ERR_SMOOTHING = -13  /* progressive, coefficients 1-9 not all refined */
 };
 
 #define MAX_PIXELS ((int64_t)1 << 28)
@@ -94,6 +105,10 @@ typedef struct {
   int dw, dh;          /* downsampled width and height (real samples) */
   uint8_t *plane;      /* bw*8 x bh*8 samples */
   int decoded;
+  int16_t qt[64];      /* the quantization table latched at its first scan */
+  int q_latched;
+  int16_t *coef;       /* progressive: bw*bh blocks of 64 (natural order) */
+  int coef_bits[64];   /* progressive: Al of the last scan of each, or -1 */
 } component;
 
 typedef struct {
@@ -101,6 +116,7 @@ typedef struct {
   size_t n, pos;
   int width, height, ncomp, max_h, max_v, mcus_x, mcus_y;
   int frame_seen, restart_interval, saw_jfif, saw_adobe, adobe_transform;
+  int progressive, saw_eoi;
   component comp[3];
   int16_t quant[4][64]; /* natural order */
   int quant_defined[4];
@@ -265,6 +281,9 @@ static int parse_sof(jpeg_state *s, size_t at, int len) {
     cp->dh = (int)(((int64_t)s->height * cp->v + s->max_v - 1) / s->max_v);
     cp->plane = NULL;
     cp->decoded = 0;
+    cp->coef = NULL;
+    cp->q_latched = 0;
+    for (int k = 0; k < 64; k++) cp->coef_bits[k] = -1;
   }
   s->frame_seen = 1;
   return CODEC_OK;
@@ -500,8 +519,7 @@ static void idct_islow(const int16_t coef[64], const int16_t q[64],
 /* ------------------------------------------------------------------ */
 
 static int decode_block(bit_reader *br, component *cp, const huff_table *dc,
-                        const huff_table *ac, const int16_t *q, int bx,
-                        int by) {
+                        const huff_table *ac, int bx, int by) {
   int16_t coef[64];
   int s, v, rc;
   memset(coef, 0, sizeof coef);
@@ -529,9 +547,125 @@ static int decode_block(bit_reader *br, component *cp, const huff_table *dc,
     }
   }
   size_t stride = (size_t)cp->bw * 8;
-  idct_islow(coef, q,
+  idct_islow(coef, cp->qt,
              cp->plane + (size_t)by * 8 * stride + (size_t)bx * 8,
              (int)stride);
+  return CODEC_OK;
+}
+
+/* A progressive scan's parameters and its end-of-band run (jdphuff.c's
+ * Ss, Se, Ah, Al and EOBRUN). */
+typedef struct {
+  int ss, se, ah, al;
+  unsigned eobrun;
+} prog_scan;
+
+/* (JCOEF) LEFT_SHIFT(v, al): the shift of the bits, kept to 16. */
+static inline int16_t shifted(int v, int al) {
+  return (int16_t)(uint16_t)((unsigned)v << al);
+}
+
+/* One block of a progressive scan into its coefficients: decode_mcu_DC_
+ * first, decode_mcu_DC_refine, decode_mcu_AC_first or decode_mcu_AC_
+ * refine of libjpeg's jdphuff.c. Where libjpeg warns (a refinement
+ * symbol of another size than 1) this stops. */
+static int decode_block_prog(bit_reader *br, component *cp,
+                             const huff_table *dc, const huff_table *ac,
+                             prog_scan *ps, int16_t *blk) {
+  int s, v, r, rc;
+  if (ps->ss == 0) {
+    if (ps->ah == 0) {
+      if ((rc = decode_sym(br, dc, &s))) return rc;
+      if (s) {
+        if ((rc = get_bits(br, s, &v))) return rc;
+        s = extend(v, s);
+      }
+      int64_t pred = (int64_t)cp->pred + s;
+      if (pred > INT32_MAX || pred < INT32_MIN) return ERR_CORRUPT;
+      cp->pred = (int)pred;
+      blk[0] = shifted(cp->pred, ps->al);
+    } else {
+      if ((rc = get_bits(br, 1, &v))) return rc;
+      if (v) blk[0] = (int16_t)(blk[0] | (1 << ps->al));
+    }
+    return CODEC_OK;
+  }
+  if (ps->ah == 0) {
+    if (ps->eobrun > 0) {
+      ps->eobrun--;
+      return CODEC_OK;
+    }
+    for (int k = ps->ss; k <= ps->se; k++) {
+      if ((rc = decode_sym(br, ac, &s))) return rc;
+      r = s >> 4;
+      s &= 15;
+      if (s) {
+        k += r;
+        if ((rc = get_bits(br, s, &v))) return rc;
+        blk[natural_order[k]] = shifted(extend(v, s), ps->al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        ps->eobrun = 1u << r;
+        if (r) {
+          if ((rc = get_bits(br, r, &v))) return rc;
+          ps->eobrun += (unsigned)v;
+        }
+        ps->eobrun--;
+        break;
+      }
+    }
+    return CODEC_OK;
+  }
+  /* AC refinement. */
+  const int p1 = 1 << ps->al, m1 = -(1 << ps->al);
+  int k = ps->ss;
+  if (ps->eobrun == 0) {
+    for (; k <= ps->se; k++) {
+      if ((rc = decode_sym(br, ac, &s))) return rc;
+      r = s >> 4;
+      s &= 15;
+      if (s) {
+        if (s != 1) return ERR_CORRUPT;
+        if ((rc = get_bits(br, 1, &v))) return rc;
+        s = v ? p1 : m1;
+      } else if (r != 15) {
+        ps->eobrun = 1u << r;
+        if (r) {
+          if ((rc = get_bits(br, r, &v))) return rc;
+          ps->eobrun += (unsigned)v;
+        }
+        break;
+      }
+      /* Past the nonzero coefficients (a correction bit each) and r
+       * zero ones, to the zero one the new value goes to. */
+      do {
+        int16_t *c = blk + natural_order[k];
+        if (*c != 0) {
+          if ((rc = get_bits(br, 1, &v))) return rc;
+          if (v && (*c & p1) == 0)
+            *c = (int16_t)(*c >= 0 ? *c + p1 : *c + m1);
+        } else if (--r < 0) {
+          break;
+        }
+        k++;
+      } while (k <= ps->se);
+      if (s) blk[natural_order[k]] = (int16_t)s;
+    }
+  }
+  if (ps->eobrun > 0) {
+    /* The end of the band: a correction bit for every nonzero
+     * coefficient left. */
+    for (; k <= ps->se; k++) {
+      int16_t *c = blk + natural_order[k];
+      if (*c != 0) {
+        if ((rc = get_bits(br, 1, &v))) return rc;
+        if (v && (*c & p1) == 0)
+          *c = (int16_t)(*c >= 0 ? *c + p1 : *c + m1);
+      }
+    }
+    ps->eobrun--;
+  }
   return CODEC_OK;
 }
 
@@ -544,11 +678,37 @@ static void reset_reader(bit_reader *br, const jpeg_state *s, size_t pos) {
   br->at_marker = 0;
 }
 
+/* A progressive scan's parameters checked as start_pass_phuff_decoder
+ * checks them (its errors and its bogus-progression warnings both
+ * refuse), and each component's coef_bits moved on. */
+static int start_prog_scan(component **sc, int ns, const prog_scan *ps) {
+  int dc = ps->ss == 0;
+  if (dc ? ps->se != 0 : (ps->ss > ps->se || ps->se > 63 || ns != 1))
+    return ERR_CORRUPT;
+  if (ps->ah != 0 && ps->al != ps->ah - 1) return ERR_CORRUPT;
+  if (ps->al > 13) return ERR_CORRUPT;
+  for (int i = 0; i < ns; i++) {
+    int *bits = sc[i]->coef_bits;
+    if (!dc && bits[0] < 0) return ERR_CORRUPT;
+    for (int k = ps->ss; k <= ps->se; k++) {
+      if (ps->ah != (bits[k] < 0 ? 0 : bits[k])) return ERR_CORRUPT;
+      bits[k] = ps->al;
+    }
+  }
+  return CODEC_OK;
+}
+
 static int decode_scan(jpeg_state *s, size_t at, int len) {
   if (!s->frame_seen || len < 3) return ERR_CORRUPT;
   const uint8_t *d = s->data + at + 2;
   int ns = d[0];
   if (ns < 1 || ns > s->ncomp || len != 6 + 2 * ns) return ERR_CORRUPT;
+  prog_scan ps = {d[1 + 2 * ns], d[2 + 2 * ns], d[3 + 2 * ns] >> 4,
+                  d[3 + 2 * ns] & 15, 0};
+  /* Which tables the scan reads: a sequential scan both; a progressive
+   * one the DC table in a first DC scan, the AC table in an AC scan. */
+  int need_dc = !s->progressive || (ps.ss == 0 && ps.ah == 0);
+  int need_ac = !s->progressive || ps.ss != 0;
   component *sc[3];
   for (int i = 0; i < ns; i++) {
     component *cp = NULL;
@@ -559,18 +719,31 @@ static int decode_scan(jpeg_state *s, size_t at, int len) {
       if (sc[j] == cp) return ERR_CORRUPT;
     cp->td = d[2 + 2 * i] >> 4;
     cp->ta = d[2 + 2 * i] & 15;
-    if (cp->td > 3 || cp->ta > 3 || !s->dc[cp->td].defined ||
-        !s->ac[cp->ta].defined || !s->quant_defined[cp->tq])
+    if (cp->td > 3 || cp->ta > 3 || (need_dc && !s->dc[cp->td].defined) ||
+        (need_ac && !s->ac[cp->ta].defined))
       return ERR_CORRUPT;
-    if (cp->plane == NULL) {
+    if (!cp->q_latched) {
+      if (!s->quant_defined[cp->tq]) return ERR_CORRUPT;
+      memcpy(cp->qt, s->quant[cp->tq], sizeof cp->qt);
+      cp->q_latched = 1;
+    }
+    if (s->progressive && cp->coef == NULL) {
+      cp->coef = calloc((size_t)cp->bw * cp->bh * 64, sizeof(int16_t));
+      if (cp->coef == NULL) return ERR_NOMEM;
+    }
+    if (!s->progressive && cp->plane == NULL) {
       cp->plane = calloc((size_t)cp->bw * 8 * (size_t)cp->bh * 8, 1);
       if (cp->plane == NULL) return ERR_NOMEM;
     }
     cp->pred = 0;
     sc[i] = cp;
   }
+  int rc;
+  if (s->progressive && (rc = start_prog_scan(sc, ns, &ps))) return rc;
   int per_row, rows;
   if (ns == 1) {
+    /* A lone component's scan covers its own blocks, not the MCU rows'
+     * padding. */
     per_row = (sc[0]->dw + 7) / 8;
     rows = (sc[0]->dh + 7) / 8;
   } else {
@@ -580,7 +753,7 @@ static int decode_scan(jpeg_state *s, size_t at, int len) {
   bit_reader br;
   reset_reader(&br, s, at + (size_t)len);
   int64_t total = (int64_t)per_row * rows;
-  int next_rst = 0, rc;
+  int next_rst = 0;
   for (int64_t m = 0; m < total; m++) {
     if (s->restart_interval && m > 0 && m % s->restart_interval == 0) {
       /* The rest of the byte is padding; the RSTn marker comes next. */
@@ -590,26 +763,58 @@ static int decode_scan(jpeg_state *s, size_t at, int len) {
       if (marker != 0xD0 + next_rst) return ERR_CORRUPT;
       next_rst = (next_rst + 1) & 7;
       for (int i = 0; i < ns; i++) sc[i]->pred = 0;
+      ps.eobrun = 0;
       reset_reader(&br, s, s->pos);
     }
     int mx = (int)(m % per_row), my = (int)(m / per_row);
     for (int i = 0; i < ns; i++) {
       component *cp = sc[i];
       const huff_table *dc = &s->dc[cp->td], *ac = &s->ac[cp->ta];
-      const int16_t *q = s->quant[cp->tq];
-      if (ns == 1) {
-        if ((rc = decode_block(&br, cp, dc, ac, q, mx, my))) return rc;
-        continue;
-      }
-      for (int v = 0; v < cp->v; v++)
-        for (int h = 0; h < cp->h; h++)
-          if ((rc = decode_block(&br, cp, dc, ac, q, mx * cp->h + h,
-                                 my * cp->v + v)))
-            return rc;
+      int hb = ns == 1 ? 1 : cp->h, vb = ns == 1 ? 1 : cp->v;
+      for (int v = 0; v < vb; v++)
+        for (int h = 0; h < hb; h++) {
+          int bx = mx * hb + h, by = my * vb + v;
+          rc = s->progressive
+                   ? decode_block_prog(
+                         &br, cp, dc, ac, &ps,
+                         cp->coef + ((size_t)by * cp->bw + bx) * 64)
+                   : decode_block(&br, cp, dc, ac, bx, by);
+          if (rc) return rc;
+        }
     }
   }
-  for (int i = 0; i < ns; i++) sc[i]->decoded = 1;
+  if (!s->progressive)
+    for (int i = 0; i < ns; i++) sc[i]->decoded = 1;
   s->pos = br.pos;
+  return CODEC_OK;
+}
+
+/* After a progressive frame's last scan: refuse what libjpeg would fill
+ * or smooth, then each component's blocks through the IDCT. */
+static int finish_progressive(jpeg_state *s) {
+  for (int c = 0; c < s->ncomp; c++) {
+    const int *bits = s->comp[c].coef_bits;
+    if (bits[0] < 0) return ERR_TRUNCATED;
+    /* Without EOI the stream may have been cut between scans: taken only
+     * when every coefficient is complete. */
+    for (int k = 0; k < 64 && !s->saw_eoi; k++)
+      if (bits[k] != 0) return ERR_TRUNCATED;
+    /* smoothing_ok: a coefficient of 1-9 still short of full precision
+     * (or never sent) makes libjpeg smooth the blocks. */
+    for (int k = 1; k < 10; k++)
+      if (bits[k] != 0) return ERR_SMOOTHING;
+  }
+  for (int c = 0; c < s->ncomp; c++) {
+    component *cp = &s->comp[c];
+    const size_t stride = (size_t)cp->bw * 8;
+    cp->plane = malloc(stride * (size_t)cp->bh * 8);
+    if (cp->plane == NULL) return ERR_NOMEM;
+    for (int by = 0; by < cp->bh; by++)
+      for (int bx = 0; bx < cp->bw; bx++)
+        idct_islow(cp->coef + ((size_t)by * cp->bw + bx) * 64, cp->qt,
+                   cp->plane + (size_t)by * 8 * stride + (size_t)bx * 8,
+                   (int)stride);
+  }
   return CODEC_OK;
 }
 
@@ -723,7 +928,9 @@ done:
 static int all_decoded(const jpeg_state *s) {
   if (!s->frame_seen) return 0;
   for (int c = 0; c < s->ncomp; c++)
-    if (!s->comp[c].decoded) return 0;
+    if (s->progressive ? s->comp[c].coef_bits[0] < 0
+                       : !s->comp[c].decoded)
+      return 0;
   return 1;
 }
 
@@ -737,7 +944,10 @@ static int run(jpeg_state *s, int header_only) {
       /* No EOI: accepted once every component is decoded. */
       return (!header_only && all_decoded(s)) ? CODEC_OK : rc;
     }
-    if (m == 0xD9) break;
+    if (m == 0xD9) {
+      s->saw_eoi = 1;
+      break;
+    }
     if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
     size_t at = s->pos;
     if (read_u16(s, at, &len)) return ERR_TRUNCATED;
@@ -749,7 +959,10 @@ static int run(jpeg_state *s, int header_only) {
         if (header_only) return CODEC_OK;
         break;
       case 0xC2:
-        return ERR_PROGRESSIVE;
+        if ((rc = parse_sof(s, at, len))) return rc;
+        s->progressive = 1;
+        if (header_only) return CODEC_OK;
+        break;
       case 0xC3: case 0xC5: case 0xC6: case 0xC7:
         return ERR_FRAME;
       case 0xC9: case 0xCA: case 0xCB: case 0xCC:
@@ -794,6 +1007,8 @@ static void release(jpeg_state *s) {
   for (int c = 0; c < 3; c++) {
     free(s->comp[c].plane);
     s->comp[c].plane = NULL;
+    free(s->comp[c].coef);
+    s->comp[c].coef = NULL;
   }
 }
 
@@ -826,6 +1041,7 @@ int jpeg_decode(const uint8_t *data, size_t n, uint8_t *out, int width,
   int rc = run(s, 0);
   if (rc == CODEC_OK && (s->width != width || s->height != height))
     rc = ERR_BAD_ARGS;
+  if (rc == CODEC_OK && s->progressive) rc = finish_progressive(s);
   /* libjpeg's colour space of a 3-component frame: RGB, not YCbCr. */
   if (rc == CODEC_OK && s->ncomp == 3 && !s->saw_jfif &&
       (s->saw_adobe ? s->adobe_transform == 0

@@ -6,12 +6,15 @@ TFRecord ``train`` split (``data/pipeline.train_batches``; under
 ``data.loader=hbm`` the split resident on the card,
 ``data/hbm_pipeline.train_batches``; under ``tiered`` or ``rawshard`` the
 rows the budget admits resident and the rest streamed,
-``data/tiered_pipeline.py`` and ``data/rawshard.py``) through
+``data/tiered_pipeline.py`` and ``data/rawshard.py``; under ``grain`` the
+reference's grain order and iterator, ``data/grain_pipeline.py``) through
 ``train_lib.train_step``; every ``train.eval_every`` steps and at the last
 step, the val AUC of the eval params, best/``min_delta``/patience
 tracking and early stopping, and a checkpoint (``utils/checkpoint``:
 ``best/`` by val AUC, ``latest/`` for resume); ``train.resume`` continues
-exactly where the run stopped. ``<workdir>/metrics.jsonl`` carries the
+exactly where the run stopped (under ``grain`` with
+``data.grain_workers``, from the iterator state each save persists as
+``grain_state/<step>.json``). ``<workdir>/metrics.jsonl`` carries the
 reference's records (``config``, ``train``, ``eval``, ``early_stop``,
 ``resume``) with its keys, and ``run_meta.json`` pins the seed.
 ``fit_ensemble`` trains k seeded members one after another;
@@ -59,8 +62,9 @@ import torch
 from jama16_retina_tpu_torch import configs, models
 from jama16_retina_tpu_torch import device as device_lib
 from jama16_retina_tpu_torch import train_lib
-from jama16_retina_tpu_torch.data import (augment, hbm_pipeline, pipeline,
-                                          rawshard, synthetic, tfrecord,
+from jama16_retina_tpu_torch.data import (augment, grain_pipeline,
+                                          hbm_pipeline, pipeline, rawshard,
+                                          synthetic, tfrecord,
                                           tiered_pipeline)
 from jama16_retina_tpu_torch.eval import metrics
 from jama16_retina_tpu_torch.models import convert, init
@@ -584,13 +588,17 @@ class _BgJob:
         return self._result
 
 
-def _preempt_save(log: RunLog, step: int, save_fn) -> None:
+def _preempt_save(log: RunLog, step: int, save_fn,
+                  grain_tee: "_GrainStateTee | None" = None,
+                  workdir: str = "") -> None:
     """The preemption save: ``save_fn(step)`` writes ``latest/`` at the
-    last completed step (returning whether it wrote), then a
-    ``preempt_save`` record. A failing save is logged and does not mask
-    the exit that is already under way."""
+    last completed step (returning whether it wrote), and the worker-mode
+    grain state for that step, then a ``preempt_save`` record. A failing
+    save is logged and does not mask the exit that is already under
+    way."""
     try:
         saved = save_fn(step)
+        _persist_grain_state(grain_tee, workdir, step)
         log.write("preempt_save", step=step, saved=bool(saved))
         _log.warning("preemption: saved resume checkpoint at step %d "
                      "(train.resume=true continues here)", step)
@@ -912,12 +920,122 @@ def _load_or_write_run_meta(workdir: str, seed: int, cfg_name: str,
     return seed
 
 
+class _GrainStateTee:
+    """The grain iterator's state after every batch it produces, by
+    batch ordinal. The prefetcher pulls the stream ahead of the step, so
+    the iterator's own state at a save describes a later position; a
+    checkpoint persists the state as of its step's batch. A ring of
+    ``keep`` (at least 16) states, deeper than the prefetch lead."""
+
+    def __init__(self, it, start_ordinal: int, keep: int = 16):
+        self._it = it
+        self._n = start_ordinal
+        self._keep = max(16, keep)
+        self._states: "dict[int, bytes]" = {}
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self._it)
+        self._n += 1
+        self._states[self._n] = self._it.get_state()
+        self._states.pop(self._n - self._keep, None)
+        return batch
+
+    def state_after(self, ordinal: int) -> "bytes | None":
+        return self._states.get(ordinal)
+
+    def close(self) -> None:
+        self._it.close()
+
+
+def _grain_state_path(workdir: str, step: int) -> str:
+    return os.path.join(workdir, "grain_state", f"{step}.json")
+
+
+def _prune_grain_state(workdir: str, kept_steps: set,
+                       protect_above: "int | None" = None) -> None:
+    """Remove the grain states of steps whose checkpoints are gone.
+    Steps above ``protect_above`` stay even when ``kept_steps`` lacks
+    them (an async save may not be listed yet); None only where the newer
+    states are the ones being purged (the torn-save rollback)."""
+    d = os.path.join(workdir, "grain_state")
+    if not os.path.isdir(d):
+        return
+    for name in os.listdir(d):
+        stem, ext = os.path.splitext(name)
+        if ext != ".json" or not stem.isdigit():
+            continue
+        s = int(stem)
+        if s in kept_steps or (protect_above is not None
+                               and s > protect_above):
+            continue
+        try:
+            os.remove(os.path.join(d, name))
+        except OSError:
+            pass
+
+
+def _persist_grain_state(tee: "_GrainStateTee | None", workdir: str,
+                         step: int, kept_steps: "set | None" = None) -> None:
+    """Write the worker-mode grain state for ``step`` beside its
+    checkpoint (``grain_state/<step>.json``), then prune the states of
+    steps retention has dropped (``kept_steps``: the checkpointer's live
+    steps; ``step`` and anything newer than the newest listed step
+    stay)."""
+    if tee is None:
+        return
+    state = tee.state_after(step)
+    if state is None:
+        # Legitimate only at a resumed run's first save (no batch taken
+        # yet); otherwise the ring was outrun.
+        if step > tee._n - tee._keep:
+            return
+        _log.warning("grain state for step %d was evicted from the tee "
+                     "ring (produced up to %d, keep=%d); this checkpoint "
+                     "will not be worker-mode resumable", step, tee._n,
+                     tee._keep)
+        return
+    os.makedirs(os.path.join(workdir, "grain_state"), exist_ok=True)
+    path = _grain_state_path(workdir, step)
+    with open(path + ".tmp", "wb") as f:
+        f.write(state)
+    os.replace(path + ".tmp", path)
+    if kept_steps is not None:
+        kept = set(kept_steps)
+        _prune_grain_state(workdir, kept | {step},
+                           protect_above=max(kept) if kept else -1)
+
+
+def _load_grain_state(cfg: configs.ExperimentConfig, workdir: str,
+                      start_step: int) -> "bytes | None":
+    """The persisted worker-mode grain state of a resume, or None (then
+    ``grain_pipeline.train_batches`` raises its ``NotImplementedError``
+    for a worker-mode skip)."""
+    if (cfg.data.loader != "grain" or cfg.data.grain_workers <= 0
+            or start_step == 0):
+        return None
+    path = _grain_state_path(workdir, start_step)
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        return f.read()
+
+
 def _train_stream(cfg: configs.ExperimentConfig, data_dir: str, seed: int,
-                  skip_batches: int, dev: torch.device, knobs=None):
-    """The train batches of ``data.loader`` on ``dev``, from batch
-    ``skip_batches`` on (the reference's ``_train_stream``). ``tfdata``:
-    the TFRecord stream read by ``data.readers`` processes and staged
-    ``data.prefetch_batches`` ahead by ``pipeline.DevicePrefetch``.
+                  skip_batches: int, dev: torch.device, knobs=None,
+                  grain_state: "bytes | None" = None):
+    """(stream, grain tee or None): the train batches of ``data.loader``
+    on ``dev``, from batch ``skip_batches`` on (the reference's
+    ``_train_stream``). ``tfdata``: the TFRecord stream read by
+    ``data.readers`` processes and staged ``data.prefetch_batches`` ahead
+    by ``pipeline.DevicePrefetch``. ``grain``: the grain loader's host
+    batches (``grain_pipeline.train_batches``, ``data.grain_workers``
+    worker processes, restored from ``grain_state`` or derived at
+    ``skip_batches``), staged by ``DevicePrefetch`` as ``tfdata``'s are;
+    with workers, through a ``_GrainStateTee`` whose states the saves
+    persist. ``data.readers`` does nothing under grain.
     ``hbm``: batches gathered on the card from the resident split
     (``hbm_pipeline.train_batches``), on the consumer's current stream,
     the step's: they never pass the prefetcher's pinned host buffers.
@@ -929,26 +1047,40 @@ def _train_stream(cfg: configs.ExperimentConfig, data_dir: str, seed: int,
     ``data.prefetch_batches`` of them: ROADMAP Queue C). ``data.readers``
     does nothing under these three loaders. ``knobs`` (``data.autotune``):
     the live decode workers and stage depth the tiered and rawshard
-    loaders poll, and the prefetch depth ``tfdata``'s prefetcher polls. The stream has ``close()``.
+    loaders poll, and the prefetch depth the prefetcher polls. The stream has ``close()``.
     ``configs.check_supported`` has refused every other loader."""
     loader, size = cfg.data.loader, cfg.model.image_size
     if loader == "hbm":
         return hbm_pipeline.train_batches(
             data_dir, "train", cfg.data, size, seed=seed,
-            skip_batches=skip_batches, device=dev)
+            skip_batches=skip_batches, device=dev), None
     if loader in ("tiered", "rawshard"):
         lib = tiered_pipeline if loader == "tiered" else rawshard
         return lib.train_batches(
             data_dir, "train", cfg.data, size, seed=seed,
-            skip_batches=skip_batches, knobs=knobs, device=dev)
+            skip_batches=skip_batches, knobs=knobs, device=dev), None
     depth = cfg.data.prefetch_batches
+    if loader == "grain":
+        batches = tee = grain_pipeline.train_batches(
+            data_dir, "train", cfg.data, size, seed=seed,
+            skip_batches=skip_batches, worker_count=cfg.data.grain_workers,
+            initial_state=grain_state)
+        if cfg.data.grain_workers > 0:
+            # Worker-mode positions have no (seed, step) closed form: each
+            # checkpoint persists the state of its own step.
+            batches = tee = _GrainStateTee(batches, skip_batches,
+                                           keep=depth + 4)
+        else:
+            tee = None
+        return pipeline.DevicePrefetch(batches, dev, depth,
+                                       knobs=knobs), tee
     # The prefetcher's thread runs whenever knobs are given (their depth
     # is at least 1), and then copies through its own pinned buffers.
     return pipeline.DevicePrefetch(pipeline.train_batches(
         data_dir, "train", cfg.data, size, seed=seed,
         skip_batches=skip_batches,
         pin_memory=dev.type == "cuda" and depth == 0 and knobs is None,
-        readers=cfg.data.readers), dev, depth, knobs=knobs)
+        readers=cfg.data.readers), dev, depth, knobs=knobs), None
 
 
 def _autotune_for(cfg: configs.ExperimentConfig, dev: torch.device):
@@ -972,9 +1104,11 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
 
     The train stream is ``data.loader``'s (``_train_stream``): the
     TFRecord stream staged ``data.prefetch_batches`` ahead on the device,
-    read by ``data.readers`` processes; the card-resident split
-    (``hbm``); or the resident and streamed tiers (``tiered``,
-    ``rawshard``). Under the last three the val batches also stay on the
+    read by ``data.readers`` processes; the grain loader's batches, staged
+    the same way (``grain``; with workers each save also writes the
+    iterator state of its step, ``grain_state/<step>.json``, which a
+    resume restores); the card-resident split (``hbm``); or the resident
+    and streamed tiers (``tiered``, ``rawshard``). Under the last three the val batches also stay on the
     card between evals (``_eval_cache_for``), and ``data.autotune`` tunes
     the stream's timing knobs at every log boundary (``_autotune_for``).
     ``train.init_from`` warm-starts a fresh run from a donor
@@ -1040,7 +1174,9 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
     knobs, tuner = _autotune_for(cfg, dev)
     # One batch per completed step: a resumed stream continues exactly
     # where the interrupted one stopped.
-    stream = _train_stream(cfg, data_dir, seed, start_step, dev, knobs)
+    stream, grain_tee = _train_stream(
+        cfg, data_dir, seed, start_step, dev, knobs,
+        grain_state=_load_grain_state(cfg, workdir, start_step))
     # The val batches stay on the card between evals under the loaders
     # that keep train rows there (budget-gated; None streams every eval).
     val_cache = _eval_cache_for(cfg, data_dir, "val", device=dev)
@@ -1068,11 +1204,15 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                 snap.wait()
                 ckpt.save(step_now, train_lib.state_to_flat(snap.state),
                           {"val_auc": auc})
+                _persist_grain_state(grain_tee, workdir, step_now,
+                                     kept_steps=ckpt.all_steps())
 
             saver.submit(job)
         else:
             ckpt.save(step_now, train_lib.state_to_flat(state),
                       {"val_auc": auc})
+            _persist_grain_state(grain_tee, workdir, step_now,
+                                 kept_steps=ckpt.all_steps())
         dt = time.perf_counter() - t0
         stalls.add("save", dt)
         save_stall[0] += dt
@@ -1097,6 +1237,8 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                 if not preempted.is_set():
                     ckpt.save(step_at, train_lib.state_to_flat(snap.state),
                               {"val_auc": auc})
+                    _persist_grain_state(grain_tee, workdir, step_at,
+                                         kept_steps=ckpt.all_steps())
 
             if not preempted.is_set():
                 saver.submit(job)
@@ -1245,7 +1387,8 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                                  "part-updated, latest/ is left as it was",
                                  last_step + 1)
                 else:
-                    _preempt_save(log, last_step, preempt_save_latest)
+                    _preempt_save(log, last_step, preempt_save_latest,
+                                  grain_tee, workdir)
             raise
         finally:
             # No capture or signal handler outlives the loop.
@@ -1371,6 +1514,11 @@ def _restore_members(cfg: configs.ExperimentConfig, workdir: str,
                      "common step %d", latest, step0)
         for c in ckpts:
             c.delete_newer_than(step0)
+        # The rolled-back steps' grain states belong to the abandoned
+        # timeline too.
+        _prune_grain_state(workdir, {
+            s for s in set.union(*[c.all_steps() for c in ckpts])
+            if s <= step0})
     for m, c in enumerate(ckpts):
         _check_ema_compat(c, cfg, ckpt_lib.member_dir(workdir, m), step0)
     return step0
@@ -1484,7 +1632,9 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
     saver = ckpt_lib.AsyncSaver() if (tc.async_save or overlap) else None
     knobs, tuner = _autotune_for(cfg, dev)
     # The stacked step reads the same global batches as one fit.
-    stream = _train_stream(cfg, data_dir, seed, start_step, dev, knobs)
+    stream, grain_tee = _train_stream(
+        cfg, data_dir, seed, start_step, dev, knobs,
+        grain_state=_load_grain_state(cfg, workdir, start_step))
     val_cache = _eval_cache_for(cfg, data_dir, "val", device=dev)
     profiler = _ProfilerWindow(cfg, log, workdir, start_step, dev)
     flight = _flight_for(cfg, workdir, profiler)
@@ -1508,6 +1658,9 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
                           train_lib.state_to_flat(
                               train_lib.unstack_member(src, m)),
                           {"val_auc": float(aucs[m])})
+        _persist_grain_state(
+            grain_tee, workdir, step_now,
+            kept_steps=set.union(*[c.all_steps() for c in ckpts]))
 
     def eval_members(step_now: int, eval_state, ba, bs, sb, stable: bool,
                      attribute: bool):
@@ -1686,7 +1839,8 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
                                  last_step + 1)
                 else:
                     # Every member in lock-step, as the eval-time save.
-                    _preempt_save(log, last_step, preempt_save_latest)
+                    _preempt_save(log, last_step, preempt_save_latest,
+                                  grain_tee, workdir)
             raise
         finally:
             profiler.finalize()

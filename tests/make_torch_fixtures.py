@@ -1,7 +1,7 @@
 """Writes the image fixtures of the port's codec tests into
 ``tests/data/jpeg/`` with their ``manifest.json``.
 
-    python tests/make_torch_fixtures.py [jpeg] [preprocess] [hbm]
+    python tests/make_torch_fixtures.py [jpeg] [preprocess] [hbm] [grain]
 
 It needs the JAX package's synthetic renderer, OpenCV and TensorFlow, so
 it runs where the reference runs, not on the card machine. The manifest
@@ -23,6 +23,18 @@ canvas at quality 92, the runners' directory specs (names, the photo
 each name copies, grades) and, for each spec and run, the sha256 of
 every file the reference's ``preprocess_eyepacs.py`` or
 ``preprocess_messidor.py`` wrote and the JSON report it printed.
+
+``grain`` writes ``tests/data/grain_order.json`` from the ``grain``
+package and the reference's grain loader: for seeds 0, 1, 42 and
+2**32-1 the sha256 of grain's ``index_shuffle`` permutations of
+``[0, m]`` for every m from 0 to 300, end to end (int64); for seeds 0
+and 42 the sha256 of the record keys of the first two epochs of
+``IndexSampler`` over ``chip_smoke.GRAIN_RECORDS`` records; and, for
+the reference's ``make_train_iterator`` over that many records at
+``chip_smoke.GRAIN_SIZE`` px, batch ``chip_smoke.GRAIN_BATCH``, seed
+``chip_smoke.GRAIN_SEED`` and each of ``chip_smoke.GRAIN_WORKERS``, the
+sha256 of its ``get_state()`` bytes after each of
+``chip_smoke.GRAIN_STATE_AT`` batches.
 
 ``hbm`` writes ``tests/data/jpeg/hbm_load.json``: for each split of the
 JPEG records ``chip_smoke.write_jpeg_splits`` packs from the fixtures
@@ -125,6 +137,14 @@ def files() -> "dict[str, tuple[bytes, bool]]":
                                          q, 92), 6), True)
     out["progressive.jpg"] = (encode(render(600, 1, 299), q, 92,
                                      cv2.IMWRITE_JPEG_PROGRESSIVE, 1), True)
+    prog = [q, 92, cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+    for name, img, extra in (
+            ("420", small, []),
+            ("444", small, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x111111]),
+            ("grey", small[..., 1], []),
+            ("rst", small, [cv2.IMWRITE_JPEG_RST_INTERVAL, 2]),
+            ("optimize", small, [cv2.IMWRITE_JPEG_OPTIMIZE, 1])):
+        out[f"progressive_{name}.jpg"] = (encode(img, *prog, *extra), False)
     png_src = render(700, 3, 96)
     for name, arr in (("rgb", png_src[..., ::-1]),
                       ("rgba", np.dstack([png_src[..., ::-1],
@@ -334,7 +354,7 @@ def write_jpeg_fixtures() -> None:
             tfr = tf.io.decode_jpeg(data, channels=3,
                                     dct_method="INTEGER_ACCURATE").numpy()
             entry.update(tf_rgb=sha(tfr), tf_shape=list(tfr.shape))
-        if photo and name != "progressive.jpg":
+        if photo:
             canvas = fundus.resize_and_center_fundus(rgb, diameter=299)
             entry["canvas299"] = sha(canvas)
         manifest[name] = entry
@@ -644,16 +664,72 @@ def write_hbm_fixtures() -> None:
     print(f"{len(out)} splits in {HBM_LOAD}")
 
 
+GRAIN_ORDER = os.path.join(HERE, "data", "grain_order.json")
+SHUFFLE_SEEDS = (0, 1, 42, 2**32 - 1)
+SHUFFLE_MAX = 300
+
+
+def write_grain_fixtures() -> None:
+    import chip_smoke
+    import grain.python as pygrain
+    from grain._src.python.experimental.index_shuffle.python import (
+        index_shuffle_module)
+    from jama16_retina_tpu.configs import DataConfig
+    from jama16_retina_tpu.data import grain_pipeline, tfrecord
+
+    shuffle = {}
+    for seed in SHUFFLE_SEEDS:
+        perms = [index_shuffle_module.index_shuffle(
+            i, max_index=m, seed=seed, rounds=4)
+            for m in range(SHUFFLE_MAX + 1) for i in range(m + 1)]
+        shuffle[str(seed)] = sha(np.asarray(perms, np.int64))
+    n, bs = chip_smoke.GRAIN_RECORDS, chip_smoke.GRAIN_BATCH
+    order = {}
+    for seed in (0, 42):
+        sampler = pygrain.IndexSampler(
+            n, shard_options=pygrain.ShardOptions(0, 1, drop_remainder=True),
+            shuffle=True, num_epochs=None, seed=seed)
+        order[str(seed)] = sha(np.asarray(
+            [sampler[g].record_key for g in range(2 * n)], np.int64))
+    states = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # The state bytes do not read pixels: small records do.
+        tfrecord.write_synthetic_split(tmp, "train", n, 8, num_shards=4,
+                                       seed=1, encoding="raw")
+        for workers in chip_smoke.GRAIN_WORKERS:
+            it = grain_pipeline.make_train_iterator(
+                tmp, "train", DataConfig(batch_size=bs),
+                chip_smoke.GRAIN_SIZE, seed=chip_smoke.GRAIN_SEED,
+                worker_count=workers)
+            got = {}
+            for b in range(1, max(chip_smoke.GRAIN_STATE_AT) + 1):
+                next(it)
+                if b in chip_smoke.GRAIN_STATE_AT:
+                    got[str(b)] = sha(it.get_state())
+            states[str(workers)] = got
+            del it
+    with open(GRAIN_ORDER, "w") as f:
+        json.dump({"shuffle_0_300": shuffle, "order_2_epochs": order,
+                   "states": states, "records": n, "batch": bs,
+                   "image_size": chip_smoke.GRAIN_SIZE,
+                   "seed": chip_smoke.GRAIN_SEED}, f, indent=1,
+                  sort_keys=True)
+        f.write("\n")
+    print(f"grain order and states in {GRAIN_ORDER}")
+
+
 def main(argv: "list[str] | None" = None) -> int:
     which = (argv if argv is not None else sys.argv[1:]) or ["jpeg",
                                                              "preprocess",
-                                                             "hbm"]
+                                                             "hbm", "grain"]
     if "jpeg" in which:
         write_jpeg_fixtures()
     if "preprocess" in which:
         write_preprocess_fixtures()
     if "hbm" in which:
         write_hbm_fixtures()
+    if "grain" in which:
+        write_grain_fixtures()
     return 0
 
 

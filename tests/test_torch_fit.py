@@ -239,7 +239,7 @@ def test_fit_ensemble_trains_seeded_members(data_dir, tmp_path):
 
 def test_unported_loader_raises_before_training(data_dir, tmp_path):
     cfg = dataclasses.replace(
-        _cfg(), data=dataclasses.replace(_cfg().data, loader="grain"))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        _cfg(), data=dataclasses.replace(_cfg().data, loader="served"))
+    with pytest.raises(NotImplementedError, match="Queue A item 11, part 5"):
         trainer.fit(cfg, data_dir, str(tmp_path), device="cpu")
     assert not os.path.exists(tmp_path / "metrics.jsonl")

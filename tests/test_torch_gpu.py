@@ -1057,3 +1057,75 @@ def test_rawshard_batches_on_the_card_are_the_tiered_ones(cuda, tmp_path):
             assert torch.equal(x["grade"], y["grade"])
         a.close()
         b.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workers", [0, 2])
+def test_grain_fit_on_the_card_launches_b1_each_step(cuda, tmp_path,
+                                                     workers):
+    """``fit`` under ``data.loader=grain`` (the smoke preset with B1 on, in
+    process and with 2 worker processes): B1 launches once a step, the
+    batches reach the card through the prefetcher, and with workers the
+    step-4 save writes ``grain_state/4.json``."""
+    import os
+
+    from jama16_retina_tpu_torch import configs, trainer
+    from jama16_retina_tpu_torch.data import tfrecord
+
+    root = _smoke_split(tmp_path / "data", n=16)
+    tfrecord.write_synthetic_split(root, "val", 8, 64, num_shards=2,
+                                   seed=6, encoding="raw")
+    wd = str(tmp_path / "wd")
+    cfg = configs.override(configs.get_config("smoke"), [
+        "data.use_pallas=true", "data.loader=grain",
+        f"data.grain_workers={workers}", "data.batch_size=4",
+        "train.steps=6", "train.eval_every=4", "train.log_every=2"])
+    cj.launches["fused_color_jitter"] = 0
+    trainer.fit(cfg, root, wd, device=cuda)
+    assert cj.launches["fused_color_jitter"] == 6
+    assert os.path.exists(os.path.join(wd, "grain_state", "4.json")) == (
+        workers > 0)
+
+
+@pytest.mark.gpu
+def test_progressive_jpeg_decodes_on_this_host_as_the_manifest(cuda):
+    """The card machine's host (no OpenCV, no TensorFlow): every
+    progressive fixture decodes to its manifest digests on the host path
+    and the records path, and B4 normalizes the progressive photo's
+    canvas on the card as its plain version does."""
+    import hashlib
+    import json
+    import os
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch.data import imdecode, jpeg
+    from jama16_retina_tpu_torch.preprocess import fundus
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "jpeg")
+    with open(os.path.join(here, "manifest.json")) as f:
+        manifest = json.load(f)
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    names = sorted(n for n in manifest if n.startswith("progressive"))
+    assert len(names) >= 6
+    for name in names:
+        with open(os.path.join(here, name), "rb") as f:
+            data = f.read()
+        assert sha(imdecode.imdecode(data)) == manifest[name]["cv2_rgb"]
+        assert sha(jpeg.decode_jpeg(data, exif_orientation=False)) == \
+            manifest[name]["tf_rgb"]
+    with open(os.path.join(here, "progressive.jpg"), "rb") as f:
+        canvas = fundus.resize_and_center_fundus(imdecode.imdecode(f.read()),
+                                                 diameter=299)
+    assert sha(canvas) == manifest["progressive.jpg"]["canvas299"]
+    x = torch.from_numpy(canvas[None]).to(cuda)
+    before = sp.launches
+    got = sp.fused_serve_preprocess(x)
+    torch.cuda.synchronize()
+    assert sp.launches == before + 1
+    for g, w in zip(got, sp.serve_preprocess_reference(x)):
+        assert torch.equal(g, w)

@@ -30,7 +30,7 @@ for name in names:
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "tensorflow", "absl", "aqt")
+                                    "tensorflow", "absl", "aqt", "grain")
              or m == "jama16_retina_tpu" or m.startswith("jama16_retina_tpu."))
 print(len(names), bad, "|", " ".join(names))
 """
@@ -53,8 +53,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # runners' (data/tiff, preprocess/datasets and both entry points) and
     # the hbm loader's (data/grain_pipeline, data/hbm_pipeline,
     # data/threefry) and the tiered loader's (data/tiered_pipeline,
-    # data/autotune, data/rawshard, transcode_shards) included.
-    assert int(n_modules) >= 49
+    # data/autotune, data/rawshard, transcode_shards) and the grain
+    # loader's (data/grain_index) included.
+    assert int(n_modules) >= 50
     assert {f"jama16_retina_tpu_torch.{m}" for m in (
         "obs.registry", "obs.quality", "integrity.artifact",
         "serve.quantize", "serve.batcher", "optim", "train_lib",
@@ -64,7 +65,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
         "preprocess.datasets", "preprocess_eyepacs", "preprocess_messidor",
         "data.grain_pipeline", "data.hbm_pipeline", "data.threefry",
         "data.tiered_pipeline", "data.autotune", "data.rawshard",
-        "transcode_shards")
+        "transcode_shards", "data.grain_index")
         } <= set(names.split())
     assert bad.strip() == "[]"
 
@@ -286,7 +287,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("item,exc", [
-    ("data.loader=grain", NotImplementedError),
+    ("data.loader=served", NotImplementedError),
     ("obs.device_hbm_headroom_alert=0.2", NotImplementedError),
     ("serve.compile_cache_dir=/x", NotImplementedError),
     ("model.stem_s2d=true", NotImplementedError),
@@ -363,10 +364,10 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
     # loader ported data.hbm_budget_bytes, data.decode_workers and
     # data.quarantine_bad_records; 48 until the tiered and rawshard
     # loaders and the autotuner ported data.autotune, data.rawshard_dir,
-    # data.stage_depth and data.tiered_resident_bytes.
-    assert len(items) >= 44
-    for key, item in (("data.grain_workers", "item 7"),
-                      ("data.stage_per_shard", "item 8"),
+    # data.stage_depth and data.tiered_resident_bytes; 44 until the grain
+    # loader ported data.grain_workers.
+    assert len(items) >= 43
+    for key, item in (("data.stage_per_shard", "item 8"),
                       ("parallel.num_devices", "item 8"),
                       ("train.ensemble_manual_data", "item 8"),
                       ("eval.sharded", "item 8"),

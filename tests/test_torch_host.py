@@ -131,7 +131,7 @@ def test_ben_graham_is_within_one_level_of_the_reference(seed):
 
 def _photos():
     return sorted(p for p in glob.glob(os.path.join(FIXTURES, "*"))
-                  if not p.endswith((".json", "progressive.jpg")))
+                  if not p.endswith(".json"))
 
 
 @pytest.mark.parametrize("ben_graham", [False, True])

@@ -41,7 +41,8 @@ FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
 with open(os.path.join(FIXTURES, "manifest.json")) as _f:
     MANIFEST = json.load(_f)
 JPEGS = sorted(n for n in MANIFEST if n.endswith(".jpg")
-               and n != "progressive.jpg")
+               and not n.startswith("progressive"))
+PROGRESSIVE = sorted(n for n in MANIFEST if n.startswith("progressive"))
 PNGS = sorted(n for n in MANIFEST if n.endswith(".png"))
 BATCH = 4
 
@@ -81,12 +82,48 @@ def test_fixture_decodes_bitwise_as_opencv_and_tensorflow(name):
     np.testing.assert_array_equal(imdecode.imdecode(data), host)
 
 
+@pytest.mark.parametrize("name", PROGRESSIVE)
+def test_progressive_fixture_decodes_bitwise_as_opencv_and_tensorflow(name):
+    """SOF2 frames (cv2's jpeg_simple_progression: DC first and refine, AC
+    first and refine, spectral bands; 4:2:0, 4:4:4, grey, a restart
+    interval, optimized tables between scans) decode bitwise on both
+    paths."""
+    data = _read(name)
+    assert b"\xff\xc2" in data
+    test_fixture_decodes_bitwise_as_opencv_and_tensorflow(name)
+
+
+def _scan_starts(data: bytes) -> "list[int]":
+    return [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+
+
+@pytest.mark.parametrize("name", PROGRESSIVE)
+def test_truncated_progressive_jpeg_is_refused(name):
+    """Cut inside a scan, or between scans without EOI: refused as
+    truncated, where libjpeg warns and decodes what it has."""
+    data = _read(name)
+    scans = _scan_starts(data)
+    assert len(scans) >= 6
+    for cut in (len(data) // 2, scans[-1] + 20, scans[-1]):
+        with pytest.raises(jpeg.JpegError) as e:
+            jpeg.decode_jpeg(data[:cut], exif_orientation=False)
+        assert e.value.code == -2 and not e.value.unsupported, cut
+    # Without its EOI marker alone the stream is whole: decoded.
+    np.testing.assert_array_equal(
+        jpeg.decode_jpeg(data[:-2], exif_orientation=False), _tf_rgb(data))
+
+
 def test_progressive_jpeg_is_refused_naming_its_item():
+    """A progressive stream that ends (with EOI) before the scan refining
+    coefficients 1-9 to full precision: libjpeg smooths such blocks
+    (jdcoefct.c), so the port refuses it naming item 14."""
     data = _read("progressive.jpg")
+    scans = _scan_starts(data)
+    cut = data[:scans[-1]] + b"\xff\xd9"
     with pytest.raises(jpeg.JpegError, match="item 14") as e:
-        jpeg.decode_jpeg(data, exif_orientation=False)
-    assert e.value.unsupported
-    rgb, why = imdecode.read_image(data)
+        jpeg.decode_jpeg(cut, exif_orientation=False)
+    assert e.value.unsupported and e.value.code == -13
+    rgb, why = imdecode.read_image(cut)
     assert rgb is None and "progressive" in why and "item 14" in why
 
 

@@ -154,10 +154,11 @@ def test_a_truncated_file_raises(tmp_path):
 
 
 def test_jpeg_records_raise_naming_their_item(tmp_path):
-    """JPEG records decode (tests/test_torch_jpeg.py); one the port cannot
-    decode raises ``JpegError``, naming item 14 for a recognized format
-    (progressive); the synthetic writer writes JPEG records (the default)
-    or raw ones and refuses any other encoding."""
+    """JPEG records decode (tests/test_torch_jpeg.py), progressive ones
+    too, as TensorFlow decodes them; one the port cannot decode raises
+    ``JpegError``, naming item 14 for a recognized format (arithmetic
+    coding); the synthetic writer writes JPEG records (the default) or raw
+    ones and refuses any other encoding."""
     import cv2
 
     from jama16_retina_tpu_torch.data import jpeg
@@ -165,16 +166,23 @@ def test_jpeg_records_raise_naming_their_item(tmp_path):
     img = np.random.default_rng(0).integers(0, 256, (SIZE, SIZE, 3),
                                             dtype=np.uint8)
     ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    ok, base = cv2.imencode(".jpg", img)
+    arith = base.tobytes().replace(b"\xff\xc0", b"\xff\xc9", 1)
     exs = [jax_tfrecord.make_example(b"\xff\xd8\xff\xe0not-decoded", 3,
                                      "j0"),
-           jax_tfrecord.make_example(prog.tobytes(), 1, "j1")]
+           jax_tfrecord.make_example(prog.tobytes(), 1, "j1"),
+           jax_tfrecord.make_example(arith, 2, "j2")]
     jax_tfrecord.write_example_shards(exs, str(tmp_path), "test", 1)
-    junk, progressive = tfrecord.read_records(tfrecord.list_split(
-        str(tmp_path), "test")[0])
+    junk, progressive, arithmetic = tfrecord.read_records(
+        tfrecord.list_split(str(tmp_path), "test")[0])
     with pytest.raises(jpeg.JpegError, match="corrupt|truncated"):
         tfrecord.parse_record(junk)
+    np.testing.assert_array_equal(
+        tfrecord.parse_record(progressive).image,
+        tf.io.decode_jpeg(prog.tobytes(), channels=3,
+                          dct_method="INTEGER_ACCURATE").numpy())
     with pytest.raises(jpeg.JpegError, match="Queue A item 14"):
-        tfrecord.parse_record(progressive)
+        tfrecord.parse_record(arithmetic)
     with pytest.raises(jpeg.JpegError):
         list(pipeline.eval_batches(str(tmp_path), "test", BATCH, SIZE))
     (path,) = tfrecord.write_synthetic_split(str(tmp_path), "x", 1, SIZE,
