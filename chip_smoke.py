@@ -122,14 +122,14 @@ Phases, any failure exits nonzero before the result line:
               calibrated on 16 rendered canvases), B4 once per chunk, the
               5-class rows summing to 1 within 1e-6, card vs CPU 1e-4
               on the 1- and 13-row requests (the 8-row one on the card
-              alone, for the time limit);
-              bf16 request latency at k=2, batch 8 and 64; phase 5's
+              alone, for the time limit); phase 5's
               ``fit_synthetic`` for 2 steps per form (the preset forms
               launch no kernel; fused: B2 = steps, B3 = steps x
               ceil(leaves / 400)), finite losses and every parameter leaf
               moved (but EfficientNet's ``project_bn`` biases, whose true
-              gradient is 0); step time (median of 2 after 3 warm),
-              images/s, idle share and peak memory per form; and the
+              gradient is 0) and peak memory per form (the request and
+              step times of these presets left to phase 7's preset and
+              item 12's benchmark, for the time limit); and the
               float64 card-vs-CPU forward and
               backward of phase 5 on the same augmented batch (dropout
               and stochastic depth 0): loss within 1e-6 and every leaf
@@ -201,9 +201,9 @@ Phases, any failure exits nonzero before the result line:
               splits. (a) ``eyepacs_binary`` (Inception-v3, 299 px, batch
               32, bf16 compute, B1) from one seeded init under each of
               ``train.optimizer`` sgdm, rmsprop, lamb and adamw with
-              ``train.gradient_clip_norm=1.0``: 4 steps (counts set to 0
+              ``train.gradient_clip_norm=1.0``: 3 steps (counts set to 0
               just before, read just after: B1 once a step), finite
-              losses, the median step (steps 2-4), the device launches of
+              losses, the median step (steps 2-3), the device launches of
               one traced step and of the update alone, and peak memory;
               then one update on the same float32 gradients and state on
               the card and on the CPU, every parameter and state leaf
@@ -217,10 +217,9 @@ Phases, any failure exits nonzero before the result line:
               (``train.ensemble_parallel`` + ``_force``, B1, constant
               learning rate, cuDNN deterministic): B1 bitwise at the
               stacked shape [k x 32, 299, 299, 3]; a 4-step fit with
-              evals every 2 at k = 4 (``ensemble10``'s ten members cut
-              to four for the time limit), or at k = 2 if 4 does not
-              fit (each out-of-memory error printed with the free
-              bytes): B1 once a stacked step, every ``member_NN/{best,
+              evals every 2 at k = 2 (``ensemble10``'s ten members cut
+              to two for the time limit; an out-of-memory error is
+              printed with the free bytes): B1 once a stacked step, every ``member_NN/{best,
               latest}`` and ``run_meta`` seed, per-member and ensemble
               val AUCs; the same run cut at step 2 and resumed to 4 ends
               bitwise where the uninterrupted one did, member by member;
@@ -231,7 +230,7 @@ Phases, any failure exits nonzero before the result line:
               stacked step timed against k member steps in turns
               (stacked, then in turn; bf16, batch 32, adamw):
               median ms, member images/s, peak memory and the ratio.
-12. cascade  - after phase 11, on the fit phase's splits. (a) Four random
+12. cascade  - after phase 11, on the fit phase's splits. (a) Two random
               ``eyepacs_binary`` members (``ensemble10``'s, cut from ten
               for the time limit) as the teacher: its float32 soft targets of 4 canvases on the card
               against the CPU within 1e-4 (TF32 off); a 4-step student fit
@@ -240,7 +239,7 @@ Phases, any failure exits nonzero before the result line:
               deterministic): its ``distill`` record, B2 = B3 = 4, and the
               same fit cut at step 2 and resumed bitwise the uninterrupted
               one. (b) The cascade of that student (its best step) and the
-              four members (float32 compute, fused preprocess) over 64
+              two members (float32 compute, fused preprocess) over 64
               canvases, threshold at the median student score and a band
               escalating about 30 %: student rows bitwise
               ``student.probs``, escalated rows bitwise
@@ -253,7 +252,7 @@ Phases, any failure exits nonzero before the result line:
               canvases); a student with head bias +20 at band 0 raises
               ``CascadeRejected``. (d) The ensemble engine under the
               micro-batcher (one bucket of 32, 4 closed-loop clients):
-              ``reload`` to four other members and ``rollback`` mid-run,
+              ``reload`` to two other members and ``rollback`` mid-run,
               no request failing, every response's rows those of the
               generation ``probs_with_generation`` named (float32 bar
               1e-4), reload and rollback ms, ``memory_allocated`` before,
@@ -262,7 +261,7 @@ Phases, any failure exits nonzero before the result line:
               at 0.25 samples every 4th request. Launch counts are set to
               0 before (b) and read after (d): B4 once a chunk.
 13. router   - after phase 12, on phase 4's k=2 members and phase 12's
-              student, four members and 64 canvases (``eyepacs_binary``,
+              student, two members and 64 canvases (``eyepacs_binary``,
               Inception-v3, 299 px, aux head, float32 compute, TF32 off,
               ``serve.fused_preprocess``, buckets 8, 16, 32, 64); launch
               counts set to 0 just before each part and read just after:
@@ -283,7 +282,7 @@ Phases, any failure exits nonzero before the result line:
               rows bitwise each tenant's direct rows with members in turn
               and within 1e-5 under ``serve.member_parallel``; fused vs
               grouped ms. (c) Two student ``CascadeEngine`` replicas over
-              one ``EscalationPool`` of the four members: rows bitwise
+              one ``EscalationPool`` of the two members: rows bitwise
               phase 12's serial and speculative cascades,
               ``serve.router.escalations`` = 2 x the mask's sum both ways,
               ``serve.router.speculations`` = the speculated rows. (d) A
@@ -527,12 +526,47 @@ Phases, any failure exits nonzero before the result line:
               per chunk, canvases bitwise the manifest's, rows within 1e-4
               of the CPU engine.
 
+21. lifecycle - the lifecycle controller (``lifecycle/``) and
+              ``lifecycle_run`` at full width on phase 6's splits:
+              ``eyepacs_binary`` (Inception-v3, 299 px, batch 32, bf16), k = 2
+              random members with calibrated BatchNorm statistics, the fused
+              preprocess, a canary of 8 canvases and a profile of the val
+              scores pinned through a probe engine, retrain_steps 4,
+              gate_eval_rows 32, shadow_fraction 1, shadow_requests 2, one
+              watch probe, the parity and AUC bounds opened (random members);
+              cuDNN deterministic; each part prints a start and an end line.
+              (a) A drifted score window fires ``quality_drift`` and
+              ``AlertManager(on_fire=ctl.on_alert)`` opens a cycle; the
+              default retrain warm-starts both members (B1 = 8); the three
+              gates pass, their values printed; a client thread sends batch-8
+              requests through the micro-batcher while the rollout runs, and
+              the shadow must count 2 of them (a timed-out window fails);
+              WATCH and COMMIT; no request failed, the live pointer names
+              the candidates, the probabilities after the swap bitwise the
+              candidate's before it. (b) Freshly initialised members against
+              a canary bound of 1e-6: GATE rejects, ROLLBACK unswapped, live
+              probabilities bitwise unchanged. (c) A fused retrain (B2 = B3 =
+              8), the promote, then a watch rule on a gauge the phase sets:
+              ROLLBACK through the retained generation, probabilities bitwise
+              those before the cycle, the canary reference and artifact
+              restored. (d) ``python -m jama16_retina_tpu_torch.lifecycle_run
+              --trigger``, ``--watch`` SIGKILLed (its session reaped) once
+              member_00's marker exists, ``--watch`` again to COMMIT:
+              member_00's marker bytes unchanged, member_01 fitted by the
+              rerun, ``--status --json`` one cycle ending in COMMIT. (e) A
+              ``lifecycle.gate`` plan fails GATE closed to ROLLBACK; a
+              ``lifecycle.swap`` plan holds the journal at GATE with the old
+              model serving and its canary reference, and the rerun commits.
+              B4 once a chunk the engine served or scored, and once a chunk
+              of the retrains' evals (each part's counts set to 0 just
+              before it, read just after); the phase's peak device memory.
+
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
-record (B1-B3's ``launches`` from phase 20's grain fits, B4's from
-phase 4, each phase's launches on a line of its own (18-20),
-and each kernel's launches on every path, ``launches_by_phase``) and the
-run's seconds. Scratch files go under ``build/chip_smoke``
+record (every kernel's ``launches`` from phase 21: B1 from (a)'s retrain,
+B2 and B3 from (c)'s fused retrain, B4 the phase's; each phase's launches
+on a line of its own (18-21), and each kernel's launches on every path,
+``launches_by_phase``) and the run's seconds. Scratch files go under ``build/chip_smoke``
 (git-ignored). Without a CUDA card, or run outside a checkout of the
 repository (no ``jama16_retina_tpu_torch`` to import), it exits 1 before
 printing any result.
@@ -2467,15 +2501,15 @@ OPT_FAMILIES = {"sgdm": ["train.optimizer=sgdm"],
                 "rmsprop": ["train.optimizer=rmsprop"],
                 "lamb": ["train.optimizer=lamb"],
                 "adamw+clip": ["train.gradient_clip_norm=1.0"]}
-OPT_STEPS = 4
+OPT_STEPS = 3
 # Card-vs-CPU update bound per leaf (relative L2): LAMB's norms reduce in
 # another order on the card.
 OPT_BOUND = {"lamb": 1e-5}
 OPT_BOUND_DEFAULT = 1e-6
 RECIPE_REF_BATCH = 8
-ENSEMBLE_K = 4
+ENSEMBLE_K = 2
 # Tried in turn when a k runs out of device memory.
-ENSEMBLE_KS = (ENSEMBLE_K, 2)
+ENSEMBLE_KS = (ENSEMBLE_K,)
 ENSEMBLE_STEPS = 4
 ENSEMBLE_EVAL_EVERY = 2
 AGREE_BATCH = 8
@@ -2934,7 +2968,7 @@ def phase_ensemble(torch, seed: int, smi: str, root: Path, data: Path
 
 
 # Phase 12: the distilled cascade and serving generations.
-CASCADE_K = 4
+CASCADE_K = 2
 # Timed calls of each cascade request form.
 CASCADE_TIMED = 3
 DISTILL_STEPS = 4
@@ -7113,6 +7147,646 @@ def phase_grain(torch, seed: int, smi: str, serve: dict, data: Path) -> dict:
     return out
 
 
+# Phase 21: the lifecycle controller on phase 6's splits, k = 2 calibrated
+# random Inception-v3 members at full width.
+LC_K = 2
+LC_RETRAIN_STEPS = 4
+LC_CANARY = 8
+LC_REQUEST_ROWS = 8
+LC_SHADOW_REQUESTS = 2
+LC_VAL_ROWS = 32
+# The gauge part (c)'s watch rule reads; the phase sets it after the swap.
+LC_GAUGE = "chip_smoke.regression"
+# Random members score every val image within a few hundredths, in one or
+# two of the profile's 20 bins, and rank the 32 rows near chance: a retrain
+# that moves the scores a little moves that histogram across a bin edge
+# (debiased PSI far above obs.quality.psi_alert) and can reorder a few
+# pairs. So the parity and AUC bounds are opened; the gates still score
+# and print their values, and the canary bound keeps its default (0.2).
+LC_PSI_MAX = 100.0
+LC_AUC_DELTA = 0.25
+# A warm start fine-tunes at a small learning rate: at the preset's 1e-3
+# (cosine, no warmup) 4 AdamW steps move a random Inception-v3's canary
+# scores by 0.54 on an H100, past the canary bound.
+LC_LEARNING_RATE = 1e-5
+LC_SETS = (
+    "serve.fused_preprocess=true", "serve.max_batch=32",
+    f"data.batch_size={TRAIN_BATCH}",
+    f"train.learning_rate={LC_LEARNING_RATE}", "obs.quality.enabled=true",
+    "obs.quality.canary_every_s=0", "lifecycle.enabled=true",
+    f"lifecycle.retrain_steps={LC_RETRAIN_STEPS}",
+    f"lifecycle.gate_eval_rows={LC_VAL_ROWS}",
+    f"lifecycle.gate_parity_psi_max={LC_PSI_MAX}",
+    f"lifecycle.gate_auc_floor_delta={LC_AUC_DELTA}",
+    "lifecycle.shadow_fraction=1",
+    f"lifecycle.shadow_requests={LC_SHADOW_REQUESTS}",
+    "lifecycle.watch_probes=1", "lifecycle.watch_interval_s=0")
+LC_STATES = ["DRIFT_DETECTED", "RETRAIN", "GATE", "STAGED_ROLLOUT", "WATCH"]
+
+
+class LcClient:
+    """A thread that sends ``rows`` through the micro-batcher, one request
+    after another, from ``__enter__`` to ``__exit__``: its requests, and
+    the errors of any that failed."""
+
+    def __init__(self, batcher, rows):
+        import threading
+
+        self.batcher, self.rows = batcher, rows
+        self.ok, self.failures = 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                out = self.batcher.submit(self.rows).result(timeout=120)
+                check(len(out) == len(self.rows), f"client got {len(out)} "
+                      f"rows for {len(self.rows)}")
+                self.ok += 1
+            except Exception as e:  # noqa: BLE001 - counted, then checked
+                self.failures.append(f"{type(e).__name__}: {e}")
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *_):
+        self._stop.set()
+        self._thread.join(timeout=180)
+        check(not self._thread.is_alive(), "lifecycle: the client thread "
+              "did not stop")
+        return False
+
+
+def lc_members(torch, cfg, root: Path, seed: int, train) -> list:
+    """``LC_K`` random members made as ``save_random_members`` makes them,
+    each with its BatchNorm statistics set to those of the ``train``
+    split's images (uint8) augmented as the retrain augments them (the
+    plain augment, one train-mode forward at momentum 0, as
+    ``calibrate`` does): the retrain's batches then move the running
+    statistics by their sampling noise, not across the board, and the
+    candidate scores near the live model."""
+    import dataclasses
+
+    from jama16_retina_tpu_torch import models
+    from jama16_retina_tpu_torch.data import augment
+    from jama16_retina_tpu_torch.models import convert
+    from jama16_retina_tpu_torch.models.common import BatchNorm
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    plain = dataclasses.replace(cfg.data, use_pallas=False)
+    dirs = []
+    for m in range(LC_K):
+        model = random_member(models.build(cfg.model),
+                              torch.Generator().manual_seed(seed + m))
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.momentum = 0.0
+            if hasattr(mod, "drop_rate"):
+                mod.drop_rate = 0.0
+        model.cuda()
+        with torch.no_grad():
+            x = augment.augment_batch(
+                torch.Generator(device="cuda").manual_seed(seed + 50 + m),
+                torch.from_numpy(train).cuda(), plain)
+            model(x.permute(0, 3, 1, 2), train=True)
+        model.cpu()
+        d = ckpt_lib.member_dir(str(root), m)
+        ckpt_lib.save_member(d, convert.torch_to_flax(model))
+        dirs.append(d)
+    return dirs
+
+
+def lc_setup(torch, seed: int, data: Path, root: Path, smi: str) -> dict:
+    """The live members, the golden canary pinned and a reference profile
+    built on the val split through a probe engine (as a deployment pins
+    them offline), then the serving engine with both on a registry of its
+    own (a retrain's fit resets the process registry)."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.data import tfrecord
+    from jama16_retina_tpu_torch.data.grain_pipeline import (
+        ParallelDecoder, TFRecordIndex)
+    from jama16_retina_tpu_torch.eval import metrics
+    from jama16_retina_tpu_torch.obs import quality
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+
+    base = configs.override(configs.get_config("eyepacs_binary"),
+                            list(LC_SETS))
+    split = {}
+    for name, n in (("train", FIT_SPLITS[0][1]), ("val", LC_VAL_ROWS)):
+        dec = ParallelDecoder(TFRecordIndex(tfrecord.list_split(str(data),
+                                                                name)),
+                              299, workers=4, registry=Registry())
+        try:
+            split[name] = dec.decode_batch(range(n))["image"]
+        finally:
+            dec.close()
+    val = split["val"]
+    live = lc_members(torch, base, root / "live", seed + 700, split["train"])
+    canary = render(seed + 900, LC_CANARY)
+    probe = ServingEngine(
+        configs.override(base, ["obs.quality.enabled=false"]), live,
+        device="cuda", registry=Registry())
+    pinned = np.asarray(metrics.ensemble_average(list(
+        probe.member_probs(canary))), np.float64).ravel()
+    val_scores = metrics.ensemble_average(list(probe.member_probs(val)))
+    del probe
+    canary_path = quality.save_canary(str(root / "canary"), canary,
+                                      scores=pinned)
+    profile = quality.build_profile(np.asarray(val_scores, np.float64),
+                                    bins=base.obs.quality.score_bins)
+    profile_path = quality.save_profile(str(root / "profile.json"), profile)
+    sets = [*LC_SETS, f"obs.quality.canary_path={canary_path}",
+            f"obs.quality.profile_path={profile_path}"]
+    cfg = configs.override(configs.get_config("eyepacs_binary"), sets)
+    reg = Registry()
+    engine = ServingEngine(cfg, live, device="cuda", registry=reg)
+    check(engine.quality.canary.reference is not None
+          and engine.quality.profile is not None,
+          "lifecycle: the engine loaded no pinned canary or no profile")
+    fixed = render(seed + 950, LC_REQUEST_ROWS)
+    log(f"lifecycle: setup: {LC_K} live members (Inception-v3, "
+        f"{cfg.model.compute_dtype}, BN statistics of the augmented train "
+        f"split), canary of {LC_CANARY} "
+        f"canvases pinned, profile of {LC_VAL_ROWS} val scores; val score "
+        f"range [{float(np.min(val_scores)):.4f}, "
+        f"{float(np.max(val_scores)):.4f}]")
+    return {"cfg": cfg, "sets": sets, "live": live, "engine": engine,
+            "reg": reg, "profile": profile, "fixed": fixed,
+            "canary_path": canary_path, "profile_path": profile_path,
+            "wd": root / "wd", "data": data}
+
+
+def lc_controller(lc: dict, cfg, retrain_fn=None):
+    from jama16_retina_tpu_torch.lifecycle import LifecycleController
+
+    return LifecycleController(
+        cfg, str(lc["wd"]), engine=lc["engine"], registry=lc["reg"],
+        data_dir=str(lc["data"]), retrain_fn=retrain_fn,
+        live_member_dirs=lc["live"])
+
+
+def lc_fit_chunks(cfg, cand: list) -> int:
+    """Chunks the retrain's fits scored in their evals: each fit's eval
+    engine takes the deployment's serve section (B4 on), and scores the
+    val split in eval batches padded to ``eval.batch_size``, each cut into
+    chunks of ``serve.max_batch``."""
+    import math
+
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    evals = sum(r["kind"] == "eval" for d in cand
+                for r in read_jsonl(f"{d}/metrics.jsonl"))
+    return evals * math.ceil(FIT_SPLITS[1][1] / cfg.eval.batch_size) * (
+        math.ceil(cfg.eval.batch_size / cfg.serve.max_batch))
+
+
+def lc_part_counts(lc: dict, part: str, out: dict, want: dict,
+                   fit_chunks: int = 0) -> dict:
+    """The part's launches, read just after it (set to 0 just before):
+    B4 once a chunk the engine served or scored and once a chunk of the
+    retrain's evals, the train kernels as ``want`` says."""
+    counts = launch_counts()
+    chunks = lc["engine"].chunks_dispatched + fit_chunks
+    out["launches"][f"lifecycle_{part}"] = counts
+    out["chunks"][part] = chunks
+    check(counts["fused_serve_preprocess"] == chunks and chunks > 0,
+          f"lifecycle: ({part}) B4 launched {counts['fused_serve_preprocess']}"
+          f" times for {chunks} chunks ({fit_chunks} of them the retrain's "
+          "evals)")
+    got = {k: counts[k] for k in want}
+    check(got == want, f"lifecycle: ({part}) launched {counts}, want {want}")
+    return counts
+
+
+def lc_begin(lc: dict) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    lc["engine"].chunks_dispatched = 0
+
+
+def lc_timeline(ctl) -> dict:
+    """States, seconds from trigger to the terminal state, and the shadow's
+    requests of the controller's newest cycle."""
+    entries = ctl.journal.cycle_entries()
+    rollout = ctl.journal.find("STAGED_ROLLOUT")
+    return {"states": [e["state"] for e in entries],
+            "trigger_to_end_s": round(entries[-1]["t"] - entries[0]["t"], 3),
+            "shadow_requests": (rollout["shadow"]["requests"]
+                                if rollout else None)}
+
+
+def lc_verdicts(gate: dict) -> str:
+    return "; ".join(
+        f"{v['name']} {'pass' if v['passed'] else 'FAIL'}"
+        f"{' (skipped)' if v['skipped'] else ''} value {v['value']} "
+        f"threshold {v['threshold']}{' ' + v['detail'] if v['detail'] else ''}"
+        for v in gate["verdicts"])
+
+
+def lc_good_cycle(torch, lc: dict, smi: str, out: dict) -> None:
+    """(a) drift alert -> on_fire -> the default retrain (B1 each preset
+    step) -> the three gates -> shadow over live traffic -> promote ->
+    watch -> COMMIT."""
+    import dataclasses
+
+    import numpy as np
+
+    from jama16_retina_tpu_torch.eval import metrics
+    from jama16_retina_tpu_torch.obs import alerts, quality
+
+    cfg, engine, reg, fixed = lc["cfg"], lc["engine"], lc["reg"], lc["fixed"]
+    lc_begin(lc)
+    ctl = lc_controller(lc, cfg)
+    monitor = quality.QualityMonitor(
+        dataclasses.replace(cfg.obs.quality, window_scores=256),
+        registry=reg, profile=lc["profile"])
+    mgr = alerts.AlertManager(alerts.quality_rules(cfg.obs.quality),
+                              registry=reg, on_fire=ctl.on_alert)
+    mgr.evaluate(now=0.0)
+    check(ctl.state == "IDLE", f"lifecycle: (a) opened at {ctl.state} with "
+          "no drift")
+    monitor.observe(None, np.random.default_rng(0).uniform(0.85, 0.99, 256))
+    fired = [f["reason"] for f in mgr.evaluate(now=1.0)]
+    check("quality_drift" in fired and ctl.state == "DRIFT_DETECTED",
+          f"lifecycle: (a) the drifted window fired {fired}; state "
+          f"{ctl.state}")
+    t0 = time.perf_counter()
+    ctl.step()
+    retrain_s = time.perf_counter() - t0
+    cand = ctl.journal.find("RETRAIN")["member_dirs"]
+    markers = [Path(d) / "RETRAIN_DONE.json" for d in cand]
+    check(len(cand) == LC_K and all(m.exists() for m in markers),
+          f"lifecycle: (a) RETRAIN left {cand}")
+    ctl.step()
+    gate = ctl.journal.find("GATE")
+    check(gate["passed"] and [v["name"] for v in gate["verdicts"]] == [
+        "golden_canary", "profile_parity", "auc_floor"]
+          and not any(v["skipped"] for v in gate["verdicts"]),
+          f"lifecycle: (a) GATE {gate}")
+    log(f"lifecycle: (a) GATE passed: {lc_verdicts(gate)}")
+    want = metrics.ensemble_average(list(engine.member_probs(
+        fixed, _gen=ctl._candidate)))
+    with engine.make_batcher() as batcher, LcClient(batcher, fixed) as client:
+        for _ in range(3):
+            ctl.step()
+    tl = lc_timeline(ctl)
+    check(tl["states"] == LC_STATES + ["COMMIT"],
+          f"lifecycle: (a) went {tl['states']}")
+    check(tl["shadow_requests"] >= LC_SHADOW_REQUESTS,
+          f"lifecycle: (a) the shadow counted {tl['shadow_requests']} "
+          f"requests, want >= {LC_SHADOW_REQUESTS} (a timed-out window)")
+    check(not client.failures and client.ok > 0,
+          f"lifecycle: (a) {client.ok} client requests, failures "
+          f"{client.failures[:3]}")
+    check(ctl.journal.read_live() == cand and engine.generation == 1,
+          f"lifecycle: (a) live pointer {ctl.journal.read_live()}, "
+          f"generation {engine.generation}")
+    got = engine.probs(fixed)
+    check(np.array_equal(got, want), "lifecycle: (a) probabilities after the "
+          "swap differ from the candidate's before it: max "
+          f"{float(np.max(np.abs(got - want)))}")
+    counts = lc_part_counts(lc, "a", out, {
+        "fused_color_jitter": LC_K * LC_RETRAIN_STEPS,
+        "fused_normalize_color_jitter": 0, "fused_adamw_update": 0},
+        lc_fit_chunks(cfg, cand))
+    out["cycles"]["a"] = {**tl, "retrain_s": retrain_s,
+                          "client_requests": client.ok}
+    out["cand_a"] = cand
+    log(f"lifecycle: (a) COMMIT: {tl}; retrain of {LC_K} members x "
+        f"{LC_RETRAIN_STEPS} steps {retrain_s:.1f} s; {client.ok} client "
+        f"requests, none failed; probabilities after the swap bitwise the "
+        f"candidate's; launches {counts} for {out['chunks']['a']} chunks "
+        f"({smi})")
+
+
+def lc_rejected_cycle(torch, lc: dict, root: Path, seed: int,
+                      out: dict) -> None:
+    """(b) freshly initialised members against a canary bound of 1e-6:
+    GATE rejects, ROLLBACK with nothing swapped, live scores unchanged."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+
+    fresh = save_random_members(torch, lc["cfg"], root / "fresh",
+                                seed + 800, LC_K)
+    cfg = configs.override(lc["cfg"], ["lifecycle.gate_canary_max_dev=1e-6"])
+    engine, fixed = lc["engine"], lc["fixed"]
+    before = engine.probs(fixed)
+    gen = engine.generation
+    lc_begin(lc)
+    ctl = lc_controller(lc, cfg, retrain_fn=lambda c, r: fresh)
+    with engine.make_batcher() as batcher, LcClient(batcher, fixed) as client:
+        check(ctl.trigger(reason="drill_reject"), "lifecycle: (b) refused")
+        end = ctl.run()
+    gate = ctl.journal.find("GATE")
+    rb = ctl.journal.find("ROLLBACK")
+    check(end == "ROLLBACK" and not gate["passed"]
+          and not gate["verdicts"][0]["passed"]
+          and rb["cause"] == "gate_rejected" and rb["swapped"] is False,
+          f"lifecycle: (b) ended {end}: {gate}, {rb}")
+    check(engine.generation == gen and np.array_equal(engine.probs(fixed),
+                                                      before),
+          "lifecycle: (b) the rejected cycle moved the live model")
+    check(not client.failures and client.ok > 0,
+          f"lifecycle: (b) {client.ok} client requests, failures "
+          f"{client.failures[:3]}")
+    counts = lc_part_counts(lc, "b", out, {
+        "fused_color_jitter": 0, "fused_normalize_color_jitter": 0,
+        "fused_adamw_update": 0})
+    out["cycles"]["b"] = {**lc_timeline(ctl), "client_requests": client.ok}
+    log(f"lifecycle: (b) ROLLBACK (gate_rejected, swapped false): "
+        f"{lc_verdicts(gate)}; live probabilities bitwise unchanged; "
+        f"{client.ok} client requests, none failed; launches {counts}")
+
+
+def lc_regression_cycle(torch, lc: dict, smi: str, out: dict) -> None:
+    """(c) a fused retrain (B2 and B3 each step), promote, then a watch
+    rule that holds -> ROLLBACK through the retained generation."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs
+    from jama16_retina_tpu_torch.obs import quality
+
+    cfg = configs.override(lc["cfg"], [
+        "train.use_pallas_fused=true",
+        f"lifecycle.watch_rules=quality.canary_ok < 1,{LC_GAUGE} > 0"])
+    engine, reg, fixed = lc["engine"], lc["reg"], lc["fixed"]
+    before = engine.probs(fixed)
+    ref = np.array(engine.quality.canary.reference)
+    rollbacks = reg.counter("serve.rollbacks").value
+    lc_begin(lc)
+    ctl = lc_controller(lc, cfg)
+    ctl.trigger(reason="drill_regression")
+    t0 = time.perf_counter()
+    ctl.step()
+    retrain_s = time.perf_counter() - t0
+    ctl.step()
+    gate = ctl.journal.find("GATE")
+    check(gate["passed"], f"lifecycle: (c) GATE {gate}")
+    log(f"lifecycle: (c) GATE passed: {lc_verdicts(gate)}")
+    with engine.make_batcher() as batcher, LcClient(batcher, fixed) as client:
+        ctl.step()
+        check(ctl.state == "STAGED_ROLLOUT", f"lifecycle: (c) at {ctl.state}")
+        reg.gauge(LC_GAUGE).set(1.0)
+        ctl.step()
+        ctl.step()
+    reg.gauge(LC_GAUGE).set(0.0)
+    watch, rb = ctl.journal.find("WATCH"), ctl.journal.find("ROLLBACK")
+    check(ctl.state == "ROLLBACK" and watch["fired"] == [f"{LC_GAUGE}>0"]
+          and rb["cause"] == "watch_regression" and rb["swapped"],
+          f"lifecycle: (c) {watch}, {rb}")
+    check(reg.counter("serve.rollbacks").value == rollbacks + 1
+          and rb["restored_generation"] == engine.generation,
+          "lifecycle: (c) the rollback did not re-swap the retained "
+          "generation")
+    check(np.array_equal(engine.probs(fixed), before),
+          "lifecycle: (c) probabilities after the rollback differ from "
+          "before the cycle")
+    _, on_disk = quality.load_canary_file(lc["canary_path"])
+    check(np.array_equal(engine.quality.canary.reference, ref)
+          and np.array_equal(on_disk, ref),
+          "lifecycle: (c) the canary reference was not restored")
+    check(not client.failures, f"lifecycle: (c) client failures "
+          f"{client.failures[:3]}")
+    steps = LC_K * LC_RETRAIN_STEPS
+    out["cand_c"] = ctl.journal.find("RETRAIN")["member_dirs"]
+    counts = lc_part_counts(lc, "c", out, {
+        "fused_color_jitter": 0, "fused_normalize_color_jitter": steps,
+        "fused_adamw_update": steps}, lc_fit_chunks(cfg, out["cand_c"]))
+    tl = lc_timeline(ctl)
+    out["cycles"]["c"] = {**tl, "retrain_s": retrain_s,
+                          "client_requests": client.ok}
+    log(f"lifecycle: (c) ROLLBACK (watch_regression, {watch['fired']}) "
+        f"through the retained generation -> generation {engine.generation}: "
+        f"{tl}; fused retrain {retrain_s:.1f} s; probabilities bitwise "
+        f"those before the cycle, canary reference and artifact restored; "
+        f"launches {counts} ({smi})")
+
+
+def lc_cli(lc: dict, root: Path, smi: str, out: dict) -> None:
+    """(d) ``lifecycle_run --trigger``, then ``--watch`` killed with SIGKILL
+    once member_00's marker exists, then ``--watch`` again to COMMIT, each
+    a process of its own; then ``--status --json`` (journal only) in this
+    one."""
+    import contextlib
+    import io
+    import signal
+
+    wd = root / "cli"
+    canary = root / "cli_canary.npz"
+    shutil.copyfile(lc["canary_path"], canary)
+    shutil.copyfile(lc["canary_path"] + ".seal.json", str(canary)
+                    + ".seal.json")
+    sets = [s for s in lc["sets"] if not s.startswith(
+        "obs.quality.canary_path=")] + [
+        f"obs.quality.canary_path={canary}",
+        # No live traffic reaches these processes: the shadow window
+        # promotes at once, on no evidence.
+        "lifecycle.shadow_wait_s=0"]
+    cli = [sys.executable, "-m", "jama16_retina_tpu_torch.lifecycle_run",
+           "--workdir", str(wd), "--config", "eyepacs_binary",
+           *[a for s in sets for a in ("--set", s)]]
+    watch = [*cli, "--watch", "--max_cycles", "1", "--poll_s", "0.5",
+             "--data_dir", str(lc["data"]), "--ckpt", *lc["live"]]
+    t0 = time.perf_counter()
+    res = subprocess.run([*cli, "--trigger", "drill", "--ckpt", *lc["live"]],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    check(res.returncode == 0 and "cycle 0 opened" in res.stdout,
+          f"lifecycle: (d) --trigger exited {res.returncode}: "
+          f"{res.stdout[-500:]} {res.stderr[-1500:]}")
+    cand = wd / "lifecycle" / "candidate-0000"
+    marker0, marker1 = (cand / "member_00" / "RETRAIN_DONE.json",
+                        cand / "member_01" / "RETRAIN_DONE.json")
+    errlog = root / "cli_watch.stderr"
+    with open(errlog, "w") as errf:
+        child = subprocess.Popen(watch, cwd=ROOT, stdout=subprocess.DEVNULL,
+                                 stderr=errf, start_new_session=True)
+    try:
+        while (time.perf_counter() - t0 < 400 and child.poll() is None
+               and not marker0.exists()):
+            time.sleep(0.05)
+        check(marker0.exists() and child.poll() is None,
+              f"lifecycle: (d) the --watch child exited {child.poll()} "
+              f"before member_00's marker: {errlog.read_text()[-2000:]}")
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        reaped = reap_session(child.pid)
+    killed_s = time.perf_counter() - t0
+    check(child.returncode == -signal.SIGKILL and not marker1.exists(),
+          f"lifecycle: (d) the child exited {child.returncode}; member_01 "
+          f"marker exists: {marker1.exists()}")
+    bytes0 = marker0.read_bytes()
+    member1_ckpt = (cand / "member_01" / "latest").is_dir()
+    res = subprocess.run(watch, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    check(res.returncode == 0 and "cycle 0 -> COMMIT" in res.stdout,
+          f"lifecycle: (d) the rerun exited {res.returncode}: "
+          f"{res.stdout[-1000:]} {res.stderr[-2000:]}")
+    check(marker0.read_bytes() == bytes0 and marker1.exists(),
+          "lifecycle: (d) member_00 was fitted again, or member_01 not")
+    from jama16_retina_tpu_torch import lifecycle_run
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = lifecycle_run.main([*cli[3:], "--status", "--json"])
+    status = json.loads(printed.getvalue())
+    states = [e["state"] for e in status["timeline"]]
+    check(rc == 0 and status["state"] == "COMMIT"
+          and status["cycle"] == 0 and states == LC_STATES + ["COMMIT"]
+          and status["live_member_dirs"] == [str(cand / f"member_{m:02d}")
+                                             for m in range(LC_K)],
+          f"lifecycle: (d) --status --json: {status}")
+    t = [e["t"] for e in status["timeline"]]
+    out["cycles"]["d"] = {"states": states,
+                          "trigger_to_end_s": round(t[-1] - t[0], 3),
+                          "killed_after_s": killed_s,
+                          "wall_s": time.perf_counter() - t0}
+    log(f"lifecycle: (d) --trigger, --watch SIGKILLed {killed_s:.1f} s in "
+        f"with member_00 durable (its session's {reaped}; member_01 had "
+        f"{'a' if member1_ckpt else 'no'} checkpoint), the rerun resumed at "
+        f"member_01 to COMMIT, member_00's marker bytes unchanged; "
+        f"--status --json: cycle 0 {states}; "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+
+
+def lc_faults(torch, lc: dict, out: dict) -> None:
+    """(e) a ``lifecycle.gate`` plan fails GATE closed -> ROLLBACK; a
+    ``lifecycle.swap`` plan holds the journal at GATE with the old model
+    serving and its canary reference in place, and the rerun commits."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch.obs import faultinject
+
+    cfg, engine, fixed = lc["cfg"], lc["engine"], lc["fixed"]
+    cand = out["cand_c"]
+    before = engine.probs(fixed)
+    gen = engine.generation
+    lc_begin(lc)
+    faultinject.arm({"lifecycle.gate": {
+        "kind": "error", "on_calls": [1], "error": "RuntimeError",
+        "message": "gate drill"}})
+    try:
+        ctl = lc_controller(lc, cfg, retrain_fn=lambda c, r: cand)
+        ctl.trigger(reason="drill_gate")
+        end = ctl.run()
+    finally:
+        faultinject.disarm()
+    gate = ctl.journal.find("GATE")
+    check(end == "ROLLBACK" and gate["verdicts"][0]["name"] == "gate_error"
+          and "gate drill" in gate["verdicts"][0]["detail"]
+          and engine.generation == gen
+          and np.array_equal(engine.probs(fixed), before),
+          f"lifecycle: (e) the gate plan ended {end}: {gate}")
+    log(f"lifecycle: (e) lifecycle.gate plan: GATE failed closed "
+        f"({gate['verdicts'][0]['detail']}) -> ROLLBACK, live unchanged")
+
+    ref = np.array(engine.quality.canary.reference)
+    faultinject.arm({"lifecycle.swap": {
+        "kind": "error", "on_calls": [1], "error": "RuntimeError",
+        "message": "swap drill"}})
+    try:
+        ctl = lc_controller(lc, cfg, retrain_fn=lambda c, r: cand)
+        ctl.trigger(reason="drill_swap")
+        ctl.step()
+        ctl.step()
+        try:
+            ctl.step()
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+    finally:
+        faultinject.disarm()
+    check(raised is not None and "swap drill" in raised
+          and ctl.state == "GATE" and engine.generation == gen
+          and engine.shadow_report() is None
+          and np.array_equal(engine.probs(fixed), before)
+          and np.array_equal(engine.quality.canary.reference, ref),
+          f"lifecycle: (e) the swap plan raised {raised!r}, left "
+          f"{ctl.state}, generation {engine.generation}")
+    log(f"lifecycle: (e) GATE passed before the swap plan fired: "
+        f"{lc_verdicts(ctl.journal.find('GATE'))}")
+    with engine.make_batcher() as batcher, LcClient(batcher, fixed) as client:
+        end = ctl.run()
+    tl = lc_timeline(ctl)
+    check(end == "COMMIT" and ctl.journal.read_live() == cand
+          and engine.generation == gen + 1
+          and tl["shadow_requests"] >= LC_SHADOW_REQUESTS
+          and not client.failures,
+          f"lifecycle: (e) the rerun after the swap plan ended {end}: {tl}, "
+          f"client failures {client.failures[:3]}")
+    counts = lc_part_counts(lc, "e", out, {
+        "fused_color_jitter": 0, "fused_normalize_color_jitter": 0,
+        "fused_adamw_update": 0})
+    out["cycles"]["e"] = tl
+    log(f"lifecycle: (e) lifecycle.swap plan: raised at STAGED_ROLLOUT, "
+        f"journal held at GATE, generation {gen} kept serving bitwise, "
+        f"canary reference unchanged; the rerun committed {tl}; launches "
+        f"{counts}")
+
+
+def phase_lifecycle(torch, seed: int, smi: str, data: Path) -> dict:
+    """The lifecycle controller and ``lifecycle_run`` at full width (phase
+    21 of the docstring), on phase 6's splits ``data``."""
+    t_phase = time.perf_counter()
+    root = SCRATCH / "lifecycle"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {"launches": {}, "wall_s": {}, "chunks": {}, "cycles": {}}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    # The reload's canary gate compares exactly: the promote re-pins the
+    # canary through the candidate handle and the swap scores it again on
+    # the promoted generation, so both must pick the same algorithms.
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with HbmPart("setup", "live members, canary, profile and engine",
+                     out, "lifecycle"):
+            lc = lc_setup(torch, seed, data, root, smi)
+        with HbmPart("a", "a good cycle in process", out, "lifecycle"):
+            lc_good_cycle(torch, lc, smi, out)
+        with HbmPart("b", "a cycle rejected at GATE", out, "lifecycle"):
+            lc_rejected_cycle(torch, lc, root, seed, out)
+        with HbmPart("c", "a regression after the swap", out, "lifecycle"):
+            lc_regression_cycle(torch, lc, smi, out)
+        with HbmPart("d", "kill -9 and resume through the CLI", out,
+                     "lifecycle"):
+            lc_cli(lc, root, smi, out)
+        with HbmPart("e", "the lifecycle fault sites", out, "lifecycle"):
+            lc_faults(torch, lc, out)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        b4 = sum(c["fused_serve_preprocess"]
+                 for k, c in out["launches"].items())
+        check(b4 == sum(out["chunks"].values()),
+              f"lifecycle: B4 launched {b4} times for "
+              f"{sum(out['chunks'].values())} chunks")
+        out["b4"] = b4
+        log(f"lifecycle: peak device memory {out['peak_bytes']} bytes; B4 "
+            f"{b4} launches for the phase's {sum(out['chunks'].values())} "
+            f"chunks; cycles {out['cycles']} ({smi})")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+        lc = None
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def memoize_init() -> None:
     """Draw each member init once. For the whole run,
     ``models.init.init_flax_default`` is replaced by a memo of it: the
@@ -7295,9 +7969,12 @@ def main(argv=None) -> int:
     preprocess = phase_preprocess(torch, args.seed, smi, serve)
     mark("phases 6, 9 and 11-17")
     grain = phase_grain(torch, args.seed, smi, serve, fit["data"])
-    shutil.rmtree(fit["root"], ignore_errors=True)
     mark(f"phase 20 (grain, progressive JPEG; by part "
          f"{ {k: round(v, 1) for k, v in grain['wall_s'].items()} })")
+    lifecycle = phase_lifecycle(torch, args.seed, smi, fit["data"])
+    shutil.rmtree(fit["root"], ignore_errors=True)
+    mark(f"phase 21 (lifecycle; by part "
+         f"{ {k: round(v, 1) for k, v in lifecycle['wall_s'].items()} })")
     hbm = phase_hbm(torch, args.seed, smi)
     mark(f"phase 18 (hbm; by part "
          f"{ {k: round(v, 1) for k, v in hbm['wall_s'].items()} })")
@@ -7315,9 +7992,6 @@ def main(argv=None) -> int:
         # limit leaves the 8-row request to the card alone here.
         srv = phase_serve(torch, args.seed, preset, cpu_rows=(1, 13))
         t_model.append(time.perf_counter())
-        request_times(torch, srv, smi, f"{preset} ", dtypes=("bfloat16",),
-                      ks=(2,))
-        t_model.append(time.perf_counter())
         model_runs[f"serve_{preset}"] = srv["launches"]
         del srv
         torch.cuda.empty_cache()
@@ -7325,35 +7999,35 @@ def main(argv=None) -> int:
                                    preset).items():
             model_runs[f"train_{preset}_{form}"] = t["launches"]
         t_model.append(time.perf_counter())
-        train_step_times(torch, args.seed, smi, preset, timed=2)
-        t_model.append(time.perf_counter())
         phase_train_agreement(torch, args.seed, batch, preset, ("float64",))
         torch.cuda.empty_cache()
         t_model.append(time.perf_counter())
         parts = [round(b - a, 1) for a, b in zip(t_model, t_model[1:])]
         log(f"times: {preset} serve, train and agreement wall "
-            f"{t_model[-1] - t_model[0]:.1f} s (serve, requests, train, "
-            f"step times, agreement: {parts}) ({smi})")
+            f"{t_model[-1] - t_model[0]:.1f} s (serve, train, agreement: "
+            f"{parts}) ({smi})")
     mark("phase 8 (resnet50, efficientnet_b4, icdr5)")
     if args.profile:
         profile_request(torch, serve, args.profile)
         profile_train(torch, steps, args.profile)
 
     main_row = timing[8]
+    # Each kernel's launches on this slice's path, phase 21: B1 in (a)'s
+    # preset retrain, B2 and B3 in (c)'s fused one, B4 in every chunk the
+    # phase's engine served or scored.
+    lc_runs = lifecycle["launches"]
     b4 = kernel_record(
         "fused_serve_preprocess", "serve_preprocess.cu",
-        "jama16_retina_tpu/ops/pallas_serve.py:143",
-        serve["launches"]["fused_serve_preprocess"],
+        "jama16_retina_tpu/ops/pallas_serve.py:143", lifecycle["b4"],
         max_err, {**main_row, "library_ms": None})
     b4.update({"max_abs_diff": max_err, "timed_shape": main_row["shape"],
                "by_batch": {str(b): t for b, t in timing.items()}})
-    # B1-B3 on this slice's path: the grain loader's preset and fused
-    # fits; phases 18 and 19's fits beside them.
     launches = {"fused_color_jitter":
-                grain["launches"]["grain_fit_w0"]["fused_color_jitter"],
-                **{k: grain["launches"]["grain_fit_fused"][k] for k in (
+                lc_runs["lifecycle_a"]["fused_color_jitter"],
+                **{k: lc_runs["lifecycle_c"][k] for k in (
                     "fused_normalize_color_jitter", "fused_adamw_update")}}
-    for ph, runs_of in (("18", hbm), ("19", tiered), ("20", grain)):
+    for ph, runs_of in (("18", hbm), ("19", tiered), ("20", grain),
+                        ("21", lifecycle)):
         log(f"launches: phase {ph}: {runs_of['launches']}")
     # Each path's counts, all four set to 0 just before it ran and read
     # just after.
@@ -7367,7 +8041,7 @@ def main(argv=None) -> int:
             **cascade["launches"], **router["launches"],
             **jpeg["launches"], **obs["launches"], **faults["launches"],
             **preprocess["launches"], **hbm["launches"],
-            **tiered["launches"], **grain["launches"]}
+            **tiered["launches"], **grain["launches"], **lc_runs}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

@@ -359,15 +359,54 @@ class ObsConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LifecycleConfig:
-    """The two gate bounds of the JAX package's ``lifecycle`` section that
-    the cascade's go-live gate reads; the lifecycle controller and its
-    other fields are not ported."""
+    """The drift-to-retrain lifecycle (``lifecycle/``; the JAX package's
+    ``lifecycle`` section, field for field): DRIFT_DETECTED -> RETRAIN
+    (warm-start fine-tune) -> GATE (named candidate gates) ->
+    STAGED_ROLLOUT (shadow + promote) -> WATCH (post-swap regression
+    window) -> COMMIT or ROLLBACK, every transition journaled under
+    ``<workdir>/lifecycle/``.
 
-    # Max |cascade - pinned canary| referable-score deviation.
+    Off by default: the controller runs where an operator wires it
+    (``python -m jama16_retina_tpu_torch.lifecycle_run`` or an
+    ``AlertManager(on_fire=)`` trigger). The cascade's go-live gate reads
+    ``gate_canary_max_dev`` and ``gate_auc_floor_delta`` too.
+    """
+
+    enabled: bool = False
+    # Alert reasons that open a cycle through the AlertManager(on_fire=)
+    # seam; other reasons only log.
+    trigger_reasons: tuple[str, ...] = ("quality_drift",)
+    # Fine-tune steps of a RETRAIN candidate (0 = the full train.steps).
+    retrain_steps: int = 0
+    # GATE bounds. Max |candidate - pinned canary| score deviation: a
+    # loose sanity bound against degenerate candidates, not the reload's
+    # byte-stability atol. (The cascade: max |cascade - pinned canary|
+    # referable-score deviation.)
     gate_canary_max_dev: float = 0.2
-    # Cascade AUC (and sensitivity/specificity at every cascade
-    # threshold) may fall at most this far below the full ensemble's.
+    # Max debiased PSI of the candidate's val-split score histogram
+    # against the loaded reference profile (-1 = obs.quality.psi_alert).
+    gate_parity_psi_max: float = -1.0
+    # Candidate val AUC must be >= the live model's minus this delta.
+    # (The cascade: its AUC, and sensitivity/specificity at every cascade
+    # threshold, may fall at most this far below the full ensemble's.)
     gate_auc_floor_delta: float = 0.01
+    # Val rows the parity and AUC gates score (0 = all).
+    gate_eval_rows: int = 0
+    # STAGED_ROLLOUT: the share of live requests shadow-scored through
+    # the candidate (every Nth), the shadowed requests to collect before
+    # the promote, and the seconds to wait for them (on a timeout the
+    # promote goes ahead on what evidence there is, loudly).
+    shadow_fraction: float = 0.25
+    shadow_requests: int = 8
+    shadow_wait_s: float = 60.0
+    # WATCH: rules (obs/alerts.py grammar, plain metric/threshold forms:
+    # rate() and 'for' are refused at construction) probed against the
+    # live registry; any rule true is a regression -> ROLLBACK. The
+    # default watches the golden canary, which the promote re-pins to
+    # the candidate.
+    watch_rules: tuple[str, ...] = ("quality.canary_ok < 1",)
+    watch_probes: int = 3
+    watch_interval_s: float = 30.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -482,13 +521,6 @@ _NOT_PORTED = {
     "parallel": _MULTI_DEVICE + " (meshes)",
     "data.stage_per_shard": _MULTI_DEVICE + " (per-shard staging of the "
                             "stream over a mesh's devices)",
-    **dict.fromkeys(
-        ("lifecycle." + f for f in (
-            "enabled", "trigger_reasons", "retrain_steps",
-            "gate_parity_psi_max", "gate_eval_rows", "shadow_fraction",
-            "shadow_requests", "shadow_wait_s", "watch_rules",
-            "watch_probes", "watch_interval_s")),
-        "Queue A item 11 (planes: the lifecycle)"),
     "ingest": _PLANES + " (the ingest service)",
     "integrity": _PLANES + " (integrity: caches, telemetry retention)",
     # The obs fields of the planes still to port; obs.audit covers its

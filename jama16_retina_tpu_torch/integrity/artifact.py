@@ -51,6 +51,11 @@ REBUILD = {
               "serve_frontier sweep, then save_policy",
     "rawshard": "re-run python -m jama16_retina_tpu_torch.transcode_shards "
                 "(it resumes from the last durable shard)",
+    "journal": "NOT derivable — inspect or restore it; a fresh journal "
+               "starts idle (live.json still names the serving set)",
+    "live": "NOT derivable — restore it, or re-point it at the blessed "
+            "checkpoint set (python -m jama16_retina_tpu_torch.lifecycle_run "
+            "--status shows the journal's view)",
 }
 
 

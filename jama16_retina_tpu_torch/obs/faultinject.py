@@ -76,11 +76,12 @@ SITES = {
                                 "(reference serve/compilecache.py)",
     "trainer.step": "the train loops' per-step boundary (trainer.py)",
     "lifecycle.retrain": "LifecycleController RETRAIN phase entry "
-                         "(reference lifecycle/controller.py)",
-    "lifecycle.gate": "LifecycleController GATE evaluation (reference "
-                      "lifecycle/controller.py)",
-    "lifecycle.swap": "LifecycleController STAGED_ROLLOUT promote "
-                      "(reference lifecycle/controller.py)",
+                         "(lifecycle/controller.py)",
+    "lifecycle.gate": "LifecycleController GATE evaluation; a fault fails "
+                      "the gate closed (lifecycle/controller.py)",
+    "lifecycle.swap": "LifecycleController STAGED_ROLLOUT, before the "
+                      "shadow session and the promote "
+                      "(lifecycle/controller.py)",
     "integrity.write": "sealed-artifact payload seam (integrity/"
                        "artifact.atomic_write_bytes, every durable writer: "
                        "serve policy, profiles, canary, telemetry.prom): "
@@ -104,9 +105,6 @@ SITES = {
 UNFIRED = {
     "serve.compile_cache.load": "Queue A item 9 (the compile cache / CUDA "
                                 "graphs)",
-    **dict.fromkeys(("lifecycle.retrain", "lifecycle.gate",
-                     "lifecycle.swap"),
-                    "Queue A item 11 (part 3: the lifecycle)"),
     **dict.fromkeys(("ingest.attach", "ingest.ring.write", "ingest.decode"),
                     "Queue A item 11 (part 5: the ingest service)"),
     "audit.seal": "Queue A item 11 (part 5: the audit plane)",

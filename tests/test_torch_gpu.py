@@ -1129,3 +1129,80 @@ def test_progressive_jpeg_decodes_on_this_host_as_the_manifest(cuda):
     assert sp.launches == before + 1
     for g, w in zip(got, sp.serve_preprocess_reference(x)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_lifecycle_cycle_on_the_card_keeps_everything_there(cuda, tmp_path):
+    """One seam-level cycle (the retrain injected, the default gates) over
+    a real fused-preprocess engine on the card: the gates score the val
+    split and the canary through B4, the shadow takes live requests, the
+    promote and the watch pass to COMMIT, the controller's device is the
+    engine's, and every generation's tensors stay on the card."""
+    import numpy as np
+
+    from jama16_retina_tpu_torch import configs, models
+    from jama16_retina_tpu_torch.data import tfrecord
+    from jama16_retina_tpu_torch.eval import metrics
+    from jama16_retina_tpu_torch.lifecycle import LifecycleController
+    from jama16_retina_tpu_torch.models import convert
+    from jama16_retina_tpu_torch.obs import quality
+    from jama16_retina_tpu_torch.obs.registry import Registry
+    from jama16_retina_tpu_torch.serve.engine import ServingEngine
+    from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
+
+    base = configs.override(configs.get_config("smoke"), [
+        "model.compute_dtype=float32", "serve.max_batch=8",
+        "serve.fused_preprocess=true", "serve.rollback_keep_s=900"])
+    dirs = {}
+    for tag, seed in (("a", 0), ("b", 10)):
+        dirs[tag] = []
+        for m in range(2):
+            gen = torch.Generator().manual_seed(seed + m)
+            model = models.build(base.model)
+            with torch.no_grad():
+                for k, v in model.state_dict().items():
+                    if not k.endswith((".mean", ".var")):
+                        v.add_(0.05 * torch.randn(v.shape, generator=gen))
+            d = ckpt_lib.member_dir(str(tmp_path / tag), m)
+            ckpt_lib.save_member(d, convert.torch_to_flax(model))
+            dirs[tag].append(d)
+    data = str(tmp_path / "data")
+    tfrecord.write_synthetic_split(data, "val", 16, 64, num_shards=1, seed=2,
+                                   encoding="raw")
+    rng = np.random.default_rng(0)
+    canary = rng.integers(0, 256, (4, 64, 64, 3), np.uint8)
+    probe = ServingEngine(base, dirs["a"], device=cuda, registry=Registry())
+    pinned = np.asarray(metrics.ensemble_average(list(
+        probe.member_probs(canary))), np.float64).ravel()
+    path = quality.save_canary(str(tmp_path / "canary"), canary,
+                               scores=pinned)
+    cfg = configs.override(base, [
+        "obs.quality.enabled=true", f"obs.quality.canary_path={path}",
+        "obs.quality.canary_every_s=0", "lifecycle.enabled=true",
+        "lifecycle.gate_canary_max_dev=1", "lifecycle.gate_auc_floor_delta=1",
+        "lifecycle.gate_eval_rows=16", "lifecycle.shadow_fraction=1",
+        "lifecycle.shadow_requests=2", "lifecycle.shadow_wait_s=30",
+        "lifecycle.watch_probes=1"])
+    reg = Registry()
+    engine = ServingEngine(cfg, dirs["a"], device=cuda, registry=reg)
+    imgs = rng.integers(0, 256, (8, 64, 64, 3), np.uint8)
+    ctl = LifecycleController(
+        cfg, str(tmp_path / "wd"), engine=engine, registry=reg,
+        data_dir=data, retrain_fn=lambda c, root: dirs["b"],
+        live_member_dirs=dirs["a"], sleep=lambda s: engine.probs(imgs))
+    assert ctl.device == engine.device and ctl.device.type == "cuda"
+    want = metrics.ensemble_average(list(engine.member_probs(
+        imgs, _gen=engine.prepare_candidate(dirs["b"]))))
+    before = sp.launches
+    ctl.trigger(reason="manual")
+    assert ctl.run() == "COMMIT"
+    assert sp.launches > before
+    gate = ctl.journal.find("GATE")
+    assert gate["passed"] and [v["skipped"] for v in gate["verdicts"]] == [
+        False, True, False]
+    assert ctl.journal.find("STAGED_ROLLOUT")["shadow"]["requests"] >= 2
+    assert engine.generation == 1 and ctl.journal.read_live() == dirs["b"]
+    for module in engine._gen.modules:
+        assert all(t.device.type == "cuda" for t in module.state_dict()
+                   .values())
+    np.testing.assert_array_equal(engine.probs(imgs), want)

@@ -54,8 +54,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # the hbm loader's (data/grain_pipeline, data/hbm_pipeline,
     # data/threefry) and the tiered loader's (data/tiered_pipeline,
     # data/autotune, data/rawshard, transcode_shards) and the grain
-    # loader's (data/grain_index) included.
-    assert int(n_modules) >= 50
+    # loader's (data/grain_index) and the lifecycle's (lifecycle/journal,
+    # lifecycle_run) included.
+    assert int(n_modules) >= 52
     assert {f"jama16_retina_tpu_torch.{m}" for m in (
         "obs.registry", "obs.quality", "integrity.artifact",
         "serve.quantize", "serve.batcher", "optim", "train_lib",
@@ -65,7 +66,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
         "preprocess.datasets", "preprocess_eyepacs", "preprocess_messidor",
         "data.grain_pipeline", "data.hbm_pipeline", "data.threefry",
         "data.tiered_pipeline", "data.autotune", "data.rawshard",
-        "transcode_shards", "data.grain_index")
+        "transcode_shards", "data.grain_index", "lifecycle.controller",
+        "lifecycle.journal", "lifecycle_run")
         } <= set(names.split())
     assert bad.strip() == "[]"
 
@@ -365,13 +367,14 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
     # data.quarantine_bad_records; 48 until the tiered and rawshard
     # loaders and the autotuner ported data.autotune, data.rawshard_dir,
     # data.stage_depth and data.tiered_resident_bytes; 44 until the grain
-    # loader ported data.grain_workers.
-    assert len(items) >= 43
+    # loader ported data.grain_workers; 43 until the lifecycle ported its
+    # 11.
+    assert len(items) >= 32
     for key, item in (("data.stage_per_shard", "item 8"),
                       ("parallel.num_devices", "item 8"),
                       ("train.ensemble_manual_data", "item 8"),
                       ("eval.sharded", "item 8"),
-                      ("lifecycle.enabled", "item 11"),
+                      ("obs.fleet_dir", "item 11"),
                       ("ingest.socket_path", "item 11"),
                       ("integrity.cache_max_bytes", "item 11"),
                       ("obs.audit.enabled", "item 11"),
@@ -403,10 +406,35 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
                 "data.autotune", "data.rawshard_dir", "data.stage_depth",
                 "data.tiered_resident_bytes"):
         assert key in ours
-    lifecycle = [k for k in items if k.startswith("lifecycle.")]
-    assert len(lifecycle) == 11
-    for key in lifecycle:
-        assert "Queue A item 11 (planes: the lifecycle)" in items[key], key
+    # The lifecycle's fields, refused until it was ported: each override
+    # is accepted and reaches cfg.lifecycle, with the JAX default.
+    lifecycle = [k for k in ours if k.startswith("lifecycle.")]
+    assert not [k for k in items if k.startswith("lifecycle.")]
+    assert len(lifecycle) == 13
+    jax_lc = jax_configs.ExperimentConfig().lifecycle
+    for key, raw, want in (
+            ("lifecycle.enabled", "true", True),
+            ("lifecycle.trigger_reasons", "quality_drift,slo_breach",
+             ("quality_drift", "slo_breach")),
+            ("lifecycle.retrain_steps", "40", 40),
+            ("lifecycle.gate_canary_max_dev", "0.3", 0.3),
+            ("lifecycle.gate_parity_psi_max", "0.25", 0.25),
+            ("lifecycle.gate_auc_floor_delta", "0.02", 0.02),
+            ("lifecycle.gate_eval_rows", "64", 64),
+            ("lifecycle.shadow_fraction", "0.5", 0.5),
+            ("lifecycle.shadow_requests", "3", 3),
+            ("lifecycle.shadow_wait_s", "2.5", 2.5),
+            ("lifecycle.watch_rules", "quality.canary_ok < 1,serve.x > 2",
+             ("quality.canary_ok < 1", "serve.x > 2")),
+            ("lifecycle.watch_probes", "5", 5),
+            ("lifecycle.watch_interval_s", "1.5", 1.5)):
+        field = key.split(".", 1)[1]
+        assert ours[key] == getattr(jax_lc, field), key
+        cfg = configs.override(configs.get_config("smoke"), [f"{key}={raw}"])
+        configs.check_supported(cfg)
+        assert getattr(cfg.lifecycle, field) == want, key
+        lifecycle.remove(key)
+    assert not lifecycle
 
 
 def test_unknown_arch_or_head_raises():
@@ -430,7 +458,7 @@ def test_unknown_or_malformed_overrides_raise(item):
 
 @pytest.mark.parametrize("item", [
     "serve.compile_cache_dir=/x", "obs.http_port=9090",
-    "lifecycle.shadow_fraction=0.5", "obs.fleet_dir=/x",
+    "obs.fleet_role=x", "obs.fleet_dir=/x",
     "obs.audit.enabled=true", "obs.device_enabled=true"])
 def test_refused_serving_and_obs_knobs_name_their_roadmap_item(item):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
@@ -556,14 +584,47 @@ def test_obs_fault_plan_is_ported_and_an_unfired_site_names_its_item():
 
     assert (configs.ExperimentConfig().obs.fault_plan
             == jax_configs.ExperimentConfig().obs.fault_plan == "")
-    spec = json.dumps({"lifecycle.gate": {"kind": "error"}})
+    spec = json.dumps({"audit.seal": {"kind": "error"}})
     cfg = configs.override(configs.get_config("smoke"),
                            [f"obs.fault_plan={spec}"])
     configs.check_supported(cfg)
     try:
         with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md Queue A item 11 \(part 3"):
+                           match=r"ROADMAP\.md Queue A item 11 \(part 5"):
             faultinject.arm_from_env_or_config(cfg.obs.fault_plan)
         assert faultinject.active_plan() is None
     finally:
         faultinject.disarm()
+
+
+def test_a_lifecycle_fault_plan_arms_and_fires(tmp_path):
+    """The ``lifecycle.*`` sites, refused until the lifecycle was ported,
+    arm from ``obs.fault_plan`` and fire: a ``lifecycle.gate`` plan fails
+    the controller's GATE closed, with the injected error as its
+    verdict."""
+    from jama16_retina_tpu_torch.lifecycle import (GateVerdict,
+                                                   LifecycleController)
+    from jama16_retina_tpu_torch.obs import faultinject
+    from jama16_retina_tpu_torch.obs.registry import Registry
+
+    spec = json.dumps({"lifecycle.gate": {"kind": "error", "on_calls": [1],
+                                          "error": "RuntimeError"}})
+    cfg = configs.override(configs.get_config("smoke"), [
+        f"obs.fault_plan={spec}", "lifecycle.enabled=true"])
+    try:
+        faultinject.arm_from_env_or_config(cfg.obs.fault_plan)
+        ctl = LifecycleController(
+            cfg, str(tmp_path), registry=Registry(),
+            retrain_fn=lambda c, root: ["cand"],
+            gate_fns=[lambda c, cand: GateVerdict("ok", True)],
+            live_member_dirs=["live"], sleep=lambda s: None)
+        ctl.trigger(reason="quality_drift")
+        assert ctl.run() == "ROLLBACK"
+        assert faultinject.active_plan().counts()["lifecycle.gate"] == {
+            "calls": 1, "fires": 1}
+    finally:
+        faultinject.disarm()
+    gate = ctl.journal.find("GATE")
+    assert gate["passed"] is False
+    assert gate["verdicts"][0]["name"] == "gate_error"
+    assert "RuntimeError: injected fault" in gate["verdicts"][0]["detail"]
