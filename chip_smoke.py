@@ -561,12 +561,45 @@ Phases, any failure exits nonzero before the result line:
               of the retrains' evals (each part's counts set to 0 just
               before it, read just after); the phase's peak device memory.
 
+22. data-parallel - run right after phase 6 and beside phase 8, on phase 6's
+              splits: training over
+              two ranks that share the card (one card: gloo, whose
+              all-reduce and broadcast take CUDA tensors; NCCL refuses two
+              ranks on one device);
+              each launch prints a start and an end line and is stopped
+              after ``DP_LAUNCH_S``. (a) Two ranks (``launch_local``) each
+              take one ``eyepacs_binary`` step of each form on their 2 rows
+              of a batch of 4 at 299 px: the float64 forward and backward
+              (dropout on, the draws the global batch's; B1 or B2 on the
+              rank's rows), the cross-replica BatchNorm moments and the
+              gradient mean, then the float32 update (plain AdamW or B3);
+              rank 0 then takes the one-process step on the 4 rows: loss,
+              gradients, running statistics and updated params within 1e-6
+              (per-leaf relative L2), both replicas' hashes equal. (b)
+              ``python -m torch.distributed.run --standalone
+              --nproc_per_node 2`` of the train CLI (``dp_train_rank``: cuDNN
+              deterministic, each step's replica hash and each rank's
+              launches recorded) with ``parallel.num_devices=2``: 6 preset
+              steps of batch 32 (16 a rank), bf16, evals at 3 and 6 under
+              ``eval.sharded``: B1 6 a rank, replica hashes equal after
+              every step, rank 0 alone writing; the same fit cut by a
+              ``trainer.step`` plan at call 4 and resumed from 3: its
+              ``latest/`` and ``best/`` bitwise the uncut run's. (c) 4 fused
+              steps: B2 = B3 = 4 a rank. (b)'s uncut fit, (c) and (b)'s cut
+              fit run in turn in one launch (one process group; the first
+              two alone on the card); the second part, (b)'s resume in a
+              second launch beside (a), runs beside phase 8, whose checks
+              read no clock (its wall times then include the sharing). The backend, each rank's device and the
+              step times of (b) and (c) beside phase 6's one-rank step (two
+              ranks on one card measure agreement, not scaling).
+
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; before them come the kernels' JSON
-record (every kernel's ``launches`` from phase 21: B1 from (a)'s retrain,
-B2 and B3 from (c)'s fused retrain, B4 the phase's; each phase's launches
-on a line of its own (18-21), and each kernel's launches on every path,
-``launches_by_phase``) and the run's seconds. Scratch files go under ``build/chip_smoke``
+record (every kernel's ``launches`` from phases 21 and 22: B1 from 21
+(a)'s retrain and 22 (b)'s uncut fit, B2 and B3 from 21 (c)'s fused
+retrain and 22 (c)'s fit, both ranks summed, B4 phase 21's; each phase's
+launches on a line of its own (18-22), and each kernel's launches on
+every path, ``launches_by_phase``) and the run's seconds. Scratch files go under ``build/chip_smoke``
 (git-ignored). Without a CUDA card, or run outside a checkout of the
 repository (no ``jama16_retina_tpu_torch`` to import), it exits 1 before
 printing any result.
@@ -7787,6 +7820,589 @@ def phase_lifecycle(torch, seed: int, smi: str, data: Path) -> dict:
     return out
 
 
+# Phase 22: data-parallel training over two ranks sharing the card.
+DP_RANKS = 2
+DP_STEP_BATCH = 4
+DP_FIT_STEPS = 6
+DP_FIT_EVAL_EVERY = 3
+DP_CUT_CALL = 4
+DP_FUSED_STEPS = 4
+DP_STEP_BOUND = 1e-6
+DP_LAUNCH_S = 300
+# What a rank of (a) runs: ``dp_rank_main`` in this file.
+_DP_RANK = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "sys.exit(chip_smoke.dp_rank_main(sys.argv[2:]))")
+# What a rank of (b) and (c) runs under torch.distributed.run: the train
+# CLI, behind cuDNN's deterministic algorithms (a resumed run is held
+# bitwise to the uncut one) and a record of the rank's launches and of
+# its replica's hash after every step (``dp_train_rank``).
+_DP_TRAIN = """import sys
+
+if __name__ == "__main__":
+    sys.path.insert(0, {root!r})
+    import chip_smoke
+
+    sys.exit(chip_smoke.dp_train_rank(sys.argv[1:]))
+"""
+
+
+def replica_hash(torch, model) -> str:
+    """Two sums over the 32-bit words of every parameter and buffer of
+    ``model`` (plain and position-weighted), on its device: equal
+    replicas give equal hashes, and a replica off by one bit does not."""
+    words = torch.cat([t.detach().contiguous().reshape(-1).view(torch.int32)
+                       for t in (*model.parameters(), *model.buffers())])
+    words = words.long()
+    weights = torch.arange(1, words.numel() + 1, device=words.device) % 65521
+    return f"{int((words * weights).sum()):x}-{int(words.sum()):x}"
+
+
+def dp_step(torch, form: str, seed: int, mesh=None) -> dict:
+    """Phase 22 (a): one ``eyepacs_binary`` step of batch ``DP_STEP_BATCH``
+    at 299 px in ``form`` on ``mesh``'s ranks (each on its block) or, with
+    no mesh, on one process, in two halves: the forward and backward of
+    ``train_lib.compute_grads`` in float64, heads included (B1 or B2 on
+    the rank's rows, dropout on; the cross-replica BatchNorm moments and
+    the gradient mean across ranks), then the step's update
+    (``train_lib._update``: plain AdamW or B3) of the float32 masters from
+    those gradients rounded to float32. A float32 head would leave the
+    gradients 1e-7 apart, which AdamW turns into 1e-4 on a leaf whose
+    gradients sit near its eps. Returns the loss, the gradients, the
+    running statistics, the updated params and the replica's hash."""
+    from jama16_retina_tpu_torch import configs, models, train_lib
+    from jama16_retina_tpu_torch.data import synthetic
+    from jama16_retina_tpu_torch.models import common, inception_v3, init
+    from jama16_retina_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = configs.override(configs.get_config("eyepacs_binary"), [
+        f"data.batch_size={DP_STEP_BATCH}", f"train.seed={seed}",
+        *TRAIN_FORMS[form]])
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    base = init.init_flax_default(models.build(cfg.model), seed)
+    m = cfg.model
+    twin = inception_v3.InceptionV3(
+        num_classes=m.num_classes, aux_head=m.aux_head,
+        dropout_rate=m.dropout_rate, dtype=torch.float64,
+        image_size=m.image_size)
+    twin.load_state_dict(base.state_dict())
+    twin = twin.to(torch.float64)
+    for mod in twin.modules():
+        if isinstance(mod, common.BatchNorm) and mesh is not None:
+            mod.mesh = mesh
+    images, grades = synthetic.make_dataset(
+        DP_STEP_BATCH, synthetic.SynthConfig(image_size=299), seed=seed + 22)
+    batch = {"image": torch.from_numpy(images),
+             "grade": torch.from_numpy(grades)}
+    batch = (mesh_lib.shard_batch(batch, mesh) if mesh is not None
+             else {k: v.to(dev) for k, v in batch.items()})
+    state64 = train_lib.create_state(cfg, twin, dev)
+    # The heads' spatial mean kept in float64 (the model rounds it to
+    # float32, as the Flax heads compute).
+    head_mean = inception_v3.head_mean
+    inception_v3.head_mean = lambda x: x.mean(dim=(2, 3))
+    try:
+        loss, grads = train_lib.compute_grads(state64, batch, cfg,
+                                              mesh=mesh)
+    finally:
+        inception_v3.head_mean = head_mean
+    state = train_lib.create_state(cfg, base, dev)
+    params = dict(state.model.named_parameters())
+    train_lib._update(state, params, [g.float() for g in grads], cfg.train,
+                      lead=0)
+    torch.cuda.synchronize(dev)
+    return {"loss": float(loss),
+            "grads": dict(zip(params, (g.detach() for g in grads))),
+            "stats": dict(state64.model.named_buffers()),
+            "params": {k: p.detach() for k, p in params.items()},
+            "hash": replica_hash(torch, state.model)}
+
+
+def worst_leaf(torch, got: dict, want: dict) -> "tuple[str, float]":
+    """The leaf of largest relative L2 gap (in float64), and the gap."""
+    gaps = {k: float((got[k].double() - want[k].double()).norm()
+                     / max(float(want[k].double().norm()), 1e-30))
+            for k in want}
+    k = max(gaps, key=gaps.get)
+    return k, gaps[k]
+
+
+def dp_rank_main(argv) -> int:
+    """One rank of phase 22 (a), on the card under the launch's group
+    (argv: the output directory, the seed). Each form: the two-rank step
+    (its launch counts read just after it), then, on rank 0, the
+    one-process step on the whole batch and the gaps. Writes
+    ``rank<r>.json``."""
+    import torch
+
+    from jama16_retina_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out_dir, seed = Path(argv[0]), int(argv[1])
+    mesh_lib.initialize_distributed()
+    mesh = mesh_lib.make_mesh()
+    res = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(mesh.device), "forms": {}}
+    for form in TRAIN_FORMS:
+        reset_launch_counts()
+        got = dp_step(torch, form, seed, mesh)
+        rec = {"counts": launch_counts(), "hash": got["hash"],
+               "loss": got["loss"]}
+        if mesh.rank == 0:
+            want = dp_step(torch, form, seed)
+            rec["loss_diff"] = abs(got["loss"] - want["loss"])
+            for part in ("grads", "stats", "params"):
+                rec[f"{part}_worst"] = worst_leaf(torch, got[part],
+                                                  want[part])
+            del want
+        del got
+        torch.cuda.empty_cache()
+        mesh.barrier()
+        res["forms"][form] = rec
+    (out_dir / f"rank{mesh.rank}.json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_train_rank(argv) -> int:
+    """One rank of a launch of phase-22 fits. ``argv`` holds one or more
+    runs, each ``--dp_run NAME`` and then the train CLI's arguments, run in
+    turn through ``jama16_retina_tpu_torch.train.main`` in one process
+    group, formed here once (a group formed anew in the same processes
+    timed out in gloo's connect on the card), with cuDNN deterministic,
+    each step followed by its replica's hash. Each run's launch counts,
+    hashes, backend, device and error go to ``$DP_OUT/NAME.rank<r>.json``.
+    A run that raises is recorded and ends the rank's runs, with exit code
+    0: the records carry the outcome (a rank that exits non-zero has the
+    launcher stop the other before it writes)."""
+    import os
+
+    import torch
+
+    from jama16_retina_tpu_torch import train, train_lib
+    from jama16_retina_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    rank = int(os.environ["RANK"])
+    runs, name = {}, None
+    for a in argv:
+        if name == "":
+            name = a
+            runs[name] = []
+        elif a == "--dp_run":
+            name = ""
+        else:
+            runs[name].append(a)
+    step = train_lib.train_step
+    rec: dict = {}
+
+    def hashed_step(state, batch, cfg, *args, **kwargs):
+        loss = step(state, batch, cfg, *args, **kwargs)
+        rec["hashes"].append(replica_hash(torch, state.model))
+        rec["backend"] = torch.distributed.get_backend()
+        rec["device"] = str(state.sched_count.device)
+        return loss
+
+    train_lib.train_step = hashed_step
+    mesh_lib.initialize_distributed()
+    try:
+        for name, run_argv in runs.items():
+            rec.clear()
+            rec.update(rank=rank, hashes=[], error=None)
+            reset_launch_counts()
+            try:
+                train.main(run_argv)
+            except Exception as e:  # noqa: BLE001 - recorded for the phase
+                rec["error"] = f"{type(e).__name__}: {e}"
+            rec["counts"] = launch_counts()
+            Path(os.environ["DP_OUT"], f"{name}.rank{rank}.json").write_text(
+                json.dumps(rec))
+            if rec["error"] is not None:
+                break
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def descendants(pid: int) -> "list[int]":
+    """The live processes below ``pid`` (from ``/proc``), whatever their
+    session."""
+    import os
+
+    parent = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+    below, frontier = [], [pid]
+    while frontier:
+        p = frontier.pop()
+        kids = [c for c, pp in parent.items() if pp == p]
+        below += kids
+        frontier += kids
+    return below
+
+
+def dp_launch(cmd, env: dict, what: str) -> "subprocess.CompletedProcess":
+    """Run a launch of ranks in a session of its own, at most
+    ``DP_LAUNCH_S``; whatever it leaves (its ranks, their reader
+    processes) is stopped before this returns. Prints its start and end."""
+    import os
+
+    import os
+    import signal
+
+    log(f"dp: {what}: start")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DP_LAUNCH_S)
+    except subprocess.TimeoutExpired:
+        # The launcher starts its ranks in sessions of their own: stop
+        # every process below it, then what its session left.
+        below = descendants(proc.pid)
+        for pid in below:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        log(f"dp: {what}: over {DP_LAUNCH_S} s; {len(below)} process(es) "
+            f"below the launcher killed; {reap_session(proc.pid)}")
+        out, err = proc.communicate()
+    reaped = session_members(proc.pid)
+    if reaped:
+        log(f"dp: {what}: {reap_session(proc.pid)}")
+    log(f"dp: {what}: end, exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def dp_check_exit(run: dict, ok: bool, msg: str) -> None:
+    """``check`` of a launch's outcome, with the end of its errors printed
+    when it fails."""
+    if not ok:
+        print(run["stderr"][-4000:], file=sys.stderr, flush=True)
+    check(ok, msg)
+
+
+def dp_launch_fits(root: Path, data: Path, what: str, runs: dict
+                   ) -> "subprocess.CompletedProcess":
+    """Fits of the train CLI over ``DP_RANKS`` ranks on the card, in turn in
+    one ``python -m torch.distributed.run`` (``_DP_TRAIN`` around
+    ``jama16_retina_tpu_torch.train``): ``runs`` maps a name to its
+    ``--set`` items (the workdir is ``wd/<name before "_">``)."""
+    import os
+
+    wrapper = root / "dp_train.py"
+    wrapper.write_text(_DP_TRAIN.format(root=str(ROOT)))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(DP_RANKS), str(wrapper)]
+    for name, sets in runs.items():
+        cmd += ["--dp_run", name, "--config", "eyepacs_binary",
+                "--data_dir", str(data),
+                "--workdir", str(root / "wd" / name.split("_")[0]),
+                "--set", f"parallel.num_devices={DP_RANKS}",
+                "--set", f"data.batch_size={TRAIN_BATCH}",
+                "--set", "train.log_every=1",
+                *[a for x in sets for a in ("--set", x)]]
+    return dp_launch(cmd, {**os.environ, "DP_OUT": str(root)}, what)
+
+
+def dp_read_fits(root: Path, what: str, names: list,
+                 done: "subprocess.CompletedProcess") -> dict:
+    """What a launch of fits left: name -> the ranks' records, rank 0's
+    metrics records and the last line it printed for that fit; and the
+    launch's exit code and errors."""
+    from jama16_retina_tpu_torch.utils.logging import read_jsonl
+
+    printed = [line for line in done.stdout.splitlines()
+               if line.startswith('{"config"')]
+    out = {"code": done.returncode, "stderr": done.stderr}
+    for name in names:
+        ranks = []
+        for r in range(DP_RANKS):
+            path = root / f"{name}.rank{r}.json"
+            dp_check_exit(out, path.exists(),
+                          f"dp: {what}: rank {r} wrote no record of {name}")
+            ranks.append(json.loads(path.read_text()))
+        wd = root / "wd" / name.split("_")[0]
+        metrics = wd / "metrics.jsonl"
+        ok = ranks[0]["error"] is None
+        out[name] = {"ranks": ranks, "wd": wd,
+                     "records": (read_jsonl(str(metrics))
+                                 if metrics.exists() else []),
+                     "last": printed.pop(0) if ok and printed else ""}
+    return out
+
+
+def dp_fits(root: Path, data: Path, what: str, runs: dict) -> dict:
+    """``dp_launch_fits`` and then ``dp_read_fits``."""
+    return dp_read_fits(root, what, list(runs),
+                        dp_launch_fits(root, data, what, runs))
+
+
+def dp_counts(run: dict) -> dict:
+    """A launch's counts, summed over its ranks."""
+    total = dict.fromkeys(run["ranks"][0]["counts"], 0)
+    for r in run["ranks"]:
+        for k, v in r["counts"].items():
+            total[k] += v
+    return total
+
+
+def dp_check_fit(run: dict, name: str, steps: int, kernels: dict) -> None:
+    """Each rank ran ``steps`` steps with equal replica hashes after every
+    one, on the card under gloo, and launched ``kernels`` (per rank)."""
+    ranks = run["ranks"]
+    hashes = [r["hashes"] for r in ranks]
+    check(all(len(h) == steps for h in hashes) and all(
+        len(set(step)) == 1 for step in zip(*hashes)),
+        f"dp: {name}: replica hashes differ or miss steps: {hashes}")
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["device"] == "cuda:0",
+              f"dp: {name}: rank {r['rank']} ran on {r['device']} under "
+              f"{r['backend']}, want cuda:0 under gloo (two ranks, one card)")
+        want = {**dict.fromkeys(r["counts"], 0), **kernels}
+        check(r["counts"] == want,
+              f"dp: {name}: rank {r['rank']} launched {r['counts']}, want "
+              f"{want}")
+
+
+def dp_step_ms(records) -> float:
+    """Median step of a fit's train records (log_every 1) with no eval or
+    save in its window, after the first."""
+    return statistics.median(
+        1e3 * r["window_sec"] for r in records
+        if r["kind"] == "train" and r["step"] > 1 and r["pause_sec"] == 0
+        and r["save_sec"] == 0)
+
+
+def workdir_digest(wd: Path, sub: str) -> str:
+    """sha256 over the step dirs of ``wd/sub`` (``best`` or ``latest``):
+    their names and every array of their states."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for step_dir in sorted((wd / sub).iterdir(), key=lambda p: p.name):
+        h.update(step_dir.name.encode())
+        with np.load(step_dir / "state.npz") as f:
+            for k in sorted(f.files):
+                h.update(k.encode())
+                h.update(np.ascontiguousarray(f[k]).tobytes())
+    return h.hexdigest()
+
+
+def dp_check_steps(root: Path, out: dict) -> None:
+    """Phase 22 (a)'s checks, on the ranks' records in ``root``."""
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(DP_RANKS)]
+    out["backend"] = ranks[0]["backend"]
+    out["devices"] = [r["device"] for r in ranks]
+    want = {"preset": {"fused_color_jitter": 1},
+            "fused": {"fused_normalize_color_jitter": 1,
+                      "fused_adamw_update": 1}}
+    for form in TRAIN_FORMS:
+        recs = [r["forms"][form] for r in ranks]
+        for r, rec in zip(ranks, recs):
+            check(r["backend"] == "gloo" and r["device"] == "cuda:0",
+                  f"dp: (a) rank {r['rank']} on {r['device']} under "
+                  f"{r['backend']}")
+            kern = {**dict.fromkeys(rec["counts"], 0), **want[form]}
+            check(rec["counts"] == kern,
+                  f"dp: (a) {form}: rank {r['rank']} launched "
+                  f"{rec['counts']}, want {kern}")
+        check(len({rec["hash"] for rec in recs}) == 1
+              and len({rec["loss"] for rec in recs}) == 1,
+              f"dp: (a) {form}: the replicas differ after the step")
+        lead = recs[0]
+        worst = {p: lead[f"{p}_worst"] for p in ("grads", "stats", "params")}
+        log(f"dp: (a) {form}: loss {lead['loss']:.9f}, |diff| to one rank "
+            f"{lead['loss_diff']:.3e}; worst leaf relative L2 against one "
+            f"rank: gradients (float64) {worst['grads']}, running "
+            f"statistics {worst['stats']}, updated params {worst['params']} "
+            f"(bound {DP_STEP_BOUND}); replica hash {lead['hash']} on both "
+            f"ranks; launches per rank {lead['counts']}")
+        check(lead["loss_diff"] <= DP_STEP_BOUND
+              and all(w[1] <= DP_STEP_BOUND for w in worst.values()),
+              f"dp: (a) {form}: 2 ranks against 1: {worst}")
+        out["launches"][f"dp_step_{form}"] = {
+            k: sum(rec["counts"][k] for rec in recs)
+            for k in recs[0]["counts"]}
+        out[f"step_{form}"] = {"loss_diff": lead["loss_diff"], **worst}
+
+
+def phase_dp(torch, seed: int, smi: str, data: Path, one_rank_ms: float
+             ) -> dict:
+    """Data-parallel training over two ranks sharing the card (phase 22
+    of the docstring), on phase 6's splits ``data``, first part: (b)'s
+    uncut fit, (c)'s fit and (b)'s fit cut at step 3, in turn in one launch
+    (the first two alone on the card: their step times are printed). The
+    second part (``dp_rest_start``, ``dp_rest_finish``) resumes the cut
+    fit beside (a)."""
+    t_phase = time.perf_counter()
+    root = SCRATCH / "dp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {"launches": {}, "wall_s": {}, "root": root, "seed": seed,
+           "data": data, "smi": smi}
+    out["fit_sets"] = (f"train.steps={DP_FIT_STEPS}",
+                       f"train.eval_every={DP_FIT_EVAL_EVERY}",
+                       f"train.seed={seed}", "eval.sharded=true")
+    cut_plan = fault_spec({"trainer.step": {
+        "kind": "error", "error": "RuntimeError", "on_calls": [DP_CUT_CALL],
+        "message": "dp cut"}})
+    first = dp_fits(root, data, "(b) uncut, (c) fused, (b) cut", {
+        "uncut": out["fit_sets"],
+        "fused": (f"train.steps={DP_FUSED_STEPS}",
+                  f"train.eval_every={DP_FUSED_STEPS}",
+                  f"train.seed={seed}", "train.use_pallas_fused=true"),
+        "cut_first": (*out["fit_sets"], cut_plan)})
+    dp_check_exit(first, first["code"] == 0,
+                  f"dp: the first launch exited {first['code']}")
+    uncut, fused, cut = (first[k] for k in ("uncut", "fused", "cut_first"))
+    for name, run in (("uncut", uncut), ("fused", fused)):
+        dp_check_exit(first, all(r["error"] is None for r in run["ranks"]),
+                      f"dp: the {name} fit raised "
+                      f"{[r['error'] for r in run['ranks']]}")
+    # (b) The uncut fit.
+    dp_check_fit(uncut, "(b) uncut", DP_FIT_STEPS,
+                 {"fused_color_jitter": DP_FIT_STEPS})
+    recs = uncut["records"]
+    evals = [r for r in recs if r["kind"] == "eval"]
+    check(recs[0]["kind"] == "config" and recs[0]["n_devices"] == DP_RANKS
+          and [r["step"] for r in evals] == [DP_FIT_EVAL_EVERY, DP_FIT_STEPS]
+          and all(0 <= r["val_auc"] <= 1 for r in evals),
+          f"dp: (b) the uncut fit's records: {recs[:1]}, {evals}")
+    files = sorted(p.name for p in uncut["wd"].iterdir())
+    check(not [n for n in files if ".p1" in n or "rank" in n]
+          and {"metrics.jsonl", "run_meta.json", "best", "latest"}
+          <= set(files), f"dp: (b) the uncut workdir holds {files}")
+    b_ms = dp_step_ms(recs)
+    log(f"dp: (b) {DP_FIT_STEPS}-step preset fit over {DP_RANKS} ranks: "
+        f"{json.loads(uncut['last'])['results']}; launches "
+        f"{dp_counts(uncut)}; replica hashes equal after each step; rank 0 "
+        f"alone wrote {files}")
+    # (c) The fused fit.
+    dp_check_fit(fused, "(c) fused", DP_FUSED_STEPS,
+                 {"fused_normalize_color_jitter": DP_FUSED_STEPS,
+                  "fused_adamw_update": DP_FUSED_STEPS})
+    c_ms = dp_step_ms(fused["records"])
+    log(f"dp: (c) {DP_FUSED_STEPS}-step fused fit over {DP_RANKS} ranks: "
+        f"launches {dp_counts(fused)}; replica hashes equal after each step")
+    # (b) The fit cut at step 3.
+    dp_check_exit(first, all("dp cut" in (r["error"] or "")
+                             for r in cut["ranks"]),
+                  f"dp: (b) the cut fit ended with "
+                  f"{[r['error'] for r in cut['ranks']]}")
+    dp_check_fit(cut, "(b) cut", DP_CUT_CALL - 1,
+                 {"fused_color_jitter": DP_CUT_CALL - 1})
+    out["launches"].update({"dp_fit": dp_counts(uncut),
+                            "dp_fit_fused": dp_counts(fused),
+                            "dp_fit_cut": dp_counts(cut)})
+    out.update(uncut=uncut, preset_step_ms=b_ms, fused_step_ms=c_ms)
+    log(f"times: phase 22: step of the global batch {TRAIN_BATCH} (16 a "
+        f"rank) over {DP_RANKS} ranks, median: preset {b_ms:.1f} ms, fused "
+        f"{c_ms:.1f} ms, against one rank's {one_rank_ms:.1f} ms (phase 6). "
+        f"Two ranks share one card here: each runs every kernel of its half "
+        f"batch, and every BatchNorm's moments and the gradient cross the "
+        f"host through gloo, so the step is slower than one rank's and says "
+        f"nothing of scaling over cards ({smi})")
+    out["wall_s"]["first"] = time.perf_counter() - t_phase
+    return out
+
+
+def dp_rest_start(dp: dict) -> list:
+    """Phase 22's second part, in the background: (b)'s resume from step
+    3 through ``torch.distributed.run`` and, beside it, (a) on two ranks
+    (``launch_local``). -> the threads, whose results ``dp_rest_finish``
+    reads (nothing here checks: a check stops the main thread)."""
+    import threading
+
+    from jama16_retina_tpu_torch.parallel import mesh as mesh_lib
+
+    log("dp: (a) one step, 2 ranks against 1, and (b)'s resume: start")
+    dp["t_rest"] = time.perf_counter()
+    jobs = {
+        "steps": lambda: mesh_lib.launch_local(
+            ["-c", _DP_RANK, str(ROOT), str(dp["root"]), str(dp["seed"])],
+            DP_RANKS, timeout_s=DP_LAUNCH_S),
+        "resume": lambda: dp_launch_fits(dp["root"], dp["data"],
+                                         "(b) resume", {"cut_resume": (
+                                             *dp["fit_sets"],
+                                             "train.resume=true")})}
+    threads = []
+    for name, job in jobs.items():
+        def run(name=name, job=job):
+            try:
+                dp[name] = job()
+            except BaseException as e:  # noqa: BLE001 - read by the finish
+                dp[name] = e
+        threads.append(threading.Thread(target=run, name=f"dp-{name}"))
+        threads[-1].start()
+    return threads
+
+
+def dp_rest_finish(torch, dp: dict, threads: list) -> dict:
+    """Join phase 22's second part and check it: (a)'s records, and (b)'s
+    resume against the uncut fit, bitwise."""
+    for t in threads:
+        t.join()
+    try:
+        for name in ("steps", "resume"):
+            if isinstance(dp[name], BaseException):
+                raise dp[name]
+        log(f"dp: (a) and (b)'s resume: end, (a) exit {dp['steps']}")
+        check(dp["steps"] == 0, f"dp: (a) the ranks exited {dp['steps']}")
+        dp_check_steps(dp["root"], dp)
+        second = dp_read_fits(dp["root"], "(b) resume", ["cut_resume"],
+                              dp["resume"])
+        resumed, uncut = second["cut_resume"], dp["uncut"]
+        dp_check_exit(second, second["code"] == 0 and all(
+            r["error"] is None for r in resumed["ranks"]),
+            f"dp: (b) the resume exited {second['code']} with "
+            f"{[r['error'] for r in resumed['ranks']]}")
+        dp_check_fit(resumed, "(b) resumed", DP_FIT_STEPS - DP_FIT_EVAL_EVERY,
+                     {"fused_color_jitter":
+                      DP_FIT_STEPS - DP_FIT_EVAL_EVERY})
+        check([r["step"] for r in resumed["records"]
+               if r["kind"] == "resume"] == [DP_FIT_EVAL_EVERY],
+              "dp: (b) the resumed run has no resume record at step "
+              f"{DP_FIT_EVAL_EVERY}")
+        digests = {sub: (workdir_digest(uncut["wd"], sub),
+                         workdir_digest(resumed["wd"], sub))
+                   for sub in ("latest", "best")}
+        check(all(a == b for a, b in digests.values()),
+              f"dp: (b) the resumed run's latest/ and best/ differ from the "
+              f"uncut run's: {digests}")
+        check(uncut["ranks"][0]["hashes"][-1]
+              == resumed["ranks"][0]["hashes"][-1],
+              "dp: (b) the resumed replica's hash differs from the uncut "
+              "one's")
+        log(f"dp: (b) cut by trainer.step at call {DP_CUT_CALL} and resumed "
+            f"from {DP_FIT_EVAL_EVERY}: latest/ and best/ bitwise the uncut "
+            f"run's ({digests['latest'][0][:16]}, {digests['best'][0][:16]}; "
+            f"cuDNN deterministic); backend {dp['backend']}, ranks on "
+            f"{dp['devices']}")
+        dp["launches"]["dp_fit_resume"] = dp_counts(resumed)
+        dp["wall_s"]["rest"] = time.perf_counter() - dp["t_rest"]
+    finally:
+        shutil.rmtree(dp["root"], ignore_errors=True)
+    return dp
+
+
 def memoize_init() -> None:
     """Draw each member init once. For the whole run,
     ``models.init.init_flax_default`` is replaced by a memo of it: the
@@ -7943,6 +8559,12 @@ def main(argv=None) -> int:
     steps = train_step_times(torch, args.seed, smi)
     mark("phase 10 (serving knobs) and the train step times")
     fit = phase_fit(torch, args.seed, smi, steps["preset"]["step_ms"])
+    mark("phase 6 (fit)")
+    # The ranks' processes take the card beside this one's cached blocks.
+    torch.cuda.empty_cache()
+    dp = phase_dp(torch, args.seed, smi, fit["data"], fit["stream_step_ms"])
+    mark("phase 22, first part (data-parallel: the uncut, fused and cut "
+         "fits)")
     knobs = phase_knobs(torch, args.seed, smi, fit)
     t_phase = time.perf_counter()
     optimizers = phase_optimizers(torch, args.seed, smi)
@@ -7967,12 +8589,11 @@ def main(argv=None) -> int:
     obs = phase_obs(torch, args.seed, smi, serve, fit["data"])
     faults = phase_faults(torch, args.seed, smi, serve, router, fit["data"])
     preprocess = phase_preprocess(torch, args.seed, smi, serve)
-    mark("phases 6, 9 and 11-17")
+    mark("phases 9 and 11-17")
     grain = phase_grain(torch, args.seed, smi, serve, fit["data"])
     mark(f"phase 20 (grain, progressive JPEG; by part "
          f"{ {k: round(v, 1) for k, v in grain['wall_s'].items()} })")
     lifecycle = phase_lifecycle(torch, args.seed, smi, fit["data"])
-    shutil.rmtree(fit["root"], ignore_errors=True)
     mark(f"phase 21 (lifecycle; by part "
          f"{ {k: round(v, 1) for k, v in lifecycle['wall_s'].items()} })")
     hbm = phase_hbm(torch, args.seed, smi)
@@ -7985,6 +8606,9 @@ def main(argv=None) -> int:
     for form, t in train.items():
         log(f"times: train {form}: peak device memory {t['peak']} bytes "
             f"({smi})")
+    # Phase 22's second part runs beside phase 8, whose checks read no
+    # clock.
+    dp_threads = dp_rest_start(dp)
     model_runs = {}
     for preset in MODEL_PRESETS:
         t_model = [time.perf_counter()]
@@ -8006,7 +8630,13 @@ def main(argv=None) -> int:
         log(f"times: {preset} serve, train and agreement wall "
             f"{t_model[-1] - t_model[0]:.1f} s (serve, train, agreement: "
             f"{parts}) ({smi})")
-    mark("phase 8 (resnet50, efficientnet_b4, icdr5)")
+    mark("phase 8 (resnet50, efficientnet_b4, icdr5), beside phase 22's "
+         "second part")
+    dp_rest_finish(torch, dp, dp_threads)
+    shutil.rmtree(fit["root"], ignore_errors=True)
+    mark(f"phase 22, second part (the resume beside (a), from phase 8's "
+         f"start; by part "
+         f"{ {k: round(v, 1) for k, v in dp['wall_s'].items()} })")
     if args.profile:
         profile_request(torch, serve, args.profile)
         profile_train(torch, steps, args.profile)
@@ -8022,12 +8652,17 @@ def main(argv=None) -> int:
         max_err, {**main_row, "library_ms": None})
     b4.update({"max_abs_diff": max_err, "timed_shape": main_row["shape"],
                "by_batch": {str(b): t for b, t in timing.items()}})
+    # Phase 22's added, summed over its ranks: B1 in (b)'s uncut fit, B2
+    # and B3 in (c)'s fused one.
+    dp_runs = dp["launches"]
     launches = {"fused_color_jitter":
-                lc_runs["lifecycle_a"]["fused_color_jitter"],
-                **{k: lc_runs["lifecycle_c"][k] for k in (
-                    "fused_normalize_color_jitter", "fused_adamw_update")}}
+                lc_runs["lifecycle_a"]["fused_color_jitter"]
+                + dp_runs["dp_fit"]["fused_color_jitter"],
+                **{k: lc_runs["lifecycle_c"][k] + dp_runs["dp_fit_fused"][k]
+                   for k in ("fused_normalize_color_jitter",
+                             "fused_adamw_update")}}
     for ph, runs_of in (("18", hbm), ("19", tiered), ("20", grain),
-                        ("21", lifecycle)):
+                        ("21", lifecycle), ("22", dp)):
         log(f"launches: phase {ph}: {runs_of['launches']}")
     # Each path's counts, all four set to 0 just before it ran and read
     # just after.
@@ -8041,7 +8676,8 @@ def main(argv=None) -> int:
             **cascade["launches"], **router["launches"],
             **jpeg["launches"], **obs["launches"], **faults["launches"],
             **preprocess["launches"], **hbm["launches"],
-            **tiered["launches"], **grain["launches"], **lc_runs}
+            **tiered["launches"], **grain["launches"], **lc_runs,
+            **dp_runs}
     by_phase = {k: {run: counts[k] for run, counts in runs.items()}
                 for k in launch_counts()}
     records = [

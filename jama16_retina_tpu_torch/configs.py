@@ -111,6 +111,10 @@ class DataConfig:
     # (data/pipeline.DevicePrefetch); 0 reads each batch on the step's
     # thread.
     prefetch_batches: int = 2
+    # Stage each device's row block of a batch on its own. One rank owns
+    # one device and stages only its own block, so under a data mesh this
+    # is what every run does; accepted for the reference's configs.
+    stage_per_shard: bool = False
     # Port-only: reader processes decoding train batches in parallel
     # (the counterpart of tf.data's parallel parse; at least 1). Batches
     # keep their order at any count.
@@ -195,6 +199,23 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The data mesh (``parallel/mesh.py``): one rank a replica, each on
+    its own device, launched by ``torch.distributed.run`` (or the train
+    CLI's ``--fake_devices`` on the CPU)."""
+    # Name of the data axis batches shard over.
+    data_axis: str = "data"
+    # Ranks of the mesh: 0 = every rank of the launch.
+    num_devices: int = 0
+    # The reference's seam for a model axis; read nowhere, as there.
+    model_axis_size: int = 1
+    # The member axis of a member-parallel mesh and the serving mesh:
+    # refused away from their defaults (Queue A item 8, part 2).
+    member_axis_size: int = 0
+    serve_devices: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class EvalConfig:
     batch_size: int = 64
     # Operating points: thresholds chosen on the ROC curve at these
@@ -205,6 +226,11 @@ class EvalConfig:
     ensemble_dirs: tuple[str, ...] = ()
     # Average probabilities over the 4 flip views (identity/h/v/hv).
     tta: bool = False
+    # Under a data mesh of more than one rank, each rank decodes only every
+    # P-th record of an eval split (data/pipeline.eval_batches_sharded)
+    # instead of the whole split; the probabilities and the AUC are the
+    # same.
+    sharded: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -415,6 +441,8 @@ class ExperimentConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
@@ -497,6 +525,10 @@ PRESETS = {
     "smoke": _preset_smoke,
 }
 
+# The multi-device forms still to port: the member axis, the serving mesh,
+# manual data, the other loaders, accumulation and distillation across
+# ranks.
+MESH_PART_2 = "Queue A item 8, part 2"
 # Knob -> (its default, the ROADMAP item that will implement it).
 _UNIMPLEMENTED = {
     ("model", "stem_s2d"): (False, "Queue A item 2 (stem_s2d)"),
@@ -506,8 +538,9 @@ _UNIMPLEMENTED = {
     ("obs", "device_hbm_headroom_alert"): (
         0.1, "Queue A item 11 (part 4: the device plane, whose "
              "device.hbm.headroom_frac gauge the rule reads)"),
+    ("parallel", "member_axis_size"): (
+        0, MESH_PART_2 + " (the member axis of a member-parallel mesh)"),
 }
-_MULTI_DEVICE = "Queue A item 8 (multi-device)"
 _PLANES = "Queue A item 11 (planes)"
 # JAX-package fields (or whole sections) this port has no copy of yet.
 # Overriding one raises NotImplementedError naming its item; any other
@@ -515,12 +548,8 @@ _PLANES = "Queue A item 11 (planes)"
 _NOT_PORTED = {
     "data.shuffle_buffer": "Queue C (the port's train stream shuffles "
                            "the whole split; no buffer)",
-    "eval.sharded": "Queue A item 8 (multi-host eval)",
-    "train.ensemble_manual_data": _MULTI_DEVICE + " (the manual data axis "
+    "train.ensemble_manual_data": MESH_PART_2 + " (the manual data axis "
                                   "of a member-parallel mesh)",
-    "parallel": _MULTI_DEVICE + " (meshes)",
-    "data.stage_per_shard": _MULTI_DEVICE + " (per-shard staging of the "
-                            "stream over a mesh's devices)",
     "ingest": _PLANES + " (the ingest service)",
     "integrity": _PLANES + " (integrity: caches, telemetry retention)",
     # The obs fields of the planes still to port; obs.audit covers its
@@ -564,6 +593,10 @@ def check_supported(cfg: ExperimentConfig, training: bool = False) -> None:
                 f"{section}.{field}={value!r} is not ported yet; see "
                 f"ROADMAP.md {item}"
             )
+    if cfg.parallel.serve_devices > 1:
+        raise NotImplementedError(
+            f"parallel.serve_devices={cfg.parallel.serve_devices} (a serving "
+            f"mesh) is not ported yet; see ROADMAP.md {MESH_PART_2}")
     if cfg.model.arch not in _ARCHS:
         raise ValueError(f"unknown model.arch {cfg.model.arch!r} (want one "
                          f"of {_ARCHS})")

@@ -381,7 +381,7 @@ def for_config(cfg, mesh=None, registry=None, tracer=None,
     sits. The staging headroom is 10 % of the card's budget
     (``hbm_pipeline.hbm_budget_bytes``, ``data.hbm_budget_bytes``
     applied), the eval cache's discipline. A mesh is not ported
-    (ROADMAP.md Queue A item 8)."""
+    (ROADMAP.md Queue A item 8, part 2)."""
     from jama16_retina_tpu_torch.data.grain_pipeline import (
         resolve_decode_workers,
     )
@@ -396,7 +396,7 @@ def for_config(cfg, mesh=None, registry=None, tracer=None,
     if mesh is not None:
         raise NotImplementedError(
             "autotune.for_config: a mesh is not ported yet; see ROADMAP.md "
-            "Queue A item 8 (multi-device)")
+            "Queue A item 8, part 2")
     workers0 = resolve_decode_workers(cfg.data.decode_workers)
     knobs = Knobs(
         decode_workers=workers0,

@@ -25,7 +25,7 @@ The split must fit: its rows (``row_bytes``) against 0.6 of the card's
 memory (``hbm_budget_bytes``: ``data.hbm_budget_bytes`` when set, else
 the card's total memory from ``torch.cuda.mem_get_info``, else, as on the
 CPU, an assumed 8 GB with a warning once a process). A mesh and the
-multi-host load are not ported (ROADMAP.md Queue A item 8).
+multi-host load are not ported (ROADMAP.md Queue A item 8, part 2).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ _log = logging.getLogger(__name__)
 
 _MULTI_DEVICE = ("a mesh (the rows sharded over its data axis, and the "
                  "multi-host load that decodes each process's rows) is not "
-                 "ported yet; see ROADMAP.md Queue A item 8 (multi-device)")
+                 "ported yet; see ROADMAP.md Queue A item 8, part 2")
 _FALLBACK_BYTES = 8 * 1024**3
 
 # Warn-once latch for the no-limit fallback below (tests reset it).

@@ -36,6 +36,12 @@ streamed rows also go through.
 Records may be raw or JPEG-encoded (``tfrecord.parse_record``); a record
 that is not at ``model.image_size`` is resized as the reference resizes
 it (``readers.decode``).
+
+Under a data mesh of P ranks (``process_index``, ``process_count``),
+``train_batches`` yields the rank's block of each batch of the
+one-process stream, ``eval_batches`` the rank's image rows with the whole
+batch's metadata, and ``eval_batches_sharded`` (``eval.sharded``) the
+reference's stride-sharded eval stream, bitwise.
 """
 
 from __future__ import annotations
@@ -93,11 +99,27 @@ def interleave_records(paths: Sequence[str],
                 s.close()
 
 
+def local_batch_size(global_batch: int, process_count: int,
+                     what: str) -> int:
+    """A process's rows of a global batch; refused, with the reference's
+    message, when the processes do not divide it."""
+    if global_batch % process_count:
+        raise ValueError(f"{what}={global_batch} not divisible by "
+                         f"process_count={process_count}")
+    return global_batch // process_count
+
+
 def eval_batches(data_dir: str, split: str, batch_size: int,
-                 image_size: int) -> Iterator[dict]:
+                 image_size: int, process_index: int = 0,
+                 process_count: int = 1) -> Iterator[dict]:
     """One epoch of padded batches ``{'image', 'grade', 'name', 'mask'}``:
     uint8 ``[B, S, S, 3]``, int32 ``[B]``, object ``[B]`` (bytes) and
-    float32 ``[B]``; rows with mask 0 are padding."""
+    float32 ``[B]``; rows with mask 0 are padding. Under ``process_count``
+    P > 1, ``image`` is process ``process_index``'s block of each batch
+    (rows ``[p B/P, (p + 1) B/P)``), and ``grade``, ``name`` and ``mask``
+    stay the whole batch's, as in the reference: every process reads the
+    whole split and makes the same number of batches."""
+    local = local_batch_size(batch_size, process_count, "eval.batch_size")
     paths = tfrecord.list_split(data_dir, split)
     records = interleave_records(paths)
     while True:
@@ -116,10 +138,67 @@ def eval_batches(data_dir: str, split: str, batch_size: int,
         grade[:n] = [r.grade for r in rows]
         name = np.full((batch_size,), b"", object)
         name[:n] = [r.name for r in rows]
+        if process_count > 1:
+            image = image[process_index * local:(process_index + 1) * local]
         yield {"image": image, "grade": grade, "name": name,
                "mask": (np.arange(batch_size) < n).astype(np.float32)}
         if n < batch_size:
             return
+
+
+def read_split_metadata(data_dir: str, split: str
+                        ) -> "tuple[np.ndarray, np.ndarray]":
+    """(grades int32 [n], names object [n] of bytes) of a split in the
+    eval stream's record order, from a parse of each record that decodes
+    no image."""
+    grades, names = [], []
+    for data in interleave_records(tfrecord.list_split(data_dir, split)):
+        feats = tfrecord.parse_example(data)
+        grades.append(int(tfrecord._scalar(feats, "image/grade", "int64")))
+        names.append(tfrecord._scalar(feats, "image/name", "bytes", b""))
+    out = np.empty((len(names),), object)
+    out[:] = names
+    return np.asarray(grades, np.int32), out
+
+
+def eval_batches_sharded(data_dir: str, split: str, batch_size: int,
+                         image_size: int, process_index: int = 0,
+                         process_count: int = 1) -> Iterator[dict]:
+    """The eval stream with each process decoding only every P-th record
+    (``eval.sharded``, the reference's ``eval_batches_sharded``): process
+    p decodes records p, p + P, ... of the eval order, ``B/P`` to a
+    batch, so the assembled rank-major batch k holds at row ``p B/P + i``
+    the record ``p + (k B/P + i) P``. ``grade``, ``name`` and ``mask``
+    come from a parse-only pass (``read_split_metadata``) in that
+    assembled order; every process yields ceil(n / B) batches. One
+    process is the plain eval order."""
+    p_idx, p_cnt = process_index, process_count
+    local = local_batch_size(batch_size, p_cnt, "eval.batch_size")
+    grades, names = read_split_metadata(data_dir, split)
+    n = len(grades)
+    if n == 0:
+        return
+    mine = (readers_lib.decode(data, image_size).image
+            for i, data in enumerate(interleave_records(
+                tfrecord.list_split(data_dir, split)))
+            if i % p_cnt == p_idx)
+    block = np.arange(local)
+    for k in range(-(-n // batch_size)):
+        imgs = np.zeros((local, image_size, image_size, 3), np.uint8)
+        for j in range(local):
+            img = next(mine, None)
+            if img is None:
+                break
+            imgs[j] = img
+        rec = np.concatenate([p + (k * local + block) * p_cnt
+                              for p in range(p_cnt)])
+        valid = rec < n
+        safe = np.minimum(rec, n - 1)
+        name = np.empty((batch_size,), object)
+        name[:] = [names[r] if v else b"" for r, v in zip(safe, valid)]
+        yield {"image": imgs,
+               "grade": np.where(valid, grades[safe], 0).astype(np.int32),
+               "name": name, "mask": valid.astype(np.float32)}
 
 
 def _reader_context():
@@ -133,12 +212,17 @@ def _reader_context():
 
 def train_batches(data_dir: str, split: str, cfg: DataConfig,
                   image_size: int, seed: int = 0, skip_batches: int = 0,
-                  pin_memory: bool = False,
-                  readers: int = 1) -> Iterator[dict]:
+                  pin_memory: bool = False, readers: int = 1,
+                  process_index: int = 0,
+                  process_count: int = 1) -> Iterator[dict]:
     """Endless shuffled batches ``{'image': uint8 [B, S, S, 3], 'grade':
     int32 [B]}`` as CPU tensors, in pinned memory when ``pin_memory``, so
     ``.to(device, non_blocking=True)`` copies them without blocking the
-    host.
+    host. Under ``process_count`` P > 1 the process yields its ``B/P``
+    rows of each one-process batch, the block ``[p B/P, (p + 1) B/P)``,
+    and reads no other record: the P processes' batches, concatenated in
+    process order, are the one-process stream's (the reference shards
+    whole files instead; ROADMAP.md Queue C).
 
     ``readers`` reader processes read and decode whole batches ahead, in
     parallel, into a shared buffer of ``2 * readers`` batch slots; the
@@ -159,10 +243,12 @@ def train_batches(data_dir: str, split: str, cfg: DataConfig,
     raises."""
     if readers < 1:
         raise ValueError(f"readers={readers} must be >= 1")
+    b = local_batch_size(cfg.batch_size, process_count, "data.batch_size")
     plan = faultinject.active_plan()
-    order = readers_lib.TrainOrder(data_dir, split, cfg.batch_size,
-                                   image_size, seed)
-    shape, b = order.shape(), cfg.batch_size
+    order = readers_lib.TrainOrder(
+        data_dir, split, cfg.batch_size, image_size, seed,
+        rows=(process_index * b, (process_index + 1) * b))
+    shape = order.shape()
     slots = 2 * readers
     shared = shared_memory.SharedMemory(
         create=True, size=readers_lib.slot_bytes(slots, shape))

@@ -39,10 +39,13 @@ def decode(data, image_size: int) -> tfrecord.Record:
 class TrainOrder:
     """The train stream of a split as a function of the batch index: the
     records of batch ``k`` are positions ``k * B .. (k + 1) * B - 1`` of
-    the endless sequence of epoch permutations."""
+    the endless sequence of epoch permutations. ``rows`` (start, stop)
+    reads only that block of each batch (a rank's rows); the other
+    records of the batch are not read."""
 
     def __init__(self, data_dir: str, split: str, batch_size: int,
-                 image_size: int, seed: int):
+                 image_size: int, seed: int,
+                 rows: "tuple[int, int] | None" = None):
         self.paths = tfrecord.list_split(data_dir, split)
         self.spans = [(f, i, s) for f, p in enumerate(self.paths)
                       for i, s in enumerate(tfrecord.index_records(p))]
@@ -51,10 +54,12 @@ class TrainOrder:
                              "records")
         self.batch_size, self.image_size, self.seed = (batch_size,
                                                        image_size, seed)
+        self.rows = (0, batch_size) if rows is None else tuple(rows)
         self._perm: "tuple[int, np.ndarray] | None" = None
 
     def shape(self) -> tuple:
-        return (self.batch_size, self.image_size, self.image_size, 3)
+        return (self.rows[1] - self.rows[0], self.image_size,
+                self.image_size, 3)
 
     def _order(self, epoch: int) -> np.ndarray:
         if self._perm is None or self._perm[0] != epoch:
@@ -67,17 +72,18 @@ class TrainOrder:
 
     def fill(self, index: int, files: list, rows: np.ndarray,
              grades: np.ndarray) -> None:
-        """Read batch ``index`` through ``files`` (one open handle per
-        file of the split) into ``rows`` [B, S, S, 3] and ``grades``
-        [B]."""
+        """Read batch ``index`` (its block ``self.rows``) through
+        ``files`` (one open handle per file of the split) into ``rows``
+        [b, S, S, 3] and ``grades`` [b]."""
         n = len(self.spans)
-        for j in range(self.batch_size):
+        start, stop = self.rows
+        for j in range(start, stop):
             pos = index * self.batch_size + j
             f, i, span = self.spans[self._order(pos // n)[pos % n]]
             rec = decode(tfrecord.read_record_at(
                 files[f], span, self.paths[f], i), self.image_size)
-            rows[j] = rec.image
-            grades[j] = rec.grade
+            rows[j - start] = rec.image
+            grades[j - start] = rec.grade
 
 
 def slot_bytes(slots: int, shape: tuple) -> int:

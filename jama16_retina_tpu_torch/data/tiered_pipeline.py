@@ -39,8 +39,9 @@ The decode of streamed rows runs on the consumer's thread, as the
 reference's does: timing never changes contents. The batches are the
 trainer's as yielded: the reference also queues ``data.prefetch_batches``
 of them in ``device_prefetch``, the port does not (ROADMAP.md Queue C).
-A mesh and more than one process are not ported (ROADMAP.md Queue A item 8), nor is the
-reference's card-memory owner ledger (item 11, part 4).
+A mesh and more than one process are not ported (ROADMAP.md Queue A
+item 8, part 2), nor is the reference's card-memory owner ledger (item
+11, part 4).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ _log = logging.getLogger(__name__)
 
 _MULTI_DEVICE = ("a mesh, or more than one process (the cross-host "
                  "sharded spill plan), is not ported yet; see ROADMAP.md "
-                 "Queue A item 8 (multi-device)")
+                 "Queue A item 8, part 2")
 
 
 def plan_residency(

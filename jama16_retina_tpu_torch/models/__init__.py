@@ -14,15 +14,18 @@ import torch
 from torch import nn
 
 from jama16_retina_tpu_torch.configs import ModelConfig
-from jama16_retina_tpu_torch.models.common import DTYPES
+from jama16_retina_tpu_torch.models.common import DTYPES, BatchNorm
 from jama16_retina_tpu_torch.models.efficientnet import EfficientNet
 from jama16_retina_tpu_torch.models.inception_v3 import InceptionV3
 from jama16_retina_tpu_torch.models.resnet import ResNet50
 from jama16_retina_tpu_torch.models.tiny_cnn import TinyCNN
 
 
-def build(cfg: ModelConfig) -> nn.Module:
-    """The model named by ``cfg.arch``, in eval mode, on the CPU."""
+def build(cfg: ModelConfig, mesh=None) -> nn.Module:
+    """The model named by ``cfg.arch``, in eval mode, on the CPU. A data
+    mesh of more than one rank (``parallel.mesh.Mesh``; the reference's
+    ``axis_name``) goes to every ``BatchNorm``, whose train moments are
+    then the global batch's."""
     common = dict(num_classes=cfg.num_classes,
                   dropout_rate=cfg.dropout_rate,
                   dtype=DTYPES[cfg.compute_dtype])
@@ -37,6 +40,10 @@ def build(cfg: ModelConfig) -> nn.Module:
         model = TinyCNN(**common)
     else:
         raise ValueError(f"unknown arch {cfg.arch!r}")
+    if mesh is not None and mesh.size > 1:
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.mesh = mesh
     return model.eval()
 
 

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jama16_retina_tpu_torch.parallel.mesh import mean_over_ranks
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.9
 
@@ -160,12 +162,22 @@ class BatchNorm(nn.Module):
     ``ra = m * ra + (1 - m) * batch`` at ``momentum`` m (0.9 by default;
     EfficientNet's is 0.99) for the mean and the *biased* variance,
     which is Flax's rule; torch's own BatchNorm would update with the
-    unbiased variance."""
+    unbiased variance.
+
+    Under a data mesh of more than one rank (``mesh``, set by
+    ``models.build``; Flax's ``axis_name``) the train form's moments are
+    the global batch's: each rank takes ``mean`` and ``mean(x^2)`` over
+    its rows, one differentiable all-reduce averages both over the ranks
+    (``parallel.mesh.mean_over_ranks``), and the clipped fast variance is
+    formed from the averages, as Flax forms it under ``axis_name``. The
+    running statistics update from those moments, so they stay equal on
+    every rank. The eval form never communicates."""
 
     def __init__(self, channels: int, use_scale: bool = False,
                  momentum: float = BN_MOMENTUM):
         super().__init__()
         self.momentum = momentum
+        self.mesh = None
         self.register_parameter(
             "scale", nn.Parameter(torch.ones(channels)) if use_scale else None)
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -185,8 +197,11 @@ class BatchNorm(nn.Module):
         if not train:
             return self._normalize(xf, self.mean, self.var)
         mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              0.0)
+        mean_sq = (xf * xf).mean(dim=(0, 2, 3))
+        if self.mesh is not None:
+            mean, mean_sq = mean_over_ranks(torch.stack([mean, mean_sq]),
+                                            self.mesh).unbind(0)
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -95,7 +95,7 @@ def assemble(spec: EngineSpec):
     if spec.mesh is not None:
         raise NotImplementedError(
             "EngineSpec.mesh: serving across devices is not ported yet; "
-            "see ROADMAP.md Queue A item 8 (multi-device)")
+            "see ROADMAP.md Queue A item 8, part 2")
     cfg = spec.cfg
     member_dirs = list(spec.member_dirs) if spec.member_dirs else None
     student_dirs = _resolve_student_dirs(spec)

@@ -26,6 +26,18 @@ writes the trained member as ``<workdir>/params.npz``.
 It prints ``{"config": ..., "results": ...}`` as its last line.
 ``--device`` defaults to the card and raises without one;
 ``--device=cpu`` runs on the CPU.
+
+Data-parallel training over ranks (``parallel/mesh.py``): launched by
+``torch.distributed.run``, each process joins the launch's process group
+first and trains one replica of one ``fit``, rank 0 writing the run's
+files and printing the last line::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m jama16_retina_tpu_torch.train --config=eyepacs_binary \
+        --data_dir=... --workdir=... --set parallel.num_devices=2
+
+``--fake_devices N --device cpu`` (the reference's flag) starts N such
+ranks on the CPU itself, under gloo.
 """
 
 from __future__ import annotations
@@ -55,14 +67,47 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the workdir's latest checkpoint")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--fake_devices", type=int, default=0,
+                   help="with --device=cpu: launch this many ranks on the "
+                        "CPU under gloo, one replica each")
     return p
 
 
 def main(argv: "list[str] | None" = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
 
+    from jama16_retina_tpu_torch.parallel import mesh as mesh_lib
+
+    # First, as the reference's CLI does: a launch's ranks join its group
+    # (which this call releases only if it formed it).
+    formed = not mesh_lib.dist.is_initialized()
+    launched = mesh_lib.initialize_distributed(device=args.device)
+    if args.fake_devices > 1 and not launched:
+        if args.device != "cpu":
+            raise SystemExit(
+                "--fake_devices launches ranks on the CPU: pass --device=cpu "
+                "(on cards, launch the ranks with python -m "
+                "torch.distributed.run)")
+        return mesh_lib.launch_local(
+            ["-m", "jama16_retina_tpu_torch.train", *argv],
+            args.fake_devices)
+    if args.fake_devices > 1 and (mesh_lib.process_count()
+                                  != args.fake_devices):
+        raise SystemExit(f"--fake_devices={args.fake_devices} but the "
+                         f"launch has {mesh_lib.process_count()} ranks")
+    try:
+        return _run(args, rank0=not launched or (
+            mesh_lib.dist.get_rank() == 0))
+    finally:
+        if launched and formed:
+            mesh_lib.dist.destroy_process_group()
+
+
+def _run(args, rank0: bool) -> int:
     from jama16_retina_tpu_torch import configs, trainer
     from jama16_retina_tpu_torch.data import tfrecord
+    from jama16_retina_tpu_torch.parallel import mesh as mesh_lib
 
     cfg = configs.override(configs.get_config(args.config), args.set)
     if args.resume:
@@ -84,15 +129,20 @@ def main(argv: "list[str] | None" = None) -> int:
                 for split, ns, seed in (("train", n, 1),
                                         ("val", max(n // 2, 8), 2),
                                         ("test", max(n // 2, 8), 3)):
-                    tfrecord.write_synthetic_split(
-                        data_dir, split, ns, cfg.model.image_size,
-                        num_shards=4, seed=seed, encoding="raw")
+                    if rank0:
+                        tfrecord.write_synthetic_split(
+                            data_dir, split, ns, cfg.model.image_size,
+                            num_shards=4, seed=seed, encoding="raw")
+            # Every rank reads the splits after rank 0 has written them.
+            mesh_lib.make_mesh(device=args.device).barrier()
         if cfg.train.ensemble_size > 1:
             results = trainer.fit_ensemble(cfg, data_dir, workdir,
                                            device=args.device)
         else:
             results = trainer.fit(cfg, data_dir, workdir, device=args.device)
-    print(json.dumps({"config": cfg.name, "results": results}, default=str))
+    if rank0:
+        print(json.dumps({"config": cfg.name, "results": results},
+                         default=str))
     return 0
 
 

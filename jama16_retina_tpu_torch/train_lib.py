@@ -37,6 +37,18 @@ one forward and backward under ``torch.func.vmap``, the counterpart of
 the reference's ``make_ensemble_train_step`` without a mesh.
 ``global_batch`` and ``resolve_large_batch`` are the large-batch
 recipe's learning-rate rule.
+
+Under a data mesh of more than one rank (``parallel/mesh.py``; the
+reference's ``make_train_step(mesh=...)``) each rank steps its replica
+on its block of the global batch: the augment and dropout draws are the
+global batch's (each rank takes its rows), the model's BatchNorms take
+the global batch's moments, and the gradients and the loss are averaged
+over the ranks in one flat all-reduce before the unchanged update
+(``_rank_grads``), so N ranks take the one-process step. The kernels stay
+on every rank (B1, or B2 and B3, on the rank's rows and replica), where
+the reference routes its Mosaic kernels to the jnp composition on a mesh
+(``_pallas_safe_cfg``; ROADMAP Queue C). ``make_eval_step`` then scores a
+rank's rows and assembles the batch's probabilities on every rank.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ from jama16_retina_tpu_torch.configs import ExperimentConfig, TrainConfig
 from jama16_retina_tpu_torch.data import augment
 from jama16_retina_tpu_torch.models import common, convert, init
 from jama16_retina_tpu_torch.obs import registry as obs_registry
+from jama16_retina_tpu_torch.parallel import mesh as mesh_lib
 from jama16_retina_tpu_torch.serve.engine import ServingEngine
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 
@@ -180,24 +193,29 @@ def make_schedule(tc: TrainConfig) -> Callable:
 def global_batch(cfg: ExperimentConfig) -> int:
     """The batch the optimizer sees per update: ``data.batch_size``,
     which factors as ``accum_steps`` x the per-forward batch x the data
-    ways (1 on one card). The large-batch rule scales against it."""
+    ways (the mesh's ranks). The large-batch rule scales against it."""
     return int(cfg.data.batch_size)
 
 
-def resolve_large_batch(cfg: ExperimentConfig) -> ExperimentConfig:
+def resolve_large_batch(cfg: ExperimentConfig,
+                        mesh: "mesh_lib.Mesh | None" = None
+                        ) -> ExperimentConfig:
     """Linear learning-rate scaling tied to the global batch
     (``train.lr_scale_ref_batch``): the effective peak learning rate is
     ``learning_rate * global_batch / lr_scale_ref_batch``, logged with
-    its factorization. A pure function of the config, applied once at
-    fit entry, so a resume derives the same rate; 0 (the default)
-    returns ``cfg`` unchanged. Warns when the scale is not 1 and the
-    schedule is not ``warmup_cosine``."""
+    its factorization (the data ways are the mesh's). A pure function of
+    the config and the mesh, applied once at fit entry, so a resume
+    derives the same rate; 0 (the default) returns ``cfg`` unchanged.
+    Warns when the scale is not 1 and the schedule is not
+    ``warmup_cosine``."""
     ref = int(cfg.train.lr_scale_ref_batch)
     if ref <= 0:
         return cfg
     gb = global_batch(cfg)
     scale = gb / ref
     ways = 1
+    if mesh is not None:
+        ways = int(mesh.shape[mesh_lib._batch_axis(mesh)])
     accum = max(1, int(cfg.train.accum_steps))
     eff_lr = cfg.train.learning_rate * scale
     _log.info("large-batch recipe: global batch %d (= %d accum x %d device "
@@ -321,7 +339,8 @@ def _forward(model: nn.Module, images: torch.Tensor, generator,
 
 
 def compute_grads(state: TrainState, batch: dict, cfg: ExperimentConfig,
-                  augment_params: "dict | None" = None
+                  augment_params: "dict | None" = None,
+                  mesh: "mesh_lib.Mesh | None" = None
                   ) -> "tuple[torch.Tensor, list[torch.Tensor]]":
     """The loss (0-d, on the device) and one float32 gradient per
     parameter (``model.parameters()`` order, each in its parameter's
@@ -329,7 +348,9 @@ def compute_grads(state: TrainState, batch: dict, cfg: ExperimentConfig,
     runs once on the whole batch; under ``train.accum_steps`` > 1 the
     micro-batches then run in order, each with its own dropout
     generator, and the loss is the mean of theirs. The BatchNorm running
-    statistics are updated in place, once per micro-batch."""
+    statistics are updated in place, once per micro-batch. Under a data
+    mesh of more than one rank, ``batch`` is this rank's rows
+    (``_rank_grads``)."""
     tc = cfg.train
     model = state.model
     dev = state.sched_count.device
@@ -339,6 +360,9 @@ def compute_grads(state: TrainState, batch: dict, cfg: ExperimentConfig,
         raise ValueError(f"train.accum_steps={accum} must divide the batch "
                          f"size {n} evenly")
     aug_gen, drop_gen = step_generators(tc.seed, state.step, dev)
+    if mesh is not None and mesh.size > 1:
+        return _rank_grads(state, batch, cfg, augment_params, mesh, aug_gen,
+                           drop_gen)
     images = augment.augment_batch(
         aug_gen, batch["image"], cfg.data, fused=tc.use_pallas_fused,
         params=augment_params)
@@ -371,14 +395,59 @@ def compute_grads(state: TrainState, batch: dict, cfg: ExperimentConfig,
     return torch.stack(losses).mean(), grads
 
 
+def _rank_grads(state: TrainState, batch: dict, cfg: ExperimentConfig,
+                augment_params: "dict | None", mesh: "mesh_lib.Mesh",
+                aug_gen: torch.Generator, drop_gen: torch.Generator
+                ) -> "tuple[torch.Tensor, list[torch.Tensor]]":
+    """``compute_grads`` of one rank of a data mesh: ``batch`` is the
+    rank's block of the global batch. The step's augment and dropout
+    draws are the global batch's, from the step's generators (or
+    ``augment_params``, global), and the rank takes its rows of them, so
+    the ranks together draw what one process draws for the whole batch.
+    The forward's BatchNorms take the global batch's moments (their
+    ``mesh``); after the backward the gradients and the loss are
+    averaged over the ranks in one flat all-reduce (the reference's
+    ``pmean``). Accumulation and soft targets are refused across ranks
+    (``trainer.check_mesh_knobs``)."""
+    tc, model = cfg.train, state.model
+    dev = state.sched_count.device
+    n = batch["image"].shape[0] * mesh.size
+    rows = mesh_lib.local_rows(n, mesh)
+    if cfg.data.augment:
+        if augment_params is None:
+            augment_params = augment._draw_params(aug_gen, n, cfg.data, dev)
+        augment_params = {k: v[rows] for k, v in augment_params.items()}
+    images = augment.augment_batch(None, batch["image"], cfg.data,
+                                   fused=tc.use_pallas_fused,
+                                   params=augment_params)
+    draws = common.Draws([
+        torch.rand(shape, generator=drop_gen, device=dev)[rows]
+        for shape in models.dropout_shapes(model, n)])
+    params = list(model.parameters())
+    logits, aux = _forward(model, images, draws, tc)
+    loss = loss_fn(logits, aux, batch["grade"], cfg)
+    loss.backward()
+    grads = [p.grad for p in params]
+    model.zero_grad(set_to_none=True)
+    loss = loss.detach()
+    mesh.all_reduce_mean_(grads + [loss])
+    return loss, grads
+
+
 def train_step(state: TrainState, batch: dict, cfg: ExperimentConfig,
-               augment_params: "dict | None" = None) -> torch.Tensor:
+               augment_params: "dict | None" = None,
+               mesh: "mesh_lib.Mesh | None" = None) -> torch.Tensor:
     """One optimizer step in place on ``state``; returns the loss as a
     0-d tensor on the device (read it only when needed: reading waits for
     the card). ``batch`` holds ``image`` (uint8 NHWC) and ``grade`` on the
-    model's device; ``augment_params`` replaces the augment draws."""
+    model's device; ``augment_params`` replaces the augment draws. Under
+    a data mesh of more than one rank, ``batch`` is this rank's rows, the
+    state is this rank's replica (its model built with the mesh), and
+    ``augment_params`` are the global batch's draws; the update runs on
+    every replica from the averaged gradients, so the replicas stay
+    equal."""
     tc = cfg.train
-    loss, grads = compute_grads(state, batch, cfg, augment_params)
+    loss, grads = compute_grads(state, batch, cfg, augment_params, mesh)
     _update(state, dict(state.model.named_parameters()), grads, tc, lead=0)
     return loss
 
@@ -457,14 +526,18 @@ def eval_params(state: TrainState) -> "dict[str, torch.Tensor]":
 
 
 def make_eval_step(cfg: ExperimentConfig, state: TrainState,
-                   device: "str | torch.device | None" = None) -> Callable:
+                   device: "str | torch.device | None" = None,
+                   mesh: "mesh_lib.Mesh | None" = None) -> Callable:
     """uint8 images [B, S, S, 3] (numpy) -> float32 probabilities ([B],
     or [B, C] for ``multi``) of the state's eval params
     (``eval_params``) with its batch statistics: normalize, the eval
     forward (flip-averaged when ``eval.tta``), then
     ``models.head_probs``. It is the serving engine's forward over one
     member, made from a snapshot of the state; padding rows are scored
-    and left for the caller to trim, as in the reference."""
+    and left for the caller to trim, as in the reference. Under a data
+    mesh of more than one rank, ``images`` are this rank's block of the
+    batch and the step returns the whole batch's probabilities on every
+    rank (``Mesh.assemble``)."""
     # Evals are not serving traffic: a detached registry keeps serve.*
     # metrics out of the run's telemetry (the reference's eval step
     # records none), and an engine handed a registry leaves the process
@@ -473,7 +546,14 @@ def make_eval_step(cfg: ExperimentConfig, state: TrainState,
                            device=device,
                            registry=obs_registry.Registry(enabled=False),
                            faults=False)
-    return lambda images: engine.member_probs(images)[0]
+    if mesh is None or mesh.size == 1:
+        return lambda images: engine.member_probs(images)[0]
+
+    def step(images):
+        local = torch.from_numpy(engine.member_probs(images)[0])
+        return mesh.assemble(local.to(mesh.device)).cpu().numpy()
+
+    return step
 
 
 # The flat form of a TrainState, as a checkpoint stores it: the model's

@@ -76,6 +76,7 @@ from jama16_retina_tpu_torch.obs import quality as quality_lib
 from jama16_retina_tpu_torch.obs import registry as obs_registry
 from jama16_retina_tpu_torch.obs import trace as obs_trace
 from jama16_retina_tpu_torch.obs.spans import StallClock
+from jama16_retina_tpu_torch.parallel import mesh as mesh_lib
 from jama16_retina_tpu_torch.serve.engine import ServingEngine
 from jama16_retina_tpu_torch.utils import checkpoint as ckpt_lib
 from jama16_retina_tpu_torch.utils.logging import RunLog, read_jsonl
@@ -131,8 +132,10 @@ def fit_synthetic(cfg: configs.ExperimentConfig, workdir: str,
                   device: "str | torch.device | None" = None) -> dict:
     """Train on ``n_synthetic`` rendered fundus images held on the device;
     returns the run's results (steps, last loss, member dir, wall time,
-    images per second, device)."""
+    images per second, device). One process: refused under a launch of
+    several ranks."""
     dev = device_lib.resolve(device)
+    _refuse_ranks("fit_synthetic (the in-memory fit)")
     configs.validate_train_knobs(cfg.train)
     configs.check_supported(cfg, training=True)
     if n_synthetic < 1:
@@ -231,7 +234,8 @@ def _cache_ready(images: torch.Tensor, event, dev: torch.device
 
 def predict_split(cfg: configs.ExperimentConfig, member_probs_fn,
                   data_dir: str, split: str, cache: "list | None" = None,
-                  device: "str | torch.device | None" = None
+                  device: "str | torch.device | None" = None,
+                  mesh: "mesh_lib.Mesh | None" = None
                   ) -> "tuple[np.ndarray, np.ndarray, np.ndarray]":
     """The eval stream of ``split`` (no augmentation) through
     ``member_probs_fn(images) -> [k, B]`` (or [k, B, C]) probabilities,
@@ -244,8 +248,19 @@ def predict_split(cfg: configs.ExperimentConfig, member_probs_fn,
     call fills it with each batch's images, uploaded once, and its kept
     grades, names and mask; later calls score those tensors and skip the
     re-read and re-upload. The probabilities are the streamed ones: the
-    same rows go through the same forward."""
+    same rows go through the same forward.
+
+    ``eval.sharded`` reads the split through
+    ``pipeline.eval_batches_sharded`` (each rank decodes every P-th
+    record; the grades and names come in the assembled order). Under a
+    data mesh of more than one rank each batch's ``images`` are this
+    rank's block, and ``member_probs_fn`` returns the whole batch's
+    probabilities on every rank (``train_lib.make_eval_step``)."""
     dev = None if cache is None else device_lib.resolve(device)
+    procs = ({} if mesh is None else
+             {"process_index": mesh.rank, "process_count": mesh.size})
+    read = (pipeline.eval_batches_sharded if cfg.eval.sharded
+            else pipeline.eval_batches)
 
     def batches():
         """(images, kept grades, kept names, keep) per batch: from the
@@ -256,9 +271,8 @@ def predict_split(cfg: configs.ExperimentConfig, member_probs_fn,
                 yield _cache_ready(images, event, dev), grades, names, keep
             return
         filled = []
-        for batch in pipeline.eval_batches(data_dir, split,
-                                           cfg.eval.batch_size,
-                                           cfg.model.image_size):
+        for batch in read(data_dir, split, cfg.eval.batch_size,
+                          cfg.model.image_size, **procs):
             keep = batch["mask"] > 0
             row = (batch["image"], batch["grade"][keep], batch["name"][keep],
                    keep)
@@ -314,14 +328,19 @@ def _eval_cache_for(cfg: configs.ExperimentConfig, data_dir: str,
 
 
 def _emit_quality_profile(cfg: configs.ExperimentConfig, data_dir: str,
-                          predict_fn, log: RunLog) -> None:
+                          predict_fn, log: RunLog, write: bool = True
+                          ) -> None:
     """The end-of-fit reference profile at ``obs.quality.profile_out``
     (the reference's ``_emit_quality_profile``): ``predict_fn() ->
     (grades, probs)`` scores the val split with the final state, and the
     profile holds its score histogram, input-statistic histograms, base
-    rate and operating thresholds (none when val has one class)."""
+    rate and operating thresholds (none when val has one class). Every
+    rank of a mesh predicts (the eval's collectives need them all); only
+    the one that ``write``s builds and saves the profile."""
     path = cfg.obs.quality.profile_out
     grades, probs = predict_fn()
+    if not write:
+        return
     bin_labels = (grades >= 2).astype(np.float64)
     scores = np.asarray(_referable(probs, cfg.model.head), np.float64)
     thresholds: list = []
@@ -1025,7 +1044,8 @@ def _load_grain_state(cfg: configs.ExperimentConfig, workdir: str,
 
 def _train_stream(cfg: configs.ExperimentConfig, data_dir: str, seed: int,
                   skip_batches: int, dev: torch.device, knobs=None,
-                  grain_state: "bytes | None" = None):
+                  grain_state: "bytes | None" = None,
+                  mesh: "mesh_lib.Mesh | None" = None):
     """(stream, grain tee or None): the train batches of ``data.loader``
     on ``dev``, from batch ``skip_batches`` on (the reference's
     ``_train_stream``). ``tfdata``: the TFRecord stream read by
@@ -1048,7 +1068,10 @@ def _train_stream(cfg: configs.ExperimentConfig, data_dir: str, seed: int,
     does nothing under these three loaders. ``knobs`` (``data.autotune``):
     the live decode workers and stage depth the tiered and rawshard
     loaders poll, and the prefetch depth the prefetcher polls. The stream has ``close()``.
-    ``configs.check_supported`` has refused every other loader."""
+    ``configs.check_supported`` has refused every other loader. Under a
+    data mesh of more than one rank (``tfdata`` only,
+    ``check_mesh_knobs``), the rank's block of each global batch,
+    staged to the rank's device."""
     loader, size = cfg.data.loader, cfg.model.image_size
     if loader == "hbm":
         return hbm_pipeline.train_batches(
@@ -1074,13 +1097,15 @@ def _train_stream(cfg: configs.ExperimentConfig, data_dir: str, seed: int,
             tee = None
         return pipeline.DevicePrefetch(batches, dev, depth,
                                        knobs=knobs), tee
+    procs = ({} if mesh is None else
+             {"process_index": mesh.rank, "process_count": mesh.size})
     # The prefetcher's thread runs whenever knobs are given (their depth
     # is at least 1), and then copies through its own pinned buffers.
     return pipeline.DevicePrefetch(pipeline.train_batches(
         data_dir, "train", cfg.data, size, seed=seed,
         skip_batches=skip_batches,
         pin_memory=dev.type == "cuda" and depth == 0 and knobs is None,
-        readers=cfg.data.readers), dev, depth, knobs=knobs), None
+        readers=cfg.data.readers, **procs), dev, depth, knobs=knobs), None
 
 
 def _autotune_for(cfg: configs.ExperimentConfig, dev: torch.device):
@@ -1093,6 +1118,53 @@ def _autotune_for(cfg: configs.ExperimentConfig, dev: torch.device):
     from jama16_retina_tpu_torch.data import autotune as autotune_lib
 
     return autotune_lib.for_config(cfg, device=dev)
+
+
+class _RankLog:
+    """The run log of a rank other than 0 under a data mesh: records are
+    made and logged at debug level, and nothing is written (rank 0 alone
+    writes the run's files, as the reference's process 0 does)."""
+
+    def write(self, kind: str, **fields) -> dict:
+        _log.debug("%s %s", kind, fields)
+        return {"kind": kind, "t": round(time.time(), 3), **fields}
+
+    def close(self) -> None:
+        pass
+
+
+def check_mesh_knobs(cfg: configs.ExperimentConfig,
+                     mesh: "mesh_lib.Mesh") -> None:
+    """Refuse what one fit over more than one rank cannot honour: the
+    background saves and evals (the reference's refusal: their state
+    reads cannot join the ranks' collectives), and the forms of ROADMAP
+    Queue A item 8, part 2."""
+    if mesh.size <= 1:
+        return
+    tc = cfg.train
+    if tc.async_save or tc.eval_overlap:
+        raise ValueError(
+            "train.async_save/train.eval_overlap run their state gathers on "
+            "background threads and cannot participate in multi-host "
+            "collectives — unset them on multi-process runs")
+    for knob, on in (
+            (f"train.accum_steps={tc.accum_steps}", tc.accum_steps > 1),
+            (f"train.distill_from={tc.distill_from!r}", bool(tc.distill_from)),
+            (f"data.loader={cfg.data.loader!r}", cfg.data.loader != "tfdata")):
+        if on:
+            raise NotImplementedError(
+                f"{knob} across {mesh.size} ranks is not ported yet; see "
+                f"ROADMAP.md {configs.MESH_PART_2}")
+
+
+def _refuse_ranks(what: str) -> None:
+    """``what`` runs one process: under a launch of several ranks each
+    would train alone, so it is refused."""
+    n = mesh_lib.process_count()
+    if n > 1:
+        raise NotImplementedError(
+            f"{what} across {n} ranks is not ported yet; see ROADMAP.md "
+            f"{configs.MESH_PART_2}")
 
 
 def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
@@ -1120,26 +1192,54 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
     A ``SystemExit``/``KeyboardInterrupt`` after at least one step saves
     ``latest/`` at the last completed step (``preempt_save``) and
     re-raises; one that lands inside a step, which updates the state in
-    place, saves nothing (``saved=false``)."""
-    dev = device_lib.resolve(device)
+    place, saves nothing (``saved=false``).
+
+    Under a launch of several ranks (``parallel.num_devices``, the data
+    mesh of ``parallel/mesh.py``), each rank trains one replica on its
+    device from its block of every global batch: the state is made from
+    the seed and broadcast from rank 0, the model's BatchNorms take the
+    global batch's moments, and the gradients are averaged over the
+    ranks each step (``train_lib.train_step``). Evals run on every rank,
+    each scoring its rows (``eval.sharded``: decoding only its records),
+    so every rank computes the same AUC and stops alike. Rank 0 alone
+    writes the run's files (the log, checkpoints, TensorBoard, the obs
+    planes' records), and the ranks meet after each save; a resume
+    restores the same ``latest/`` on every rank. The knobs of
+    ``check_mesh_knobs`` are refused."""
+    mesh = mesh_lib.make_mesh(cfg.parallel.num_devices,
+                              cfg.parallel.data_axis, device)
     configs.validate_train_knobs(cfg.train)
     configs.check_supported(cfg, training=True)
+    check_mesh_knobs(cfg, mesh)
+    multi = mesh.size > 1
+    dev = mesh.device
+    lead = mesh.rank == 0
     tc = cfg.train
     seed = tc.seed if seed is None else seed
-    seed = _load_or_write_run_meta(workdir, seed, cfg.name, tc.resume)
+    if lead:
+        seed = _load_or_write_run_meta(workdir, seed, cfg.name, tc.resume)
+    if multi:
+        seed = int(mesh.broadcast_(torch.tensor(seed, device=dev)))
     # The step's augment and dropout draws are seeded by train.seed. The
     # large-batch rule scales the learning rate once, here, so a resume
     # derives the same rate.
     cfg = train_lib.resolve_large_batch(
-        cfg.replace(train=dataclasses.replace(tc, seed=seed)))
+        cfg.replace(train=dataclasses.replace(tc, seed=seed)), mesh)
     tc = cfg.train
-    log = RunLog(workdir, METRICS_FILE, tensorboard=tc.tensorboard,
-                 fresh=not tc.resume)
-    log.write("config", name=cfg.name, seed=seed, n_devices=1)
+    # What rank 0 alone writes: the log and the obs planes' records.
+    quiet = cfg if lead else cfg.replace(
+        obs=dataclasses.replace(cfg.obs, enabled=False),
+        train=dataclasses.replace(tc, profile_steps=0))
+    log = (RunLog(workdir, METRICS_FILE, tensorboard=tc.tensorboard,
+                  fresh=not tc.resume) if lead else _RankLog())
+    log.write("config", name=cfg.name, seed=seed, n_devices=mesh.size)
     curve_gate = _DtypeCurveGate(cfg)
+    step_kw = {"mesh": mesh} if multi else {}
 
     state = train_lib.create_state(
-        cfg, init.init_flax_default(models.build(cfg.model), seed), dev)
+        cfg, init.init_flax_default(models.build(cfg.model, mesh), seed),
+        dev)
+    mesh_lib.replicated(state, mesh)
     ckpt = ckpt_lib.Checkpointer(os.path.abspath(workdir),
                                  max_to_keep=tc.max_to_keep)
     start_step = 0
@@ -1176,13 +1276,14 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
     # where the interrupted one stopped.
     stream, grain_tee = _train_stream(
         cfg, data_dir, seed, start_step, dev, knobs,
-        grain_state=_load_grain_state(cfg, workdir, start_step))
+        grain_state=_load_grain_state(cfg, workdir, start_step),
+        mesh=mesh if multi else None)
     # The val batches stay on the card between evals under the loaders
     # that keep train rows there (budget-gated; None streams every eval).
     val_cache = _eval_cache_for(cfg, data_dir, "val", device=dev)
-    profiler = _ProfilerWindow(cfg, log, workdir, start_step, dev)
-    flight = _flight_for(cfg, workdir, profiler)
-    _, stalls, snap = _telemetry_for(cfg, log, workdir, flight=flight)
+    profiler = _ProfilerWindow(quiet, log, workdir, start_step, dev)
+    flight = _flight_for(quiet, workdir, profiler)
+    _, stalls, snap = _telemetry_for(quiet, log, workdir, flight=flight)
     clock = _ThroughputClock(cfg.data.batch_size)
     stopped_early = False
     save_stall = [0.0]
@@ -1209,19 +1310,23 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
 
             saver.submit(job)
         else:
-            ckpt.save(step_now, train_lib.state_to_flat(state),
-                      {"val_auc": auc})
-            _persist_grain_state(grain_tee, workdir, step_now,
-                                 kept_steps=ckpt.all_steps())
+            if lead:
+                ckpt.save(step_now, train_lib.state_to_flat(state),
+                          {"val_auc": auc})
+                _persist_grain_state(grain_tee, workdir, step_now,
+                                     kept_steps=ckpt.all_steps())
+            # No rank reads the run's files before rank 0 has written.
+            mesh.barrier()
         dt = time.perf_counter() - t0
         stalls.add("save", dt)
         save_stall[0] += dt
 
     def predict_val(eval_state: train_lib.TrainState):
-        eval_step = train_lib.make_eval_step(cfg, eval_state, dev)
+        eval_step = train_lib.make_eval_step(
+            cfg, eval_state, dev, mesh=mesh if multi else None)
         grades, probs, _ = predict_split(
             cfg, lambda images: eval_step(images)[None], data_dir, "val",
-            cache=val_cache, device=dev)
+            cache=val_cache, device=dev, mesh=mesh if multi else None)
         return grades, probs[0]
 
     def submit_eval(step_now: int) -> _BgJob:
@@ -1258,6 +1363,8 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
     def preempt_save_latest(step_now: int) -> bool:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        if not lead:
+            return False
         if saver is None:
             return ckpt.save_latest(step_now,
                                     train_lib.state_to_flat(state))
@@ -1289,9 +1396,10 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
                 with stalls.measure("dispatch"):
                     if tc.debug:
                         loss = _debug_step(lambda: train_lib.train_step(
-                            state, batch, cfg), step_i + 1)
+                            state, batch, cfg, **step_kw), step_i + 1)
                     else:
-                        loss = train_lib.train_step(state, batch, cfg)
+                        loss = train_lib.train_step(state, batch, cfg,
+                                                    **step_kw)
                 last_step = step_i + 1
                 in_step = False
                 clock.after_step()
@@ -1405,7 +1513,7 @@ def fit(cfg: configs.ExperimentConfig, data_dir: str, workdir: str,
             saver.close()
         if cfg.obs.quality.profile_out:
             _emit_quality_profile(cfg, data_dir, lambda: predict_val(state),
-                                  log)
+                                  log, write=lead)
         if snap is not None:
             snap.close()  # the final telemetry and heartbeat
     finally:
@@ -1548,6 +1656,7 @@ def fit_ensemble_parallel(cfg: configs.ExperimentConfig, data_dir: str,
     alike). A ``SystemExit``/``KeyboardInterrupt`` between steps saves
     every member's ``latest/`` at the last completed step."""
     dev = device_lib.resolve(device)
+    _refuse_ranks("the stacked ensemble (train.ensemble_parallel)")
     tc = cfg.train
     k = tc.ensemble_size
     if tc.distill_from:

@@ -368,12 +368,11 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
     # loaders and the autotuner ported data.autotune, data.rawshard_dir,
     # data.stage_depth and data.tiered_resident_bytes; 44 until the grain
     # loader ported data.grain_workers; 43 until the lifecycle ported its
-    # 11.
-    assert len(items) >= 32
-    for key, item in (("data.stage_per_shard", "item 8"),
-                      ("parallel.num_devices", "item 8"),
-                      ("train.ensemble_manual_data", "item 8"),
-                      ("eval.sharded", "item 8"),
+    # 11; 32 until the data mesh ported parallel's 5 (member_axis_size and
+    # serve_devices copied and refused away from their defaults),
+    # eval.sharded and data.stage_per_shard.
+    assert len(items) >= 25
+    for key, item in (("train.ensemble_manual_data", "item 8,"),
                       ("obs.fleet_dir", "item 11"),
                       ("ingest.socket_path", "item 11"),
                       ("integrity.cache_max_bytes", "item 11"),
@@ -404,7 +403,10 @@ def test_every_jax_config_field_is_ported_or_names_its_roadmap_item():
                 "data.hbm_budget_bytes", "data.decode_workers",
                 "data.quarantine_bad_records", "obs.quarantine_alert_per_s",
                 "data.autotune", "data.rawshard_dir", "data.stage_depth",
-                "data.tiered_resident_bytes"):
+                "data.tiered_resident_bytes", "data.stage_per_shard",
+                "eval.sharded", "parallel.data_axis", "parallel.num_devices",
+                "parallel.model_axis_size", "parallel.member_axis_size",
+                "parallel.serve_devices"):
         assert key in ours
     # The lifecycle's fields, refused until it was ported: each override
     # is accepted and reaches cfg.lifecycle, with the JAX default.

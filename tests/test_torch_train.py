@@ -410,8 +410,8 @@ def test_fit_trains_with_each_run_knob(item, knob_data, tmp_path):
 
 
 @pytest.mark.parametrize("item", [
-    "train.ensemble_manual_data=true", "data.stage_per_shard=true",
-    "data.loader=served", "eval.sharded=true"])
+    "train.ensemble_manual_data=true", "parallel.member_axis_size=2",
+    "data.loader=served", "parallel.serve_devices=2"])
 def test_unported_reference_fields_name_their_roadmap_item(item):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.check_supported(
